@@ -7,24 +7,44 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. print the card's name and power limit; turn TF32 off; build the CUDA
-   kernels from ``eeg_gnn_tpu_torch/csrc`` with nvcc;
+1. print the card's name and power limit; turn TF32 off; build the two
+   CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
+   nvcc each), and print ptxas' register and spill report;
 2. hold every kernel against its plain PyTorch version on the card at
    T=60, N=19, H=64 (D=100 and 64; M=3 per-clip, M=3 shared, M=5
-   per-clip; B=128 and 37; float32 and bfloat16; the ru/c residuals in
-   one case each), by the normalized inf-norm error max|k-p| / max|p|:
-   float32 <= 1e-4 (the same f32 arithmetic summed in another order),
-   bfloat16 <= 2e-2 (the bf16 bound of benchmarks/tpu_kernel_parity.json);
+   per-clip; B=128 and 37; float32 and bfloat16): the forward kernels
+   (the ru/c residuals in one case each), then the backward kernels on
+   the forward's residuals and a random seeded h_seq cotangent (every
+   output: dx or dx_proj, each dW, each db, dh0; at D=100 the xin kernel
+   also without dx, as the first layer runs it) and the dW reduction,
+   by the normalized inf-norm error max|k-p| / max|p|: float32 <= 1e-4
+   (the same f32 arithmetic summed in another order), bfloat16 <= 2e-2
+   (the bf16 bound of benchmarks/tpu_kernel_parity.json);
 3. serve the flagship DCRNN detector (2 DCGRU layers x 64 units, K=2,
    input_dim 100, T=60, batch 128, random weights from a seeded
    torch.Generator) through ``Predictor`` for both graph types, float32
    and bfloat16 and both ``input_fusion`` settings: every batch must
-   launch its kernel once per layer, and the probabilities must be finite,
-   in [0, 1], and match an all-plain forward on the card (float32 atol
-   1e-4, bfloat16 atol 2e-2) and, on a small input, the CPU;
-4. time each kernel (per layer, B=128, M=3) and its plain version with
-   CUDA events (median of 20 runs after warm-up) and the Predictor's
-   clips/s.
+   launch its forward kernel once per layer and no backward kernel, and
+   the probabilities must be finite, in [0, 1], and match an all-plain
+   forward on the card (float32 atol 1e-4, bfloat16 atol 2e-2) and, on a
+   small input, the CPU;
+4. train the same detector through ``TrainStep`` in the same 8
+   configurations (random labels, per-clip adjacency, Adam lr 1e-4, L2
+   5e-4, clip 5.0, 100 epochs of 100 steps, as bench.py): 3 steps each,
+   each launching exactly 2 forward and 2 backward kernels of the
+   configuration's pair and none of the other; finite losses; float32
+   step-1 gradients against a ``recurrence="stacked"`` step from the same
+   weights on the card (normalized per tensor, <= 1e-4) and, on a small
+   input, the CPU; in bfloat16, the two-layer encoder's gradients under
+   one seeded cotangent against the float32 stacked path's (<= 2e-2),
+   and the model's step-1 gradients, the kernels' and the bfloat16
+   stacked path's, each against a float32 stacked step (printed);
+5. time each kernel (per layer, B=128, M=3; the first layer's backward
+   without dx, as the train step runs it, and with dx) and its plain
+   version with CUDA events (median of 20 runs after warm-up), the dW
+   reduction beside ``torch.sum``, the Predictor's clips/s, and the train
+   step's ms and clips/s; trace one bfloat16 batch and one bfloat16 step
+   with torch.profiler.
 
 The second-to-last line is a JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -38,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -47,6 +68,14 @@ F32_TOL, BF16_TOL = 1e-4, 2e-2
 PEAK_F32_FLOPS = 67e12   # H100 SXM, non-tensor float32 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 REPS = 20
+STEPS_PER_EPOCH = 100
+TRAIN_KW = dict(lr_init=1e-4, l2_wd=5e-4, max_grad_norm=5.0,
+                num_epochs=100)  # bench.py:66
+FWD = ("dcgru_recurrence_xin_fwd", "dcgru_recurrence_fwd")
+BWD = ("dcgru_recurrence_xin_bwd", "dcgru_recurrence_bwd")
+KERNELS = FWD + BWD + ("dcgru_dw_reduce",)
+XIN_GRADS = ("dx", "dwxg_f", "dwxc_f", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
+HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 
 
 def fail(msg: str):
@@ -119,6 +148,33 @@ def hoisted_args(a):
             a["cand_b"], a["h0"])
 
 
+def bwd_args(torch, a, seed):
+    """Backward-kernel arguments of one layer: the forward's residuals
+    (plain version) and a random seeded h_seq cotangent."""
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+    from eeg_gnn_tpu_torch.ops.recurrent import shift_h_prev
+
+    h_seq, ru, c = cr.dcgru_recurrence_xin_fwd_plain(*xin_args(a),
+                                                     residuals=True)
+    gen = torch.Generator().manual_seed(seed)
+    d_seq = torch.randn(tuple(h_seq.shape), generator=gen).to(
+        h_seq.device, h_seq.dtype)
+    streams = (shift_h_prev(a["h0"], h_seq), ru, c)
+    xin = (a["a_ops"], a["wxg_f"], a["wxc_f"], a["wg_r"], a["wc_r"],
+           *streams, a["x"], d_seq)
+    hoisted = (a["a_ops"], a["wg_r"], a["wc_r"], *streams, d_seq)
+    return xin, hoisted
+
+
+def counts(cr) -> dict:
+    return {k: getattr(cr, k).launches for k in KERNELS}
+
+
+def reset_counts(cr):
+    for k in KERNELS:
+        getattr(cr, k).launches = 0
+
+
 def norm_err(k, p) -> tuple[float, float]:
     """(normalized inf-norm error, max abs error) of kernel vs plain."""
     k, p = k.float(), p.float()
@@ -148,6 +204,33 @@ def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
     nbytes += m * a_batch * N * N * 4 + b * N * H * 4      # a_ops, h0
     nbytes += T * b * N * H * stream_bytes                 # h_seq
     return float(per_step) * T * b, float(nbytes)
+
+
+def bwd_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
+             stream_bytes: int, need_dx: bool = True) -> tuple[float, float]:
+    """(FLOPs, bytes) one backward launch needs (A_0 = I skipped; the
+    per-clip dW partial slabs are scratch and not counted). Per step and
+    clip: the diffusions of [h_prev | r h_prev | x] recomputed, the dW
+    products, the weight-transpose products and two A^T applies; without
+    ``need_dx`` the last two have no x columns and dx is not written."""
+    dx = d if xin else 0
+    dxo = dx if need_dx else 0
+    per_step = 2 * (m - 1) * N * N * (2 * H + dx)    # recomputed features
+    per_step += 2 * N * m * (H + dx) * 3 * H         # dW (+ db: N*3H)
+    per_step += N * 3 * H
+    per_step += 2 * N * 3 * H * m * (H + dxo)        # dpre W^T
+    per_step += 2 * 2 * (m - 1) * N * N * (H + dxo)  # two A^T applies
+    wsize = m * (H + dx) * 3 * H
+    nbytes = wsize * 4 * 2 + 3 * H * 4                 # W in, dW + db out
+    nbytes += T * b * N * (5 * H + dx) * stream_bytes  # h_prev ru c d_seq x
+    nbytes += T * b * N * (dxo if xin else 3 * H) * stream_bytes  # dx/dxp
+    nbytes += m * a_batch * N * N * 4 + b * N * H * 4  # a_ops, dh0
+    return float(per_step) * T * b, float(nbytes)
+
+
+def reduce_work(b: int, w: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of summing a (B, W) f32 slab over B."""
+    return float(b * w), float((b * w + w) * 4)
 
 
 def bound_ms(work) -> tuple[float, str]:
@@ -203,12 +286,20 @@ def phase_build(torch):
     from eeg_gnn_tpu_torch.ops import _build
     from eeg_gnn_tpu_torch.ops import cuda_recurrent
 
-    path, secs, report = _build.build("dcgru_recurrence")
-    log(f"build: dcgru_recurrence.cu -> {path} in {secs:.1f} s")
-    for line in report.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry")):
-            log(f"  ptxas: {line.strip()}")
+    names = ("dcgru_recurrence", "dcgru_recurrence_bwd")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        built = list(pool.map(_build.build, names))
+    log(f"build: {len(names)} sources in {time.perf_counter() - t0:.1f} s "
+        "wall")
+    for name, (path, secs, report) in zip(names, built):
+        log(f"build: {name}.cu -> {path} in {secs:.1f} s")
+        for line in report.splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
+                log(f"  ptxas: {line.strip()}")
     cuda_recurrent._lib()
+    cuda_recurrent._lib_bwd()
     return card
 
 
@@ -260,14 +351,86 @@ def phase_parity(torch, dev):
     return worst, main_abs
 
 
-def flagship_cfg(graph_type, dtype, input_fusion):
+def phase_bwd_parity(torch, dev):
+    """Backward kernels and the dW reduction against their plain versions
+    on the forward grid; every output of every case."""
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+
+    worst = {k: 0.0 for k in BWD + ("dcgru_dw_reduce",)}
+    main_abs = dict(worst)
+    seed = 500
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for m, shared in ((3, False), (3, True), (5, False)):
+            for b in (BATCH, 37):
+                # the hoisted kernel has no input x: once per case, with
+                # D=100's residuals
+                for d in (100, 64):
+                    seed += 1
+                    a = layer_inputs(torch, dev, d=d, m=m, shared=shared,
+                                     b=b, dtype=dtype, seed=seed)
+                    xin, hoisted = bwd_args(torch, a, seed)
+                    runs = [(BWD[0], cr.dcgru_recurrence_xin_bwd,
+                             cr.dcgru_recurrence_xin_bwd_plain, xin,
+                             XIN_GRADS)]
+                    if d == 100:
+                        runs.append((BWD[1], cr.dcgru_recurrence_bwd,
+                                     cr.dcgru_recurrence_bwd_plain, hoisted,
+                                     HOISTED_GRADS))
+                    for name, kern, plain, args, outs in runs:
+                        got = kern(*args)
+                        torch.cuda.synchronize()
+                        want = plain(*args)
+                        pairs = list(zip(outs, got, want))
+                        if name == BWD[0] and d == 100:
+                            # need_dx=False, as for the first layer: no dx,
+                            # the rest as the plain version's
+                            nodx = kern(*args, need_dx=False)
+                            if nodx[0] is not None:
+                                fail(f"{name} need_dx=False returned dx")
+                            pairs += [(f"{o}[no dx]", g, w) for o, g, w in
+                                      zip(outs[1:], nodx[1:], want[1:])]
+                        errs = []
+                        for out, g, w in pairs:
+                            if g.shape != w.shape or g.dtype != w.dtype:
+                                fail(f"{name} {out}: {g.dtype} "
+                                     f"{tuple(g.shape)} != {w.dtype} "
+                                     f"{tuple(w.shape)}")
+                            err, max_abs = norm_err(g, w)
+                            if not np.isfinite(err) or err > tol:
+                                fail(f"{name} {out} D={d} M={m} shared="
+                                     f"{shared} B={b} {dtype}: normalized "
+                                     f"error {err:.3e} > {tol:.0e}")
+                            worst[name] = max(worst[name], err)
+                            if (b == BATCH and m == 3 and not shared
+                                    and dtype == torch.bfloat16):
+                                main_abs[name] = max(main_abs[name],
+                                                     max_abs)
+                            errs.append(f"{out} {err:.2e}")
+                        log(f"parity {name} D={d} M={m} "
+                            f"{'shared' if shared else 'per-clip'} B={b} "
+                            f"{str(dtype)[6:]} (tol {tol:.0e}): "
+                            + ", ".join(errs))
+    gen = torch.Generator().manual_seed(1)
+    part = torch.randn((BATCH, cr.dw_size(3, 100, H)), generator=gen).to(dev)
+    err, max_abs = norm_err(cr.dcgru_dw_reduce(part),
+                            cr.dcgru_dw_reduce_plain(part))
+    if err > F32_TOL:
+        fail(f"dcgru_dw_reduce: normalized error {err:.3e}")
+    worst["dcgru_dw_reduce"], main_abs["dcgru_dw_reduce"] = err, max_abs
+    log(f"parity dcgru_dw_reduce B={BATCH} W={part.shape[1]}: norm err "
+        f"{err:.3e} (max abs {max_abs:.3e})")
+    return worst, main_abs
+
+
+def flagship_cfg(graph_type, dtype, input_fusion, **kw):
     from eeg_gnn_tpu_torch.config import ExperimentConfig
 
     return ExperimentConfig(graph_type=graph_type, dtype=dtype,
                             input_fusion=input_fusion, max_seq_len=T,
                             num_rnn_layers=2, rnn_units=H,
                             max_diffusion_step=K, input_dim=100,
-                            test_batch_size=BATCH).finalize()
+                            test_batch_size=BATCH, **kw).finalize()
 
 
 def phase_serve(torch):
@@ -283,9 +446,8 @@ def phase_serve(torch):
                          adjacency(rng, n)))
     batches = sum(-(-len(r[0]) // BATCH) for r in requests)
     kernels = {True: cr.dcgru_recurrence_xin_fwd, False: cr.dcgru_recurrence_fwd}
-    # the main path's run: counts start at 0 here and are read at the end
-    cr.dcgru_recurrence_xin_fwd.launches = 0
-    cr.dcgru_recurrence_fwd.launches = 0
+    # the serving path's run: counts start at 0 here and are read at the end
+    reset_counts(cr)
     checked_cpu = False
     for gt in ("combined", "individual"):
         for dtype in ("float32", "bfloat16"):
@@ -331,14 +493,207 @@ def phase_serve(torch):
                     log(f"serve {gt} float32: card vs CPU on 4 clips "
                         f"{diff:.3e}")
                     checked_cpu = True
-    return {"dcgru_recurrence_xin_fwd": cr.dcgru_recurrence_xin_fwd.launches,
-            "dcgru_recurrence_fwd": cr.dcgru_recurrence_fwd.launches}
+    launched = counts(cr)
+    if any(launched[k] for k in BWD + ("dcgru_dw_reduce",)):
+        fail(f"serving launched a backward kernel: {launched}")
+    log(f"serve: launches {launched}")
+    return launched
+
+
+def train_batch(torch, dev, b, seed):
+    """A flagship detection batch on the device (bench.py:34-43): random
+    clips and labels, full lengths, per-clip adjacency."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, T, N, 100).astype(np.float32)
+    y = rng.randint(0, 2, size=b).astype(np.float32)
+    return {"x": torch.from_numpy(x).to(dev),
+            "y": torch.from_numpy(y).to(dev),
+            "seq_lengths": torch.full((b,), T, dtype=torch.int64,
+                                      device=dev),
+            "adjacency": torch.from_numpy(adjacency(rng, b)).to(dev)}
+
+
+def encoder_grads(torch, cfg, init, batch, seed=31):
+    """Gradients of the encoder's weights under a seeded dense cotangent
+    on the top layer's h_seq: the two layers' BPTT, with no head."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.dcgru import encoder_apply
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    dev = batch["x"].device
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    model.to(dev).train()
+    sup = compute_supports_torch(batch["adjacency"], cfg.filter_type)
+    _, top = encoder_apply(model.cell_cfgs, [c.params() for c in
+                                             model.encoder],
+                           sup, batch["x"].transpose(0, 1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn(tuple(top.shape), generator=gen, device=dev)
+    named = list(model.encoder.named_parameters())
+    grads = torch.autograd.grad((top.float() * cot).sum(),
+                                [p for _, p in named])
+    return {f"encoder.{n}": g for (n, _), g in zip(named, grads)}
+
+
+def bf16_model_errors(torch, cfg, init, batch, grads, stacked):
+    """Printed, not gated: the bfloat16 model's step-1 gradients, the
+    kernels' (``grads``) and the bfloat16 stacked path's (``stacked``),
+    each against a float32 stacked step from the same weights."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    f32_cfg = dataclasses.replace(cfg, recurrence="stacked",
+                                  dtype="float32")
+    model = build_model(f32_cfg)
+    model.load_state_dict(init)
+    step = TrainStep(f32_cfg, model, STEPS_PER_EPOCH, device=batch["x"].device)
+    step.loss_and_grads(batch)
+    exact = {n: p.grad for n, p in step.model.named_parameters()}
+    rows = {n: (norm_err(grads[n], g)[0], norm_err(stacked[n], g)[0])
+            for n, g in exact.items()}
+    log(f"train {cfg.graph_type} bfloat16 input_fusion={cfg.input_fusion}: "
+        "step-1 grads vs float32 stacked, kernels/bfloat16 stacked: worst "
+        f"{max(r[0] for r in rows.values()):.3e}/"
+        f"{max(r[1] for r in rows.values()):.3e}, "
+        + ", ".join(f"{n} {a:.1e}/{b:.1e}" for n, (a, b) in rows.items()))
+
+
+def phase_train(torch, dev):
+    """The training path: 3 steps in each of 8 configurations, launch
+    counts per step, finite losses, step-1 gradients against the stacked
+    step on the card, and once the card against the CPU."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    batch = train_batch(torch, dev, BATCH, seed=21)
+    pair = {True: (FWD[0], BWD[0]), False: (FWD[1], BWD[1])}
+    # the training path's run: counts start at 0 here and are read below
+    reset_counts(cr)
+    first, vjp_cases = None, []
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            for fusion in (True, False):
+                cfg = flagship_cfg(gt, dtype, fusion, **TRAIN_KW)
+                model = build_model(cfg, torch.Generator().manual_seed(11))
+                init = {k: v.clone() for k, v in model.state_dict().items()}
+                step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev)
+                losses, grads = [], None
+                for i in range(3):
+                    before = counts(cr)
+                    losses.append(step.loss_and_grads(batch))
+                    if grads is None:
+                        grads = {n: p.grad.clone()
+                                 for n, p in step.model.named_parameters()}
+                    step.update()
+                    after = counts(cr)
+                    rose = {k: after[k] - before[k] for k in KERNELS}
+                    want = {k: 0 for k in KERNELS}
+                    want.update({pair[fusion][0]: 2, pair[fusion][1]: 2,
+                                 "dcgru_dw_reduce": 2})
+                    if rose != want:
+                        fail(f"train {gt} {dtype} fusion={fusion} step {i}: "
+                             f"launches rose by {rose}, want {want}")
+                losses = [float(v) for v in losses]
+                if not all(np.isfinite(losses)):
+                    fail(f"train {gt} {dtype} fusion={fusion}: losses "
+                         f"{losses}")
+                ref_cfg = dataclasses.replace(cfg, recurrence="stacked")
+                ref_model = build_model(ref_cfg)
+                ref_model.load_state_dict(init)
+                ref = TrainStep(ref_cfg, ref_model, STEPS_PER_EPOCH,
+                                device=dev)
+                before = counts(cr)
+                ref_loss = float(ref.loss_and_grads(batch))
+                if counts(cr) != before:
+                    fail("the stacked step launched a kernel")
+                tol = F32_TOL if dtype == "float32" else BF16_TOL
+                if abs(losses[0] - ref_loss) > tol * abs(ref_loss):
+                    fail(f"train {gt} {dtype} fusion={fusion}: step-1 loss "
+                         f"{losses[0]} vs stacked {ref_loss}")
+                ref_grads = {n: p.grad for n, p in
+                             ref.model.named_parameters()}
+                errs = {n: norm_err(grads[n], g)[0]
+                        for n, g in ref_grads.items()}
+                name, err = max(errs.items(), key=lambda kv: kv[1])
+                # float32 gates the model's step-1 gradients; in bfloat16
+                # the head's ReLU and max over nodes route each clip's
+                # gradient by values that bf16 noise reorders, so the
+                # encoder's VJP under one shared cotangent is gated below
+                if dtype == "float32" and (not np.isfinite(err)
+                                           or err > tol):
+                    fail(f"train {gt} {dtype} fusion={fusion}: step-1 "
+                         f"gradient {name} vs stacked {err:.3e} > {tol:.0e}")
+                log(f"train {gt} {dtype} input_fusion={fusion}: losses "
+                    f"{', '.join(f'{v:.6f}' for v in losses)} (stacked "
+                    f"{ref_loss:.6f}); step-1 grads vs stacked: worst "
+                    f"{name} {err:.3e} "
+                    f"({f'tol {tol:.0e}' if dtype == 'float32' else 'not gated'}"
+                    "), " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+                if first is None and dtype == "float32":
+                    first = (cfg, init)
+                if dtype == "bfloat16":
+                    vjp_cases.append((cfg, init))
+                    bf16_model_errors(torch, cfg, init, batch, grads,
+                                      ref_grads)
+    launched = counts(cr)
+    log(f"train: launches {launched}")
+
+    # bfloat16: the two-layer encoder's gradients under one seeded dense
+    # cotangent on the top h_seq, the kernels' against the float32 stacked
+    # path's (the truth), same weights and batch on the card; the bfloat16
+    # stacked path's distance to it is printed beside
+    for cfg, init in vjp_cases:
+        got = encoder_grads(torch, cfg, init, batch)
+        want = encoder_grads(torch, dataclasses.replace(
+            cfg, recurrence="stacked"), init, batch)
+        exact = encoder_grads(torch, dataclasses.replace(
+            cfg, recurrence="stacked", dtype="float32"), init, batch)
+        errs = {n: norm_err(got[n], exact[n])[0] for n in exact}
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        stacked = {n: norm_err(want[n], exact[n])[0] for n in exact}
+        if not np.isfinite(err) or err > BF16_TOL:
+            fail(f"train {cfg.graph_type} bfloat16 fusion="
+                 f"{cfg.input_fusion}: encoder VJP {name} vs float32 "
+                 f"stacked {err:.3e} > {BF16_TOL:.0e}")
+        log(f"train {cfg.graph_type} bfloat16 input_fusion="
+            f"{cfg.input_fusion}: encoder VJP vs float32 stacked: worst "
+            f"{name} {err:.3e} (tol {BF16_TOL:.0e}; bfloat16 stacked vs "
+            f"float32 stacked: worst {max(stacked.values()):.3e}; kernels "
+            f"vs bfloat16 stacked: worst "
+            f"{max(norm_err(got[n], want[n])[0] for n in want):.3e}), "
+            + ", ".join(f"{n} {e:.1e}/{stacked[n]:.1e}"
+                        for n, e in errs.items()))
+
+    # once, on 4 clips: the card's step-1 loss and gradients vs the CPU's
+    cfg, init = first
+    small = {k: v[:4] for k, v in batch.items()}
+    res = []
+    for device in (dev, "cpu"):
+        model = build_model(cfg)
+        model.load_state_dict(init)
+        step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=device)
+        loss = float(step.loss_and_grads(
+            {k: v.to(device) for k, v in small.items()}))
+        res.append((loss, {n: p.grad.cpu()
+                           for n, p in step.model.named_parameters()}))
+    err = max(norm_err(res[0][1][n], res[1][1][n])[0] for n in res[1][1])
+    if abs(res[0][0] - res[1][0]) > F32_TOL * abs(res[1][0]) \
+            or err > F32_TOL:
+        fail(f"train card vs CPU on 4 clips: loss {res[0][0]} vs "
+             f"{res[1][0]}, gradients {err:.3e}")
+    log(f"train {cfg.graph_type} float32: card vs CPU on 4 clips: loss "
+        f"{res[0][0]:.7f} vs {res[1][0]:.7f}, gradients {err:.3e}")
+    return launched
 
 
 def phase_times(torch, dev):
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
     from eeg_gnn_tpu_torch.models.registry import build_model
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
     from eeg_gnn_tpu_torch.serve import Predictor
+    from eeg_gnn_tpu_torch.train import TrainStep
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -363,8 +718,49 @@ def phase_times(torch, dev):
                     f"{bms:.4f} ms ({by}; {work[0] / 1e9:.2f} GFLOP, "
                     f"{work[1] / 1e6:.2f} MB), {work[0] / ms / 1e9:.2f} "
                     f"TFLOP/s")
+            xin_b, hoisted_b = bwd_args(torch, a, seed=200 + d)
+            # the main path's first layer (D=100) is fed data and asks for
+            # no dx; with dx it is timed too, as the A/B of that skip
+            runs = [("dcgru_recurrence_xin_bwd", cr.dcgru_recurrence_xin_bwd,
+                     cr.dcgru_recurrence_xin_bwd_plain, xin_b, True,
+                     d != 100)]
+            if d == 100:
+                runs.append(runs[0][:5] + (True,))
+            runs.append(("dcgru_recurrence_bwd", cr.dcgru_recurrence_bwd,
+                         cr.dcgru_recurrence_bwd_plain, hoisted_b, False,
+                         True))
+            for name, kern, plain, args, xin, need_dx in runs:
+                kw = dict(need_dx=need_dx) if xin else {}
+                ms = time_ms(torch, lambda: kern(*args, **kw))
+                plain_ms = time_ms(torch, lambda: plain(*args, **kw))
+                work = bwd_work(xin=xin, d=d, m=3, b=BATCH, a_batch=BATCH,
+                                stream_bytes=sb, need_dx=need_dx)
+                bms, by = bound_ms([work])
+                key = (name, tag, d) if (d != 100 or not need_dx
+                                         or not xin) else (name, tag, "dx")
+                out[key] = (ms, plain_ms, work)
+                log(f"time {name} D={d} M=3 B={BATCH} {tag}"
+                    f"{f' need_dx={need_dx}' if xin else ''}: kernel "
+                    f"{ms:.4f} ms (with its dW reduce), plain "
+                    f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+                    f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
+                    f"{work[0] / ms / 1e9:.2f} TFLOP/s")
     log("library_ms: none — no single PyTorch call computes a DCGRU "
-        "recurrence (torch.nn.GRU has no graph diffusion)")
+        "recurrence or its BPTT (torch.nn.GRU has no graph diffusion)")
+    for d in (100, 64):
+        gen = torch.Generator().manual_seed(d)
+        part = torch.randn((BATCH, cr.dw_size(3, d, H)), generator=gen).to(
+            dev)
+        ms = time_ms(torch, lambda: cr.dcgru_dw_reduce(part))
+        plain_ms = time_ms(torch, lambda: cr.dcgru_dw_reduce_plain(part))
+        lib_ms = time_ms(torch, lambda: torch.sum(part, dim=0))
+        work = reduce_work(BATCH, part.shape[1])
+        bms, by = bound_ms([work])
+        out[("dcgru_dw_reduce", "float32", d)] = (ms, plain_ms, work, lib_ms)
+        log(f"time dcgru_dw_reduce D={d} M=3 B={BATCH} W={part.shape[1]}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{work[1] / 1e6:.2f} MB)")
 
     rng = np.random.RandomState(3)
     x = rng.randn(BATCH, T, N, 100).astype(np.float32)
@@ -383,21 +779,55 @@ def phase_times(torch, dev):
                 "(host numpy in, probabilities out)")
             if dtype == "bfloat16":
                 profile_batch(torch, lambda: pred.predict_proba(
-                    x, lens, adjacency=adj), f"{gt} {dtype}", ms)
+                    x, lens, adjacency=adj), f"Predictor {gt} {dtype}", ms)
+
+    # the train step as bench.py times it: supports built once, on device
+    adj_batch = train_batch(torch, dev, BATCH, seed=5)
+    for gt in ("combined", "individual"):
+        for dtype in ("bfloat16", "float32"):
+            cfg = flagship_cfg(gt, dtype, True, **TRAIN_KW)
+            batch = dict(adj_batch, supports=compute_supports_torch(
+                adj_batch["adjacency"], cfg.filter_type))
+            step = TrainStep(cfg, build_model(
+                cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
+                device=dev)
+            ms = time_ms(torch, lambda: step(batch), lead=False)
+            loop = []
+            for _ in range(3):  # back to back, one sync: bench.py's loop
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(REPS):
+                    loss = step(batch)
+                end.record()
+                end.synchronize()
+                loop.append(start.elapsed_time(end) / REPS)
+            if not np.isfinite(float(loss)):
+                fail(f"train step {gt} {dtype}: loss {float(loss)}")
+            out[("train", gt, dtype)] = (ms, min(loop))
+            log(f"time train step {gt} {dtype} input_fusion=True "
+                f"B={BATCH}: {ms:.3f} ms/step (median of {REPS}, each "
+                f"synchronised), {BATCH / ms * 1e3:.1f} clips/s; "
+                f"{REPS} back to back: {min(loop):.3f} ms/step, "
+                f"{BATCH / min(loop) * 1e3:.1f} clips/s (best of 3)")
+            if dtype == "bfloat16":
+                profile_batch(torch, lambda: step(batch),
+                              f"train step {gt} {dtype}", ms)
     return out
 
 
 def profile_batch(torch, fn, tag, wall_ms):
-    """Device time by kernel for one traced Predictor batch
-    (torch.profiler), and the device's busy share of that batch's wall
-    time (the host clock around a call that ends in a device-to-host
-    copy)."""
+    """Device time by kernel for one traced call (a Predictor batch or a
+    train step; torch.profiler), and the device's busy share of that
+    call's wall time (the host clock around the call and a final
+    synchronise)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
+        torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
@@ -409,8 +839,8 @@ def profile_batch(torch, fn, tag, wall_ms):
             rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile Predictor {tag}: device busy {busy:.3f} ms of the traced "
-        f"batch's {traced_ms:.3f} ms wall ({100 * busy / traced_ms:.1f}%); "
+    log(f"profile {tag}: device busy {busy:.3f} ms of the traced call's "
+        f"{traced_ms:.3f} ms wall ({100 * busy / traced_ms:.1f}%); "
         f"untraced median {wall_ms:.3f} ms")
     for ms, count, key in rows[:10]:
         log(f"profile   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
@@ -427,30 +857,46 @@ def main():
     card = phase_build(torch)
     worst, main_abs = phase_parity(torch, dev)
     log(f"parity: worst normalized error {worst}")
-    launches = phase_serve(torch)
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"{name} was never launched on the main path")
+    worst_b, main_abs_b = phase_bwd_parity(torch, dev)
+    log(f"parity: worst normalized error {worst_b}")
+    main_abs.update(main_abs_b)
+    served = phase_serve(torch)
+    trained = phase_train(torch, dev)
+    paths = {"serve": served, "train": trained}
+    for path, names in (("serve", FWD), ("train", KERNELS)):
+        for name in names:
+            if paths[path][name] < 1:
+                fail(f"{name} was never launched on the {path} path")
     times = phase_times(torch, dev)
 
     kernels = []
-    for name, replaces, xin in (
-            ("dcgru_recurrence_xin_fwd",
-             "eeg_gnn_tpu/ops/pallas_recurrent.py:730", True),
-            ("dcgru_recurrence_fwd",
-             "eeg_gnn_tpu/ops/pallas_recurrent.py:240", False)):
-        # one Predictor batch: layer 0 (D=100) then layer 1 (D=64)
-        l0, l1 = times[(name, "bfloat16", 100)], times[(name, "bfloat16", 64)]
+    pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"
+    for name, replaces, source in (
+            (FWD[0], f"{pallas}:730", "dcgru_recurrence.cu"),
+            (FWD[1], f"{pallas}:240", "dcgru_recurrence.cu"),
+            (BWD[0], f"{pallas}:782", "dcgru_recurrence_bwd.cu"),
+            (BWD[1], f"{pallas}:283", "dcgru_recurrence_bwd.cu"),
+            # the cross-grid dW accumulation of _bwd_kernel_xin/_bwd_kernel
+            ("dcgru_dw_reduce", f"{pallas}:794", "dcgru_recurrence_bwd.cu")):
+        # one batch or step: layer 0 (D=100) then layer 1 (D=64)
+        tag = "float32" if name == "dcgru_dw_reduce" else "bfloat16"
+        l0, l1 = times[(name, tag, 100)], times[(name, tag, 64)]
         bms, by = bound_ms([l0[2], l1[2]])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "eeg_gnn_tpu_torch/csrc/dcgru_recurrence.cu",
-            "replaces": replaces, "launches": launches[name],
+            "source": f"eeg_gnn_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": served[name] + trained[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": main_abs[name],
             "ms": l0[0] + l1[0], "plain_ms": l0[1] + l1[1],
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": "2 layers (D=100, 64), T=60, B=128, N=19, H=64, M=3, "
-                     "bf16 streams",
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": (l0[3] + l1[3] if name == "dcgru_dw_reduce"
+                           else None),
+            "shape": ("2 layers (D=100, 64), T=60, B=128, N=19, H=64, M=3, "
+                      + ("f32 slabs of (B, W)" if tag == "float32"
+                         else "bf16 streams")
+                      + ("; layer 0 without dx" if name == BWD[0] else "")),
         })
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

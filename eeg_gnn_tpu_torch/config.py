@@ -1,5 +1,6 @@
 """Experiment configuration: the fields of the JAX package's
-``ExperimentConfig`` that the DCRNN model and the ``Predictor`` read.
+``ExperimentConfig`` that the DCRNN model, the ``Predictor`` and the
+train step read, with the JAX defaults (``eeg_gnn_tpu/config.py``).
 
 Derived-field rule reproduced (reference ``args.py:196-221``):
 ``filter_type`` is forced from ``graph_type``.
@@ -29,6 +30,10 @@ class ExperimentConfig:
     max_diffusion_step: int = 2
     test_batch_size: int = 128
     dropout: float = 0.0
+    lr_init: float = 3e-4
+    l2_wd: float = 5e-4
+    num_epochs: int = 100
+    max_grad_norm: float = 5.0
 
     dtype: str = "float32"  # stream dtype: float32 | bfloat16
     recurrence: str = "pallas"  # pallas (the CUDA kernels) | stacked

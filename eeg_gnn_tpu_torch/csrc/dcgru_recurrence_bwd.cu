@@ -1,0 +1,606 @@
+// Whole-sequence DCGRU layer recurrence, backward (BPTT), for NVIDIA
+// Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of eeg_gnn_tpu/ops/pallas_recurrent.py:
+//   dcgru_recurrence_xin_bwd  <- _bwd_kernel_xin (:782, launched from
+//                                _backward_xin :964/:986): BPTT of the
+//                                x-in-kernel forward; dx, dWx, dWh, db, dh0.
+//   dcgru_recurrence_bwd      <- _bwd_kernel (:283, launched from _backward
+//                                :462/:482): BPTT of the hoisted forward;
+//                                dx_proj = [dru_pre | dc_pre], dWh, db, dh0.
+//   dcgru_dw_reduce           <- the cross-grid dW accumulation of both
+//                                (:294-297, :794-801): the TPU grid runs in
+//                                order and sums into one resident block; on
+//                                the GPU the clips run in parallel, so each
+//                                leaves a partial slab and this kernel sums
+//                                them in a fixed order (no atomics).
+//
+// One step, walking t from T-1 down to 0 (A_0 = I; math of
+// eeg_gnn_tpu/ops/recurrent.py:36-46, the x half at pallas_recurrent.py
+// :820-892):
+//   g       = dh + d_seq[t]
+//   du      = g (h_prev - c);  dc_pre = g (1-u) act'(c)
+//   feats   = A_m [h_prev | r h_prev | x]          (recomputed)
+//   dWc    += (A r h_prev)^T dc_pre;  dWxc += (A x)^T dc_pre;  dbc += dc_pre
+//   drh     = sum_m A_m^T (dc_pre Wc_m^T);  dx  = sum_m A_m^T (dc_pre Wxc_m^T)
+//   dru_pre = [drh h_prev | du] ru (1-ru)
+//   dWg    += (A h_prev)^T dru_pre;  dWxg += (A x)^T dru_pre;  dbg += dru_pre
+//   dh_prev = g u + drh r + sum_m A_m^T (dru_pre Wg_m^T)[:H]
+//   dx[t]  += sum_m A_m^T (dru_pre Wxg_m^T)
+// and at the end dh0 = dh.
+//
+// What bounds it on an H100. Per step and clip, layer 0 at M=3, D=100
+// does ~0.33 MFLOP of recomputed diffusions, ~3.6 MFLOP of dW products,
+// ~3.6 MFLOP of weight-transpose products and ~0.5 MFLOP of A^T applies:
+// ~61 GFLOP over T=60 x B=128 (~42 GFLOP without dx, as the first layer
+// runs; layer 1, D=64: ~48 GFLOP), ~1.3 ms for both at the 67 TFLOP/s
+// non-tensor f32 rate this kernel uses (f32 FMA, no TF32), against ~45 us
+// for the ~150 MB of streams it must move: it is bound by operations.
+// This simple design adds traffic the bound does not count: each clip
+// reads and writes its whole f32 dW slab every step (94,656 floats at
+// M=3, D=100), ~5.8 GB per layer-0 launch, ~2 ms at HBM rate (partly
+// absorbed by the 50 MB L2).
+//
+// Design.
+// - One thread block per clip with the reverse T loop inside the block,
+//   as in the forward kernels: the TPU's sequential (batch-tile, time)
+//   grid becomes an in-block loop and the clips run in parallel.
+// - The state cotangent dh (f32), the clip's M-1 non-identity operators,
+//   the step's streams, recomputed features and weight-transpose products
+//   stay in shared memory (146 KB at M=3, 209 KB at M=5 for D=100). The
+//   TPU's 19 -> 24 node padding and J-clip block diagonals are dropped:
+//   ragged rows are masked.
+// - Weights are read from global memory (L2-resident across the batch),
+//   transposed by the wrapper so one output column per thread reads them
+//   coalesced; every weight value is used for up to kRows node rows held
+//   in registers.
+// - dW: every block owns an f32 partial slab in global memory, which it
+//   writes at its first step (t = T-1) and adds into after (no zero fill);
+//   one (row-quad, column) task per thread, the same task every step.
+// - need_dx = 0 (a layer fed data, whose x needs no gradient) skips the
+//   x columns of the weight-transpose products and of the A^T applies and
+//   the dx store; the x features are still recomputed for dWx.
+// - Streams (h_prev, ru, c, x, d_seq in; dx / dx_proj out) are f32 or
+//   bf16, converted on load/store; weights, state, dW and every
+//   accumulation are f32 (pallas_recurrent.py:807-813).
+// wgmma, TMA, register-tiled dW over a chunk of steps, several clips per
+// block and bf16 weights are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxNodes = 32;     // node count the register arrays admit
+constexpr int kRows = 10;         // node rows per weight-transpose task
+constexpr int kTRows = 8;         // node rows per A^T-apply task
+constexpr int kWRows = 4;         // dW rows per accumulation task
+constexpr int kMaxThreads = 384;  // __launch_bounds__: <= 168 regs/thread
+
+struct Params {
+  const float* a_ops;  // (M, a_batch, N, N), a_batch in {1, B}
+  const float* wxgT;   // (2H, M*D) transposed m-major input rows (xin)
+  const float* wxcT;   // (H, M*D)                                 (xin)
+  const float* wgT;    // (2H, M*H) transposed m-major hidden rows
+  const float* wcT;    // (H, M*H)
+  const void* h_prev;  // (T, B, N, H)
+  const void* ru;      // (T, B, N, 2H)
+  const void* c;       // (T, B, N, H)
+  const void* x;       // (T, B, N, D) (xin)
+  const void* d_seq;   // (T, B, N, H) cotangent of h_seq
+  void* dx;            // xin: (T, B, N, D); hoisted: dx_proj (T, B, N, 3H)
+  float* dh0;          // (B, N, H)
+  float* part;         // (B, slab) per-clip dW partials
+  int T, B, N, D, H, M, a_batch, act;
+  int need_dx;         // xin: 0 skips the x cotangent (a layer fed data)
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename S>
+__device__ __forceinline__ S from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// act'(pre) as a function of c = act(pre): tanh, relu, linear
+__device__ __forceinline__ float act_grad(float c, int act) {
+  if (act == 0) return 1.0f - c * c;
+  if (act == 1) return c > 0.0f ? 1.0f : 0.0f;
+  return 1.0f;
+}
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout, in floats; every array starts 16-byte aligned.
+// D is 0 for the hoisted kernel (no x, x features or x cotangent).
+struct Smem {
+  int a, dh, hp, ru, c, x, hf, rf, xf, dyh, dyx, dru, drh, dxa, total;
+  __host__ __device__ Smem(int N, int D, int H, int M) {
+    a = 0;                               // (M-1, N, N) operators
+    dh = a + pad4((M - 1) * N * N);      // (N, H) dh, then g, then dh_prev
+    hp = dh + pad4(N * H);               // (N, H) h_prev
+    ru = hp + pad4(N * H);               // (N, 2H) r | u
+    c = ru + pad4(N * 2 * H);            // (N, H) dc_pre
+    x = c + pad4(N * H);                 // (N, D) step input
+    hf = x + pad4(N * D);                // (N, M*H) A h_prev
+    rf = hf + pad4(N * M * H);           // (N, M*H) A (r h_prev)
+    xf = rf + pad4(N * M * H);           // (N, M*D) A x
+    dyh = xf + pad4(N * M * D);          // (N, M*H) dpre W_h^T
+    dyx = dyh + pad4(N * M * H);         // (N, M*D) dpre W_x^T
+    dru = dyx + pad4(N * M * D);         // (N, 2H) dru_pre
+    drh = dru + pad4(N * 2 * H);         // (N, H) drh
+    dxa = drh + pad4(N * H);             // (N, D) candidate part of dx
+    total = dxa + pad4(N * D);
+  }
+};
+
+// Floats of one clip's dW slab:
+// [dWxg (MD,2H) | dWxc (MD,H) | dWg (MH,2H) | dWc (MH,H) | dbg (2H) | dbc (H)]
+__host__ __device__ inline size_t slab_size(int D, int H, int M) {
+  return (size_t)(M * D + M * H) * 3 * H + 3 * H;
+}
+
+// acc[r] += sum_k f[row_r, k] * w[k * ldw] over k < K, rows r0.. (clamped
+// to N-1: surplus rows of a ragged chunk repeat the last row and are never
+// stored). f rows are K floats, K % 4 == 0, 16-byte aligned.
+__device__ __forceinline__ void gemm_col(float (&acc)[kRows],
+                                         const float* __restrict__ f, int K,
+                                         int r0, int N,
+                                         const float* __restrict__ w,
+                                         int ldw) {
+  const float4* f4 = reinterpret_cast<const float4*>(f);
+  const int K4 = K / 4;
+  int row[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) row[r] = min(r0 + r, N - 1) * K4;
+#pragma unroll 2
+  for (int k4 = 0; k4 < K4; ++k4) {
+    const float* wk = w + (size_t)(4 * k4) * ldw;
+    const float w0 = __ldg(wk), w1 = __ldg(wk + ldw),
+                w2 = __ldg(wk + 2 * ldw), w3 = __ldg(wk + 3 * ldw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 v = f4[row[r] + k4];
+      acc[r] = fmaf(v.x, w0, acc[r]);
+      acc[r] = fmaf(v.y, w1, acc[r]);
+      acc[r] = fmaf(v.z, w2, acc[r]);
+      acc[r] = fmaf(v.w, w3, acc[r]);
+    }
+  }
+}
+
+// dst[n * ldd] = sum_k A_m[n, k] * v[k] for the column v already in
+// registers; m == 0 is the identity.
+__device__ __forceinline__ void diffuse_col(const float (&v)[kMaxNodes],
+                                            const float* __restrict__ sA,
+                                            int N, int m, float* dst,
+                                            int ldd) {
+  if (m == 0) {
+#pragma unroll
+    for (int k = 0; k < kMaxNodes; ++k)
+      if (k < N) dst[k * ldd] = v[k];
+    return;
+  }
+  const float* a = sA + (m - 1) * N * N;
+  for (int n = 0; n < N; ++n) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxNodes; ++k)
+      if (k < N) acc = fmaf(a[n * N + k], v[k], acc);
+    dst[n * ldd] = acc;
+  }
+}
+
+// acc[i] = sum_m sum_k A_m[k, n0+i] * src[k * lds + m * W] for the rows
+// n0 + i < N: the adjoint of the diffusion, applied to one column of the
+// (N, M*W) m-major slab src.
+__device__ __forceinline__ void diffuse_t_col(float (&acc)[kTRows],
+                                              const float* __restrict__ sA,
+                                              int N, int M,
+                                              const float* src, int lds,
+                                              int W, int n0) {
+#pragma unroll
+  for (int i = 0; i < kTRows; ++i)
+    acc[i] = n0 + i < N ? src[(n0 + i) * lds] : 0.0f;
+  for (int m = 1; m < M; ++m) {
+    float v[kMaxNodes];
+#pragma unroll
+    for (int k = 0; k < kMaxNodes; ++k)
+      if (k < N) v[k] = src[k * lds + m * W];
+    const float* a = sA + (m - 1) * N * N;
+#pragma unroll
+    for (int i = 0; i < kTRows; ++i) {
+      const int n = n0 + i;
+      if (n < N) {
+        float s = acc[i];
+#pragma unroll
+        for (int k = 0; k < kMaxNodes; ++k)
+          if (k < N) s = fmaf(a[k * N + n], v[k], s);
+        acc[i] = s;
+      }
+    }
+  }
+}
+
+// One dW task: rows i0..i0+kWRows-1 of column j of a (rows, cols) block
+// of the slab: sum_n feat[n, i] * dpre[n, j]; written at the first step,
+// added after.
+__device__ __forceinline__ void dw_quad(const float* __restrict__ feat,
+                                        int ldf, int i0,
+                                        const float* __restrict__ dpre,
+                                        int ldp, int j, int N, float* dst,
+                                        int cols, bool first) {
+  float acc[kWRows] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int n = 0; n < N; ++n) {
+    const float4 f = *reinterpret_cast<const float4*>(feat + n * ldf + i0);
+    const float d = dpre[n * ldp + j];
+    acc[0] = fmaf(f.x, d, acc[0]);
+    acc[1] = fmaf(f.y, d, acc[1]);
+    acc[2] = fmaf(f.z, d, acc[2]);
+    acc[3] = fmaf(f.w, d, acc[3]);
+  }
+  float* o = dst + (size_t)i0 * cols + j;
+#pragma unroll
+  for (int r = 0; r < kWRows; ++r)
+    o[r * cols] = first ? acc[r] : o[r * cols] + acc[r];
+}
+
+__device__ __forceinline__ void db_col(const float* __restrict__ dpre,
+                                       int ldp, int j, int N, float* dst,
+                                       bool first) {
+  float acc = 0.0f;
+  for (int n = 0; n < N; ++n) acc += dpre[n * ldp + j];
+  dst[j] = first ? acc : dst[j] + acc;
+}
+
+template <typename S, bool XIN>
+__global__ void __launch_bounds__(kMaxThreads)
+    dcgru_bwd_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N, H = p.H, M = p.M, D = XIN ? p.D : 0;
+  const Smem L(N, D, H, M);
+  float* sA = smem + L.a;
+  float* sdh = smem + L.dh;
+  float* shp = smem + L.hp;
+  float* sru = smem + L.ru;
+  float* sdc = smem + L.c;
+  float* sx = smem + L.x;
+  float* shf = smem + L.hf;
+  float* srf = smem + L.rf;
+  float* sxf = smem + L.xf;
+  float* sdyh = smem + L.dyh;
+  float* sdyx = smem + L.dyx;
+  float* sdru = smem + L.dru;
+  float* sdrh = smem + L.drh;
+  float* sdxa = smem + L.dxa;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int NN = N * N, MH = M * H, MD = M * D, H2 = 2 * H, H3 = 3 * H;
+  const int chunks = (N + kRows - 1) / kRows;
+  const int tchunks = (N + kTRows - 1) / kTRows;
+
+  // this clip's dW slab and its blocks
+  float* part = p.part + (size_t)b * slab_size(D, H, M);
+  float* dwxg = part;
+  float* dwxc = dwxg + (size_t)MD * H2;
+  float* dwg = dwxc + (size_t)MD * H;
+  float* dwc = dwg + (size_t)MH * H2;
+  float* dbg = dwc + (size_t)MH * H;
+  float* dbc = dbg + H2;
+
+  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1)
+  const float* a_clip = p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN;
+  for (int i = tid; i < (M - 1) * NN; i += nthr) {
+    int m = i / NN + 1, e = i - (m - 1) * NN;
+    sA[i] = a_clip[(size_t)m * p.a_batch * NN + e];
+  }
+  for (int i = tid; i < N * H; i += nthr) sdh[i] = 0.0f;
+
+  const S* hps = static_cast<const S*>(p.h_prev);
+  const S* rus = static_cast<const S*>(p.ru);
+  const S* cs = static_cast<const S*>(p.c);
+  const S* xs = static_cast<const S*>(p.x);
+  const S* ds = static_cast<const S*>(p.d_seq);
+  S* dxs = static_cast<S*>(p.dx);
+
+  // x columns of the weight-transpose products and the A^T applies: only
+  // dx needs them (dWx reads the x features, not the products)
+  const int MDx = p.need_dx ? MD : 0, Dx = p.need_dx ? D : 0;
+  // task counts of the merged dW / gate phase (fixed across steps, so each
+  // slab entry has one owner thread)
+  const int n_wt = (MH + MDx) * chunks;      // weight-transpose columns
+  const int q_x = MD / kWRows, q_h = MH / kWRows;
+  const int n_dw[6] = {q_x * H2, q_x * H, q_h * H2, q_h * H, H2, H};
+  const int n_phase5 =
+      n_wt + n_dw[0] + n_dw[1] + n_dw[2] + n_dw[3] + n_dw[4] + n_dw[5];
+  __syncthreads();
+
+  for (int t = p.T - 1; t >= 0; --t) {
+    const bool first = t == p.T - 1;
+    const size_t slab = (size_t)t * p.B + b;  // (t, b) row of every stream
+
+    // P0: streams in; g, du, dc_pre
+    for (int i = tid; i < N * H; i += nthr) {
+      const int n = i / H, j = i - n * H;
+      const size_t o = slab * N * H + i;
+      const size_t oru = (slab * N + n) * H2 + j;
+      const float hp = to_f(hps[o]);
+      const float r = to_f(rus[oru]);
+      const float u = to_f(rus[oru + H]);
+      const float c = to_f(cs[o]);
+      const float g = sdh[i] + to_f(ds[o]);
+      shp[i] = hp;
+      sru[n * H2 + j] = r;
+      sru[n * H2 + H + j] = u;
+      sdh[i] = g;
+      sdc[i] = g * (1.0f - u) * act_grad(c, p.act);
+      sdru[n * H2 + H + j] = g * (hp - c) * u * (1.0f - u);
+    }
+    if (XIN) {
+      const S* xt = xs + slab * N * D;
+      for (int i = tid; i < N * D; i += nthr) sx[i] = to_f(xt[i]);
+    }
+    __syncthreads();
+
+    // P1: recompute the diffusions [h_prev | r h_prev | x], one (m, column)
+    // per task
+    const int fcols = 2 * H + D;
+    for (int task = tid; task < M * fcols; task += nthr) {
+      const int m = task / fcols, cc = task - m * fcols;
+      float v[kMaxNodes];
+      if (cc < H) {
+#pragma unroll
+        for (int k = 0; k < kMaxNodes; ++k)
+          if (k < N) v[k] = shp[k * H + cc];
+        diffuse_col(v, sA, N, m, shf + m * H + cc, MH);
+      } else if (cc < H2) {
+        const int j = cc - H;
+#pragma unroll
+        for (int k = 0; k < kMaxNodes; ++k)
+          if (k < N) v[k] = sru[k * H2 + j] * shp[k * H + j];
+        diffuse_col(v, sA, N, m, srf + m * H + j, MH);
+      } else {
+        const int j = cc - H2;
+#pragma unroll
+        for (int k = 0; k < kMaxNodes; ++k)
+          if (k < N) v[k] = sx[k * D + j];
+        diffuse_col(v, sA, N, m, sxf + m * D + j, MD);
+      }
+    }
+    __syncthreads();
+
+    // P2: candidate weight-transpose products dc_pre [Wc | Wxc]^T
+    for (int task = tid; task < n_wt; task += nthr) {
+      const int chunk = task / (MH + MDx), j = task - chunk * (MH + MDx);
+      const int r0 = chunk * kRows;
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+      float* dst;
+      int ldd;
+      if (j < MH) {
+        gemm_col(acc, sdc, H, r0, N, p.wcT + j, MH);
+        dst = sdyh + j;
+        ldd = MH;
+      } else {
+        gemm_col(acc, sdc, H, r0, N, p.wxcT + (j - MH), MD);
+        dst = sdyx + (j - MH);
+        ldd = MD;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
+    }
+    __syncthreads();
+
+    // P3: A^T applies: drh (and the gate half of dru_pre), and the
+    // candidate part of dx
+    for (int task = tid; task < (H + Dx) * tchunks; task += nthr) {
+      const int chunk = task / (H + Dx), cc = task - chunk * (H + Dx);
+      const int n0 = chunk * kTRows;
+      float acc[kTRows];
+      if (cc < H) {
+        diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
+#pragma unroll
+        for (int i = 0; i < kTRows; ++i) {
+          const int n = n0 + i;
+          if (n < N) {
+            const float r = sru[n * H2 + cc];
+            sdrh[n * H + cc] = acc[i];
+            sdru[n * H2 + cc] = acc[i] * shp[n * H + cc] * r * (1.0f - r);
+          }
+        }
+      } else {
+        const int j = cc - H;
+        diffuse_t_col(acc, sA, N, M, sdyx + j, MD, D, n0);
+#pragma unroll
+        for (int i = 0; i < kTRows; ++i)
+          if (n0 + i < N) sdxa[(n0 + i) * D + j] = acc[i];
+      }
+    }
+    __syncthreads();
+
+    // P4: gate weight-transpose products dru_pre [Wg | Wxg]^T, and every
+    // dW / db accumulation of the step (independent of each other)
+    for (int task = tid; task < n_phase5; task += nthr) {
+      int k = task;
+      if (k < n_wt) {
+        const int chunk = k / (MH + MDx), j = k - chunk * (MH + MDx);
+        const int r0 = chunk * kRows;
+        float acc[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+        float* dst;
+        int ldd;
+        if (j < MH) {
+          gemm_col(acc, sdru, H2, r0, N, p.wgT + j, MH);
+          dst = sdyh + j;
+          ldd = MH;
+        } else {
+          gemm_col(acc, sdru, H2, r0, N, p.wxgT + (j - MH), MD);
+          dst = sdyx + (j - MH);
+          ldd = MD;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
+        continue;
+      }
+      k -= n_wt;
+      if (k < n_dw[0]) {  // dWxg += (A x)^T dru_pre
+        dw_quad(sxf, MD, (k / H2) * kWRows, sdru, H2, k % H2, N, dwxg, H2,
+                first);
+        continue;
+      }
+      k -= n_dw[0];
+      if (k < n_dw[1]) {  // dWxc += (A x)^T dc_pre
+        dw_quad(sxf, MD, (k / H) * kWRows, sdc, H, k % H, N, dwxc, H,
+                first);
+        continue;
+      }
+      k -= n_dw[1];
+      if (k < n_dw[2]) {  // dWg += (A h_prev)^T dru_pre
+        dw_quad(shf, MH, (k / H2) * kWRows, sdru, H2, k % H2, N, dwg, H2,
+                first);
+        continue;
+      }
+      k -= n_dw[2];
+      if (k < n_dw[3]) {  // dWc += (A r h_prev)^T dc_pre
+        dw_quad(srf, MH, (k / H) * kWRows, sdc, H, k % H, N, dwc, H, first);
+        continue;
+      }
+      k -= n_dw[3];
+      if (k < n_dw[4]) {
+        db_col(sdru, H2, k, N, dbg, first);
+        continue;
+      }
+      db_col(sdc, H, k - n_dw[4], N, dbc, first);
+    }
+    __syncthreads();
+
+    // P5: the gate A^T applies: dh_prev, and the rest of dx[t]; the
+    // hoisted kernel writes dx_proj[t] = [dru_pre | dc_pre] instead
+    for (int task = tid; task < (H + Dx) * tchunks; task += nthr) {
+      const int chunk = task / (H + Dx), cc = task - chunk * (H + Dx);
+      const int n0 = chunk * kTRows;
+      float acc[kTRows];
+      if (cc < H) {
+        diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
+#pragma unroll
+        for (int i = 0; i < kTRows; ++i) {
+          const int n = n0 + i;
+          if (n < N) {
+            const float g = sdh[n * H + cc];
+            const float r = sru[n * H2 + cc], u = sru[n * H2 + H + cc];
+            sdh[n * H + cc] = g * u + sdrh[n * H + cc] * r + acc[i];
+          }
+        }
+      } else {
+        const int j = cc - H;
+        diffuse_t_col(acc, sA, N, M, sdyx + j, MD, D, n0);
+#pragma unroll
+        for (int i = 0; i < kTRows; ++i) {
+          const int n = n0 + i;
+          if (n < N)
+            dxs[(slab * N + n) * D + j] =
+                from_f<S>(sdxa[n * D + j] + acc[i]);
+        }
+      }
+    }
+    if (!XIN) {
+      for (int i = tid; i < N * H3; i += nthr) {
+        const int n = i / H3, j = i - n * H3;
+        const float v = j < H2 ? sdru[n * H2 + j] : sdc[n * H + j - H2];
+        dxs[slab * N * H3 + i] = from_f<S>(v);
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < N * H; i += nthr) p.dh0[(size_t)b * N * H + i] = sdh[i];
+}
+
+// out[i] = sum_b part[b, i], b in order: deterministic.
+__global__ void dw_reduce_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int B, int W) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= W) return;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int b = 0; b < B; ++b) s += __ldg(part + (size_t)b * W + i);
+  out[i] = s;
+}
+
+template <typename S, bool XIN>
+int launch(const Params& p, cudaStream_t stream) {
+  if (p.N > kMaxNodes || p.N < 1 || p.H % 4 || p.H < 4 ||
+      (XIN && p.D % 4) || p.M < 1 || p.B < 1 || p.T < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)Smem(p.N, XIN ? p.D : 0, p.H, p.M).total * sizeof(float);
+  auto kern = dcgru_bwd_kernel<S, XIN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<p.B, kMaxThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// act: 0 tanh, 1 relu, 2 linear. bf16: streams are bf16 (else f32).
+// part: B * slab_size(D, H, M) floats of scratch, written before read.
+// need_dx: 0 skips dx (then dx may be null), as for a layer fed data.
+// Returns a cudaError_t: 0 on a launch that was accepted.
+int dcgru_recurrence_xin_bwd(const float* a_ops, int a_batch,
+                             const float* wxgT, const float* wxcT,
+                             const float* wgT, const float* wcT,
+                             const void* h_prev, const void* ru,
+                             const void* c, const void* x, const void* d_seq,
+                             void* dx, float* dh0, float* part, int T, int B,
+                             int N, int D, int H, int M, int act, int bf16,
+                             int need_dx, void* stream) {
+  Params p{a_ops, wxgT, wxcT, wgT, wcT, h_prev, ru, c, x, d_seq, dx,
+           dh0,   part, T,    B,   N,   D,      H,  M, a_batch, act,
+           need_dx};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, true>(p, s) : launch<float, true>(p, s);
+}
+
+int dcgru_recurrence_bwd(const float* a_ops, int a_batch, const float* wgT,
+                         const float* wcT, const void* h_prev, const void* ru,
+                         const void* c, const void* d_seq, void* dx_proj,
+                         float* dh0, float* part, int T, int B, int N, int H,
+                         int M, int act, int bf16, void* stream) {
+  Params p{a_ops,   nullptr, nullptr, wgT, wcT, h_prev, ru, c,
+           nullptr, d_seq,   dx_proj, dh0, part, T,     B,  N,
+           0,       H,       M,       a_batch, act, 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, false>(p, s)
+              : launch<float, false>(p, s);
+}
+
+// out (W) = sum over b of part (B, W).
+int dcgru_dw_reduce(const float* part, float* out, int B, int W,
+                    void* stream) {
+  if (B < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  dw_reduce_kernel<<<(W + threads - 1) / threads, threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(part, out, B, W);
+  return (int)cudaGetLastError();
+}
+
+const char* dcgru_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

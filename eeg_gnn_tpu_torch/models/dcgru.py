@@ -1,4 +1,4 @@
-"""DCGRU: Diffusion-Convolutional GRU cell and encoder (forward).
+"""DCGRU: Diffusion-Convolutional GRU cell and encoder.
 
 Reference semantics: ``model/cell.py:121-225`` (cell) and
 ``model/model.py:48-109`` (encoder), as in ``eeg_gnn_tpu/models/dcgru.py``.
@@ -12,9 +12,14 @@ Each layer runs over the whole sequence at once (:func:`_layer_scan`):
   GEMMs over all T (``compute_x_proj``) feeding the hoisted-input kernel
   (``dcgru_recurrence_fwd``);
 - ``recurrence="stacked"``: the same hoisted projection feeding the plain
-  operator-stacked loop (``ops/recurrent.py``).
+  operator-stacked loop with its hand-written BPTT (``ops/recurrent.py``).
 
-On CPU tensors the kernel wrappers compute with their plain versions.
+When autograd records (training), the ``pallas`` branches run through the
+autograd Functions of ``ops/cuda_recurrent.py``, whose forward kernels save
+the ru/c residuals and whose backward is the BPTT kernel; otherwise
+(serving, ``torch.inference_mode``) they call the forward kernels without
+residuals. On CPU tensors the kernel wrappers compute with their plain
+versions.
 
 Parameter layout matches reference checkpoints exactly (weight row
 ``d*M + m``). Reference init quirk, reproduced deliberately:
@@ -32,6 +37,8 @@ import torch
 from torch import nn
 
 from eeg_gnn_tpu_torch.ops.cuda_recurrent import (
+    dcgru_layer_recurrence_fused,
+    dcgru_layer_recurrence_xin,
     dcgru_recurrence_fwd,
     dcgru_recurrence_xin_fwd,
 )
@@ -158,6 +165,8 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
     wx_gate, wh_gate = _split_weight(cfg, params["gate_w"])
     wx_cand, wh_cand = _split_weight(cfg, params["cand_w"])
     x_c = x_seq.to(stream).contiguous()
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_seq, h0, *params.values()))
 
     a_ops = chebyshev_operators(supports.float(), k)
     if a_ops.ndim == 3:  # shared (N, N) graph: broadcast batch dim
@@ -173,16 +182,22 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
         # reference-layout (d, m)-major input rows -> m-major (M*D, O)
         wxg_f = wx_gate.reshape(din, m, -1).transpose(0, 1).reshape(m * din, -1)
         wxc_f = wx_cand.reshape(din, m, -1).transpose(0, 1).reshape(m * din, -1)
-        h_seq, _, _ = dcgru_recurrence_xin_fwd(
-            x_c, a_ops, wxg_f.contiguous(), wxc_f.contiguous(), *wh_args,
-            cfg.activation)
+        args = (x_c, a_ops, wxg_f.contiguous(), wxc_f.contiguous(), *wh_args,
+                cfg.activation)
+        if train:
+            h_seq = dcgru_layer_recurrence_xin(*args)
+        else:
+            h_seq, _, _ = dcgru_recurrence_xin_fwd(*args)
         return h_seq[-1], h_seq
 
     wx = torch.cat([wx_gate, wx_cand], dim=1).reshape(din, m, -1)
     x_proj = compute_x_proj(supports.to(stream), x_c, wx.to(stream), k)
     if cfg.recurrence == "pallas":
-        h_seq, _, _ = dcgru_recurrence_fwd(x_proj.contiguous(), a_ops,
-                                           *wh_args, cfg.activation)
+        args = (x_proj.contiguous(), a_ops, *wh_args, cfg.activation)
+        if train:
+            h_seq = dcgru_layer_recurrence_fused(*args)
+        else:
+            h_seq, _, _ = dcgru_recurrence_fwd(*args)
         return h_seq[-1], h_seq
     if cfg.recurrence == "stacked":
         x_proj = x_proj.float()

@@ -43,6 +43,18 @@ class DCRNNConfig:
             self.input_fusion)
 
 
+def dropout(x, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None):
+    """Inverted dropout (``eeg_gnn_tpu/models/dcrnn.py:81-86``) whose mask
+    comes from ``generator`` (on x's device). JAX's PRNG stream cannot be
+    reproduced, so parity tests run with rate 0, the flagship value."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def last_relevant(output, lengths):
     """Each sequence's last valid timestep of a batch-first (B, T, ...)
     output (reference ``utils.last_relevant_pytorch``, utils.py:346-357)."""
@@ -79,9 +91,11 @@ class DCRNNClassifier(nn.Module):
                     p.copy_(torch.empty(p.shape).uniform_(
                         -bound, bound, generator=generator))
 
-    def forward(self, x_seq, seq_lengths, supports):
+    def forward(self, x_seq, seq_lengths, supports,
+                generator: Optional[torch.Generator] = None):
         """x_seq: (B, T, N, input_dim) batch-first clips; seq_lengths: (B,);
-        supports: (S, ..., N, N). Returns (B, num_classes) logits."""
+        supports: (S, ..., N, N); generator: draws the dropout mask in
+        training. Returns (B, num_classes) logits."""
         x_tmajor = x_seq.transpose(0, 1)
         _, top_seq = encoder_apply(self.cell_cfgs,
                                    [c.params() for c in self.encoder],
@@ -89,6 +103,6 @@ class DCRNNClassifier(nn.Module):
         # the batch-first view costs no copy: only (B, N, H) is gathered
         last = last_relevant(top_seq.transpose(0, 1), seq_lengths)
         last = last.to(x_seq.dtype)
-        hidden = torch.relu(nn.functional.dropout(last, self.cfg.dropout,
-                                                  self.training))
+        hidden = torch.relu(dropout(last, self.cfg.dropout, self.training,
+                                    generator))
         return self.fc(hidden).amax(dim=1)

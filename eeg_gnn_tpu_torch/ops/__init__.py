@@ -1,6 +1,13 @@
 from eeg_gnn_tpu_torch.ops.cuda_recurrent import (  # noqa: F401
+    dcgru_dw_reduce,
+    dcgru_layer_recurrence_fused,
+    dcgru_layer_recurrence_xin,
+    dcgru_recurrence_bwd,
+    dcgru_recurrence_bwd_plain,
     dcgru_recurrence_fwd,
     dcgru_recurrence_fwd_plain,
+    dcgru_recurrence_xin_bwd,
+    dcgru_recurrence_xin_bwd_plain,
     dcgru_recurrence_xin_fwd,
     dcgru_recurrence_xin_fwd_plain,
 )

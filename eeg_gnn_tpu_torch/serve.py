@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from eeg_gnn_tpu_torch.config import ExperimentConfig
+from eeg_gnn_tpu_torch.device import resolve_device
 
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
 
@@ -34,15 +35,6 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     """Host array -> device tensor; copies on the host only where the array
     is not already C-contiguous, writable and of ``dtype``."""
     return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` means the CUDA card; the CPU only when asked for."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Predictor: no CUDA device is available; pass "
-                           "device='cpu' to serve on the CPU")
-    return device
 
 
 class Predictor:
@@ -74,7 +66,7 @@ class Predictor:
                 "data-parallel meshes are not ported yet (ROADMAP.md, "
                 "Queue 1: scale-out)")
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "Predictor")
         self.model = build_model(cfg)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()

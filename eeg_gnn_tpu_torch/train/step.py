@@ -1,0 +1,164 @@
+"""The supervised train step (``eeg_gnn_tpu/train/step.py:33-154``).
+
+One step is forward, loss (BCE for detection, CE for classification, over
+the ``valid`` rows), backward (the DCGRU layers' hand-written BPTT, on the
+card the backward CUDA kernels), gradient clip, L2 + Adam and the cosine
+learning rate. ``TrainStep(device=None)`` runs on the CUDA card and raises
+without one, as ``Predictor`` does; the CPU only when asked for.
+
+Not ported yet (ROADMAP.md, Queue 1): the multi-step, cached and mesh
+step variants and the on-device input pipeline; they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from eeg_gnn_tpu_torch.config import ExperimentConfig
+from eeg_gnn_tpu_torch.device import resolve_device
+from eeg_gnn_tpu_torch.train.losses import bce_with_logits, cross_entropy
+from eeg_gnn_tpu_torch.train.optim import make_optimizer
+
+
+def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None,
+                       cache_gather=None):
+    """Loss of ``model`` on a device batch: ``loss_fn(batch, generator)
+    -> (loss, logits)``; ``generator`` draws the dropout mask."""
+    if input_pipeline is not None or cache_gather is not None:
+        raise NotImplementedError(
+            "the on-device input pipeline and dataset caches are not ported "
+            "yet (ROADMAP.md, Queue 1)")
+    if task not in ("detection", "classification"):
+        raise NotImplementedError(f"task {task!r} is not ported yet "
+                                  "(ROADMAP.md, Queue 1)")
+
+    def loss_fn(batch: Mapping[str, Any], generator=None):
+        logits = model(batch["x"], batch["seq_lengths"], batch["supports"],
+                       generator)
+        valid = batch.get("valid")
+        if task == "detection":
+            return bce_with_logits(logits, batch["y"], valid), logits
+        return cross_entropy(logits, batch["y"], valid), logits
+
+    return loss_fn
+
+
+def _tensor(v, dtype, device) -> torch.Tensor:
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    return t.to(device=device, dtype=dtype)
+
+
+class TrainStep:
+    """The train step over ``model`` (an ``nn.Module`` whose parameters it
+    updates in place).
+
+    Args:
+        cfg: experiment config: task, graph type (the filter of supports
+            built from an ``adjacency``), ``lr_init``, ``l2_wd``,
+            ``max_grad_norm``, ``num_epochs``.
+        model: e.g. ``models.registry.build_model(cfg, generator)``; moved
+            to ``device`` and put in training mode.
+        steps_per_epoch: optimizer steps per epoch (the cosine schedule
+            holds its value for an epoch).
+        device: ``None`` (the CUDA card), or e.g. ``"cpu"``.
+        generator: the dropout masks' ``torch.Generator`` on ``device``
+            (seed 0 when not given).
+
+    A call takes a batch with the JAX package's keys, as numpy arrays or
+    tensors: ``x`` (B, T, N, D), ``y`` (B,), optional ``seq_lengths`` (B,)
+    (full T by default), ``supports`` (S, B, N, N) or ``adjacency``
+    (B, N, N), and optional ``valid`` (a row count or a (B,) row mask).
+    It returns the loss as a 0-d device tensor (no host sync).
+    """
+
+    def __init__(self, cfg: ExperimentConfig, model: nn.Module,
+                 steps_per_epoch: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device, "TrainStep")
+        self.model = model.to(self.device).train()
+        self.loss_fn = supervised_loss_fn(self.model, cfg.task)
+        self.optimizer = make_optimizer(
+            self.model.parameters(), cfg.lr_init, cfg.l2_wd,
+            cfg.max_grad_norm, cfg.num_epochs, steps_per_epoch)
+        self.generator = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+
+    def device_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        """The batch as device tensors, with supports built on the device
+        from an ``adjacency`` (``graphs.compute_supports_torch``)."""
+        from eeg_gnn_tpu_torch.graphs.supports import compute_supports_torch
+
+        dev = self.device
+        x = _tensor(batch["x"], torch.float32, dev)
+        y_dtype = torch.float32 if self.cfg.task == "detection" \
+            else torch.int64
+        lens = batch.get("seq_lengths")
+        out = {
+            "x": x,
+            "y": _tensor(batch["y"], y_dtype, dev),
+            "seq_lengths": (torch.full((x.shape[0],), x.shape[1],
+                                       dtype=torch.int64, device=dev)
+                            if lens is None
+                            else _tensor(lens, torch.int64, dev)),
+            "valid": batch.get("valid"),
+        }
+        if isinstance(out["valid"], (np.ndarray, torch.Tensor)):
+            out["valid"] = _tensor(out["valid"], None, dev)
+        if batch.get("supports") is not None:
+            out["supports"] = _tensor(batch["supports"], torch.float32, dev)
+        elif batch.get("adjacency") is not None:
+            out["supports"] = compute_supports_torch(
+                _tensor(batch["adjacency"], torch.float32, dev),
+                self.cfg.filter_type)
+        else:
+            raise ValueError("supports required: pass `supports` or "
+                             "`adjacency`")
+        return out
+
+    def loss_and_grads(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        """Forward and backward: the parameters' ``.grad`` hold this
+        batch's raw (unclipped) gradients afterwards."""
+        self.optimizer.zero_grad()
+        loss, _ = self.loss_fn(self.device_batch(batch), self.generator)
+        loss.backward()
+        return loss.detach()
+
+    def update(self):
+        """Clip, L2 + Adam, learning-rate schedule, from ``.grad``."""
+        self.optimizer.step()
+
+    def __call__(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        loss = self.loss_and_grads(batch)
+        self.update()
+        return loss
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                              "Queue 1: the cached and multi-step train "
+                              "steps, scale-out)")
+
+
+def make_multi_train_step(*args, **kwargs):
+    """K optimizer steps in one program (JAX ``train/step.py:157``)."""
+    _not_ported("the fused multi-step trainer")
+
+
+def make_cached_train_step(*args, **kwargs):
+    """Device-resident step over an HBM-cached split (JAX ``:214``)."""
+    _not_ported("the cached train step")
+
+
+def make_cached_epoch_step(*args, **kwargs):
+    """K-step trainer over an HBM-cached split (JAX ``:268``)."""
+    _not_ported("the cached epoch step")
+
+
+def make_mesh_cached_train_step(*args, **kwargs):
+    """Data-parallel cached step over row-sharded caches (JAX ``:345``)."""
+    _not_ported("the mesh-sharded cached train step")

@@ -7,15 +7,18 @@ card's machine it runs without the suite's conftest:
 
 Tolerance: normalized inf-norm error max|k - p| / max|p| <= 1e-4 in float32
 (the same f32 arithmetic summed in another order, TF32 off) and <= 2e-2 in
-bfloat16 (the bf16 bound of benchmarks/tpu_kernel_parity.json).
+bfloat16 (the bf16 bound of benchmarks/tpu_kernel_parity.json), for every
+output of the forward and backward kernels.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
-from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
+from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators, shift_h_prev
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +106,138 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
         cr.dcgru_recurrence_xin_fwd(x[..., :10].contiguous(), xin[1],
                                     xin[2][:30].contiguous(),
                                     xin[3][:30].contiguous(), *xin[4:])
+
+
+def _bwd_inputs(dev, *, t, b, d, h, num_supports, shared, stream,
+                activation="tanh", seed=0):
+    """Backward-kernel arguments from a forward run (realistic residuals)
+    and a random seeded h_seq cotangent."""
+    xin, hoisted = _inputs(dev, t=t, b=b, d=d, h=h,
+                           num_supports=num_supports, shared=shared,
+                           stream=stream, seed=seed)
+    x, a_ops, wxg_f, wxc_f, wg_r, wc_r, _, _, h0 = xin
+    h_seq, ru, c = cr.dcgru_recurrence_xin_fwd_plain(*xin, activation,
+                                                     residuals=True)
+    rng = np.random.RandomState(seed + 1)
+    d_seq = torch.from_numpy(rng.randn(t, b, N, h).astype(np.float32)).to(
+        dev, stream)
+    streams = (shift_h_prev(h0, h_seq), ru, c)
+    xin_bwd = (a_ops, wxg_f, wxc_f, wg_r, wc_r, *streams, x, d_seq)
+    hoisted_bwd = (a_ops, wg_r, wc_r, *streams, d_seq)
+    return xin_bwd, hoisted_bwd
+
+
+@pytest.mark.parametrize("t,b,d,h", [(5, 4, 12, 16), (60, 37, 100, 64)])
+@pytest.mark.parametrize("num_supports,shared", [(1, False), (1, True),
+                                                 (2, False)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bwd_kernels_match_plain(dev, t, b, d, h, num_supports, shared,
+                                 bf16):
+    stream = torch.bfloat16 if bf16 else torch.float32
+    xin, hoisted = _bwd_inputs(dev, t=t, b=b, d=d, h=h,
+                               num_supports=num_supports, shared=shared,
+                               stream=stream)
+    tol = 2e-2 if bf16 else 1e-4
+    for kern, plain, args in (
+            (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_xin_bwd_plain,
+             xin),
+            (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain,
+             hoisted)):
+        before = (kern.launches, cr.dcgru_dw_reduce.launches)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert (kern.launches, cr.dcgru_dw_reduce.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = plain(*args)
+        assert len(got) == len(want)
+        assert got[0].dtype == stream  # dx / dx_proj in the stream dtype
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape, (kern.__name__, i)
+            if i:
+                assert g.dtype == torch.float32
+            assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
+
+
+@pytest.mark.parametrize("t,b,d,h", [(5, 4, 12, 16), (60, 37, 100, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_xin_bwd_kernel_without_dx(dev, t, b, d, h, bf16):
+    """need_dx=False (the first layer, fed data): no dx, and every other
+    output as the plain version's."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    xin, _ = _bwd_inputs(dev, t=t, b=b, d=d, h=h, num_supports=2,
+                         shared=False, stream=stream)
+    got = cr.dcgru_recurrence_xin_bwd(*xin, need_dx=False)
+    want = cr.dcgru_recurrence_xin_bwd_plain(*xin)
+    assert got[0] is None
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _err(g, w) <= (2e-2 if bf16 else 1e-4), (i, _err(g, w))
+
+
+@pytest.mark.parametrize("activation", ["relu", "linear"])
+def test_bwd_kernel_activations(dev, activation):
+    xin, hoisted = _bwd_inputs(dev, t=5, b=3, d=12, h=16, num_supports=2,
+                               shared=False, stream=torch.float32,
+                               activation=activation)
+    for kern, plain, args in (
+            (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_xin_bwd_plain,
+             xin),
+            (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain,
+             hoisted)):
+        for g, w in zip(kern(*args, activation), plain(*args, activation)):
+            assert _err(g, w) <= 1e-4
+
+
+def test_dw_reduce_matches_plain(dev):
+    part = torch.randn(37, 94_656, device=dev)
+    assert _err(cr.dcgru_dw_reduce(part), cr.dcgru_dw_reduce_plain(part)) \
+        <= 1e-5
+
+
+def test_bwd_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    xin, hoisted = _bwd_inputs(dev, t=5, b=3, d=12, h=16, num_supports=1,
+                               shared=False, stream=torch.float32)
+    d_seq = xin[-1]
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.dcgru_recurrence_xin_bwd(
+            *xin[:-1], d_seq.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError, match="streams mix"):
+        cr.dcgru_recurrence_bwd(*hoisted[:-1], d_seq.bfloat16())
+    with pytest.raises(TypeError, match="must be float32"):
+        cr.dcgru_recurrence_bwd(hoisted[0], hoisted[1].double(),
+                                *hoisted[2:])
+    with pytest.raises(ValueError, match="stream"):
+        cr.dcgru_recurrence_bwd(*hoisted[:-1], d_seq[:4].contiguous())
+
+
+def test_flagship_train_step_matches_stacked(dev):
+    """One flagship detection step (B=128, T=60, 2x64, D=100, combined
+    graph, f32): the kernels' gradients against the stacked step's."""
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    rng = np.random.RandomState(0)
+    adj = np.abs(rng.rand(128, N, N)).astype(np.float32)
+    adj = (adj + adj.transpose(0, 2, 1)) / 2
+    batch = {"x": rng.randn(128, 60, N, 100).astype(np.float32),
+             "y": rng.randint(0, 2, size=128).astype(np.float32),
+             "adjacency": adj}
+    cfg = ExperimentConfig(graph_type="combined").finalize()
+    grads = {}
+    for rec in ("pallas", "stacked"):
+        c = dataclasses.replace(cfg, recurrence=rec)
+        step = TrainStep(c, build_model(c, torch.Generator().manual_seed(0)),
+                         100, device=dev)
+        before = (cr.dcgru_recurrence_xin_fwd.launches,
+                  cr.dcgru_recurrence_xin_bwd.launches)
+        loss = step.loss_and_grads(batch)
+        after = (cr.dcgru_recurrence_xin_fwd.launches,
+                 cr.dcgru_recurrence_xin_bwd.launches)
+        want = (2, 2) if rec == "pallas" else (0, 0)
+        assert tuple(a - b_ for a, b_ in zip(after, before)) == want
+        assert torch.isfinite(loss)
+        grads[rec] = {n: p.grad.clone()
+                      for n, p in step.model.named_parameters()}
+    for name, g in grads["pallas"].items():
+        assert _err(g, grads["stacked"][name]) <= 1e-4, name

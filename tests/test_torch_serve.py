@@ -209,7 +209,8 @@ def _forbidden(module: str) -> bool:
 def test_port_sources_import_no_jax():
     """AST scan of every module of the port (and chip_smoke.py)."""
     files = sorted((REPO / "eeg_gnn_tpu_torch").rglob("*.py"))
-    assert len(files) >= 10
+    assert len(files) >= 14
+    assert REPO / "eeg_gnn_tpu_torch" / "train" / "step.py" in files
     for path in files + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -225,7 +226,8 @@ def test_port_sources_import_no_jax():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, eeg_gnn_tpu_torch.serve, "
-            "eeg_gnn_tpu_torch.models.registry, eeg_gnn_tpu_torch.io; "
+            "eeg_gnn_tpu_torch.models.registry, eeg_gnn_tpu_torch.io, "
+            "eeg_gnn_tpu_torch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
