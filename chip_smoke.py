@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. print the card's name and power limit; turn TF32 off; build the two
+1. print the card's name and power limit; turn TF32 off; build the three
    CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
    nvcc each), and print ptxas' register and spill report;
 2. hold every kernel against its plain PyTorch version on the card at
@@ -19,7 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
    also without dx, as the first layer runs it) and the dW reduction,
    by the normalized inf-norm error max|k-p| / max|p|: float32 <= 1e-4
    (the same f32 arithmetic summed in another order), bfloat16 <= 2e-2
-   (the bf16 bound of benchmarks/tpu_kernel_parity.json);
+   (the bf16 bound of benchmarks/tpu_kernel_parity.json); then the
+   seq2seq decoder kernels at T_out=12, D=100 (L=3, 2 and 1; the same M,
+   B and dtype grid; force none, all and mixed): proj (and once each
+   residual), and on a seeded proj cotangent dx, dh0 and all 14 weight
+   and bias gradients, under the same bounds;
 3. serve the flagship DCRNN detector (2 DCGRU layers x 64 units, K=2,
    input_dim 100, T=60, batch 128, random weights from a seeded
    torch.Generator) through ``Predictor`` for both graph types, float32
@@ -39,12 +43,28 @@ Phases (any failure exits non-zero and prints no result line):
    one seeded cotangent against the float32 stacked path's (<= 2e-2),
    and the model's step-1 gradients, the kernels' and the bfloat16
    stacked path's, each against a float32 stacked step (printed);
-5. time each kernel (per layer, B=128, M=3; the first layer's backward
-   without dx, as the train step runs it, and with dx) and its plain
-   version with CUDA events (median of 20 runs after warm-up), the dW
-   reduction beside ``torch.sum``, the Predictor's clips/s, and the train
-   step's ms and clips/s; trace one bfloat16 batch and one bfloat16 step
-   with torch.profiler.
+5. SSL next-window pre-training of the paper's SSL model through
+   ``TrainStep`` (3 DCGRU layers x 64, K=2, D=100, T_in=60 -> T_out=12,
+   batch 128, Adam lr 5e-4, L2 5e-4, clip 5.0, 350 epochs of 100 steps,
+   as benchmarks/ssl_bench.py), combined and individual graphs, float32
+   and bfloat16, curriculum on at batches_seen 24,000 (teacher-forcing
+   ratio ~0.5, so the force vectors mix), 3 steps each, plus one
+   curriculum-off run: each step launches exactly 3 xin forward, 3 xin
+   backward, 1 decoder forward, 1 decoder backward and 4 dW reductions
+   (one per encoder layer and one for the decoder's slabs); finite
+   losses; float32 step-1 gradients against a stacked step from the same
+   weights and force draws (<= 1e-4) and, on 4 clips, the CPU; in
+   bfloat16 the decoder's gradients under one seeded cotangent, and the
+   model's step-1 gradients, each against the float32 stacked path's
+   (<= 2e-2; the bfloat16 stacked path's printed beside);
+6. time each kernel and its plain version with CUDA events (median of
+   20 runs after warm-up): the encoder's per layer (B=128, M=3; the
+   first layer's backward without dx, as the train step runs it, and
+   with dx), the decoder's (B=128, M=3, L=3), the dW reduction beside
+   ``torch.sum`` (at each encoder layer's slab width and at the
+   decoder's); the Predictor's clips/s, the detection and SSL train
+   steps' ms and clips/s; trace one bfloat16 batch, one bfloat16
+   detection step and one SSL step in each dtype with torch.profiler.
 
 The second-to-last line is a JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -63,6 +83,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 T, N, H, K = 60, 19, 64, 2
+T_OUT, SSL_LAYERS = 12, 3   # configs/run_dcrnn_ssl.sh, ssl_bench.py:55-66
+BATCHES_SEEN = 24_000       # ratio 3000 / (3000 + e^8) ~ 0.5
 BATCH = 128
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 PEAK_F32_FLOPS = 67e12   # H100 SXM, non-tensor float32 (NVIDIA data sheet)
@@ -71,11 +93,20 @@ REPS = 20
 STEPS_PER_EPOCH = 100
 TRAIN_KW = dict(lr_init=1e-4, l2_wd=5e-4, max_grad_norm=5.0,
                 num_epochs=100)  # bench.py:66
+SSL_KW = dict(lr_init=5e-4, l2_wd=5e-4, max_grad_norm=5.0,
+              num_epochs=350)  # benchmarks/ssl_bench.py:62
 FWD = ("dcgru_recurrence_xin_fwd", "dcgru_recurrence_fwd")
 BWD = ("dcgru_recurrence_xin_bwd", "dcgru_recurrence_bwd")
-KERNELS = FWD + BWD + ("dcgru_dw_reduce",)
+DEC = ("dcgru_decoder_fwd", "dcgru_decoder_bwd")
+KERNELS = FWD + BWD + ("dcgru_dw_reduce",) + DEC
+SSL_KERNELS = (FWD[0], BWD[0], "dcgru_dw_reduce") + DEC
+SSL_STEP = {FWD[0]: 3, BWD[0]: 3, "dcgru_dw_reduce": 4, DEC[0]: 1,
+            DEC[1]: 1}  # launches per SSL step at 3 layers
 XIN_GRADS = ("dx", "dwxg_f", "dwxc_f", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
+DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
+             "db0c", "dwxsg", "dwxsc", "dwhsg", "dwhsc", "dbsg", "dbsc",
+             "dwp", "dbp")
 
 
 def fail(msg: str):
@@ -166,13 +197,21 @@ def bwd_args(torch, a, seed):
     return xin, hoisted
 
 
-def counts(cr) -> dict:
-    return {k: getattr(cr, k).launches for k in KERNELS}
+def wrappers() -> dict:
+    """Each kernel's wrapper, by name (its ``.launches`` is the count)."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder, cuda_recurrent
+
+    return {k: getattr(cuda_decoder if k in DEC else cuda_recurrent, k)
+            for k in KERNELS}
 
 
-def reset_counts(cr):
-    for k in KERNELS:
-        getattr(cr, k).launches = 0
+def counts() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
+
+
+def reset_counts():
+    for w in wrappers().values():
+        w.launches = 0
 
 
 def norm_err(k, p) -> tuple[float, float]:
@@ -228,6 +267,53 @@ def bwd_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
     return float(per_step) * T * b, float(nbytes)
 
 
+def _cell_fwd_flops(d: int, m: int) -> int:
+    """FLOPs of one DCGRU cell step of one clip at input width d (A_0 = I
+    skipped): the diffusions of [h | in] and of r*h, and the products."""
+    return (2 * (m - 1) * N * N * (2 * H + d)
+            + 2 * N * (m * d + m * H) * 3 * H)
+
+
+def _dec_weights(d: int, m: int, layers: int) -> int:
+    """Floats of the decoder's weights and biases (layer 0, the shared
+    cell, the projection)."""
+    cell = lambda din: m * (din + H) * 3 * H + 3 * H
+    return cell(d) + (cell(H) if layers > 1 else 0) + H * d + d
+
+
+def dec_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
+             stream_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) one decoder forward launch needs: per clip-step each
+    layer's cell (layer 0 at width d, the rest at H) and the projection;
+    x, the operators, h0 and the weights read once, proj and the
+    residuals (in0, h, ru, c) written once."""
+    per_step = _cell_fwd_flops(d, m) + (layers - 1) * _cell_fwd_flops(H, m)
+    per_step += 2 * N * H * d
+    nbytes = _dec_weights(d, m, layers) * 4 + T_OUT * 4
+    nbytes += m * a_batch * N * N * 4 + layers * b * N * H * 4
+    nbytes += T_OUT * b * N * (3 * d + 4 * layers * H) * stream_bytes
+    return float(per_step) * T_OUT * b, float(nbytes)
+
+
+def dec_bwd_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
+                 stream_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) one decoder backward launch needs, by the counting
+    of ``bwd_work`` for each layer (with its input cotangent) plus the
+    projection's dWp, dbp and dproj Wp^T; the per-clip dW slabs are
+    scratch and not counted."""
+    def cell(din):
+        return (2 * (m - 1) * N * N * (2 * H + din)       # recomputed
+                + 2 * N * m * (H + din) * 3 * H + N * 3 * H  # dW, db
+                + 2 * N * 3 * H * m * (H + din)            # dpre W^T
+                + 2 * 2 * (m - 1) * N * N * (H + din))     # A^T applies
+    per_step = cell(d) + (layers - 1) * cell(H) + 4 * N * H * d + N * d
+    nbytes = 2 * _dec_weights(d, m, layers) * 4 + T_OUT * 4
+    nbytes += m * a_batch * N * N * 4 + layers * b * N * H * 4
+    # h_prev, h, ru, c, in0, d_seq in; dx out
+    nbytes += T_OUT * b * N * (5 * layers * H + 3 * d) * stream_bytes
+    return float(per_step) * T_OUT * b, float(nbytes)
+
+
 def reduce_work(b: int, w: int) -> tuple[float, float]:
     """(FLOPs, bytes) of summing a (B, W) f32 slab over B."""
     return float(b * w), float((b * w + w) * 4)
@@ -267,6 +353,24 @@ def time_ms(torch, fn, reps=REPS, warmup=3, lead=True) -> float:
     return statistics.median(times)
 
 
+def time_steps(torch, run) -> tuple[float, float, float]:
+    """A train step's median time over REPS single synchronised runs, the
+    best of 3 runs of REPS steps back to back (one sync each: bench.py's
+    loop), in ms, and the last loss."""
+    ms = time_ms(torch, run, lead=False)
+    loop = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            loss = run()
+        end.record()
+        end.synchronize()
+        loop.append(start.elapsed_time(end) / REPS)
+    return ms, min(loop), float(loss)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -283,10 +387,9 @@ def phase_build(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from eeg_gnn_tpu_torch.ops import _build
-    from eeg_gnn_tpu_torch.ops import cuda_recurrent
+    from eeg_gnn_tpu_torch.ops import _build, cuda_decoder, cuda_recurrent
 
-    names = ("dcgru_recurrence", "dcgru_recurrence_bwd")
+    names = ("dcgru_recurrence", "dcgru_recurrence_bwd", "dcgru_decoder")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = list(pool.map(_build.build, names))
@@ -300,6 +403,7 @@ def phase_build(torch):
                 log(f"  ptxas: {line.strip()}")
     cuda_recurrent._lib()
     cuda_recurrent._lib_bwd()
+    cuda_decoder._lib()
     return card
 
 
@@ -423,6 +527,324 @@ def phase_bwd_parity(torch, dev):
     return worst, main_abs
 
 
+def dec_inputs(torch, dev, *, layers, m, shared, b, dtype, force, seed):
+    """Decoder-kernel forward arguments as the SSL model hands them over:
+    weights from a seeded ``decoder_init`` (biases made random) re-packed
+    by ``decoder_kernel_weights``, a random teacher-forcing stream in the
+    stream dtype, random f32 initial states, and the force pattern."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.dcgru import (
+        decoder_init,
+        decoder_kernel_weights,
+    )
+    from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    filt = "laplacian" if m == 3 else "dual_random_walk"
+    adj = torch.from_numpy(adjacency(rng, 1 if shared else b)).to(dev)
+    a_ops = chebyshev_operators(compute_supports_torch(adj, filt), K)
+    params, (cfg0, _) = decoder_init(gen, 100, H, K, N, (m - 1) // K,
+                                     layers, 100)
+    for cell in ("layer0", "shared")[:layers]:
+        for k in ("gate_b", "cand_b"):
+            params[cell][k] = 0.1 * torch.randn(params[cell][k].shape,
+                                                generator=gen)
+    params = {k: ({n: t.to(dev) for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in params.items()}
+    pattern = {"none": [0.0] * T_OUT, "all": [1.0] * T_OUT,
+               "mixed": [float(i % 2) for i in range(T_OUT)]}[force]
+    return (a_ops.contiguous(),
+            torch.randn((T_OUT, b, N, 100), generator=gen).to(dev, dtype),
+            torch.tensor(pattern, device=dev),
+            *decoder_kernel_weights(cfg0, params, layers),
+            (0.1 * torch.randn((layers, b, N, H), generator=gen)).to(dev))
+
+
+def dec_bwd_args(torch, args, layers, seed):
+    """Decoder-backward arguments: the plain forward's residuals and a
+    random seeded proj cotangent."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.ops.recurrent import shift_h_prev
+
+    _, in0, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*args, layers,
+                                                      residuals=True)
+    a_ops, x, force, *w = args
+    h0 = w[14]
+    h0f = h0.permute(1, 2, 0, 3).reshape(h0.shape[1], N, layers * H)
+    gen = torch.Generator().manual_seed(seed)
+    d_seq = torch.randn(tuple(x.shape), generator=gen).to(x.device, x.dtype)
+    return (a_ops, *w[0:4], *w[6:10], w[12], shift_h_prev(h0f, h_seq),
+            h_seq, ru, c, in0, d_seq, force)
+
+
+def phase_dec_parity(torch, dev):
+    """The decoder kernels against their plain versions: every output of
+    every case of the grid."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    worst = {k: 0.0 for k in DEC}
+    main_abs = dict(worst)
+    seed = 900
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for layers in (SSL_LAYERS, 2, 1):
+            for m, shared in ((3, False), (3, True), (5, False)):
+                for b in (BATCH, 37):
+                    for force in ("none", "all", "mixed"):
+                        seed += 1
+                        args = dec_inputs(torch, dev, layers=layers, m=m,
+                                          shared=shared, b=b, dtype=dtype,
+                                          force=force, seed=seed)
+                        residuals = (b == BATCH and m == 3 and not shared
+                                     and layers == SSL_LAYERS
+                                     and force == "mixed")
+                        main = (b == BATCH and m == 3 and not shared
+                                and layers == SSL_LAYERS
+                                and dtype == torch.bfloat16)
+                        got = cd.dcgru_decoder_fwd(*args, layers,
+                                                   residuals=residuals)
+                        torch.cuda.synchronize()
+                        want = cd.dcgru_decoder_fwd_plain(
+                            *args, layers, residuals=residuals)
+                        names = ("proj", "in0", "h_seq", "ru_seq", "c_seq")
+                        fwd = [(o, g, w) for o, g, w in zip(names, got, want)
+                               if w is not None]
+                        bwd_a = dec_bwd_args(torch, args, layers, seed)
+                        got = cd.dcgru_decoder_bwd(*bwd_a, layers)
+                        torch.cuda.synchronize()
+                        want = cd.dcgru_decoder_bwd_plain(*bwd_a, layers)
+                        bwd = [(o, g, w) for o, g, w in zip(DEC_GRADS, got,
+                                                            want)
+                               if w is not None]
+                        errs = []
+                        for name, pairs in ((DEC[0], fwd), (DEC[1], bwd)):
+                            for out, g, w in pairs:
+                                if g.shape != w.shape or g.dtype != w.dtype:
+                                    fail(f"{name} {out}: {g.dtype} "
+                                         f"{tuple(g.shape)} != {w.dtype} "
+                                         f"{tuple(w.shape)}")
+                                err, max_abs = norm_err(g, w)
+                                if not np.isfinite(err) or err > tol:
+                                    fail(f"{name} {out} L={layers} M={m} "
+                                         f"shared={shared} B={b} {dtype} "
+                                         f"force={force}: normalized error "
+                                         f"{err:.3e} > {tol:.0e}")
+                                worst[name] = max(worst[name], err)
+                                if main:
+                                    main_abs[name] = max(main_abs[name],
+                                                         max_abs)
+                                errs.append(f"{out} {err:.1e}")
+                        log(f"parity decoder L={layers} M={m} "
+                            f"{'shared' if shared else 'per-clip'} B={b} "
+                            f"{str(dtype)[6:]} force={force} (tol "
+                            f"{tol:.0e}): " + ", ".join(errs))
+    return worst, main_abs
+
+
+def ssl_cfg(graph_type, dtype, **kw):
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(task="SS pre-training", graph_type=graph_type,
+                            dtype=dtype, max_seq_len=T,
+                            num_rnn_layers=SSL_LAYERS, rnn_units=H,
+                            max_diffusion_step=K, input_dim=100,
+                            output_dim=100, **SSL_KW, **kw).finalize()
+
+
+def ssl_batch(torch, dev, b, seed):
+    """An SSL pre-training batch on the device (ssl_bench.py:68-71):
+    random clips and next windows, per-clip adjacency."""
+    rng = np.random.RandomState(seed)
+    return {"x": torch.from_numpy(rng.randn(b, T, N, 100).astype(
+                np.float32)).to(dev),
+            "y": torch.from_numpy(rng.randn(b, T_OUT, N, 100).astype(
+                np.float32)).to(dev),
+            "adjacency": torch.from_numpy(adjacency(rng, b)).to(dev)}
+
+
+def ssl_step(torch, cfg, init, dev, seed=5):
+    """A fresh SSL ``TrainStep`` from the weights ``init``; its generator
+    (the force draws) seeded with ``seed``."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    return TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev,
+                     generator=torch.Generator(dev).manual_seed(seed),
+                     mean=0.0, std=1.0)
+
+
+def decoder_grads(torch, cfg, init, batch, seed=37):
+    """Gradients of the decoder's weights and of h0_stack under a seeded
+    dense cotangent on its output: the decoder's BPTT alone, fed the
+    encoder's final states (float32, no grad) and one force draw."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.dcgru import (
+        decoder_apply,
+        draw_force,
+        encoder_apply,
+    )
+    from eeg_gnn_tpu_torch.models.dcrnn import compute_sampling_threshold
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    dev = batch["x"].device
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    model.to(dev).train()
+    sup = compute_supports_torch(batch["adjacency"], cfg.filter_type)
+    with torch.no_grad():
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        f32.load_state_dict(init)
+        f32.to(dev)
+        h0, _ = encoder_apply(f32.cell_cfgs, [c.params() for c in
+                                              f32.encoder], sup,
+                              batch["x"].transpose(0, 1))
+    h0 = h0.clone().requires_grad_()
+    force = draw_force(T_OUT, compute_sampling_threshold(3000, BATCHES_SEEN),
+                       torch.Generator(dev).manual_seed(seed), dev)
+    out = decoder_apply(model.dec_cfgs, model.decoder.params(), sup,
+                        batch["y"].transpose(0, 1), h0, SSL_LAYERS,
+                        force=force, training=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn(tuple(out.shape), generator=gen, device=dev)
+    named = list(model.decoder.named_parameters())
+    grads = torch.autograd.grad((out * cot).sum(),
+                                [p for _, p in named] + [h0])
+    out = {f"decoder.{n}": g for (n, _), g in zip(named, grads)}
+    out["h0_stack"] = grads[-1]
+    return out
+
+
+def phase_ssl(torch, dev):
+    """The SSL pre-training path: 3 steps in each of 4 configurations and a
+    curriculum-off run, launch counts per step, finite losses, step-1
+    gradients against the stacked step (same weights, same force draws),
+    the bfloat16 decoder's VJP, and once the card against the CPU."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    batch = ssl_batch(torch, dev, BATCH, seed=41)
+    runs = [(gt, dt, True) for gt in ("combined", "individual")
+            for dt in ("float32", "bfloat16")] + [("combined", "float32",
+                                                   False)]
+    # the SSL path's run: counts start at 0 here and are read below
+    reset_counts()
+    first, vjp_cases = None, []
+    for gt, dtype, curriculum in runs:
+        cfg = ssl_cfg(gt, dtype, use_curriculum_learning=curriculum)
+        init = {k: v.clone() for k, v in build_model(
+            cfg, torch.Generator().manual_seed(11)).state_dict().items()}
+        step = ssl_step(torch, cfg, init, dev)
+        losses, grads = [], None
+        for i in range(3 if curriculum else 1):
+            before = counts()
+            losses.append(step.loss_and_grads(
+                batch, batches_seen=BATCHES_SEEN + i * BATCH))
+            if grads is None:
+                grads = {n: p.grad.clone()
+                         for n, p in step.model.named_parameters()}
+            step.update()
+            after = counts()
+            rose = {k: after[k] - before[k] for k in KERNELS}
+            want = {k: SSL_STEP.get(k, 0) for k in KERNELS}
+            if rose != want:
+                fail(f"ssl {gt} {dtype} curriculum={curriculum} step {i}: "
+                     f"launches rose by {rose}, want {want}")
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            fail(f"ssl {gt} {dtype}: losses {losses}")
+        ref_cfg = dataclasses.replace(cfg, recurrence="stacked")
+        ref = ssl_step(torch, ref_cfg, init, dev)
+        before = counts()
+        ref_loss = float(ref.loss_and_grads(batch,
+                                            batches_seen=BATCHES_SEEN))
+        if counts() != before:
+            fail("the stacked SSL step launched a kernel")
+        ref_grads = {n: p.grad for n, p in ref.model.named_parameters()}
+        errs = {n: norm_err(grads[n], g)[0] for n, g in ref_grads.items()}
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        if dtype == "float32":
+            if abs(losses[0] - ref_loss) > tol * abs(ref_loss):
+                fail(f"ssl {gt} {dtype}: step-1 loss {losses[0]} vs "
+                     f"stacked {ref_loss}")
+            if not np.isfinite(err) or err > tol:
+                fail(f"ssl {gt} {dtype} curriculum={curriculum}: step-1 "
+                     f"gradient {name} vs stacked {err:.3e} > {tol:.0e}")
+        log(f"ssl {gt} {dtype} curriculum={curriculum}: losses "
+            f"{', '.join(f'{v:.6f}' for v in losses)} (stacked "
+            f"{ref_loss:.6f}); step-1 grads vs stacked: worst {name} "
+            f"{err:.3e} "
+            f"({f'tol {tol:.0e}' if dtype == 'float32' else 'not gated'})")
+        if first is None and dtype == "float32":
+            first = (cfg, init)
+        if dtype == "bfloat16":
+            vjp_cases.append((cfg, init))
+            bf16_ssl_errors(torch, cfg, init, batch, grads, ref_grads)
+    launched = counts()
+    log(f"ssl: launches {launched}")
+
+    # bfloat16: the decoder's gradients under one seeded cotangent, the
+    # kernels' against the float32 stacked decoder's
+    for cfg, init in vjp_cases:
+        got = decoder_grads(torch, cfg, init, batch)
+        exact = decoder_grads(torch, dataclasses.replace(
+            cfg, recurrence="stacked", dtype="float32"), init, batch)
+        errs = {n: norm_err(got[n], exact[n])[0] for n in exact}
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        if not np.isfinite(err) or err > BF16_TOL:
+            fail(f"ssl {cfg.graph_type} bfloat16: decoder VJP {name} vs "
+                 f"float32 stacked {err:.3e} > {BF16_TOL:.0e}")
+        log(f"ssl {cfg.graph_type} bfloat16: decoder VJP vs float32 "
+            f"stacked: worst {name} {err:.3e} (tol {BF16_TOL:.0e}), "
+            + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+
+    # once, on 4 clips (no force draws: they differ between devices): the
+    # card's step-1 loss and gradients vs the CPU's
+    cfg, init = first
+    small = {k: v[:4] for k, v in batch.items()}
+    res = []
+    for device in (dev, "cpu"):
+        step = ssl_step(torch, cfg, init, device)
+        loss = float(step.loss_and_grads(
+            {k: v.to(device) for k, v in small.items()}))
+        res.append((loss, {n: p.grad.cpu()
+                           for n, p in step.model.named_parameters()}))
+    err = max(norm_err(res[0][1][n], res[1][1][n])[0] for n in res[1][1])
+    if abs(res[0][0] - res[1][0]) > F32_TOL * abs(res[1][0]) \
+            or err > F32_TOL:
+        fail(f"ssl card vs CPU on 4 clips: loss {res[0][0]} vs "
+             f"{res[1][0]}, gradients {err:.3e}")
+    log(f"ssl {cfg.graph_type} float32: card vs CPU on 4 clips: loss "
+        f"{res[0][0]:.7f} vs {res[1][0]:.7f}, gradients {err:.3e}")
+    return launched
+
+
+def bf16_ssl_errors(torch, cfg, init, batch, grads, stacked):
+    """The bfloat16 SSL model's step-1 gradients, the kernels' (``grads``,
+    gated at 2e-2) and the bfloat16 stacked path's (``stacked``, printed),
+    each against a float32 stacked step from the same weights and force
+    draws. Unlike the detector's, this model has no max over nodes whose
+    ties bf16 rounding could reorder, and the gate holds (PERF.md, PR 3)."""
+    f32 = ssl_step(torch, dataclasses.replace(
+        cfg, recurrence="stacked", dtype="float32"), init, batch["x"].device)
+    f32.loss_and_grads(batch, batches_seen=BATCHES_SEEN)
+    exact = {n: p.grad for n, p in f32.model.named_parameters()}
+    rows = {n: (norm_err(grads[n], g)[0], norm_err(stacked[n], g)[0])
+            for n, g in exact.items()}
+    name, (err, _) = max(rows.items(), key=lambda kv: kv[1][0])
+    if not np.isfinite(err) or err > BF16_TOL:
+        fail(f"ssl {cfg.graph_type} bfloat16: step-1 gradient {name} vs "
+             f"float32 stacked {err:.3e} > {BF16_TOL:.0e}")
+    log(f"ssl {cfg.graph_type} bfloat16: step-1 grads vs float32 stacked, "
+        "kernels/bfloat16 stacked: worst "
+        f"{max(r[0] for r in rows.values()):.3e}/"
+        f"{max(r[1] for r in rows.values()):.3e}, "
+        + ", ".join(f"{n} {a:.1e}/{b:.1e}" for n, (a, b) in rows.items()))
+
+
 def flagship_cfg(graph_type, dtype, input_fusion, **kw):
     from eeg_gnn_tpu_torch.config import ExperimentConfig
 
@@ -447,7 +869,7 @@ def phase_serve(torch):
     batches = sum(-(-len(r[0]) // BATCH) for r in requests)
     kernels = {True: cr.dcgru_recurrence_xin_fwd, False: cr.dcgru_recurrence_fwd}
     # the serving path's run: counts start at 0 here and are read at the end
-    reset_counts(cr)
+    reset_counts()
     checked_cpu = False
     for gt in ("combined", "individual"):
         for dtype in ("float32", "bfloat16"):
@@ -493,7 +915,7 @@ def phase_serve(torch):
                     log(f"serve {gt} float32: card vs CPU on 4 clips "
                         f"{diff:.3e}")
                     checked_cpu = True
-    launched = counts(cr)
+    launched = counts()
     if any(launched[k] for k in BWD + ("dcgru_dw_reduce",)):
         fail(f"serving launched a backward kernel: {launched}")
     log(f"serve: launches {launched}")
@@ -570,7 +992,7 @@ def phase_train(torch, dev):
     batch = train_batch(torch, dev, BATCH, seed=21)
     pair = {True: (FWD[0], BWD[0]), False: (FWD[1], BWD[1])}
     # the training path's run: counts start at 0 here and are read below
-    reset_counts(cr)
+    reset_counts()
     first, vjp_cases = None, []
     for gt in ("combined", "individual"):
         for dtype in ("float32", "bfloat16"):
@@ -581,13 +1003,13 @@ def phase_train(torch, dev):
                 step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev)
                 losses, grads = [], None
                 for i in range(3):
-                    before = counts(cr)
+                    before = counts()
                     losses.append(step.loss_and_grads(batch))
                     if grads is None:
                         grads = {n: p.grad.clone()
                                  for n, p in step.model.named_parameters()}
                     step.update()
-                    after = counts(cr)
+                    after = counts()
                     rose = {k: after[k] - before[k] for k in KERNELS}
                     want = {k: 0 for k in KERNELS}
                     want.update({pair[fusion][0]: 2, pair[fusion][1]: 2,
@@ -604,9 +1026,9 @@ def phase_train(torch, dev):
                 ref_model.load_state_dict(init)
                 ref = TrainStep(ref_cfg, ref_model, STEPS_PER_EPOCH,
                                 device=dev)
-                before = counts(cr)
+                before = counts()
                 ref_loss = float(ref.loss_and_grads(batch))
-                if counts(cr) != before:
+                if counts() != before:
                     fail("the stacked step launched a kernel")
                 tol = F32_TOL if dtype == "float32" else BF16_TOL
                 if abs(losses[0] - ref_loss) > tol * abs(ref_loss):
@@ -637,7 +1059,7 @@ def phase_train(torch, dev):
                     vjp_cases.append((cfg, init))
                     bf16_model_errors(torch, cfg, init, batch, grads,
                                       ref_grads)
-    launched = counts(cr)
+    launched = counts()
     log(f"train: launches {launched}")
 
     # bfloat16: the two-layer encoder's gradients under one seeded dense
@@ -691,6 +1113,7 @@ def phase_train(torch, dev):
 def phase_times(torch, dev):
     from eeg_gnn_tpu_torch.graphs import compute_supports_torch
     from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
     from eeg_gnn_tpu_torch.serve import Predictor
     from eeg_gnn_tpu_torch.train import TrainStep
@@ -747,17 +1170,18 @@ def phase_times(torch, dev):
                     f"{work[0] / ms / 1e9:.2f} TFLOP/s")
     log("library_ms: none — no single PyTorch call computes a DCGRU "
         "recurrence or its BPTT (torch.nn.GRU has no graph diffusion)")
-    for d in (100, 64):
-        gen = torch.Generator().manual_seed(d)
-        part = torch.randn((BATCH, cr.dw_size(3, d, H)), generator=gen).to(
-            dev)
+    # the encoder's slabs per layer (D=100, 64) and the SSL decoder's slab
+    for d, width in ((100, cr.dw_size(3, 100, H)), (64, cr.dw_size(3, 64, H)),
+                     ("dec", cd.dec_dw_size(3, 100, H, SSL_LAYERS))):
+        gen = torch.Generator().manual_seed(width)
+        part = torch.randn((BATCH, width), generator=gen).to(dev)
         ms = time_ms(torch, lambda: cr.dcgru_dw_reduce(part))
         plain_ms = time_ms(torch, lambda: cr.dcgru_dw_reduce_plain(part))
         lib_ms = time_ms(torch, lambda: torch.sum(part, dim=0))
-        work = reduce_work(BATCH, part.shape[1])
+        work = reduce_work(BATCH, width)
         bms, by = bound_ms([work])
         out[("dcgru_dw_reduce", "float32", d)] = (ms, plain_ms, work, lib_ms)
-        log(f"time dcgru_dw_reduce D={d} M=3 B={BATCH} W={part.shape[1]}: "
+        log(f"time dcgru_dw_reduce D={d} M=3 B={BATCH} W={width}: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
             f"{work[1] / 1e6:.2f} MB)")
@@ -791,28 +1215,76 @@ def phase_times(torch, dev):
             step = TrainStep(cfg, build_model(
                 cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
                 device=dev)
-            ms = time_ms(torch, lambda: step(batch), lead=False)
-            loop = []
-            for _ in range(3):  # back to back, one sync: bench.py's loop
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(REPS):
-                    loss = step(batch)
-                end.record()
-                end.synchronize()
-                loop.append(start.elapsed_time(end) / REPS)
-            if not np.isfinite(float(loss)):
-                fail(f"train step {gt} {dtype}: loss {float(loss)}")
-            out[("train", gt, dtype)] = (ms, min(loop))
+            ms, best, loss = time_steps(torch, lambda: step(batch))
+            if not np.isfinite(loss):
+                fail(f"train step {gt} {dtype}: loss {loss}")
+            out[("train", gt, dtype)] = (ms, best)
             log(f"time train step {gt} {dtype} input_fusion=True "
                 f"B={BATCH}: {ms:.3f} ms/step (median of {REPS}, each "
                 f"synchronised), {BATCH / ms * 1e3:.1f} clips/s; "
-                f"{REPS} back to back: {min(loop):.3f} ms/step, "
-                f"{BATCH / min(loop) * 1e3:.1f} clips/s (best of 3)")
+                f"{REPS} back to back: {best:.3f} ms/step, "
+                f"{BATCH / best * 1e3:.1f} clips/s (best of 3)")
             if dtype == "bfloat16":
                 profile_batch(torch, lambda: step(batch),
                               f"train step {gt} {dtype}", ms)
+    return out
+
+
+def phase_ssl_times(torch, dev):
+    """The decoder kernels beside their plain versions and bounds, and the
+    SSL train step's ms and clips/s."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        args = dec_inputs(torch, dev, layers=SSL_LAYERS, m=3, shared=False,
+                          b=BATCH, dtype=dtype, force="mixed", seed=300)
+        bwd = dec_bwd_args(torch, args, SSL_LAYERS, seed=301)
+        sb = 2 if dtype == torch.bfloat16 else 4
+        kw = dict(d=100, m=3, layers=SSL_LAYERS, b=BATCH, a_batch=BATCH,
+                  stream_bytes=sb)
+        for name, kern, plain, a, work in (
+                (DEC[0], cd.dcgru_decoder_fwd, cd.dcgru_decoder_fwd_plain,
+                 args, dec_work(**kw)),
+                (DEC[1], cd.dcgru_decoder_bwd, cd.dcgru_decoder_bwd_plain,
+                 bwd, dec_bwd_work(**kw))):
+            # the train step's forward saves its residuals
+            rkw = {"residuals": True} if name == DEC[0] else {}
+            ms = time_ms(torch, lambda: kern(*a, SSL_LAYERS, **rkw))
+            plain_ms = time_ms(torch, lambda: plain(*a, SSL_LAYERS, **rkw))
+            bms, by = bound_ms([work])
+            out[(name, tag)] = (ms, plain_ms, work)
+            log(f"time {name} L={SSL_LAYERS} T_out={T_OUT} D=100 M=3 "
+                f"B={BATCH} {tag}: kernel {ms:.4f} ms"
+                f"{' (with its dW reduce)' if name == DEC[1] else ''}, "
+                f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+                f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
+                f"{work[0] / ms / 1e9:.2f} TFLOP/s")
+    log("library_ms: none — no single PyTorch call computes a DCGRU "
+        "seq2seq decoder or its BPTT")
+
+    # the SSL step as ssl_bench.py times it: supports built once, on device
+    batch = ssl_batch(torch, dev, BATCH, seed=6)
+    for dtype in ("bfloat16", "float32"):
+        cfg = ssl_cfg("combined", dtype, use_curriculum_learning=True)
+        b = dict(batch, supports=compute_supports_torch(
+            batch["adjacency"], cfg.filter_type))
+        step = ssl_step(torch, cfg, build_model(
+            cfg, torch.Generator().manual_seed(11)).state_dict(), dev)
+        run = lambda: step(b, batches_seen=BATCHES_SEEN)
+        ms, best, loss = time_steps(torch, run)
+        if not np.isfinite(loss):
+            fail(f"ssl train step {dtype}: loss {loss}")
+        out[("ssl", dtype)] = (ms, best)
+        log(f"time ssl train step combined {dtype} L={SSL_LAYERS} "
+            f"T_in={T} T_out={T_OUT} B={BATCH}: {ms:.3f} ms/step (median "
+            f"of {REPS}, each synchronised), {BATCH / ms * 1e3:.1f} "
+            f"clips/s; {REPS} back to back: {best:.3f} ms/step, "
+            f"{BATCH / best * 1e3:.1f} clips/s (best of 3)")
+        profile_batch(torch, run, f"ssl train step combined {dtype}", ms)
     return out
 
 
@@ -860,14 +1332,21 @@ def main():
     worst_b, main_abs_b = phase_bwd_parity(torch, dev)
     log(f"parity: worst normalized error {worst_b}")
     main_abs.update(main_abs_b)
+    worst_d, main_abs_d = phase_dec_parity(torch, dev)
+    log(f"parity: worst normalized error {worst_d}")
+    main_abs.update(main_abs_d)
     served = phase_serve(torch)
     trained = phase_train(torch, dev)
-    paths = {"serve": served, "train": trained}
-    for path, names in (("serve", FWD), ("train", KERNELS)):
+    ssl = phase_ssl(torch, dev)
+    paths = {"serve": served, "train": trained, "ssl": ssl}
+    for path, names in (("serve", FWD), ("train", FWD + BWD +
+                                          ("dcgru_dw_reduce",)),
+                        ("ssl", SSL_KERNELS)):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
     times = phase_times(torch, dev)
+    times.update(phase_ssl_times(torch, dev))
 
     kernels = []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"
@@ -886,7 +1365,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"eeg_gnn_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": served[name] + trained[name],
+            "launches": sum(c[name] for c in paths.values()),
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": main_abs[name],
             "ms": l0[0] + l1[0], "plain_ms": l0[1] + l1[1],
@@ -897,6 +1376,32 @@ def main():
                       + ("f32 slabs of (B, W)" if tag == "float32"
                          else "bf16 streams")
                       + ("; layer 0 without dx" if name == BWD[0] else "")),
+        })
+        if name == "dcgru_dw_reduce":
+            # the SSL step also sums the decoder's slab once
+            ms, plain_ms, work, lib_ms = times[(name, tag, "dec")]
+            dbms, dby = bound_ms([work])
+            kernels[-1]["decoder_slab"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": dbms,
+                "bound_by": dby, "library_ms": lib_ms,
+                "shape": f"B={BATCH}, W={int(work[0]) // BATCH} f32 "
+                         f"({SSL_LAYERS}-layer decoder, D=100, M=3)"}
+    dec = "eeg_gnn_tpu/ops/pallas_decoder.py"
+    for name, replaces in ((DEC[0], f"{dec}:157"), (DEC[1], f"{dec}:229")):
+        ms, plain_ms, work = times[(name, "bfloat16")]
+        bms, by = bound_ms([work])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "eeg_gnn_tpu_torch/csrc/dcgru_decoder.cu",
+            "replaces": replaces,
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": main_abs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": (f"{SSL_LAYERS} layers, T_out={T_OUT}, B={BATCH}, "
+                      f"N=19, H=64, D=100, M=3, bf16 streams"
+                      + ("; with its dW reduce" if name == DEC[1] else "")),
         })
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,20 +6,23 @@ anything of ``eeg_gnn_tpu``. Parameter names and layouts stay the
 reference's, so a JAX ``.npz`` checkpoint maps onto a port ``state_dict``
 key for key (``io/jax_params.py``).
 
-Slices 1 and 2 (this package today) serve and train DCRNN seizure
-detection and classification:
+Slices 1-3 (this package today) serve and train DCRNN seizure
+detection and classification, and run SSL next-window pre-training:
 
 - ``constants`` / ``config``  — the fields the model, ``Predictor`` and
                   the train step read.
 - ``graphs``    — spectral supports (host numpy oracles + batched torch).
 - ``ops``       — Chebyshev diffusion, the operator-stacked recurrence with
-                  its hand-written BPTT, and the DCGRU recurrence CUDA
-                  kernels, forward and backward (``csrc/``), with their
-                  plain PyTorch versions and autograd Functions.
-- ``models``    — DCGRU encoder, ``DCRNNClassifier`` and the registry.
+                  its hand-written BPTT, and the CUDA kernels (``csrc/``)
+                  of the DCGRU encoder recurrence and of the seq2seq
+                  decoder, forward and backward, with their plain PyTorch
+                  versions and autograd Functions.
+- ``models``    — DCGRU encoder and decoder, ``DCRNNClassifier``,
+                  ``DCRNNNextTimePred`` and the registry.
 - ``io``        — JAX parameter trees and ``.npz`` checkpoints.
 - ``serve``     — the fixed-shape batched ``Predictor``.
-- ``train``     — losses, clip + Adam + cosine LR, and ``TrainStep``.
+- ``train``     — losses (BCE, CE, masked regression), clip + Adam +
+                  cosine LR, and ``TrainStep`` (supervised and SSL).
 
 What is still to port is listed in ROADMAP.md.
 """

@@ -1,5 +1,5 @@
 """Experiment configuration: the fields of the JAX package's
-``ExperimentConfig`` that the DCRNN model, the ``Predictor`` and the
+``ExperimentConfig`` that the DCRNN models, the ``Predictor`` and the
 train step read, with the JAX defaults (``eeg_gnn_tpu/config.py``).
 
 Derived-field rule reproduced (reference ``args.py:196-221``):
@@ -16,7 +16,7 @@ from eeg_gnn_tpu_torch.constants import NUM_NODES
 
 @dataclasses.dataclass
 class ExperimentConfig:
-    task: str = "detection"  # detection | classification
+    task: str = "detection"  # detection | classification | SS pre-training
     graph_type: str = "individual"  # individual | combined
     max_seq_len: int = 60
 
@@ -27,7 +27,10 @@ class ExperimentConfig:
     dcgru_activation: str = "tanh"
     input_dim: int = 100
     num_classes: int = 1
+    output_dim: int = 100
     max_diffusion_step: int = 2
+    cl_decay_steps: int = 3000
+    use_curriculum_learning: bool = False
     test_batch_size: int = 128
     dropout: float = 0.0
     lr_init: float = 3e-4
@@ -63,6 +66,7 @@ class ExperimentConfig:
 
         return DCRNNConfig(
             input_dim=self.input_dim,
+            output_dim=self.output_dim,
             rnn_units=self.rnn_units,
             num_rnn_layers=num_rnn_layers or self.num_rnn_layers,
             max_diffusion_step=self.max_diffusion_step,
@@ -71,6 +75,8 @@ class ExperimentConfig:
             num_classes=self.num_classes,
             dcgru_activation=self.dcgru_activation,
             dropout=self.dropout,
+            cl_decay_steps=self.cl_decay_steps,
+            use_curriculum_learning=self.use_curriculum_learning,
             compute_dtype=self.dtype,
             recurrence=self.recurrence,
             input_fusion=self.input_fusion,

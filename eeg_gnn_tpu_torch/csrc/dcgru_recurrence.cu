@@ -39,15 +39,11 @@
 //   777). ru_seq / c_seq are written only when their pointers are non-null.
 // wgmma, TMA, bf16 weights and several clips per block are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dcgru_common.cuh"
 
 namespace {
 
-constexpr int kMaxNodes = 32;     // node count the register tiles admit
-constexpr int kRows = 10;         // rows of one output column per thread
-constexpr int kMaxThreads = 384;  // __launch_bounds__: <= 168 regs/thread
+using namespace dcgru;
 
 struct Params {
   const void* x;       // xin: (T,B,N,D); hoisted: x_proj (T,B,N,3H)
@@ -65,31 +61,6 @@ struct Params {
   int T, B, N, D, H, M, a_batch, act;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename S>
-__device__ __forceinline__ S from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 0) return tanhf(v);
-  if (act == 1) return fmaxf(v, 0.0f);
-  return v;
-}
-
-__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-
 // Shared-memory layout, in floats; every array starts 16-byte aligned.
 struct Smem {
   int a, h, in, hf, xf, ru, xc, total;
@@ -105,57 +76,6 @@ struct Smem {
     total = xc + (xin ? pad4(N * H) : 0);
   }
 };
-
-// acc[r] += sum_k f[row_r, k] * w[k * ldw] over k < K, rows r0.. (clamped
-// to N-1: the surplus rows of a ragged chunk repeat the last row and are
-// never stored). f rows are K floats, K % 4 == 0, 16-byte aligned.
-__device__ __forceinline__ void gemm_col(float (&acc)[kRows],
-                                         const float* __restrict__ f, int K,
-                                         int r0, int N,
-                                         const float* __restrict__ w,
-                                         int ldw) {
-  const float4* f4 = reinterpret_cast<const float4*>(f);
-  const int K4 = K / 4;
-  int row[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) row[r] = min(r0 + r, N - 1) * K4;
-#pragma unroll 2
-  for (int k4 = 0; k4 < K4; ++k4) {
-    const float* wk = w + (size_t)(4 * k4) * ldw;
-    const float w0 = __ldg(wk), w1 = __ldg(wk + ldw),
-                w2 = __ldg(wk + 2 * ldw), w3 = __ldg(wk + 3 * ldw);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 v = f4[row[r] + k4];
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
-    }
-  }
-}
-
-// dst[n, m*W + c] = sum_k A_m[n, k] * v[k] for the column v = src[:, c]
-// already in registers; m == 0 is the identity.
-__device__ __forceinline__ void diffuse_col(const float (&v)[kMaxNodes],
-                                            const float* __restrict__ sA,
-                                            int N, int m, float* dst,
-                                            int ldd) {
-  if (m == 0) {
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) dst[k * ldd] = v[k];
-    return;
-  }
-  const float* a = sA + (m - 1) * N * N;
-  for (int n = 0; n < N; ++n) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) acc = fmaf(a[n * N + k], v[k], acc);
-    dst[n * ldd] = acc;
-  }
-}
 
 template <typename S, bool XIN>
 __global__ void __launch_bounds__(kMaxThreads)

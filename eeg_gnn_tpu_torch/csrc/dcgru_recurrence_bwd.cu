@@ -66,17 +66,11 @@
 // wgmma, TMA, register-tiled dW over a chunk of steps, several clips per
 // block and bf16 weights are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dcgru_common.cuh"
 
 namespace {
 
-constexpr int kMaxNodes = 32;     // node count the register arrays admit
-constexpr int kRows = 10;         // node rows per weight-transpose task
-constexpr int kTRows = 8;         // node rows per A^T-apply task
-constexpr int kWRows = 4;         // dW rows per accumulation task
-constexpr int kMaxThreads = 384;  // __launch_bounds__: <= 168 regs/thread
+using namespace dcgru;
 
 struct Params {
   const float* a_ops;  // (M, a_batch, N, N), a_batch in {1, B}
@@ -95,28 +89,6 @@ struct Params {
   int T, B, N, D, H, M, a_batch, act;
   int need_dx;         // xin: 0 skips the x cotangent (a layer fed data)
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename S>
-__device__ __forceinline__ S from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// act'(pre) as a function of c = act(pre): tanh, relu, linear
-__device__ __forceinline__ float act_grad(float c, int act) {
-  if (act == 0) return 1.0f - c * c;
-  if (act == 1) return c > 0.0f ? 1.0f : 0.0f;
-  return 1.0f;
-}
-
-__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory layout, in floats; every array starts 16-byte aligned.
 // D is 0 for the hoisted kernel (no x, x features or x cotangent).
@@ -140,125 +112,6 @@ struct Smem {
     total = dxa + pad4(N * D);
   }
 };
-
-// Floats of one clip's dW slab:
-// [dWxg (MD,2H) | dWxc (MD,H) | dWg (MH,2H) | dWc (MH,H) | dbg (2H) | dbc (H)]
-__host__ __device__ inline size_t slab_size(int D, int H, int M) {
-  return (size_t)(M * D + M * H) * 3 * H + 3 * H;
-}
-
-// acc[r] += sum_k f[row_r, k] * w[k * ldw] over k < K, rows r0.. (clamped
-// to N-1: surplus rows of a ragged chunk repeat the last row and are never
-// stored). f rows are K floats, K % 4 == 0, 16-byte aligned.
-__device__ __forceinline__ void gemm_col(float (&acc)[kRows],
-                                         const float* __restrict__ f, int K,
-                                         int r0, int N,
-                                         const float* __restrict__ w,
-                                         int ldw) {
-  const float4* f4 = reinterpret_cast<const float4*>(f);
-  const int K4 = K / 4;
-  int row[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) row[r] = min(r0 + r, N - 1) * K4;
-#pragma unroll 2
-  for (int k4 = 0; k4 < K4; ++k4) {
-    const float* wk = w + (size_t)(4 * k4) * ldw;
-    const float w0 = __ldg(wk), w1 = __ldg(wk + ldw),
-                w2 = __ldg(wk + 2 * ldw), w3 = __ldg(wk + 3 * ldw);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 v = f4[row[r] + k4];
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
-    }
-  }
-}
-
-// dst[n * ldd] = sum_k A_m[n, k] * v[k] for the column v already in
-// registers; m == 0 is the identity.
-__device__ __forceinline__ void diffuse_col(const float (&v)[kMaxNodes],
-                                            const float* __restrict__ sA,
-                                            int N, int m, float* dst,
-                                            int ldd) {
-  if (m == 0) {
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) dst[k * ldd] = v[k];
-    return;
-  }
-  const float* a = sA + (m - 1) * N * N;
-  for (int n = 0; n < N; ++n) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) acc = fmaf(a[n * N + k], v[k], acc);
-    dst[n * ldd] = acc;
-  }
-}
-
-// acc[i] = sum_m sum_k A_m[k, n0+i] * src[k * lds + m * W] for the rows
-// n0 + i < N: the adjoint of the diffusion, applied to one column of the
-// (N, M*W) m-major slab src.
-__device__ __forceinline__ void diffuse_t_col(float (&acc)[kTRows],
-                                              const float* __restrict__ sA,
-                                              int N, int M,
-                                              const float* src, int lds,
-                                              int W, int n0) {
-#pragma unroll
-  for (int i = 0; i < kTRows; ++i)
-    acc[i] = n0 + i < N ? src[(n0 + i) * lds] : 0.0f;
-  for (int m = 1; m < M; ++m) {
-    float v[kMaxNodes];
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) v[k] = src[k * lds + m * W];
-    const float* a = sA + (m - 1) * N * N;
-#pragma unroll
-    for (int i = 0; i < kTRows; ++i) {
-      const int n = n0 + i;
-      if (n < N) {
-        float s = acc[i];
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) s = fmaf(a[k * N + n], v[k], s);
-        acc[i] = s;
-      }
-    }
-  }
-}
-
-// One dW task: rows i0..i0+kWRows-1 of column j of a (rows, cols) block
-// of the slab: sum_n feat[n, i] * dpre[n, j]; written at the first step,
-// added after.
-__device__ __forceinline__ void dw_quad(const float* __restrict__ feat,
-                                        int ldf, int i0,
-                                        const float* __restrict__ dpre,
-                                        int ldp, int j, int N, float* dst,
-                                        int cols, bool first) {
-  float acc[kWRows] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int n = 0; n < N; ++n) {
-    const float4 f = *reinterpret_cast<const float4*>(feat + n * ldf + i0);
-    const float d = dpre[n * ldp + j];
-    acc[0] = fmaf(f.x, d, acc[0]);
-    acc[1] = fmaf(f.y, d, acc[1]);
-    acc[2] = fmaf(f.z, d, acc[2]);
-    acc[3] = fmaf(f.w, d, acc[3]);
-  }
-  float* o = dst + (size_t)i0 * cols + j;
-#pragma unroll
-  for (int r = 0; r < kWRows; ++r)
-    o[r * cols] = first ? acc[r] : o[r * cols] + acc[r];
-}
-
-__device__ __forceinline__ void db_col(const float* __restrict__ dpre,
-                                       int ldp, int j, int N, float* dst,
-                                       bool first) {
-  float acc = 0.0f;
-  for (int n = 0; n < N; ++n) acc += dpre[n * ldp + j];
-  dst[j] = first ? acc : dst[j] + acc;
-}
 
 template <typename S, bool XIN>
 __global__ void __launch_bounds__(kMaxThreads)

@@ -1,9 +1,10 @@
-"""DCGRU: Diffusion-Convolutional GRU cell and encoder.
+"""DCGRU: Diffusion-Convolutional GRU cell, encoder and seq2seq decoder.
 
-Reference semantics: ``model/cell.py:121-225`` (cell) and
-``model/model.py:48-109`` (encoder), as in ``eeg_gnn_tpu/models/dcgru.py``.
+Reference semantics: ``model/cell.py:121-225`` (cell),
+``model/model.py:48-109`` (encoder) and ``model/model.py:112-204``
+(decoder), as in ``eeg_gnn_tpu/models/dcgru.py``.
 
-Each layer runs over the whole sequence at once (:func:`_layer_scan`):
+Each encoder layer runs over the whole sequence at once (:func:`_layer_scan`):
 
 - ``recurrence="pallas"`` with ``input_fusion``: the CUDA kernel that
   diffuses and projects the raw layer input itself
@@ -14,18 +15,27 @@ Each layer runs over the whole sequence at once (:func:`_layer_scan`):
 - ``recurrence="stacked"``: the same hoisted projection feeding the plain
   operator-stacked loop with its hand-written BPTT (``ops/recurrent.py``).
 
+The decoder (:func:`decoder_apply`) runs as two CUDA kernels over all
+T_out steps and all layers (``ops/cuda_decoder.py``) with
+``recurrence="pallas"``, and as a plain scan of
+:func:`dcgru_cell_apply_ops` under autograd with ``"stacked"`` or with
+dropout in training. The scheduled-sampling draws are one (T_out,) force
+vector drawn from a ``torch.Generator`` before the loop, or given.
+
 When autograd records (training), the ``pallas`` branches run through the
-autograd Functions of ``ops/cuda_recurrent.py``, whose forward kernels save
-the ru/c residuals and whose backward is the BPTT kernel; otherwise
-(serving, ``torch.inference_mode``) they call the forward kernels without
-residuals. On CPU tensors the kernel wrappers compute with their plain
-versions.
+autograd Functions of ``ops/cuda_recurrent.py`` and ``ops/cuda_decoder.py``,
+whose forward kernels save their residuals and whose backward is the BPTT
+kernel; otherwise (serving, ``torch.inference_mode``) they call the
+forward kernels without residuals. On CPU tensors the kernel wrappers
+compute with their plain versions.
 
 Parameter layout matches reference checkpoints exactly (weight row
-``d*M + m``). Reference init quirk, reproduced deliberately:
-``DiffusionGraphConv`` is always built with ``bias_start=0.0`` — the
-``bias_start=1.0`` passed by ``DCGRUCell.forward`` (cell.py:197) is an
-unused argument of the forward method — so gate biases init to zero.
+``d*M + m``), including the decoder quirk that layers >= 1 share one cell
+(reference model.py:126-143). Reference init quirk, reproduced
+deliberately: ``DiffusionGraphConv`` is always built with
+``bias_start=0.0`` — the ``bias_start=1.0`` passed by ``DCGRUCell.forward``
+(cell.py:197) is an unused argument of the forward method — so gate
+biases init to zero.
 """
 
 from __future__ import annotations
@@ -42,9 +52,15 @@ from eeg_gnn_tpu_torch.ops.cuda_recurrent import (
     dcgru_recurrence_fwd,
     dcgru_recurrence_xin_fwd,
 )
+from eeg_gnn_tpu_torch.ops.cuda_decoder import (
+    dcgru_decoder_fwd,
+    dcgru_decoder_recurrence,
+)
 from eeg_gnn_tpu_torch.ops.diffusion import chebyshev_diffusion
 from eeg_gnn_tpu_torch.ops.recurrent import (
     _act_pair,
+    _apply_ops,
+    _contract_w,
     chebyshev_operators,
     dcgru_layer_recurrence,
     rearrange_hidden_weight,
@@ -255,6 +271,225 @@ def encoder_apply(cfgs, params, supports, x_seq, h0: Optional[torch.Tensor] = No
         h_last, cur = _layer_scan(cfg, p, supports, cur, h_init)
         lasts.append(h_last)
     return torch.stack(lasts, dim=0).to(x_seq.dtype), cur
+
+
+def dcgru_cell_apply_ops(cfg: DCGRUConfig, w_gate_r, w_cand_r, gate_b,
+                         cand_b, a_ops, x, h):
+    """One DCGRU step on a precomputed operator stack, in plain torch ops
+    (autograd differentiates it): the decoder scan's cell.
+
+    w_gate_r / w_cand_r: (M, D_total, 2H / H) rearranged reference-layout
+    weights (``rearrange_hidden_weight(w, D_total, M)``); a_ops: (M, B or
+    1, N, N); x: (B, N, input_dim); h: (B, N, num_units).
+    """
+    act, _ = _act_pair(cfg.activation)
+    h_units = cfg.num_units
+    xh = torch.cat([x, h], dim=-1)
+    ru = torch.sigmoid(_contract_w(_apply_ops(a_ops, xh), w_gate_r) + gate_b)
+    r, u = ru[..., :h_units], ru[..., h_units:]
+    xrh = torch.cat([x, r * h], dim=-1)
+    c = act(_contract_w(_apply_ops(a_ops, xrh), w_cand_r) + cand_b)
+    return u * h + (1.0 - u) * c
+
+
+def dropout(x, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None):
+    """Inverted dropout (``eeg_gnn_tpu/models/dcrnn.py:81-86``) whose mask
+    comes from ``generator`` (on x's device). JAX's PRNG stream cannot be
+    reproduced, so parity tests run with rate 0, the flagship value."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# Decoder (seq2seq with scheduled sampling)
+# ---------------------------------------------------------------------------
+
+
+def decoder_init(generator: torch.Generator, input_dim, num_units,
+                 max_diffusion_step, num_nodes, num_supports, num_layers,
+                 output_dim, activation="tanh"):
+    """Decoder params on the CPU, as ``eeg_gnn_tpu/models/dcgru.py:473-496``:
+    layers >= 1 share ONE cell (reference model.py:126-143), stored once
+    under ``shared`` (only when num_layers > 1); the projection keeps the
+    ``nn.Linear`` layout, weight (output_dim, num_units), and its uniform
+    init. Returns (params, (cfg_layer0, cfg_shared))."""
+    cfg0 = DCGRUConfig(input_dim, num_units, max_diffusion_step, num_nodes,
+                       num_supports, activation)
+    cfg_shared = DCGRUConfig(num_units, num_units, max_diffusion_step,
+                             num_nodes, num_supports, activation)
+    params = {"layer0": init_dcgru_cell(generator, cfg0)}
+    if num_layers > 1:
+        params["shared"] = init_dcgru_cell(generator, cfg_shared)
+    bound = 1.0 / (num_units ** 0.5)
+    params["proj_w"] = torch.empty(output_dim, num_units).uniform_(
+        -bound, bound, generator=generator)
+    params["proj_b"] = torch.empty(output_dim).uniform_(
+        -bound, bound, generator=generator)
+    return params, (cfg0, cfg_shared)
+
+
+def draw_force(t_out: int, teacher_forcing_ratio, generator, device):
+    """The per-step force vector (T_out,) float32: step t feeds the ground
+    truth to step t+1 with probability ``teacher_forcing_ratio`` (a float
+    or a 0-d tensor), drawn from ``generator`` on ``device``, all at once
+    and with no host sync; all zeros (eval semantics) when it is None."""
+    if teacher_forcing_ratio is None:
+        return torch.zeros(t_out, device=device)
+    draws = torch.rand(t_out, generator=generator, device=device)
+    return (draws < teacher_forcing_ratio).float()
+
+
+def decoder_kernel_weights(cfg0: DCGRUConfig, params, num_layers):
+    """The decoder params in the kernels' layout, as ``_decoder_pallas``
+    (JAX ``models/dcgru.py:631-650``) re-packs them: per cell (layer 0,
+    then the shared one, None when ``num_layers == 1``) the input rows
+    m-major (M*Din, O), the hidden rows (M*H, O) and the two biases; then
+    ``proj_w.T`` (H, D) and ``proj_b``: the 14 weight arguments of
+    ``ops/cuda_decoder.dcgru_decoder_fwd``."""
+    m, h, d = cfg0.num_matrices, cfg0.num_units, cfg0.input_dim
+
+    def split_mmajor(p_cell, d_in):
+        cut = d_in * m
+        wx = [p_cell[k][:cut].reshape(d_in, m, -1).transpose(0, 1)
+              .reshape(m * d_in, -1) for k in ("gate_w", "cand_w")]
+        wh = [rearrange_hidden_weight(p_cell[k][cut:], h, m).reshape(m * h, -1)
+              for k in ("gate_w", "cand_w")]
+        return tuple(w.contiguous() for w in (*wx, *wh)) + (
+            p_cell["gate_b"], p_cell["cand_b"])
+
+    shared = (split_mmajor(params["shared"], h) if num_layers > 1
+              else (None,) * 6)
+    return (*split_mmajor(params["layer0"], d), *shared,
+            params["proj_w"].t().contiguous(), params["proj_b"])
+
+
+def _decoder_kernels(cfg0: DCGRUConfig, params, a_ops, dec_inputs, force,
+                     h0_stack, num_layers):
+    """The decoder through the kernels of ``ops/cuda_decoder.py``, as
+    ``_decoder_pallas`` (JAX ``models/dcgru.py:618-658``) calls them:
+    weights re-packed by :func:`decoder_kernel_weights`, x in the stream
+    dtype, the output cast to f32."""
+    args = (a_ops, dec_inputs.to(_DTYPES[cfg0.compute_dtype]).contiguous(),
+            force.float().contiguous(),
+            *decoder_kernel_weights(cfg0, params, num_layers),
+            h0_stack.float().contiguous(), num_layers, cfg0.activation)
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in args):
+        out = dcgru_decoder_recurrence(*args)
+    else:
+        out, *_ = dcgru_decoder_fwd(*args)
+    return out.float()
+
+
+def decoder_apply(cfgs, params, supports, dec_inputs, h0_stack, num_layers,
+                  *, teacher_forcing_ratio=None, dropout_rate=0.0,
+                  generator: Optional[torch.Generator] = None,
+                  training=False, force=None):
+    """Seq2seq DCGRU decoder with GO-symbol start and scheduled sampling
+    (reference ``DCGRUDecoder.forward``, model.py:149-204).
+
+    Args:
+        cfgs: (cfg_layer0, cfg_shared) as :func:`decoder_init` returns them,
+            with the model's ``compute_dtype`` and ``recurrence``.
+        params: {"layer0", "shared" (num_layers > 1), "proj_w", "proj_b"}.
+        supports: (S, ..., N, N).
+        dec_inputs: (T_out, B, N, output_dim) ground truth, time-major.
+        h0_stack: (L, B, N, H) the encoder's final states.
+        teacher_forcing_ratio: per-step probability of feeding the ground
+            truth (None: never, eval semantics).
+        dropout_rate / training: dropout before the projection.
+        generator: draws the force vector and the dropout masks.
+        force: (T_out,) an explicit force vector in place of the draw (the
+            parity tests feed the one JAX drew).
+
+    Returns:
+        (T_out, B, N, output_dim) float32 predictions.
+
+    ``recurrence="pallas"`` runs the two decoder kernels (on the CPU their
+    plain versions), unless dropout is active in training, which, as in
+    JAX (``:569``), takes the plain stacked scan; so does ``"stacked"``.
+    """
+    cfg0, cfg_shared = cfgs
+    t_out = dec_inputs.shape[0]
+    use_dropout = training and dropout_rate > 0.0
+    if force is None:
+        force = draw_force(t_out, teacher_forcing_ratio, generator,
+                           dec_inputs.device)
+    m = cfg0.num_matrices
+    a_ops = chebyshev_operators(supports.float(), cfg0.max_diffusion_step)
+    if a_ops.ndim == 3:  # shared (N, N) graph: broadcast batch dim
+        a_ops = a_ops[:, None]
+    a_ops = a_ops.contiguous()
+    if cfg0.recurrence == "pallas" and not use_dropout:
+        return _decoder_kernels(cfg0, params, a_ops, dec_inputs, force,
+                                h0_stack, num_layers)
+    if cfg0.recurrence not in ("pallas", "stacked"):
+        raise ValueError(f"unknown recurrence {cfg0.recurrence!r} "
+                         "(the port has 'pallas' and 'stacked')")
+
+    cells = []
+    for i in range(num_layers):
+        cfg_i = cfg0 if i == 0 else cfg_shared
+        p_i = params["layer0"] if i == 0 else params["shared"]
+        d_total = cfg_i.input_dim + cfg_i.num_units
+        cells.append((cfg_i,
+                      rearrange_hidden_weight(p_i["gate_w"], d_total, m),
+                      rearrange_hidden_weight(p_i["cand_w"], d_total, m),
+                      p_i["gate_b"], p_i["cand_b"]))
+    # the carry is f32 whatever the inputs' dtype
+    h = list(h0_stack.float().unbind(0))
+    cur = torch.zeros(dec_inputs.shape[1:], dtype=torch.float32,
+                      device=dec_inputs.device)
+    outputs = []
+    for t in range(t_out):
+        out = cur
+        for i, cell in enumerate(cells):
+            h[i] = dcgru_cell_apply_ops(cell[0], *cell[1:], a_ops, out, h[i])
+            out = h[i]
+        pre = dropout(out, dropout_rate, use_dropout, generator)
+        projected = torch.matmul(pre, params["proj_w"].t()) + params["proj_b"]
+        outputs.append(projected)
+        cur = torch.where(force[t] > 0, dec_inputs[t].float(), projected)
+    return torch.stack(outputs)
+
+
+class DCGRUDecoder(nn.Module):
+    """Parameter holder of the decoder: ``layer0``, ``shared`` (only with
+    more than one layer) and the projection ``proj`` (``nn.Linear``
+    layout). ``generator`` draws them as :func:`decoder_init`; without one
+    they are zeros, a template for ``load_state_dict``."""
+
+    def __init__(self, cfgs, num_layers: int, output_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg0, cfg_shared = cfgs
+        self.layer0 = DCGRUCell(cfg0)
+        if num_layers > 1:
+            self.shared = DCGRUCell(cfg_shared)
+        self.proj = nn.Linear(cfg0.num_units, output_dim)
+        if generator is None:
+            nn.init.zeros_(self.proj.weight)
+            nn.init.zeros_(self.proj.bias)
+            return
+        init, _ = decoder_init(generator, cfg0.input_dim, cfg0.num_units,
+                               cfg0.max_diffusion_step, cfg0.num_nodes,
+                               cfg0.num_supports, num_layers, output_dim,
+                               cfg0.activation)
+        sd = {f"{cell}.{k}": v for cell in ("layer0", "shared")
+              for k, v in init.get(cell, {}).items()}
+        sd.update({"proj.weight": init["proj_w"], "proj.bias": init["proj_b"]})
+        self.load_state_dict(sd)
+
+    def params(self) -> Dict[str, object]:
+        out = {"layer0": self.layer0.params(), "proj_w": self.proj.weight,
+               "proj_b": self.proj.bias}
+        if hasattr(self, "shared"):
+            out["shared"] = self.shared.params()
+        return out
 
 
 class DCGRUCell(nn.Module):

@@ -1,10 +1,12 @@
-"""DCRNN seizure detection / classification model (reference
-``model/model.py:208-272``), the classification half of
-``eeg_gnn_tpu/models/dcrnn.py`` as an ``nn.Module``."""
+"""DCRNN task models as ``nn.Module`` s, the counterparts of
+``eeg_gnn_tpu/models/dcrnn.py``: seizure detection / classification
+(reference ``model/model.py:208-272``) and self-supervised next-window
+prediction (reference ``model/model.py:277-360``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -12,6 +14,10 @@ from torch import nn
 
 from eeg_gnn_tpu_torch.models.dcgru import (
     DCGRUCell,
+    DCGRUConfig,
+    DCGRUDecoder,
+    decoder_apply,
+    dropout,
     encoder_apply,
     encoder_configs,
 )
@@ -20,9 +26,10 @@ from eeg_gnn_tpu_torch.models.dcgru import (
 @dataclasses.dataclass(frozen=True)
 class DCRNNConfig:
     """Static model configuration (the subset of the reference args surface
-    the classification model reads, args.py:80-128)."""
+    the DCRNN models read, args.py:80-128)."""
 
     input_dim: int = 100
+    output_dim: int = 100
     rnn_units: int = 64
     num_rnn_layers: int = 2
     max_diffusion_step: int = 2
@@ -31,6 +38,8 @@ class DCRNNConfig:
     num_classes: int = 1
     dcgru_activation: str = "tanh"
     dropout: float = 0.0
+    cl_decay_steps: int = 3000
+    use_curriculum_learning: bool = False
     compute_dtype: str = "float32"
     recurrence: str = "pallas"
     input_fusion: bool = False
@@ -43,16 +52,15 @@ class DCRNNConfig:
             self.input_fusion)
 
 
-def dropout(x, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None):
-    """Inverted dropout (``eeg_gnn_tpu/models/dcrnn.py:81-86``) whose mask
-    comes from ``generator`` (on x's device). JAX's PRNG stream cannot be
-    reproduced, so parity tests run with rate 0, the flagship value."""
-    if not training or rate <= 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+def compute_sampling_threshold(cl_decay_steps, global_step):
+    """Scheduled-sampling teacher-forcing ratio (reference utils.py:385-390):
+    a float for a number ``global_step``, a 0-d tensor on its device for a
+    tensor."""
+    if isinstance(global_step, torch.Tensor):
+        return cl_decay_steps / (cl_decay_steps
+                                 + torch.exp(global_step / cl_decay_steps))
+    return cl_decay_steps / (cl_decay_steps
+                             + math.exp(global_step / cl_decay_steps))
 
 
 def last_relevant(output, lengths):
@@ -106,3 +114,59 @@ class DCRNNClassifier(nn.Module):
         hidden = torch.relu(dropout(last, self.cfg.dropout, self.training,
                                     generator))
         return self.fc(hidden).amax(dim=1)
+
+
+class DCRNNNextTimePred(nn.Module):
+    """Self-supervised next-window prediction: the encoder's final states
+    start a seq2seq decoder with scheduled sampling (reference
+    ``DCRNNModel_nextTimePred``; JAX ``init_next_time_pred_model`` +
+    ``next_time_pred_apply``).
+
+    ``generator`` draws the initial weights as the JAX package does
+    (xavier-normal cells, zero biases, ``nn.Linear``-style uniform
+    projection; the decoder's layers >= 1 share one cell); without one
+    the parameters are zeros, a template for ``load_state_dict``.
+    State-dict keys follow the JAX parameter tree:
+    ``encoder.<i>.{gate_w,gate_b,cand_w,cand_b}``, ``decoder.layer0.*``,
+    ``decoder.shared.*`` (more than one layer) and ``decoder.proj.weight``
+    / ``decoder.proj.bias`` (``proj_w`` / ``proj_b``).
+    """
+
+    def __init__(self, cfg: DCRNNConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.cell_cfgs = cfg.encoder_cfgs()
+        self.encoder = nn.ModuleList(
+            [DCGRUCell(c, generator) for c in self.cell_cfgs])
+        mk = lambda d: DCGRUConfig(
+            d, cfg.rnn_units, cfg.max_diffusion_step, cfg.num_nodes,
+            cfg.num_supports, cfg.dcgru_activation, cfg.compute_dtype,
+            cfg.recurrence)
+        self.dec_cfgs = (mk(cfg.output_dim), mk(cfg.rnn_units))
+        self.decoder = DCGRUDecoder(self.dec_cfgs, cfg.num_rnn_layers,
+                                    cfg.output_dim, generator)
+
+    def forward(self, enc_inputs, dec_inputs, supports, batches_seen=None,
+                generator: Optional[torch.Generator] = None):
+        """enc_inputs: (B, T_in, N, input_dim); dec_inputs: (B, T_out, N,
+        output_dim), the ground truth that scheduled sampling feeds back;
+        supports: (S, ..., N, N); batches_seen: the sample counter of the
+        curriculum (read when training with ``use_curriculum_learning``);
+        generator: draws the force vector and dropout masks. Returns (B,
+        T_out, N, output_dim) float32 predictions."""
+        cfg = self.cfg
+        hidden_stack, _ = encoder_apply(
+            self.cell_cfgs, [c.params() for c in self.encoder], supports,
+            enc_inputs.transpose(0, 1))
+        ratio = None
+        if (self.training and cfg.use_curriculum_learning
+                and batches_seen is not None):
+            ratio = compute_sampling_threshold(cfg.cl_decay_steps,
+                                               batches_seen)
+        outputs = decoder_apply(
+            self.dec_cfgs, self.decoder.params(), supports,
+            dec_inputs.transpose(0, 1), hidden_stack, cfg.num_rnn_layers,
+            teacher_forcing_ratio=ratio, dropout_rate=cfg.dropout,
+            generator=generator, training=self.training)
+        return outputs.transpose(0, 1)

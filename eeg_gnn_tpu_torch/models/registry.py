@@ -1,7 +1,9 @@
 """Model registry over ``--model_name`` (reference train.py:112-126).
 
-The port has the DCRNN classification model so far; the LSTM, CNN-LSTM
-and DenseCNN baselines are still to port (ROADMAP.md, Queue 1).
+The port has the DCRNN models so far: detection / classification, and the
+next-window predictor of SSL pre-training (the JAX trainer's choice,
+``train/trainer.py:626-629``). The LSTM, CNN-LSTM and DenseCNN baselines
+are still to port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -21,12 +23,15 @@ def build_model(cfg: ExperimentConfig,
     """The model for ``cfg`` on the CPU: weights drawn from ``generator``,
     or zeros (a template for ``load_state_dict``) without one."""
     if cfg.model_name == "dcrnn":
-        if cfg.task not in ("detection", "classification"):
-            raise NotImplementedError(
-                f"task {cfg.task!r} is not ported yet (SSL pre-training is "
-                "a later slice; see ROADMAP.md)")
-        from eeg_gnn_tpu_torch.models.dcrnn import DCRNNClassifier
+        from eeg_gnn_tpu_torch.models.dcrnn import (
+            DCRNNClassifier,
+            DCRNNNextTimePred,
+        )
 
+        if cfg.task == "SS pre-training":
+            return DCRNNNextTimePred(cfg.dcrnn_config(), generator)
+        if cfg.task not in ("detection", "classification"):
+            raise ValueError(f"unknown task {cfg.task!r}")
         return DCRNNClassifier(cfg.dcrnn_config(), generator)
     if cfg.model_name in _NOT_PORTED:
         raise NotImplementedError(

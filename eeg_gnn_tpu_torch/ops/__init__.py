@@ -1,3 +1,10 @@
+from eeg_gnn_tpu_torch.ops.cuda_decoder import (  # noqa: F401
+    dcgru_decoder_bwd,
+    dcgru_decoder_bwd_plain,
+    dcgru_decoder_fwd,
+    dcgru_decoder_fwd_plain,
+    dcgru_decoder_recurrence,
+)
 from eeg_gnn_tpu_torch.ops.cuda_recurrent import (  # noqa: F401
     dcgru_dw_reduce,
     dcgru_layer_recurrence_fused,

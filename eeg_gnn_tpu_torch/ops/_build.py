@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``_build/lib<name>-<sha>.so`` inside the package, where ``<sha>``
-hashes the source and the compiler flags: an edited source builds anew,
-an unchanged one is loaded as it is. The build runs at first use, never
+hashes the source, the ``csrc/*.cuh`` headers it may include and the
+compiler flags: an edited source or header builds anew, an unchanged one
+is loaded as it is. The build runs at first use, never
 at import, and only on a machine with ``nvcc`` (``$PATH`` first, then
 ``/usr/local/cuda/bin``).
 """
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    the shared ``csrc/*.cuh`` headers and the flags)."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for f in (name + ".cu", *headers):
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,0 +1,424 @@
+"""Whole-sequence DCGRU seq2seq decoder: CUDA kernels, their wrappers,
+their plain PyTorch versions, and the autograd Function built on them.
+
+The counterpart of the JAX package's ``ops/pallas_decoder.py``. Two
+kernels of ``csrc/dcgru_decoder.cu`` replace its Pallas kernels:
+
+- :func:`dcgru_decoder_fwd` <- ``_fwd_kernel_dec``: every step's L DCGRU
+  cells (layer 0 at the output width D, layers >= 1 one shared cell, the
+  reference's tied-weight quirk), the output projection and the
+  scheduled-sampling feedback select by the per-step force ``f_t``;
+- :func:`dcgru_decoder_bwd` <- ``_bwd_kernel_dec``: its BPTT, with the
+  per-layer dh carries and the ``din0`` feedback cotangent
+  (``pallas_decoder.py:31-41``); its per-clip dW slabs are summed by
+  ``ops/cuda_recurrent.dcgru_dw_reduce``.
+
+Each wrapper computes with its plain version when its input lies on the
+CPU, launches the kernel when it lies on a CUDA device, and raises
+otherwise or on what the kernel does not take; each counts its launches
+in ``<wrapper>.launches``.
+
+Layouts are the JAX kernels': weights m-major (input rows (M*Din, O),
+hidden rows (M*H, O)), ``wp`` = ``proj_w.T`` (H, D); residuals per node
+row with the layers side by side: in0 (T, B, N, D), h_seq and c_seq
+(T, B, N, L*H), ru_seq (T, B, N, L*2H). The x stream, proj, the residuals,
+the proj cotangent and dx are float32 or bfloat16 (the stream dtype);
+operators, force, weights, biases, h0_stack, dh0, every weight gradient
+and every sum are float32 (``pallas_decoder.py:441-449, 527-536``).
+
+:func:`dcgru_decoder_recurrence` is the ``torch.autograd.Function``
+counterpart of the ``custom_vjp`` ``dcgru_decoder_pallas``: no gradient
+for the operators or the force vector, and with ``num_layers == 1`` no
+shared cell (its arguments are None) and none of its gradients.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from eeg_gnn_tpu_torch.ops import _build
+from eeg_gnn_tpu_torch.ops.cuda_recurrent import (
+    _ACT_CODES,
+    _check,
+    _check_shapes,
+    _ptr,
+    _raise_on,
+    _split_dw,
+    _stream,
+    _transposed,
+    dcgru_dw_reduce,
+    dw_size,
+    xin_cell_step,
+)
+from eeg_gnn_tpu_torch.ops.recurrent import (
+    _act_pair,
+    _apply_ops,
+    _apply_ops_t,
+    _contract_w_t,
+    _weight_grad,
+    shift_h_prev,
+)
+
+_LIB = "dcgru_decoder"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(_LIB)
+    lib.dcgru_decoder_fwd.argtypes = (
+        [_P, _P, _P, _I] + [_P] * 12 + [_P] * 3 + [_P] * 5 + [_I] * 9 + [_P])
+    lib.dcgru_decoder_fwd.restype = _I
+    lib.dcgru_decoder_bwd.argtypes = (
+        [_P, _I] + [_P] * 9 + [_P] * 6 + [_P] * 4 + [_I] * 9 + [_P])
+    lib.dcgru_decoder_bwd.restype = _I
+    lib.dcgru_error_string.argtypes = [_I]
+    lib.dcgru_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dec_dw_size(m: int, d: int, h_units: int, num_layers: int) -> int:
+    """Floats of one clip's dW partial slab: [layer 0 cell | shared cell
+    (only when num_layers > 1) | dWp (H, D) | dbp (D)], each cell as
+    :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.dw_size`."""
+    shared = dw_size(m, h_units, h_units) if num_layers > 1 else 0
+    return dw_size(m, d, h_units) + shared + h_units * d + d
+
+
+def _cell_shapes(m, d_in, h_units):
+    """(wxg, wxc, wg, wc, bg, bc) of a cell with input width d_in."""
+    return ((m * d_in, 2 * h_units), (m * d_in, h_units),
+            (m * h_units, 2 * h_units), (m * h_units, h_units),
+            (2 * h_units,), (h_units,))
+
+
+def _cells_r(m, d, h_units, num_layers, layer0, shared):
+    """Per-layer (wxg, wxc, wg, wc) as (M, Din, O) views, then the rest of
+    each cell's tuple unchanged."""
+    def r(cell, d_in):
+        return (cell[0].reshape(m, d_in, -1), cell[1].reshape(m, d_in, -1),
+                cell[2].reshape(m, h_units, -1),
+                cell[3].reshape(m, h_units, -1), *cell[4:])
+    return [r(layer0, d)] + [r(shared, h_units) for _ in range(num_layers - 1)]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (same function, torch ops, Python loops over T and L)
+# ---------------------------------------------------------------------------
+
+
+def dcgru_decoder_fwd_plain(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c,
+                            b0g, b0c, wxsg, wxsc, whsg, whsc, bsg, bsc, wp,
+                            bp, h0_stack, num_layers, activation="tanh",
+                            residuals=False):
+    """Plain version of :func:`dcgru_decoder_fwd` (same arguments and
+    results), the math of ``_fwd_kernel_dec``; differentiable by
+    autograd."""
+    t, b, n, d = x_seq.shape
+    m = a_ops.shape[0]
+    h_units = h0_stack.shape[-1]
+    act, _ = _act_pair(activation)
+    cells = _cells_r(m, d, h_units, num_layers,
+                     (wx0g, wx0c, wh0g, wh0c, b0g, b0c),
+                     (wxsg, wxsc, whsg, whsc, bsg, bsc))
+    h = list(h0_stack.float().unbind(0))
+    inp = torch.zeros((b, n, d), dtype=torch.float32, device=x_seq.device)
+    seqs = {"proj": [], "in0": [], "h": [], "ru": [], "c": []}
+    for ti in range(t):
+        seqs["in0"].append(inp)
+        out, step = inp, {"h": [], "ru": [], "c": []}
+        for li in range(num_layers):
+            out, ru, c = xin_cell_step(a_ops, out, h[li], *cells[li], act)
+            h[li] = out
+            for k, v in (("h", out), ("ru", ru), ("c", c)):
+                step[k].append(v)
+        proj = torch.matmul(out, wp) + bp
+        seqs["proj"].append(proj)
+        for k, v in step.items():
+            seqs[k].append(torch.cat(v, dim=-1))
+        # scheduled sampling: the feedback uses the f32 projection
+        f = force[ti]
+        inp = f * x_seq[ti].float() + (1.0 - f) * proj
+    outs = [torch.stack(seqs[k]).to(x_seq.dtype) for k in
+            (("proj", "in0", "h", "ru", "c") if residuals else ("proj",))]
+    return tuple(outs) + (None,) * (5 - len(outs))
+
+
+def _xin_cell_bwd(a_ops, h_prev, ru, c, x, g, wxg_r, wxc_r, wg_r, wc_r,
+                  act_grad):
+    """BPTT of :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.xin_cell_step`
+    at one step, g the cotangent of h'. Returns (dh_prev, dx, (dwxg_r,
+    dwxc_r, dwg_r, dwc_r, dbg, dbc)), all float32."""
+    h_units = h_prev.shape[-1]
+    r, u = ru[..., :h_units], ru[..., h_units:]
+    du = g * (h_prev - c)
+    dc_pre = g * (1.0 - u) * act_grad(c)
+    hf = _apply_ops(a_ops, h_prev)
+    rf = _apply_ops(a_ops, r * h_prev)
+    xf = _apply_ops(a_ops, x)
+    drh = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wc_r))
+    dx = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wxc_r))
+    dru_pre = torch.cat([drh * h_prev, du], dim=-1) * ru * (1.0 - ru)
+    dh_prev = (g * u + drh * r
+               + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wg_r)))
+    dx = dx + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wxg_r))
+    grads = (_weight_grad(xf, dru_pre), _weight_grad(xf, dc_pre),
+             _weight_grad(hf, dru_pre), _weight_grad(rf, dc_pre),
+             dru_pre.sum(dim=(0, 1)), dc_pre.sum(dim=(0, 1)))
+    return dh_prev, dx, grads
+
+
+def dcgru_decoder_bwd_plain(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg,
+                            whsc, wp, h_prev, h_seq, ru_seq, c_seq, in0,
+                            d_seq, force, num_layers, activation="tanh"):
+    """Plain version of :func:`dcgru_decoder_bwd`: the reverse loop of
+    ``_bwd_kernel_dec`` (same arguments and results)."""
+    t, b, n, d = in0.shape
+    m = a_ops.shape[0]
+    h_units = wp.shape[0]
+    ll = num_layers
+    _, act_grad = _act_pair(activation)
+    cells = _cells_r(m, d, h_units, ll, (wx0g, wx0c, wh0g, wh0c),
+                     (wxsg, wxsc, whsg, whsc))
+    # one gradient list per cell: layer 0, then the shared cell
+    grads = [[torch.zeros(w.shape, device=in0.device) for w in cell]
+             + [torch.zeros(2 * h_units, device=in0.device),
+                torch.zeros(h_units, device=in0.device)]
+             for cell in cells[:2]]
+    dwp = torch.zeros((h_units, d), device=in0.device)
+    dbp = torch.zeros(d, device=in0.device)
+    dh = [torch.zeros((b, n, h_units), device=in0.device) for _ in range(ll)]
+    din = torch.zeros((b, n, d), device=in0.device)
+    dx = torch.empty_like(in0)
+    for ti in reversed(range(t)):
+        f = force[ti]
+        dproj = d_seq[ti].float() + (1.0 - f) * din
+        dx[ti] = f * din
+        top = h_seq[ti][..., (ll - 1) * h_units:].float()
+        dwp += torch.tensordot(top, dproj, dims=([0, 1], [0, 1]))
+        dbp += dproj.sum(dim=(0, 1))
+        dcur = torch.matmul(dproj, wp.t())  # into the top layer's h
+        for li in reversed(range(ll)):
+            hs = slice(li * h_units, (li + 1) * h_units)
+            inp = in0[ti] if li == 0 else \
+                h_seq[ti][..., (li - 1) * h_units:li * h_units]
+            dh[li], dinp, cell_grads = _xin_cell_bwd(
+                a_ops, h_prev[ti][..., hs].float(),
+                ru_seq[ti][..., 2 * li * h_units:2 * (li + 1) * h_units]
+                .float(), c_seq[ti][..., hs].float(), inp.float(),
+                dh[li] + dcur, *cells[li], act_grad)
+            for acc, g in zip(grads[min(li, 1)], cell_grads):
+                acc += g
+            if li == 0:
+                din = dinp  # for x_{t-1} and proj_{t-1}
+            else:
+                dcur = dinp  # into the layer below's h at this step
+    flat = [[g.reshape(-1, g.shape[-1]) if g.ndim == 3 else g for g in cell]
+            for cell in grads]
+    shared = flat[1] if ll > 1 else [None] * 6
+    return (dx, torch.stack(dh), *flat[0], *shared, dwp, dbp)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def dcgru_decoder_fwd(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
+                      wxsg, wxsc, whsg, whsc, bsg, bsc, wp, bp, h0_stack,
+                      num_layers, activation="tanh", residuals=False):
+    """The whole decoder forward over T_out steps.
+
+    Args:
+        a_ops: (M, B or 1, N, N) Chebyshev operator stack, float32.
+        x_seq: (T, B, N, D) teacher-forcing inputs in the stream dtype.
+        force: (T,) float32 per-step force, 1 feeds x_t to step t+1 and 0
+            the projection.
+        wx0g, wx0c, wh0g, wh0c, b0g, b0c: the layer-0 cell, m-major
+            ((M*D, 2H), (M*D, H), (M*H, 2H), (M*H, H), (2H,), (H,)).
+        wxsg .. bsc: the shared cell of layers >= 1 (input width H); None
+            when ``num_layers == 1``.
+        wp: (H, D) = ``proj_w.T``; bp: (D,); h0_stack: (L, B, N, H) f32.
+        residuals: also return in0, h_seq, ru_seq and c_seq.
+
+    Returns:
+        (proj, in0, h_seq, ru_seq, c_seq) in the stream dtype: proj
+        (T, B, N, D) and the residuals (None unless asked for).
+    """
+    if x_seq.device.type == "cpu":
+        return dcgru_decoder_fwd_plain(
+            a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c, wxsg,
+            wxsc, whsg, whsc, bsg, bsc, wp, bp, h0_stack, num_layers,
+            activation, residuals)
+    t, b, n, d = x_seq.shape
+    m = a_ops.shape[0]
+    h_units = h0_stack.shape[-1]
+    ll = num_layers
+    name = "dcgru_decoder_fwd"
+    layer0 = (wx0g, wx0c, wh0g, wh0c, b0g, b0c)
+    shared = (wxsg, wxsc, whsg, whsc, bsg, bsc) if ll > 1 else ()
+    _check(name, (x_seq,), a_ops, (force, *layer0, *shared, wp, bp,
+                                   h0_stack), activation, b, n, h_units)
+    if d % 4:
+        raise ValueError(f"{name}: D={d} is not a multiple of 4")
+    _check_shapes(name, "force, h0_stack or projection",
+                  (force, h0_stack, wp, bp),
+                  ((t,), (ll, b, n, h_units), (h_units, d), (d,)))
+    _check_shapes(name, "layer-0 weight", layer0,
+                  _cell_shapes(m, d, h_units))
+    _check_shapes(name, "shared weight", shared,
+                  _cell_shapes(m, h_units, h_units))
+    mk = lambda w: torch.empty((t, b, n, w), dtype=x_seq.dtype,
+                               device=x_seq.device)
+    proj = mk(d)
+    res = ((mk(d), mk(ll * h_units), mk(2 * ll * h_units), mk(ll * h_units))
+           if residuals else (None,) * 4)
+    if b == 0 or t == 0:
+        return (proj, *res)
+    shared_p = [_ptr(w) for w in shared] or [None] * 6
+    with torch.cuda.device(x_seq.device):
+        err = _lib().dcgru_decoder_fwd(
+            x_seq.data_ptr(), force.data_ptr(), a_ops.data_ptr(),
+            a_ops.shape[1], *(w.data_ptr() for w in layer0), *shared_p,
+            wp.data_ptr(), bp.data_ptr(), h0_stack.data_ptr(),
+            proj.data_ptr(), *(_ptr(r) for r in res),
+            t, b, n, d, h_units, m, ll, _ACT_CODES[activation],
+            int(x_seq.dtype == torch.bfloat16), _stream(x_seq))
+    _raise_on(err, name, _lib)
+    dcgru_decoder_fwd.launches += 1
+    return (proj, *res)
+
+
+dcgru_decoder_fwd.launches = 0
+
+
+def dcgru_decoder_bwd(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
+                      wp, h_prev, h_seq, ru_seq, c_seq, in0, d_seq, force,
+                      num_layers, activation="tanh"):
+    """BPTT of :func:`dcgru_decoder_fwd` over all T_out steps.
+
+    Args:
+        a_ops, the weights (the shared ones None when ``num_layers == 1``),
+            wp, force: as the forward.
+        h_prev: (T, B, N, L*H) each step's incoming states [h0, h_seq[:-1]];
+        h_seq, ru_seq, c_seq, in0: the forward's residuals;
+        d_seq: (T, B, N, D) the cotangent of proj. All six in the stream
+            dtype.
+
+    Returns:
+        (dx, dh0, dwx0g, dwx0c, dwh0g, dwh0c, db0g, db0c, dwxsg, dwxsc,
+        dwhsg, dwhsc, dbsg, dbsc, dwp, dbp): dx (T, B, N, D) in the stream
+        dtype, dh0 (L, B, N, H) and the rest float32 in their primals'
+        shapes; the shared cell's six are None when ``num_layers == 1``.
+    """
+    if h_seq.device.type == "cpu":
+        return dcgru_decoder_bwd_plain(
+            a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
+            h_prev, h_seq, ru_seq, c_seq, in0, d_seq, force, num_layers,
+            activation)
+    t, b, n, d = in0.shape
+    m = a_ops.shape[0]
+    h_units = wp.shape[0]
+    ll = num_layers
+    name = "dcgru_decoder_bwd"
+    streams = (h_prev, h_seq, ru_seq, c_seq, in0, d_seq)
+    layer0 = (wx0g, wx0c, wh0g, wh0c)
+    shared = (wxsg, wxsc, whsg, whsc) if ll > 1 else ()
+    _check(name, streams, a_ops, (force, *layer0, *shared, wp), activation,
+           b, n, h_units)
+    if d % 4:
+        raise ValueError(f"{name}: D={d} is not a multiple of 4")
+    lh = ll * h_units
+    _check_shapes(name, "stream", streams, (
+        (t, b, n, lh), (t, b, n, lh), (t, b, n, 2 * lh), (t, b, n, lh),
+        (t, b, n, d), (t, b, n, d)))
+    _check_shapes(name, "force or projection", (force, wp),
+                  ((t,), (h_units, d)))
+    _check_shapes(name, "layer-0 weight", layer0,
+                  _cell_shapes(m, d, h_units)[:4])
+    _check_shapes(name, "shared weight", shared,
+                  _cell_shapes(m, h_units, h_units)[:4])
+    dev = in0.device
+    dx = torch.empty((t, b, n, d), dtype=in0.dtype, device=dev)
+    dh0 = torch.empty((ll, b, n, h_units), dtype=torch.float32, device=dev)
+    part = torch.empty((b, dec_dw_size(m, d, h_units, ll)),
+                       dtype=torch.float32, device=dev)
+    w_t = [_transposed(w) for w in (*layer0, *shared)] + [None] * (
+        4 if ll == 1 else 0) + [_transposed(wp)]
+    with torch.cuda.device(dev):
+        err = _lib().dcgru_decoder_bwd(
+            a_ops.data_ptr(), a_ops.shape[1], *(_ptr(w) for w in w_t),
+            *(s.data_ptr() for s in streams), force.data_ptr(),
+            dx.data_ptr(), dh0.data_ptr(), part.data_ptr(),
+            t, b, n, d, h_units, m, ll, _ACT_CODES[activation],
+            int(in0.dtype == torch.bfloat16), _stream(in0))
+    _raise_on(err, name, _lib)
+    dcgru_decoder_bwd.launches += 1
+    flat = dcgru_dw_reduce(part)
+    cut0 = dw_size(m, d, h_units)
+    cut1 = cut0 + (dw_size(m, h_units, h_units) if ll > 1 else 0)
+
+    def cell(slab, d_in):
+        dwxg, dwxc, dwg, dwc, dbg, dbc = _split_dw(slab, m, d_in, h_units)
+        return (dwxg, dwxc, dwg.reshape(m * h_units, -1),
+                dwc.reshape(m * h_units, -1), dbg, dbc)
+
+    shared_g = cell(flat[cut0:cut1], h_units) if ll > 1 else (None,) * 6
+    dwp = flat[cut1:cut1 + h_units * d].view(h_units, d)
+    return (dx, dh0, *cell(flat[:cut0], d), *shared_g, dwp,
+            flat[cut1 + h_units * d:])
+
+
+dcgru_decoder_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Autograd Function
+# ---------------------------------------------------------------------------
+
+
+class _DecoderRecurrence(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
+                wxsg, wxsc, whsg, whsc, bsg, bsc, wp, bp, h0_stack,
+                num_layers, activation):
+        proj, in0, h_seq, ru_seq, c_seq = dcgru_decoder_fwd(
+            a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c, wxsg,
+            wxsc, whsg, whsc, bsg, bsc, wp, bp, h0_stack, num_layers,
+            activation, residuals=True)
+        ctx.save_for_backward(a_ops, force, wx0g, wx0c, wh0g, wh0c, wxsg,
+                              wxsc, whsg, whsc, wp, h0_stack, in0, h_seq,
+                              ru_seq, c_seq)
+        ctx.num_layers, ctx.activation = num_layers, activation
+        return proj
+
+    @staticmethod
+    def backward(ctx, d_proj):
+        (a_ops, force, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
+         h0_stack, in0, h_seq, ru_seq, c_seq) = ctx.saved_tensors
+        ll, b, n, h_units = h0_stack.shape
+        # (L, B, N, H) -> the residuals' (B, N, L*H) rows, in their dtype
+        h0f = h0_stack.permute(1, 2, 0, 3).reshape(b, n, ll * h_units)
+        dx, dh0, *dw = dcgru_decoder_bwd(
+            a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
+            shift_h_prev(h0f, h_seq), h_seq, ru_seq, c_seq, in0,
+            d_proj.to(h_seq.dtype).contiguous(), force, ctx.num_layers,
+            ctx.activation)
+        return (None, dx, None, *dw, dh0, None, None)
+
+
+def dcgru_decoder_recurrence(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c,
+                             b0g, b0c, wxsg, wxsc, whsg, whsc, bsg, bsc, wp,
+                             bp, h0_stack, num_layers, activation="tanh"):
+    """Differentiable :func:`dcgru_decoder_fwd` (arguments as it has
+    them): returns proj (T, B, N, D) in the stream dtype; its backward is
+    :func:`dcgru_decoder_bwd`."""
+    return _DecoderRecurrence.apply(
+        a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c, wxsg, wxsc,
+        whsg, whsc, bsg, bsc, wp, bp, h0_stack, num_layers, activation)

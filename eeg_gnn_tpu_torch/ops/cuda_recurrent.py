@@ -115,6 +115,21 @@ def dw_size(m: int, d: int, h_units: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def xin_cell_step(a_ops, x, h, wxg_r, wxc_r, wg_r, wc_r, gate_b, cand_b,
+                  act):
+    """One step of the x-in-kernel cell in float32: x (B, N, D) and h
+    (B, N, H) -> (h', ru, c); wxg_r / wxc_r are (M, D, 2H / H)."""
+    h_units = h.shape[-1]
+    feats = _apply_ops(a_ops, torch.cat([h, x], dim=-1))
+    hf, xf = feats[..., :h_units], feats[..., h_units:]
+    ru = torch.sigmoid(_contract_w(xf, wxg_r) + _contract_w(hf, wg_r)
+                       + gate_b)
+    r, u = ru[..., :h_units], ru[..., h_units:]
+    c = act(_contract_w(xf, wxc_r)
+            + _contract_w(_apply_ops(a_ops, r * h), wc_r) + cand_b)
+    return u * h + (1.0 - u) * c, ru, c
+
+
 def dcgru_recurrence_xin_fwd_plain(x, a_ops, wxg_f, wxc_f, wg_r, wc_r,
                                    gate_b, cand_b, h0, activation="tanh",
                                    residuals=False):
@@ -129,14 +144,8 @@ def dcgru_recurrence_xin_fwd_plain(x, a_ops, wxg_f, wxc_f, wg_r, wc_r,
     h_seq, ru_seq, c_seq = _outputs(x, t, b, n, h_units, x.dtype, residuals)
     h = h0
     for ti in range(t):
-        feats = _apply_ops(a_ops, torch.cat([h, x[ti].float()], dim=-1))
-        hf, xf = feats[..., :h_units], feats[..., h_units:]
-        ru = torch.sigmoid(_contract_w(xf, wxg_r) + _contract_w(hf, wg_r)
-                           + gate_b)
-        r, u = ru[..., :h_units], ru[..., h_units:]
-        c = act(_contract_w(xf, wxc_r)
-                + _contract_w(_apply_ops(a_ops, r * h), wc_r) + cand_b)
-        h = u * h + (1.0 - u) * c
+        h, ru, c = xin_cell_step(a_ops, x[ti].float(), h, wxg_r, wxc_r, wg_r,
+                                 wc_r, gate_b, cand_b, act)
         h_seq[ti] = h
         if residuals:
             ru_seq[ti] = ru

@@ -65,6 +65,9 @@ class Predictor:
             raise NotImplementedError(
                 "data-parallel meshes are not ported yet (ROADMAP.md, "
                 "Queue 1: scale-out)")
+        if cfg.task not in ("detection", "classification"):
+            raise ValueError(f"Predictor serves detection and "
+                             f"classification, not {cfg.task!r}")
         self.cfg = cfg
         self.device = resolve_device(device, "Predictor")
         self.model = build_model(cfg)

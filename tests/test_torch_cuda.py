@@ -8,7 +8,9 @@ card's machine it runs without the suite's conftest:
 Tolerance: normalized inf-norm error max|k - p| / max|p| <= 1e-4 in float32
 (the same f32 arithmetic summed in another order, TF32 off) and <= 2e-2 in
 bfloat16 (the bf16 bound of benchmarks/tpu_kernel_parity.json), for every
-output of the forward and backward kernels.
+output of the encoder's forward and backward kernels and of the seq2seq
+decoder's; and the detection and SSL train steps' gradients against the
+stacked steps' at 1e-4.
 """
 
 import dataclasses
@@ -49,8 +51,11 @@ def _inputs(dev, *, t, b, d, h, num_supports, shared, stream, seed=0):
 
 
 def _err(got, want):
+    """Normalized inf-norm error; an all-zero ``want`` (dx with no step
+    forced) asks for exact zeros."""
     got, want = got.float(), want.float()
-    return ((got - want).abs().max() / want.abs().max()).item()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-12)).item()
 
 
 @pytest.mark.parametrize("t,b,d,h", [(5, 4, 12, 16), (60, 37, 100, 64)])
@@ -236,6 +241,161 @@ def test_flagship_train_step_matches_stacked(dev):
                  cr.dcgru_recurrence_xin_bwd.launches)
         want = (2, 2) if rec == "pallas" else (0, 0)
         assert tuple(a - b_ for a, b_ in zip(after, before)) == want
+        assert torch.isfinite(loss)
+        grads[rec] = {n: p.grad.clone()
+                      for n, p in step.model.named_parameters()}
+    for name, g in grads["pallas"].items():
+        assert _err(g, grads["stacked"][name]) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the seq2seq decoder kernels (csrc/dcgru_decoder.cu)
+# ---------------------------------------------------------------------------
+
+_FORCES = {"none": lambda t: [0.0] * t, "all": lambda t: [1.0] * t,
+           "mixed": lambda t: [float(i % 2) for i in range(t)]}
+
+
+def _dec_inputs(dev, *, t, b, d, h, num_layers, num_supports, shared,
+                stream, force, seed=0):
+    """Decoder-kernel forward arguments: xavier-scaled weights, a seeded
+    teacher-forcing stream and a force pattern."""
+    rng = np.random.RandomState(seed)
+    m = num_supports * K + 1
+    f = lambda *s, scale: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(
+        num_supports, 1 if shared else b, N, N)) / N).astype(np.float32))
+    a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+
+    def cell(d_in):
+        sx, sh = (2.0 / (m * (d_in + h))) ** 0.5, (2.0 / (m * 2 * h)) ** 0.5
+        return [f(m * d_in, 2 * h, scale=sx), f(m * d_in, h, scale=sx),
+                f(m * h, 2 * h, scale=sh), f(m * h, h, scale=sh),
+                f(2 * h, scale=0.1), f(h, scale=0.1)]
+
+    shared_w = cell(h) if num_layers > 1 else [None] * 6
+    return (a_ops, f(t, b, N, d, scale=1.0).to(stream),
+            torch.tensor(_FORCES[force](t), device=dev), *cell(d),
+            *shared_w, f(h, d, scale=h ** -0.5), f(d, scale=0.1),
+            f(num_layers, b, N, h, scale=0.1))
+
+
+def _dec_bwd_args(args, num_layers, seed=1):
+    """Backward-kernel arguments on the plain forward's residuals and a
+    seeded proj cotangent."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    _, in0, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*args, num_layers,
+                                                      residuals=True)
+    a_ops, x, force, *w = args
+    h0 = w[14]
+    ll, b, n, h = h0.shape
+    h0f = h0.permute(1, 2, 0, 3).reshape(b, n, ll * h)
+    rng = np.random.RandomState(seed)
+    d_seq = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(
+        x.device, x.dtype)
+    return (a_ops, *w[0:4], *w[6:10], w[12], shift_h_prev(h0f, h_seq), h_seq,
+            ru, c, in0, d_seq, force)
+
+
+@pytest.mark.parametrize("t,b,d,h", [(4, 3, 12, 16), (12, 37, 100, 64)])
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
+@pytest.mark.parametrize("num_supports,shared,force", [
+    (1, False, "mixed"), (1, True, "none"), (2, False, "all")])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decoder_kernels_match_plain(dev, t, b, d, h, num_layers,
+                                     num_supports, shared, force, bf16):
+    """Kernels #5 and #6 against their plain versions: proj and every
+    residual; dx, dh0 and every weight and bias gradient."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    args = _dec_inputs(dev, t=t, b=b, d=d, h=h, num_layers=num_layers,
+                       num_supports=num_supports, shared=shared,
+                       stream=stream, force=force)
+    before = cd.dcgru_decoder_fwd.launches
+    got = cd.dcgru_decoder_fwd(*args, num_layers, residuals=True)
+    torch.cuda.synchronize()
+    assert cd.dcgru_decoder_fwd.launches == before + 1
+    for g, w in zip(got, cd.dcgru_decoder_fwd_plain(*args, num_layers,
+                                                    residuals=True)):
+        assert g.dtype == stream and g.shape == w.shape
+        assert _err(g, w) <= tol
+    bwd = _dec_bwd_args(args, num_layers)
+    before = (cd.dcgru_decoder_bwd.launches, cr.dcgru_dw_reduce.launches)
+    got = cd.dcgru_decoder_bwd(*bwd, num_layers)
+    torch.cuda.synchronize()
+    assert (cd.dcgru_decoder_bwd.launches, cr.dcgru_dw_reduce.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = cd.dcgru_decoder_bwd_plain(*bwd, num_layers)
+    assert got[0].dtype == stream and len(got) == len(want) == 16
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None and num_layers == 1
+            continue
+        assert g.shape == w.shape, i
+        if i:
+            assert g.dtype == torch.float32
+        assert _err(g, w) <= tol, (i, _err(g, w))
+
+
+def test_decoder_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    args = list(_dec_inputs(dev, t=4, b=3, d=12, h=16, num_layers=2,
+                            num_supports=1, shared=False,
+                            stream=torch.float32, force="mixed"))
+    bad = lambda i, v: [v if j == i else a for j, a in enumerate(args)]
+    with pytest.raises(ValueError, match="contiguous"):
+        cd.dcgru_decoder_fwd(*bad(1, args[1].transpose(0, 1).contiguous()
+                                  .transpose(0, 1)), 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cd.dcgru_decoder_fwd(*bad(1, args[1].half()), 2)
+    with pytest.raises(TypeError, match="must be float32"):
+        cd.dcgru_decoder_fwd(*bad(15, args[15].double()), 2)
+    with pytest.raises(ValueError, match="force"):
+        cd.dcgru_decoder_fwd(*bad(2, args[2][:3].contiguous()), 2)
+    with pytest.raises(ValueError, match="shared weight"):
+        cd.dcgru_decoder_fwd(*bad(9, args[3]), 2)
+    bwd = list(_dec_bwd_args(args, 2))
+    with pytest.raises(TypeError, match="streams mix"):
+        cd.dcgru_decoder_bwd(*bwd[:15], bwd[15].bfloat16(), bwd[16], 2)
+
+
+def test_ssl_train_step_matches_stacked(dev):
+    """One SSL pre-training step at the slice's width (3 layers x 64,
+    D=100, T_in=60, T_out=12, combined graph, f32, B=32, curriculum on at
+    a ratio near 0.5): launches per step, and the kernels' gradients
+    against the stacked step's from the same weights and force draws."""
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    rng = np.random.RandomState(0)
+    adj = np.abs(rng.rand(32, N, N)).astype(np.float32)
+    adj = (adj + adj.transpose(0, 2, 1)) / 2
+    batch = {"x": rng.randn(32, 60, N, 100).astype(np.float32),
+             "y": rng.randn(32, 12, N, 100).astype(np.float32),
+             "adjacency": adj}
+    cfg = ExperimentConfig(task="SS pre-training", graph_type="combined",
+                           num_rnn_layers=3, use_curriculum_learning=True,
+                           lr_init=5e-4).finalize()
+    counters = (cr.dcgru_recurrence_xin_fwd, cr.dcgru_recurrence_xin_bwd,
+                cd.dcgru_decoder_fwd, cd.dcgru_decoder_bwd,
+                cr.dcgru_dw_reduce)
+    grads = {}
+    for rec in ("pallas", "stacked"):
+        c = dataclasses.replace(cfg, recurrence=rec)
+        step = TrainStep(c, build_model(c, torch.Generator().manual_seed(0)),
+                         100, device=dev,
+                         generator=torch.Generator(dev).manual_seed(7))
+        before = [k.launches for k in counters]
+        loss = step.loss_and_grads(batch, batches_seen=24000)
+        rose = [k.launches - b_ for k, b_ in zip(counters, before)]
+        assert rose == ([3, 3, 1, 1, 4] if rec == "pallas" else [0] * 5)
         assert torch.isfinite(loss)
         grads[rec] = {n: p.grad.clone()
                       for n, p in step.model.named_parameters()}

@@ -263,7 +263,7 @@ def test_unported_step_variants_raise():
     model = build_model(ExperimentConfig().finalize())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.supervised_loss_fn(model, "detection", input_pipeline=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ssl_loss_fn"):
         tstep.supervised_loss_fn(model, "SS pre-training")
 
 
