@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. print the card's name and power limit; turn TF32 off; build the three
+1. print the card's name and power limit; turn TF32 off; build the five
    CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
    nvcc each), and print ptxas' register and spill report;
 2. hold every kernel against its plain PyTorch version on the card at
@@ -23,7 +23,14 @@ Phases (any failure exits non-zero and prints no result line):
    seq2seq decoder kernels at T_out=12, D=100 (L=3, 2 and 1; the same M,
    B and dtype grid; force none, all and mixed): proj (and once each
    residual), and on a seeded proj cotangent dx, dh0 and all 14 weight
-   and bias gradients, under the same bounds;
+   and bias gradients, under the same bounds; the fused diffusion conv at
+   the use_pallas loop's shapes (D=H=64, O=128 and 64, M=3 and 5, B=128
+   and 37, once K=3; float32 <= 1e-4) and its autograd Function's dx, dW,
+   db against autograd of the plain version; the block-sparse SDDMM at the
+   re-score study's montages (benchmarks/graph_build_bench.py:69-107:
+   D=6000, N=19, 1024 and 4096 top-3, 4096 banded +-32; <= 1e-4), and a
+   19-node clip's normalized edge scores against its correlation
+   adjacency (<= 1e-5);
 3. serve the flagship DCRNN detector (2 DCGRU layers x 64 units, K=2,
    input_dim 100, T=60, batch 128, random weights from a seeded
    torch.Generator) through ``Predictor`` for both graph types, float32
@@ -64,7 +71,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.sum`` (at each encoder layer's slab width and at the
    decoder's); the Predictor's clips/s, the detection and SSL train
    steps' ms and clips/s; trace one bfloat16 batch, one bfloat16
-   detection step and one SSL step in each dtype with torch.profiler.
+   detection step and one SSL step in each dtype with torch.profiler;
+7. the ``use_pallas`` paths: the detector served through ``Predictor`` and
+   trained through ``TrainStep`` (3 steps) in the 4 configurations of
+   both graph types and dtypes, per-clip adjacency: every forward launches
+   the fused diffusion-conv kernel 2 T L = 240 times and no other kernel;
+   probabilities against the naive recurrence (float32 atol 1e-4,
+   bfloat16 2e-2); float32 step-1 gradients against a stacked step (1e-4);
+   in bfloat16 the encoder's VJP against the float32 stacked encoder
+   (2e-2); and one SSL configuration (combined, float32, 3 steps, 360
+   launches per step beside the decoder's kernels);
+8. the correlation re-score of each montage's fixed graph through
+   ``sddmm_edges_blocksparse`` (one launch each), against the plain edge
+   list;
+9. time the two kernels beside their plain versions and bounds, the
+   SDDMM also beside ``torch.sparse.sampled_addmm`` and the dense
+   ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms.
 
 The second-to-last line is a JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -98,7 +120,9 @@ SSL_KW = dict(lr_init=5e-4, l2_wd=5e-4, max_grad_norm=5.0,
 FWD = ("dcgru_recurrence_xin_fwd", "dcgru_recurrence_fwd")
 BWD = ("dcgru_recurrence_xin_bwd", "dcgru_recurrence_bwd")
 DEC = ("dcgru_decoder_fwd", "dcgru_decoder_bwd")
-KERNELS = FWD + BWD + ("dcgru_dw_reduce",) + DEC
+FDC = "fused_diffusion_conv_fwd"  # kernel #7, the use_pallas loop's
+SDDMM = "sddmm_blocksparse"       # kernel #8, the correlation re-score
+KERNELS = FWD + BWD + ("dcgru_dw_reduce",) + DEC + (FDC, SDDMM)
 SSL_KERNELS = (FWD[0], BWD[0], "dcgru_dw_reduce") + DEC
 SSL_STEP = {FWD[0]: 3, BWD[0]: 3, "dcgru_dw_reduce": 4, DEC[0]: 1,
             DEC[1]: 1}  # launches per SSL step at 3 layers
@@ -107,6 +131,10 @@ HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
              "db0c", "dwxsg", "dwxsc", "dwhsg", "dwhsc", "dbsg", "dbsc",
              "dwp", "dbp")
+PALLAS_FWD = 2 * T * 2           # fused convs per 2-layer detector forward
+PALLAS_SSL = 2 * T * SSL_LAYERS  # per SSL step
+D_SIG, TOP_K, BAND = 6000, 3, 32  # benchmarks/graph_build_bench.py:70-100
+MONTAGES = ((19, "topk"), (1024, "topk"), (4096, "topk"), (4096, "banded"))
 
 
 def fail(msg: str):
@@ -199,10 +227,16 @@ def bwd_args(torch, a, seed):
 
 def wrappers() -> dict:
     """Each kernel's wrapper, by name (its ``.launches`` is the count)."""
-    from eeg_gnn_tpu_torch.ops import cuda_decoder, cuda_recurrent
+    from eeg_gnn_tpu_torch.ops import (
+        cuda_decoder,
+        cuda_kernels,
+        cuda_recurrent,
+        sddmm,
+    )
 
-    return {k: getattr(cuda_decoder if k in DEC else cuda_recurrent, k)
-            for k in KERNELS}
+    module = {FDC: cuda_kernels, SDDMM: sddmm}
+    module.update({k: cuda_decoder for k in DEC})
+    return {k: getattr(module.get(k, cuda_recurrent), k) for k in KERNELS}
 
 
 def counts() -> dict:
@@ -387,9 +421,16 @@ def phase_build(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from eeg_gnn_tpu_torch.ops import _build, cuda_decoder, cuda_recurrent
+    from eeg_gnn_tpu_torch.ops import (
+        _build,
+        cuda_decoder,
+        cuda_kernels,
+        cuda_recurrent,
+        sddmm,
+    )
 
-    names = ("dcgru_recurrence", "dcgru_recurrence_bwd", "dcgru_decoder")
+    names = ("dcgru_recurrence", "dcgru_recurrence_bwd", "dcgru_decoder",
+             "fused_diffusion_conv", "sddmm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = list(pool.map(_build.build, names))
@@ -404,6 +445,8 @@ def phase_build(torch):
     cuda_recurrent._lib()
     cuda_recurrent._lib_bwd()
     cuda_decoder._lib()
+    cuda_kernels._lib()
+    sddmm._lib()
     return card
 
 
@@ -966,7 +1009,7 @@ def bf16_model_errors(torch, cfg, init, batch, grads, stacked):
     from eeg_gnn_tpu_torch.train import TrainStep
 
     f32_cfg = dataclasses.replace(cfg, recurrence="stacked",
-                                  dtype="float32")
+                                  dtype="float32", use_pallas=False)
     model = build_model(f32_cfg)
     model.load_state_dict(init)
     step = TrainStep(f32_cfg, model, STEPS_PER_EPOCH, device=batch["x"].device)
@@ -1288,6 +1331,517 @@ def phase_ssl_times(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the use_pallas path (kernel #7) and the correlation re-score (kernel #8)
+# ---------------------------------------------------------------------------
+
+
+def fdc_work(*, s: int, k: int, o: int, b: int, d: int = H):
+    """(FLOPs, bytes) of one fused diffusion conv: the Chebyshev terms (S*K
+    support products, the 2 A v - v of the later ones), the (M*D, O)
+    product and the bias; supports, x, W and bias read once, out written
+    once."""
+    m = s * k + 1
+    per_clip = (s * k * 2 * N * N * d + s * (k - 1) * 2 * N * d
+                + 2 * N * m * d * o + N * o)
+    nbytes = (s * b * N * N + b * N * d + m * d * o + o + b * N * o) * 4
+    return float(per_clip * b), float(nbytes)
+
+
+def sddmm_work(n: int, d: int, block_rows, block_cols,
+               block: int = 128) -> tuple[float, float]:
+    """(FLOPs, bytes) of one block-sparse SDDMM of x with itself: 2 D FLOPs
+    per output entry inside N (those past N are zeros), x and the block
+    coordinates read once, the blocks written once."""
+    vr = np.clip(n - np.asarray(block_rows, np.int64) * block, 0, block)
+    vc = np.clip(n - np.asarray(block_cols, np.int64) * block, 0, block)
+    nnzb = len(vr)
+    return (float(2 * d * np.sum(vr * vc)),
+            float(n * d * 4 + 2 * nnzb * 4 + nnzb * block * block * 4))
+
+
+def fdc_inputs(torch, dev, *, s, k, o, b, seed):
+    """Kernel #7's arguments as the use_pallas loop hands them over:
+    per-clip supports from random adjacency, a hidden state in (-1, 1),
+    the hidden rows of a xavier-scaled weight re-laid (M, H, O), a random
+    bias."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.ops.cuda_kernels import rearrange_weight
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    m = s * k + 1
+    filt = "laplacian" if s == 1 else "dual_random_walk"
+    sup = compute_supports_torch(torch.from_numpy(adjacency(rng, b)).to(dev),
+                                 filt).contiguous()
+    w = 1.414 * (2.0 / (H * m + o)) ** 0.5 * torch.randn((H * m, o),
+                                                         generator=gen)
+    return (sup, torch.tanh(torch.randn((b, N, H), generator=gen)).to(dev),
+            rearrange_weight(w, H, m).contiguous().to(dev),
+            (0.1 * torch.randn(o, generator=gen)).to(dev), k)
+
+
+def phase_fdc_parity(torch, dev):
+    """Kernel #7 against its plain version at the loop's shapes: gate
+    (O=2H) and candidate (O=H), M=3 (S=1) and M=5 (S=2), B=128 and 37, and
+    once K=3; then the autograd Function's dx, dW and db against autograd
+    of the plain version under a seeded cotangent."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    worst, main_abs, seed = 0.0, 0.0, 1300
+    cases = [(s, K, o, b) for s in (1, 2) for o in (2 * H, H)
+             for b in (BATCH, 37)] + [(2, 3, 2 * H, BATCH)]
+    for s, k, o, b in cases:
+        seed += 1
+        args = fdc_inputs(torch, dev, s=s, k=k, o=o, b=b, seed=seed)
+        got = ck.fused_diffusion_conv_fwd(*args)
+        torch.cuda.synchronize()
+        err, max_abs = norm_err(got, ck.fused_diffusion_conv_plain(*args))
+        if not np.isfinite(err) or err > F32_TOL:
+            fail(f"{FDC} S={s} K={k} O={o} B={b}: normalized error "
+                 f"{err:.3e} > {F32_TOL:.0e}")
+        worst = max(worst, err)
+        if (s, k, o, b) == (1, K, 2 * H, BATCH):
+            main_abs = max_abs
+        log(f"parity {FDC} M={s * k + 1} (S={s}, K={k}) D={H} O={o} B={b} "
+            f"float32: norm err {err:.3e} (max abs {max_abs:.3e}, tol "
+            f"{F32_TOL:.0e})")
+    for s in (1, 2):
+        sup, x, w, bias, k = fdc_inputs(torch, dev, s=s, k=K, o=2 * H,
+                                        b=BATCH, seed=1400 + s)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        cot = torch.randn((BATCH, N, 2 * H), generator=gen, device=dev)
+        grads = []
+        for fn in (ck.fused_diffusion_conv, ck.fused_diffusion_conv_plain):
+            leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+            (fn(sup, *leaves, k) * cot).sum().backward()
+            grads.append([t.grad for t in leaves])
+        errs = [norm_err(g, p)[0] for g, p in zip(*grads)]
+        if not all(np.isfinite(errs)) or max(errs) > F32_TOL:
+            fail(f"fused_diffusion_conv Function S={s}: gradient errors "
+                 f"{errs} > {F32_TOL:.0e}")
+        log(f"parity fused_diffusion_conv Function M={s * K + 1} O={2 * H} "
+            f"B={BATCH}: dx {errs[0]:.2e}, dW {errs[1]:.2e}, db "
+            f"{errs[2]:.2e} vs autograd of the plain version (tol "
+            f"{F32_TOL:.0e})")
+    return worst, main_abs
+
+
+def montages(torch, dev):
+    """The re-score study's montages (benchmarks/graph_build_bench.py:
+    69-107): x (N, 6000) from one seeded stream and a fixed topology, the
+    top-3 of |x x^T| per row (directed, no self loops; built on the card)
+    or a band of +-32 neighbours."""
+    from eeg_gnn_tpu_torch.graphs.xcorr import (
+        full_f32_matmul,
+        keep_topk_torch,
+    )
+    from eeg_gnn_tpu_torch.ops.sddmm import edges_to_blocks
+
+    rng = np.random.RandomState(0)
+    out = []
+    for n, topo in MONTAGES:
+        x = torch.from_numpy(rng.randn(n, D_SIG).astype(np.float32)).to(dev)
+        if topo == "banded":
+            rows = np.repeat(np.arange(n), 2 * BAND)
+            offs = np.concatenate([np.arange(-BAND, 0),
+                                   np.arange(1, BAND + 1)])
+            cols = (rows.reshape(n, 2 * BAND) + offs).reshape(-1) % n
+        else:
+            with full_f32_matmul():
+                adj = keep_topk_torch(torch.matmul(x, x.t()).abs(), TOP_K)
+            adj.fill_diagonal_(0.0)
+            rows, cols = (v.cpu().numpy() for v in adj.nonzero(
+                as_tuple=True))
+        br, bc, _, _ = edges_to_blocks(rows, cols, n)
+        out.append({"n": n, "topology": topo, "x": x, "rows": rows,
+                    "cols": cols, "block_rows": br, "block_cols": bc})
+        log(f"montage N={n} {topo}: {len(rows)} edges, {len(br)} of "
+            f"{((n + 127) // 128) ** 2} blocks occupied")
+    return out
+
+
+def phase_sddmm_parity(torch, dev, mts):
+    """Kernel #8 against its plain version at every montage (D=6000), and
+    a 19-node clip's normalized edge scores against its correlation
+    adjacency."""
+    from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    worst, main_abs = 0.0, 0.0
+    for mt in mts:
+        args = (mt["x"], mt["x"], mt["block_rows"], mt["block_cols"])
+        got = sd.sddmm_blocksparse(*args)
+        torch.cuda.synchronize()
+        err, max_abs = norm_err(got, sd.sddmm_blocksparse_plain(*args))
+        if not np.isfinite(err) or err > F32_TOL:
+            fail(f"{SDDMM} N={mt['n']} {mt['topology']}: normalized error "
+                 f"{err:.3e} > {F32_TOL:.0e}")
+        worst = max(worst, err)
+        if (mt["n"], mt["topology"]) == (4096, "banded"):
+            main_abs = max_abs
+        log(f"parity {SDDMM} N={mt['n']} {mt['topology']} D={D_SIG} "
+            f"({len(mt['block_rows'])} blocks): norm err {err:.3e} (max abs "
+            f"{max_abs:.3e}, tol {F32_TOL:.0e})")
+    rng = np.random.RandomState(19)
+    clip = torch.from_numpy(rng.randn(T, N, 100).astype(np.float32)).to(dev)
+    adj = correlation_adjacency_torch(clip)
+    off = adj.clone().fill_diagonal_(0.0)
+    rows, cols = (v.cpu().numpy() for v in off.nonzero(as_tuple=True))
+    flat = clip.transpose(0, 1).reshape(N, -1).contiguous()
+    vals = sd.sddmm_edges_blocksparse(rows, cols, flat, flat, N,
+                                      normalize=True)
+    idx = (torch.as_tensor(rows, device=dev), torch.as_tensor(cols,
+                                                              device=dev))
+    err = float((vals.abs() - adj[idx]).abs().max())
+    if not np.isfinite(err) or err > 1e-5:
+        fail(f"19-node clip: |normalized SDDMM| vs correlation adjacency "
+             f"{err:.3e} > 1e-05")
+    log(f"parity 19-node clip (T={T}, D=100): {len(rows)} top-{TOP_K} "
+        f"edges, |normalized SDDMM| vs correlation_adjacency_torch max abs "
+        f"{err:.3e} (tol 1e-05)")
+    return worst, main_abs
+
+
+def phase_rescore(torch, mts):
+    """Kernel #8's path: each montage's fixed graph re-scored through
+    ``sddmm_edges_blocksparse`` (normalized, as the correlation graph
+    needs), held against the plain edge-list SDDMM (in chunks of edges)."""
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    # the re-score path's run: counts start at 0 here and are read below
+    reset_counts()
+    for mt in mts:
+        x, rows, cols = mt["x"], mt["rows"], mt["cols"]
+        vals = sd.sddmm_edges_blocksparse(rows, cols, x, x, mt["n"],
+                                          normalize=True)
+        ref = torch.cat([sd.sddmm_edges(rows[i:i + 16384],
+                                        cols[i:i + 16384], x, x, True)
+                         for i in range(0, len(rows), 16384)])
+        err = norm_err(vals, ref)[0]
+        if vals.shape != ref.shape or not np.isfinite(err) or err > F32_TOL:
+            fail(f"re-score N={mt['n']} {mt['topology']}: {tuple(vals.shape)}"
+                 f", normalized error vs the edge list {err:.3e}")
+        log(f"rescore N={mt['n']} {mt['topology']}: {len(rows)} normalized "
+            f"edge scores, vs the plain edge list {err:.3e}, mean |score| "
+            f"{float(vals.abs().mean()):.5f}")
+    launched = counts()
+    want = {k: 0 for k in KERNELS}
+    want[SDDMM] = len(mts)
+    if launched != want:
+        fail(f"re-score launches {launched}, want {want}")
+    log(f"rescore: launches {launched}")
+    return launched
+
+
+def phase_pallas_serve(torch):
+    """The use_pallas detector through ``Predictor`` for both graph types in
+    float32 and bfloat16: each batch launches kernel #7 2 T L = 240 times
+    and no other kernel; probabilities against the naive recurrence's."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.serve import Predictor
+
+    rng = np.random.RandomState(7)
+    requests = [(rng.randn(n, T, N, 100).astype(np.float32),
+                 rng.randint(T // 2, T + 1, size=n), adjacency(rng, n))
+                for n in (BATCH, 37)]
+    batches = sum(-(-len(r[0]) // BATCH) for r in requests)
+    # the use_pallas serving path's run: counts start at 0 here
+    reset_counts()
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = flagship_cfg(gt, dtype, True, use_pallas=True)
+            params = build_model(
+                cfg, torch.Generator().manual_seed(11)).state_dict()
+            pred = Predictor(cfg, params)
+            naive = Predictor(dataclasses.replace(
+                cfg, use_pallas=False, recurrence="naive"), params)
+            before = counts()
+            probs = [pred.predict_proba(x, lens, adjacency=adj)
+                     for x, lens, adj in requests]
+            after = counts()
+            rose = {k: after[k] - before[k] for k in KERNELS}
+            want = {k: 0 for k in KERNELS}
+            want[FDC] = PALLAS_FWD * batches
+            if rose != want:
+                fail(f"use_pallas serve {gt} {dtype}: launches rose by "
+                     f"{rose}, want {want}")
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            diff = 0.0
+            for (x, lens, adj), p in zip(requests, probs):
+                if p.shape != (len(x),) or not np.all(np.isfinite(p)) \
+                        or p.min() < 0 or p.max() > 1:
+                    fail(f"use_pallas serve {gt} {dtype}: bad probabilities")
+                ref = naive.predict_proba(x, lens, adjacency=adj)
+                diff = max(diff, float(np.abs(p - ref).max()))
+            if counts() != after:
+                fail("the naive Predictor launched a kernel")
+            if diff > tol:
+                fail(f"use_pallas serve {gt} {dtype}: |kernel - naive| = "
+                     f"{diff:.3e} > {tol:.0e}")
+            log(f"serve use_pallas {gt} {dtype}: "
+                f"{sum(len(r[0]) for r in requests)} clips, launches "
+                f"+{rose[FDC]} of {FDC}, max |kernel - naive| {diff:.3e} "
+                f"(tol {tol:.0e}), mean p {float(np.mean(probs[0])):.4f}")
+    launched = counts()
+    log(f"serve use_pallas: launches {launched}")
+    return launched
+
+
+def phase_pallas_train(torch, dev):
+    """The use_pallas detector through ``TrainStep`` in the same 4
+    configurations, 3 steps each: 240 launches of kernel #7 per step and no
+    other kernel (its backward is the plain VJP); finite losses; float32
+    step-1 gradients against a stacked step from the same weights; in
+    bfloat16 the encoder's VJP under one seeded cotangent against the
+    float32 stacked encoder (<= 2e-2), the model's step-1 gradients
+    printed."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    batch = train_batch(torch, dev, BATCH, seed=21)
+    # the use_pallas training path's run: counts start at 0 here
+    reset_counts()
+    vjp_cases = []
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = flagship_cfg(gt, dtype, True, use_pallas=True, **TRAIN_KW)
+            model = build_model(cfg, torch.Generator().manual_seed(11))
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev)
+            losses, grads = [], None
+            for i in range(3):
+                before = counts()
+                losses.append(step.loss_and_grads(batch))
+                if grads is None:
+                    grads = {n: p.grad.clone()
+                             for n, p in step.model.named_parameters()}
+                step.update()
+                after = counts()
+                rose = {k: after[k] - before[k] for k in KERNELS}
+                want = {k: 0 for k in KERNELS}
+                want[FDC] = PALLAS_FWD
+                if rose != want:
+                    fail(f"use_pallas train {gt} {dtype} step {i}: launches "
+                         f"rose by {rose}, want {want}")
+            losses = [float(v) for v in losses]
+            if not all(np.isfinite(losses)):
+                fail(f"use_pallas train {gt} {dtype}: losses {losses}")
+            ref_cfg = dataclasses.replace(cfg, use_pallas=False,
+                                          recurrence="stacked")
+            ref_model = build_model(ref_cfg)
+            ref_model.load_state_dict(init)
+            ref = TrainStep(ref_cfg, ref_model, STEPS_PER_EPOCH, device=dev)
+            before = counts()
+            ref_loss = float(ref.loss_and_grads(batch))
+            if counts() != before:
+                fail("the stacked step launched a kernel")
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            if abs(losses[0] - ref_loss) > tol * abs(ref_loss):
+                fail(f"use_pallas train {gt} {dtype}: step-1 loss "
+                     f"{losses[0]} vs stacked {ref_loss}")
+            ref_grads = {n: p.grad for n, p in ref.model.named_parameters()}
+            errs = {n: norm_err(grads[n], g)[0] for n, g in ref_grads.items()}
+            name, err = max(errs.items(), key=lambda kv: kv[1])
+            if dtype == "float32" and (not np.isfinite(err) or err > tol):
+                fail(f"use_pallas train {gt} {dtype}: step-1 gradient {name}"
+                     f" vs stacked {err:.3e} > {tol:.0e}")
+            log(f"train use_pallas {gt} {dtype}: losses "
+                f"{', '.join(f'{v:.6f}' for v in losses)} (stacked "
+                f"{ref_loss:.6f}); step-1 grads vs stacked: worst {name} "
+                f"{err:.3e} "
+                f"({f'tol {tol:.0e}' if dtype == 'float32' else 'not gated'})")
+            if dtype == "bfloat16":
+                vjp_cases.append((cfg, init, grads, ref_grads))
+    launched = counts()
+    log(f"train use_pallas: launches {launched}")
+
+    for cfg, init, grads, ref_grads in vjp_cases:
+        bf16_model_errors(torch, cfg, init, batch, grads, ref_grads)
+        got = encoder_grads(torch, cfg, init, batch)
+        exact = encoder_grads(torch, dataclasses.replace(
+            cfg, use_pallas=False, recurrence="stacked", dtype="float32"),
+            init, batch)
+        errs = {n: norm_err(got[n], exact[n])[0] for n in exact}
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        if not np.isfinite(err) or err > BF16_TOL:
+            fail(f"use_pallas train {cfg.graph_type} bfloat16: encoder VJP "
+                 f"{name} vs float32 stacked {err:.3e} > {BF16_TOL:.0e}")
+        log(f"train use_pallas {cfg.graph_type} bfloat16: encoder VJP vs "
+            f"float32 stacked: worst {name} {err:.3e} (tol {BF16_TOL:.0e}), "
+            + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+    return launched
+
+
+def phase_pallas_ssl(torch, dev):
+    """SSL pre-training with use_pallas (combined, float32, curriculum on,
+    3 steps): per step 3 * 2 T = 360 launches of kernel #7, one each of the
+    decoder's kernels and one dW reduction (the decoder ignores the flag);
+    finite losses; step-1 gradients against a stacked step from the same
+    weights and force draws."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    batch = ssl_batch(torch, dev, BATCH, seed=41)
+    cfg = ssl_cfg("combined", "float32", use_curriculum_learning=True,
+                  use_pallas=True)
+    init = {k: v.clone() for k, v in build_model(
+        cfg, torch.Generator().manual_seed(11)).state_dict().items()}
+    per_step = {k: 0 for k in KERNELS}
+    per_step.update({FDC: PALLAS_SSL, DEC[0]: 1, DEC[1]: 1,
+                     "dcgru_dw_reduce": 1})
+    # the use_pallas SSL path's run: counts start at 0 here
+    reset_counts()
+    step = ssl_step(torch, cfg, init, dev)
+    losses, grads = [], None
+    for i in range(3):
+        before = counts()
+        losses.append(step.loss_and_grads(
+            batch, batches_seen=BATCHES_SEEN + i * BATCH))
+        if grads is None:
+            grads = {n: p.grad.clone()
+                     for n, p in step.model.named_parameters()}
+        step.update()
+        after = counts()
+        rose = {k: after[k] - before[k] for k in KERNELS}
+        if rose != per_step:
+            fail(f"use_pallas ssl step {i}: launches rose by {rose}, want "
+                 f"{per_step}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"use_pallas ssl: losses {losses}")
+    ref = ssl_step(torch, dataclasses.replace(
+        cfg, use_pallas=False, recurrence="stacked"), init, dev)
+    before = counts()
+    ref_loss = float(ref.loss_and_grads(batch, batches_seen=BATCHES_SEEN))
+    if counts() != before:
+        fail("the stacked SSL step launched a kernel")
+    launched = counts()
+    errs = {n: norm_err(grads[n], p.grad)[0]
+            for n, p in ref.model.named_parameters()}
+    name, err = max(errs.items(), key=lambda kv: kv[1])
+    if abs(losses[0] - ref_loss) > F32_TOL * abs(ref_loss) \
+            or not np.isfinite(err) or err > F32_TOL:
+        fail(f"use_pallas ssl: step-1 loss {losses[0]} vs stacked "
+             f"{ref_loss}, gradient {name} {err:.3e} > {F32_TOL:.0e}")
+    log(f"ssl use_pallas combined float32: losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)} (stacked {ref_loss:.6f}); "
+        f"step-1 grads vs stacked: worst {name} {err:.3e} (tol "
+        f"{F32_TOL:.0e}); launches {launched}")
+    return launched
+
+
+def phase_pallas_times(torch, dev, mts):
+    """Kernels #7 and #8 beside their plain versions, bounds and library
+    calls, and the use_pallas Predictor's clips/s and train step's ms."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.graphs.xcorr import full_f32_matmul
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+    from eeg_gnn_tpu_torch.serve import Predictor
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    out = {}
+    for s in (1, 2):
+        for o in (2 * H, H):
+            args = fdc_inputs(torch, dev, s=s, k=K, o=o, b=BATCH,
+                              seed=1500 + s * o)
+            ms = time_ms(torch, lambda: ck.fused_diffusion_conv_fwd(*args))
+            plain_ms = time_ms(
+                torch, lambda: ck.fused_diffusion_conv_plain(*args))
+            work = fdc_work(s=s, k=K, o=o, b=BATCH)
+            bms, by = bound_ms([work])
+            out[(FDC, s, o)] = (ms, plain_ms, work)
+            log(f"time {FDC} M={s * K + 1} D={H} O={o} B={BATCH} float32: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}; {work[0] / 1e9:.4f} GFLOP, "
+                f"{work[1] / 1e6:.2f} MB), {work[0] / ms / 1e9:.2f} TFLOP/s")
+    log("library_ms: none — no single PyTorch call computes a diffusion "
+        "convolution (a Chebyshev recurrence over per-clip supports, each "
+        "term times its weight block)")
+
+    for mt in mts:
+        if mt["n"] != 4096:
+            continue
+        n, x = mt["n"], mt["x"]
+        br = torch.as_tensor(mt["block_rows"], device=dev)
+        bc = torch.as_tensor(mt["block_cols"], device=dev)
+        ms = time_ms(torch, lambda: sd.sddmm_blocksparse(x, x, br, bc))
+        plain_ms = time_ms(torch,
+                           lambda: sd.sddmm_blocksparse_plain(x, x, br, bc))
+        with full_f32_matmul():
+            dense_ms = time_ms(torch, lambda: torch.matmul(x, x.t()))
+            try:
+                nb = (n + 127) // 128
+                occ = torch.zeros((nb, nb), dtype=torch.bool, device=dev)
+                occ[br.long(), bc.long()] = True
+                mask = occ.repeat_interleave(128, 0).repeat_interleave(
+                    128, 1)[:n, :n].float().to_sparse_csr()
+                xt = x.t()
+                run = lambda: torch.sparse.sampled_addmm(mask, x, xt,
+                                                         beta=0.0)
+                lib_ms = time_ms(torch, run)
+                lib = ("torch.sparse.sampled_addmm on a CSR mask of the "
+                       f"occupied blocks' {mask.values().numel()} entries")
+            except Exception as e:  # recorded: the yardstick, not the port
+                lib_ms = None
+                lib = (f"torch.sparse.sampled_addmm raised "
+                       f"{type(e).__name__}: {str(e)[:200]}")
+        work = sddmm_work(n, D_SIG, mt["block_rows"], mt["block_cols"])
+        bms, by = bound_ms([work])
+        out[(SDDMM, mt["topology"])] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": lib, "dense_gram_ms": dense_ms, "work": work,
+            "blocks": len(mt["block_rows"])}
+        log(f"time {SDDMM} N={n} {mt['topology']} D={D_SIG} "
+            f"({len(mt['block_rows'])} blocks): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {lib}: "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, dense x x^T "
+            f"{dense_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
+            f"{work[0] / ms / 1e9:.2f} TFLOP/s")
+
+    rng = np.random.RandomState(3)
+    xs = rng.randn(BATCH, T, N, 100).astype(np.float32)
+    lens = np.full((BATCH,), T, np.int64)
+    adj = adjacency(rng, BATCH)
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg("combined", dtype, True, use_pallas=True)
+        pred = Predictor(cfg, build_model(
+            cfg, torch.Generator().manual_seed(11)).state_dict())
+        run = lambda: pred.predict_proba(xs, lens, adjacency=adj)
+        ms = time_ms(torch, run, lead=False)
+        out[("serve_pallas", dtype)] = ms
+        log(f"time Predictor use_pallas combined {dtype} B={BATCH}: "
+            f"{ms:.3f} ms/batch, {BATCH / ms * 1e3:.1f} clips/s (host numpy "
+            "in, probabilities out)")
+        if dtype == "bfloat16":
+            profile_batch(torch, run, f"Predictor use_pallas combined "
+                          f"{dtype}", ms)
+    adj_batch = train_batch(torch, dev, BATCH, seed=5)
+    for dtype in ("bfloat16", "float32"):
+        cfg = flagship_cfg("combined", dtype, True, use_pallas=True,
+                           **TRAIN_KW)
+        batch = dict(adj_batch, supports=compute_supports_torch(
+            adj_batch["adjacency"], cfg.filter_type))
+        step = TrainStep(cfg, build_model(
+            cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
+            device=dev)
+        ms, best, loss = time_steps(torch, lambda: step(batch))
+        if not np.isfinite(loss):
+            fail(f"use_pallas train step {dtype}: loss {loss}")
+        out[("train_pallas", dtype)] = (ms, best)
+        log(f"time train step use_pallas combined {dtype} B={BATCH}: "
+            f"{ms:.3f} ms/step (median of {REPS}, each synchronised), "
+            f"{BATCH / ms * 1e3:.1f} clips/s; {REPS} back to back: "
+            f"{best:.3f} ms/step, {BATCH / best * 1e3:.1f} clips/s (best "
+            "of 3)")
+        if dtype == "float32":
+            profile_batch(torch, lambda: step(batch),
+                          f"train step use_pallas combined {dtype}", ms)
+    return out
+
+
 def profile_batch(torch, fn, tag, wall_ms):
     """Device time by kernel for one traced call (a Predictor batch or a
     train step; torch.profiler), and the device's busy share of that
@@ -1335,18 +1889,30 @@ def main():
     worst_d, main_abs_d = phase_dec_parity(torch, dev)
     log(f"parity: worst normalized error {worst_d}")
     main_abs.update(main_abs_d)
+    worst_f, main_abs[FDC] = phase_fdc_parity(torch, dev)
+    mts = montages(torch, dev)
+    worst_s, main_abs[SDDMM] = phase_sddmm_parity(torch, dev, mts)
+    log(f"parity: worst normalized error {{{FDC!r}: {worst_f}, "
+        f"{SDDMM!r}: {worst_s}}}")
     served = phase_serve(torch)
     trained = phase_train(torch, dev)
     ssl = phase_ssl(torch, dev)
-    paths = {"serve": served, "train": trained, "ssl": ssl}
+    paths = {"serve": served, "train": trained, "ssl": ssl,
+             "serve_pallas": phase_pallas_serve(torch),
+             "train_pallas": phase_pallas_train(torch, dev),
+             "ssl_pallas": phase_pallas_ssl(torch, dev),
+             "rescore": phase_rescore(torch, mts)}
     for path, names in (("serve", FWD), ("train", FWD + BWD +
                                           ("dcgru_dw_reduce",)),
-                        ("ssl", SSL_KERNELS)):
+                        ("ssl", SSL_KERNELS), ("serve_pallas", (FDC,)),
+                        ("train_pallas", (FDC,)),
+                        ("ssl_pallas", (FDC,) + DEC), ("rescore", (SDDMM,))):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
     times = phase_times(torch, dev)
     times.update(phase_ssl_times(torch, dev))
+    times.update(phase_pallas_times(torch, dev, mts))
 
     kernels = []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"
@@ -1403,6 +1969,44 @@ def main():
                       f"N=19, H=64, D=100, M=3, bf16 streams"
                       + ("; with its dW reduce" if name == DEC[1] else "")),
         })
+    gate, cand = times[(FDC, 1, 2 * H)], times[(FDC, 1, H)]
+    bms, by = bound_ms([gate[2], cand[2]])
+    gate5, cand5 = times[(FDC, 2, 2 * H)], times[(FDC, 2, H)]
+    bms5, by5 = bound_ms([gate5[2], cand5[2]])
+    kernels.append({
+        "name": FDC, "route": "cuda",
+        "source": "eeg_gnn_tpu_torch/csrc/fused_diffusion_conv.cu",
+        "replaces": "eeg_gnn_tpu/ops/pallas_kernels.py:32",
+        "launches": sum(c[FDC] for c in paths.values()),
+        "launches_by_path": {p: c[FDC] for p, c in paths.items()},
+        "max_abs_err": main_abs[FDC],
+        "ms": gate[0] + cand[0], "plain_ms": gate[1] + cand[1],
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "shape": (f"one loop step of one layer: gate (O={2 * H}) + candidate "
+                  f"(O={H}), B={BATCH}, N=19, D=H={H}, M=3, float32"),
+        "individual": {"ms": gate5[0] + cand5[0],
+                       "plain_ms": gate5[1] + cand5[1], "bound_ms": bms5,
+                       "bound_by": by5, "shape": "the same at M=5"},
+    })
+    entry = {}
+    for topo in ("banded", "topk"):
+        t_ = times[(SDDMM, topo)]
+        sbms, sby = bound_ms([t_["work"]])
+        entry[topo] = {
+            "ms": t_["ms"], "plain_ms": t_["plain_ms"], "bound_ms": sbms,
+            "bound_by": sby, "library_ms": t_["library_ms"],
+            "library": t_["library"], "dense_gram_ms": t_["dense_gram_ms"],
+            "shape": (f"N=4096 {topo}, D={D_SIG}, {t_['blocks']} occupied "
+                      "128x128 blocks, float32")}
+    kernels.append({
+        "name": SDDMM, "route": "cuda",
+        "source": "eeg_gnn_tpu_torch/csrc/sddmm.cu",
+        "replaces": "eeg_gnn_tpu/ops/sddmm.py:104",
+        "launches": sum(c[SDDMM] for c in paths.values()),
+        "launches_by_path": {p: c[SDDMM] for p, c in paths.items()},
+        "max_abs_err": main_abs[SDDMM], **entry["banded"],
+        "topk": entry["topk"],
+    })
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

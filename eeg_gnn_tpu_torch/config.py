@@ -39,7 +39,10 @@ class ExperimentConfig:
     max_grad_norm: float = 5.0
 
     dtype: str = "float32"  # stream dtype: float32 | bfloat16
-    recurrence: str = "pallas"  # pallas (the CUDA kernels) | stacked
+    recurrence: str = "pallas"  # pallas (the CUDA kernels) | stacked | naive
+    use_pallas: bool = False  # per-step loop whose hidden diffusion convs
+    # run the fused diffusion-conv kernel (per-clip supports); overrides
+    # recurrence and input_fusion in the encoder, as in the JAX package
     input_fusion: bool = True  # input diffusion + projection in-kernel
     batch_tile: int = 36  # the JAX package's TPU clip tile; kept so one
     # config file serves both packages. The CUDA kernels run one clip per
@@ -80,4 +83,5 @@ class ExperimentConfig:
             compute_dtype=self.dtype,
             recurrence=self.recurrence,
             input_fusion=self.input_fusion,
+            use_pallas=self.use_pallas,
         )

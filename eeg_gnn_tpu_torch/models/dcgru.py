@@ -13,7 +13,12 @@ Each encoder layer runs over the whole sequence at once (:func:`_layer_scan`):
   GEMMs over all T (``compute_x_proj``) feeding the hoisted-input kernel
   (``dcgru_recurrence_fwd``);
 - ``recurrence="stacked"``: the same hoisted projection feeding the plain
-  operator-stacked loop with its hand-written BPTT (``ops/recurrent.py``).
+  operator-stacked loop with its hand-written BPTT (``ops/recurrent.py``);
+- ``use_pallas`` (whatever the recurrence) or ``recurrence="naive"``: the
+  hoisted projection feeding a per-step Python loop (:func:`_step_scan`)
+  whose hidden diffusion convs run the fused diffusion-conv kernel
+  (``ops/cuda_kernels.py``) with ``use_pallas`` and per-clip supports,
+  and ``chebyshev_diffusion`` + matmul otherwise.
 
 The decoder (:func:`decoder_apply`) runs as two CUDA kernels over all
 T_out steps and all layers (``ops/cuda_decoder.py``) with
@@ -56,6 +61,11 @@ from eeg_gnn_tpu_torch.ops.cuda_decoder import (
     dcgru_decoder_fwd,
     dcgru_decoder_recurrence,
 )
+from eeg_gnn_tpu_torch.ops.cuda_kernels import (
+    fused_diffusion_conv,
+    fused_diffusion_conv_fwd,
+    rearrange_weight,
+)
 from eeg_gnn_tpu_torch.ops.diffusion import chebyshev_diffusion
 from eeg_gnn_tpu_torch.ops.recurrent import (
     _act_pair,
@@ -67,6 +77,7 @@ from eeg_gnn_tpu_torch.ops.recurrent import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_RECURRENCES = ("pallas", "stacked", "naive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +91,9 @@ class DCGRUConfig:
     num_supports: int
     activation: str = "tanh"  # 'tanh' | 'relu' | 'linear'
     compute_dtype: str = "float32"  # stream dtype of the recurrence
-    recurrence: str = "pallas"  # 'pallas' (CUDA kernels) | 'stacked'
+    recurrence: str = "pallas"  # 'pallas' (CUDA kernels) | 'stacked' | 'naive'
     input_fusion: bool = False  # input diffusion + projection in-kernel
+    use_pallas: bool = False  # per-step loop, fused diffusion-conv kernel
 
     @property
     def num_matrices(self) -> int:
@@ -166,6 +178,16 @@ def compute_x_proj(supports, x, wx, max_diffusion_step: int):
     return x_proj.to(x.dtype)
 
 
+def _hoisted_x_proj(cfg: DCGRUConfig, supports, x_c, wx_gate, wx_cand,
+                    stream):
+    """:func:`compute_x_proj` of the layer's input rows, gate and candidate
+    side by side: (T, B, N, 3H) in the stream dtype."""
+    wx = torch.cat([wx_gate, wx_cand], dim=1).reshape(
+        x_c.shape[-1], cfg.num_matrices, -1)
+    return compute_x_proj(supports.to(stream), x_c, wx.to(stream),
+                          cfg.max_diffusion_step)
+
+
 def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
     """Run one DCGRU layer over time.
 
@@ -178,11 +200,22 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
     din = x_seq.shape[-1]
     stream = _DTYPES[cfg.compute_dtype]
 
+    if cfg.recurrence not in _RECURRENCES:
+        raise ValueError(f"unknown recurrence {cfg.recurrence!r} "
+                         f"(the port has {', '.join(_RECURRENCES)})")
     wx_gate, wh_gate = _split_weight(cfg, params["gate_w"])
     wx_cand, wh_cand = _split_weight(cfg, params["cand_w"])
     x_c = x_seq.to(stream).contiguous()
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x_seq, h0, *params.values()))
+
+    if cfg.use_pallas or cfg.recurrence == "naive":
+        # JAX models/dcgru.py:303-344: use_pallas overrides recurrence and
+        # input_fusion
+        x_proj = _hoisted_x_proj(cfg, supports, x_c, wx_gate, wx_cand,
+                                 stream)
+        return _step_scan(cfg, params, supports, x_proj, wh_gate, wh_cand,
+                          h0, train)
 
     a_ops = chebyshev_operators(supports.float(), k)
     if a_ops.ndim == 3:  # shared (N, N) graph: broadcast batch dim
@@ -206,8 +239,7 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
             h_seq, _, _ = dcgru_recurrence_xin_fwd(*args)
         return h_seq[-1], h_seq
 
-    wx = torch.cat([wx_gate, wx_cand], dim=1).reshape(din, m, -1)
-    x_proj = compute_x_proj(supports.to(stream), x_c, wx.to(stream), k)
+    x_proj = _hoisted_x_proj(cfg, supports, x_c, wx_gate, wx_cand, stream)
     if cfg.recurrence == "pallas":
         args = (x_proj.contiguous(), a_ops, *wh_args, cfg.activation)
         if train:
@@ -215,13 +247,54 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
         else:
             h_seq, _, _ = dcgru_recurrence_fwd(*args)
         return h_seq[-1], h_seq
-    if cfg.recurrence == "stacked":
-        x_proj = x_proj.float()
-        return dcgru_layer_recurrence(
-            a_ops, x_proj[..., :2 * h_units], x_proj[..., 2 * h_units:],
-            *wh_args, cfg.activation)
-    raise ValueError(f"unknown recurrence {cfg.recurrence!r} "
-                     "(the port has 'pallas' and 'stacked')")
+    x_proj = x_proj.float()
+    return dcgru_layer_recurrence(
+        a_ops, x_proj[..., :2 * h_units], x_proj[..., 2 * h_units:],
+        *wh_args, cfg.activation)
+
+
+def _step_scan(cfg: DCGRUConfig, params, supports, x_proj, wh_gate, wh_cand,
+               h0, train: bool):
+    """The per-step loop of JAX ``_layer_scan`` (``models/dcgru.py:303-344``)
+    on the hoisted input projection: each step's hidden transforms are one
+    diffusion conv each, of h (gate) and of r*h (candidate).
+
+    With ``use_pallas`` and per-clip (S, B, N, N) supports they are the
+    fused diffusion-conv kernel (two launches per step: its autograd
+    Function when ``train``, the bare forward wrapper otherwise); with a
+    shared (S, N, N) graph, or ``use_pallas`` off, ``chebyshev_diffusion``
+    + matmul. The gate and candidate inputs and the state are float32
+    whatever the stream dtype, so h_seq (T, B, N, H) is float32.
+    """
+    h_units = cfg.num_units
+    k = cfg.max_diffusion_step
+    act, _ = _act_pair(cfg.activation)
+    gate_b, cand_b = params["gate_b"], params["cand_b"]
+    if cfg.use_pallas and supports.ndim == 4:
+        sup = supports.float().contiguous()
+        w_gate = rearrange_weight(wh_gate, h_units, cfg.num_matrices)
+        w_cand = rearrange_weight(wh_cand, h_units, cfg.num_matrices)
+        w_gate, w_cand = w_gate.contiguous(), w_cand.contiguous()
+        conv = fused_diffusion_conv if train else fused_diffusion_conv_fwd
+        hidden_gate = lambda h: conv(sup, h, w_gate, gate_b, k)
+        hidden_cand = lambda rh: conv(sup, rh, w_cand, cand_b, k)
+    else:
+        hidden_gate = lambda h: torch.matmul(
+            _flat(chebyshev_diffusion(supports, h, k)), wh_gate) + gate_b
+        hidden_cand = lambda rh: torch.matmul(
+            _flat(chebyshev_diffusion(supports, rh, k)), wh_cand) + cand_b
+
+    gate_x = x_proj[..., :2 * h_units].float()
+    cand_x = x_proj[..., 2 * h_units:].float()
+    h = h0
+    h_seq = []
+    for t in range(x_proj.shape[0]):
+        ru = torch.sigmoid(gate_x[t] + hidden_gate(h))
+        r, u = ru[..., :h_units], ru[..., h_units:]
+        c = act(cand_x[t] + hidden_cand(r * h))
+        h = u * h + (1.0 - u) * c
+        h_seq.append(h)
+    return h, torch.stack(h_seq)
 
 
 # ---------------------------------------------------------------------------
@@ -232,12 +305,13 @@ def _layer_scan(cfg: DCGRUConfig, params, supports, x_seq, h0):
 def encoder_configs(input_dim, num_units, max_diffusion_step, num_nodes,
                     num_supports, num_layers, activation="tanh",
                     compute_dtype="float32", recurrence="pallas",
-                    input_fusion=False) -> List[DCGRUConfig]:
+                    input_fusion=False, use_pallas=False
+                    ) -> List[DCGRUConfig]:
     """Per-layer cell configs: layer 0 consumes input_dim, the rest
     num_units (reference model.py:58-79)."""
     mk = lambda d: DCGRUConfig(d, num_units, max_diffusion_step, num_nodes,
                                num_supports, activation, compute_dtype,
-                               recurrence, input_fusion)
+                               recurrence, input_fusion, use_pallas)
     return [mk(input_dim)] + [mk(num_units)] * (num_layers - 1)
 
 
@@ -257,7 +331,8 @@ def encoder_apply(cfgs, params, supports, x_seq, h0: Optional[torch.Tensor] = No
     Returns:
         (hidden_stack, top_seq): (L, B, N, H) last state per layer, in
         x_seq's dtype, and the top layer's output sequence (T, B, N, H) in
-        the stream dtype.
+        the stream dtype (float32 from the per-step loop of ``use_pallas``
+        or ``recurrence="naive"``, as in JAX).
     """
     _, b, n, _ = x_seq.shape
     h_units = cfgs[0].num_units
@@ -411,7 +486,8 @@ def decoder_apply(cfgs, params, supports, dec_inputs, h0_stack, num_layers,
 
     ``recurrence="pallas"`` runs the two decoder kernels (on the CPU their
     plain versions), unless dropout is active in training, which, as in
-    JAX (``:569``), takes the plain stacked scan; so does ``"stacked"``.
+    JAX (``:569``), takes the plain stacked scan; so do ``"stacked"`` and
+    ``"naive"``. ``use_pallas`` does not reach the decoder.
     """
     cfg0, cfg_shared = cfgs
     t_out = dec_inputs.shape[0]
@@ -427,9 +503,9 @@ def decoder_apply(cfgs, params, supports, dec_inputs, h0_stack, num_layers,
     if cfg0.recurrence == "pallas" and not use_dropout:
         return _decoder_kernels(cfg0, params, a_ops, dec_inputs, force,
                                 h0_stack, num_layers)
-    if cfg0.recurrence not in ("pallas", "stacked"):
+    if cfg0.recurrence not in _RECURRENCES:
         raise ValueError(f"unknown recurrence {cfg0.recurrence!r} "
-                         "(the port has 'pallas' and 'stacked')")
+                         f"(the port has {', '.join(_RECURRENCES)})")
 
     cells = []
     for i in range(num_layers):

@@ -43,13 +43,14 @@ class DCRNNConfig:
     compute_dtype: str = "float32"
     recurrence: str = "pallas"
     input_fusion: bool = False
+    use_pallas: bool = False  # the encoder's; the decoder ignores it
 
     def encoder_cfgs(self):
         return encoder_configs(
             self.input_dim, self.rnn_units, self.max_diffusion_step,
             self.num_nodes, self.num_supports, self.num_rnn_layers,
             self.dcgru_activation, self.compute_dtype, self.recurrence,
-            self.input_fusion)
+            self.input_fusion, self.use_pallas)
 
 
 def compute_sampling_threshold(cl_decay_steps, global_step):
@@ -139,6 +140,7 @@ class DCRNNNextTimePred(nn.Module):
         self.cell_cfgs = cfg.encoder_cfgs()
         self.encoder = nn.ModuleList(
             [DCGRUCell(c, generator) for c in self.cell_cfgs])
+        # no use_pallas: the decoder ignores it (JAX ``_decoder_cfgs``)
         mk = lambda d: DCGRUConfig(
             d, cfg.rnn_units, cfg.max_diffusion_step, cfg.num_nodes,
             cfg.num_supports, cfg.dcgru_activation, cfg.compute_dtype,

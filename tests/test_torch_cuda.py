@@ -8,9 +8,10 @@ card's machine it runs without the suite's conftest:
 Tolerance: normalized inf-norm error max|k - p| / max|p| <= 1e-4 in float32
 (the same f32 arithmetic summed in another order, TF32 off) and <= 2e-2 in
 bfloat16 (the bf16 bound of benchmarks/tpu_kernel_parity.json), for every
-output of the encoder's forward and backward kernels and of the seq2seq
-decoder's; and the detection and SSL train steps' gradients against the
-stacked steps' at 1e-4.
+output of the encoder's forward and backward kernels, of the seq2seq
+decoder's, of the fused diffusion conv and of the block-sparse SDDMM; and
+the detection and SSL train steps' gradients against the stacked steps'
+at 1e-4.
 """
 
 import dataclasses
@@ -401,3 +402,153 @@ def test_ssl_train_step_matches_stacked(dev):
                       for n, p in step.model.named_parameters()}
     for name, g in grads["pallas"].items():
         assert _err(g, grads["stacked"][name]) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# the fused diffusion conv (csrc/fused_diffusion_conv.cu) and the
+# block-sparse SDDMM (csrc/sddmm.cu)
+# ---------------------------------------------------------------------------
+
+
+def _conv_args(dev, s, k, d, o, b, seed=0):
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.RandomState(seed)
+    m = s * k + 1
+    f = lambda *shape, scale: torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+    w = ck.rearrange_weight(f(d * m, o, scale=(2.0 / (d * m)) ** 0.5), d,
+                            m).contiguous()
+    return (f(s, b, N, N, scale=0.3), f(b, N, d, scale=1.0), w,
+            f(o, scale=0.1), k)
+
+
+@pytest.mark.parametrize("s,k,d,o,b", [(1, 2, 12, 8, 3), (1, 2, 64, 128, 128),
+                                       (2, 2, 64, 64, 37), (2, 3, 20, 24, 4)])
+def test_fused_diffusion_conv_matches_plain(dev, s, k, d, o, b):
+    """Kernel #7 against its plain version: the gate (O=128) and candidate
+    (O=64) shapes of the use_pallas loop, the carry-over at M=5 and K=3."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    args = _conv_args(dev, s, k, d, o, b)
+    before = ck.fused_diffusion_conv_fwd.launches
+    got = ck.fused_diffusion_conv_fwd(*args)
+    torch.cuda.synchronize()
+    assert ck.fused_diffusion_conv_fwd.launches == before + 1
+    want = ck.fused_diffusion_conv_plain(*args)
+    assert got.shape == want.shape == (b, N, o)
+    assert _err(got, want) <= 1e-4
+
+
+def test_fused_diffusion_conv_function_gradients(dev):
+    """The autograd Function's dx, dW (M, D, O) and db against autograd of
+    the plain version, on the card."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    sup, x, w, bias, k = _conv_args(dev, 2, 2, 64, 128, 37)
+    cot = torch.randn(37, N, 128, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    grads = []
+    for fn in (ck.fused_diffusion_conv, ck.fused_diffusion_conv_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        (fn(sup, *leaves, k) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, want in zip(*grads):
+        assert g.shape == want.shape and _err(g, want) <= 1e-4
+
+
+def test_fused_diffusion_conv_wrapper_raises(dev):
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    sup, x, w, bias, k = _conv_args(dev, 1, 2, 12, 8, 3)
+    with pytest.raises(TypeError, match="float32"):
+        ck.fused_diffusion_conv_fwd(sup, x.double(), w, bias, k)
+    with pytest.raises(ValueError, match="takes supports"):
+        ck.fused_diffusion_conv_fwd(sup[0], x, w, bias, k)
+    with pytest.raises(ValueError, match="M = S\\*K"):
+        ck.fused_diffusion_conv_fwd(sup, x, w, bias, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.fused_diffusion_conv_fwd(sup, x.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), w, bias, k)
+    with pytest.raises(ValueError, match="nodes"):
+        big = torch.zeros(1, 3, 40, 40, device=dev)
+        ck.fused_diffusion_conv_fwd(big, torch.zeros(3, 40, 12, device=dev),
+                                    w, bias, k)
+
+
+def _banded(n, half=32):
+    rows = np.repeat(np.arange(n), 2 * half)
+    offs = np.concatenate([np.arange(-half, 0), np.arange(1, half + 1)])
+    return rows, (rows.reshape(n, 2 * half) + offs).reshape(-1) % n
+
+
+@pytest.mark.parametrize("n,d,banded", [(19, 60, False), (300, 77, False),
+                                        (4096, 6000, True)])
+def test_sddmm_blocksparse_matches_plain(dev, n, d, banded):
+    """Kernel #8 against its plain version (TF32 off): every occupied
+    block, zero rows and columns past N included; 4096 banded +-32 gives
+    96 occupied blocks."""
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+    if banded:
+        rows, cols = _banded(n)
+    else:
+        rows = np.repeat(np.arange(n), 3)
+        cols = rng.randint(0, n, size=3 * n)
+    br, bc, _, _ = sd.edges_to_blocks(rows, cols, n)
+    if banded:
+        assert len(br) == 96
+    before = sd.sddmm_blocksparse.launches
+    got = sd.sddmm_blocksparse(x, y, br, bc)
+    torch.cuda.synchronize()
+    assert sd.sddmm_blocksparse.launches == before + 1
+    want = sd.sddmm_blocksparse_plain(x, y, br, bc)
+    assert got.shape == want.shape == (len(br), 128, 128)
+    assert _err(got, want) <= 1e-4
+    vals = sd.sddmm_edges_blocksparse(rows, cols, x, x, n, normalize=True)
+    ref = sd.sddmm_edges(rows, cols, x, x, normalize=True)
+    assert _err(vals, ref) <= 1e-4
+
+
+def test_sddmm_wrapper_raises(dev):
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    x = torch.zeros(19, 8, device=dev)
+    z = np.zeros(1, np.int32)
+    with pytest.raises(TypeError, match="float32"):
+        sd.sddmm_blocksparse(x.double(), x.double(), z, z)
+    with pytest.raises(ValueError, match="one shape"):
+        sd.sddmm_blocksparse(x, x[:5], z, z)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        sd.sddmm_blocksparse(x, x, z, z, block=96)
+
+
+def test_use_pallas_predictor_launches_the_conv_kernel(dev):
+    """The use_pallas detector through Predictor: 2 T L launches of kernel
+    #7 per batch and none of the recurrence kernels; probabilities as the
+    naive recurrence's."""
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+    from eeg_gnn_tpu_torch.serve import Predictor
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(37, 60, N, 100).astype(np.float32)
+    adj = np.abs(rng.rand(37, N, N)).astype(np.float32)
+    cfg = ExperimentConfig(graph_type="individual", use_pallas=True,
+                           test_batch_size=64).finalize()
+    params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    others = (cr.dcgru_recurrence_xin_fwd, cr.dcgru_recurrence_fwd)
+    before = [ck.fused_diffusion_conv_fwd.launches] + [
+        k.launches for k in others]
+    probs = Predictor(cfg, params, device=dev).predict_proba(x, adjacency=adj)
+    after = [ck.fused_diffusion_conv_fwd.launches] + [
+        k.launches for k in others]
+    assert [a - b_ for a, b_ in zip(after, before)] == [2 * 60 * 2, 0, 0]
+    naive = Predictor(dataclasses.replace(cfg, use_pallas=False,
+                                          recurrence="naive"),
+                      params, device=dev).predict_proba(x, adjacency=adj)
+    assert np.abs(probs - naive).max() <= 1e-4

@@ -227,7 +227,8 @@ def test_port_sources_import_no_jax():
 def test_import_pulls_in_no_jax():
     code = ("import sys, eeg_gnn_tpu_torch.serve, "
             "eeg_gnn_tpu_torch.models.registry, eeg_gnn_tpu_torch.io, "
-            "eeg_gnn_tpu_torch.train; "
+            "eeg_gnn_tpu_torch.train, eeg_gnn_tpu_torch.ops.cuda_kernels, "
+            "eeg_gnn_tpu_torch.ops.sddmm, eeg_gnn_tpu_torch.graphs.xcorr; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
