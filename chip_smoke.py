@@ -7,17 +7,21 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. print the card's name and power limit; turn TF32 off; build the five
+1. print the card's name and power limit; turn TF32 off; build the six
    CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
    nvcc each), and print ptxas' register and spill report;
 2. hold every kernel against its plain PyTorch version on the card at
    T=60, N=19, H=64 (D=100 and 64; M=3 per-clip, M=3 shared, M=5
    per-clip; B=128 and 37; float32 and bfloat16): the forward kernels
-   (the ru/c residuals in one case each), then the backward kernels on
-   the forward's residuals and a random seeded h_seq cotangent (every
-   output: dx or dx_proj, each dW, each db, dh0; at D=100 the xin kernel
-   also without dx, as the first layer runs it) and the dW reduction,
-   by the normalized inf-norm error max|k-p| / max|p|: float32 <= 1e-4
+   (the ru/c residuals in one case each): the x-in layer as a whole and
+   its bulk projection and state loop each on the same inputs, and the
+   hoisted kernel; then the backward kernels on the forward's residuals
+   and a random seeded h_seq cotangent (every output: dx or dx_proj, each
+   dW, each db, dh0; at D=100 the x-in backward also without dx, as the
+   first layer runs it, and once more, bitwise equal), the x-in
+   backward's state loop, bulk dW split partials and bulk dx each on the
+   same inputs, and the dW reduction, by the normalized inf-norm error
+   max|k-p| / max|p|: float32 <= 1e-4
    (the same f32 arithmetic summed in another order), bfloat16 <= 2e-2
    (the bf16 bound of benchmarks/tpu_kernel_parity.json); then the
    seq2seq decoder kernels at T_out=12, D=100 (L=3, 2 and 1; the same M,
@@ -35,15 +39,18 @@ Phases (any failure exits non-zero and prints no result line):
    input_dim 100, T=60, batch 128, random weights from a seeded
    torch.Generator) through ``Predictor`` for both graph types, float32
    and bfloat16 and both ``input_fusion`` settings: every batch must
-   launch its forward kernel once per layer and no backward kernel, and
+   launch its forward kernels once per layer (``SERVE_BATCH``: the x-in
+   layer's projection and loop) and no backward kernel, and
    the probabilities must be finite, in [0, 1], and match an all-plain
    forward on the card (float32 atol 1e-4, bfloat16 atol 2e-2) and, on a
    small input, the CPU;
 4. train the same detector through ``TrainStep`` in the same 8
    configurations (random labels, per-clip adjacency, Adam lr 1e-4, L2
    5e-4, clip 5.0, 100 epochs of 100 steps, as bench.py): 3 steps each,
-   each launching exactly 2 forward and 2 backward kernels of the
-   configuration's pair and none of the other; finite losses; float32
+   each launching exactly the kernels of ``TRAIN_STEP`` (per layer a
+   forward and a backward; the x-in layer's projection, loops, dW and its
+   reduction, and dx on layer 1 only) and none of the other pair; finite
+   losses; float32
    step-1 gradients against a ``recurrence="stacked"`` step from the same
    weights on the card (normalized per tensor, <= 1e-4) and, on a small
    input, the CPU; in bfloat16, the two-layer encoder's gradients under
@@ -56,20 +63,27 @@ Phases (any failure exits non-zero and prints no result line):
    as benchmarks/ssl_bench.py), combined and individual graphs, float32
    and bfloat16, curriculum on at batches_seen 24,000 (teacher-forcing
    ratio ~0.5, so the force vectors mix), 3 steps each, plus one
-   curriculum-off run: each step launches exactly 3 xin forward, 3 xin
-   backward, 1 decoder forward, 1 decoder backward and 4 dW reductions
-   (one per encoder layer and one for the decoder's slabs); finite
+   curriculum-off run: each step launches exactly the kernels of
+   ``SSL_STEP`` (3 x-in layers, 2 with dx, 1 decoder forward, 1 decoder
+   backward, 4 dW reductions: one per encoder layer and one for the
+   decoder's slabs); finite
    losses; float32 step-1 gradients against a stacked step from the same
    weights and force draws (<= 1e-4) and, on 4 clips, the CPU; in
    bfloat16 the decoder's gradients under one seeded cotangent, and the
    model's step-1 gradients, each against the float32 stacked path's
    (<= 2e-2; the bfloat16 stacked path's printed beside);
-6. time each kernel and its plain version with CUDA events (median of
-   20 runs after warm-up): the encoder's per layer (B=128, M=3; the
-   first layer's backward without dx, as the train step runs it, and
-   with dx), the decoder's (B=128, M=3, L=3), the dW reduction beside
-   ``torch.sum`` (at each encoder layer's slab width and at the
-   decoder's); the Predictor's clips/s, the detection and SSL train
+6. time each kernel with CUDA events (median of 20 runs after warm-up;
+   its plain version: of 5): the encoder's per layer (B=128, M=3; the
+   x-in wrappers as a whole and each of their kernels alone; the first
+   layer's backward without dx, as the train step runs it, and with dx),
+   the decoder's (B=128, M=3, L=3), the dW reduction beside ``torch.sum``
+   (at each x-in layer's split partials and at the decoder's per-clip
+   slabs); bounds with every product of the bulk kernels (diffusions
+   included) at the tensor-core rate for the stream dtype (bf16, or
+   3xTF32 for f32), the serial chains at the non-tensor f32 rate, with
+   the all-f32 bound of the x-in wrappers beside; the wrappers, which
+   launch no kernel of their own, on a ``wrappers`` line of their own
+   without a launch count; the Predictor's clips/s, the detection and SSL train
    steps' ms and clips/s; trace one bfloat16 batch, one bfloat16
    detection step and one SSL step in each dtype with torch.profiler;
 7. the ``use_pallas`` paths: the detector served through ``Predictor`` and
@@ -88,8 +102,9 @@ Phases (any failure exits non-zero and prints no result line):
    SDDMM also beside ``torch.sparse.sampled_addmm`` and the dense
    ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms.
 
-The second-to-last line is a JSON object describing the kernels; the
-last is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object describing the kernels (the
+x-in wrappers, which launch none of their own, are on the ``wrappers``
+line before it); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +125,8 @@ BATCHES_SEEN = 24_000       # ratio 3000 / (3000 + e^8) ~ 0.5
 BATCH = 128
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 PEAK_F32_FLOPS = 67e12   # H100 SXM, non-tensor float32 (NVIDIA data sheet)
+PEAK_BF16_TC = 989e12    # dense bf16 tensor cores
+PEAK_TF32_TC = 495e12    # dense TF32 tensor cores; 3xTF32 does 3 per product
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 REPS = 20
 STEPS_PER_EPOCH = 100
@@ -122,10 +139,23 @@ BWD = ("dcgru_recurrence_xin_bwd", "dcgru_recurrence_bwd")
 DEC = ("dcgru_decoder_fwd", "dcgru_decoder_bwd")
 FDC = "fused_diffusion_conv_fwd"  # kernel #7, the use_pallas loop's
 SDDMM = "sddmm_blocksparse"       # kernel #8, the correlation re-score
-KERNELS = FWD + BWD + ("dcgru_dw_reduce",) + DEC + (FDC, SDDMM)
-SSL_KERNELS = (FWD[0], BWD[0], "dcgru_dw_reduce") + DEC
-SSL_STEP = {FWD[0]: 3, BWD[0]: 3, "dcgru_dw_reduce": 4, DEC[0]: 1,
-            DEC[1]: 1}  # launches per SSL step at 3 layers
+XIN_FWD = ("dcgru_xin_proj", "dcgru_xin_fwd_loop")  # the kernels of FWD[0]
+XIN_BWD = ("dcgru_xin_bwd_loop", "dcgru_xin_dw", "dcgru_xin_dx")  # of BWD[0]
+# FWD[0] and BWD[0] launch no kernel of their own: they are timed and held
+# against their plain versions as wrappers, and their kernels are counted
+KERNELS = ((FWD[1], BWD[1], "dcgru_dw_reduce") + XIN_FWD + XIN_BWD + DEC
+           + (FDC, SDDMM))
+SSL_KERNELS = ("dcgru_dw_reduce",) + XIN_FWD + XIN_BWD + DEC
+# launches per batch or step: the x-in layer's forward is a projection and
+# a loop, its backward a loop, a dW product (+ its reduction) and, on every
+# layer but the first (fed data), a dx product
+SERVE_BATCH = {True: {XIN_FWD[0]: 2, XIN_FWD[1]: 2}, False: {FWD[1]: 2}}
+TRAIN_STEP = {True: {"dcgru_dw_reduce": 2, XIN_FWD[0]: 2, XIN_FWD[1]: 2,
+                     XIN_BWD[0]: 2, XIN_BWD[1]: 2, XIN_BWD[2]: 1},
+              False: {FWD[1]: 2, BWD[1]: 2, "dcgru_dw_reduce": 2}}
+SSL_STEP = {"dcgru_dw_reduce": 4, DEC[0]: 1, DEC[1]: 1, XIN_FWD[0]: 3,
+            XIN_FWD[1]: 3, XIN_BWD[0]: 3, XIN_BWD[1]: 3,
+            XIN_BWD[2]: 2}  # at 3 layers
 XIN_GRADS = ("dx", "dwxg_f", "dwxc_f", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
@@ -261,9 +291,12 @@ def norm_err(k, p) -> tuple[float, float]:
 
 
 def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
-               stream_bytes: int) -> tuple[float, float]:
-    """(FLOPs, bytes) one kernel launch needs: the identity operator A_0 is
-    skipped, each input is read once and each output written once."""
+               stream_bytes: int, xp_bytes: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) one forward launch needs, all its products at the f32
+    FMA rate: the identity operator A_0 is skipped, each input is read once
+    and each output written once. ``xin``: the old fused kernel's work, or
+    the x-in wrapper's as one; else the loop fed x_proj (``xp_bytes`` wide
+    elements, by default the stream's)."""
     diff_h = 2 * (m - 1) * N * N * H           # A_m h and A_m (r*h)
     gemm_h = 2 * N * (m * H) * 3 * H           # hidden rows, gate + cand
     per_step = 2 * diff_h + gemm_h
@@ -273,7 +306,7 @@ def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
         per_step += 2 * N * (m * d) * 3 * H    # input rows, gate + cand
         nbytes += m * d * 3 * H * 4 + T * b * N * d * stream_bytes
     else:
-        nbytes += T * b * N * 3 * H * stream_bytes
+        nbytes += T * b * N * 3 * H * (xp_bytes or stream_bytes)
     nbytes += m * a_batch * N * N * 4 + b * N * H * 4      # a_ops, h0
     nbytes += T * b * N * H * stream_bytes                 # h_seq
     return float(per_step) * T * b, float(nbytes)
@@ -281,10 +314,12 @@ def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
 
 def bwd_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
              stream_bytes: int, need_dx: bool = True) -> tuple[float, float]:
-    """(FLOPs, bytes) one backward launch needs (A_0 = I skipped; the
-    per-clip dW partial slabs are scratch and not counted). Per step and
-    clip: the diffusions of [h_prev | r h_prev | x] recomputed, the dW
-    products, the weight-transpose products and two A^T applies; without
+    """(FLOPs, bytes) one backward launch needs, all at the f32 FMA rate
+    (A_0 = I skipped; the per-clip dW partial slabs are scratch and not
+    counted): the hoisted kernel's, or with ``xin`` the old fused x-in
+    kernel's (the all-f32 bound of the x-in wrapper). Per step and clip:
+    the diffusions of [h_prev | r h_prev | x] recomputed, the dW products,
+    the weight-transpose products and two A^T applies; without
     ``need_dx`` the last two have no x columns and dx is not written."""
     dx = d if xin else 0
     dxo = dx if need_dx else 0
@@ -299,6 +334,68 @@ def bwd_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
     nbytes += T * b * N * (dxo if xin else 3 * H) * stream_bytes  # dx/dxp
     nbytes += m * a_batch * N * N * 4 + b * N * H * 4  # a_ops, dh0
     return float(per_step) * T * b, float(nbytes)
+
+
+def _tc(flops: float, stream_bytes: int) -> tuple[float, float]:
+    """Products at the tensor-core rate for the stream dtype: bf16 for bf16
+    streams (the reference's one bf16 pass); for f32 the exact-f32 3xTF32
+    (three TF32 products each, a third of the TF32 rate)."""
+    if stream_bytes == 2:
+        return float(flops), PEAK_BF16_TC
+    return float(flops), PEAK_TF32_TC / 3
+
+
+def proj_work(*, d: int, m: int, b: int, a_batch: int,
+              stream_bytes: int) -> tuple:
+    """(FMA FLOPs, bytes, tensor-core FLOPs, their rate) of one bulk input
+    projection: the diffusions A_m x (A_0 = I skipped) and the (M*D, 3H)
+    product, all products at the tensor-core rate; x, Wx, the operators
+    read once, XP (f32) written once."""
+    rows = T * b * N
+    diff = 2 * (m - 1) * N * N * d * T * b
+    nbytes = (rows * d * stream_bytes + m * d * 3 * H * 4
+              + m * a_batch * N * N * 4 + rows * 3 * H * 4)
+    return (0.0, float(nbytes),
+            *_tc(diff + 2 * rows * m * d * 3 * H, stream_bytes))
+
+
+def bwd_loop_work(*, m: int, b: int, a_batch: int, stream_bytes: int):
+    """(FLOPs, bytes) of the state-only backward loop: per step and clip
+    the weight-transpose products dpre W_h^T and two A^T applies; h_prev,
+    ru, c, d_seq read once, dpre (f32) and dh0 written once."""
+    per_step = 2 * N * 3 * H * m * H + 4 * (m - 1) * N * N * H
+    nbytes = m * H * 3 * H * 4 + T * b * N * 5 * H * stream_bytes
+    nbytes += T * b * N * 3 * H * 4 + m * a_batch * N * N * 4 + b * N * H * 4
+    return float(per_step) * T * b, float(nbytes)
+
+
+def dw_work(*, d: int, m: int, b: int, a_batch: int, stream_bytes: int,
+            splits: int) -> tuple:
+    """One bulk dW product: the features A_m [x | h_prev | r h_prev] and
+    the three products at the tensor-core rate, db's sums on FMA; x,
+    h_prev, r, dpre and the operators read once, the ``splits`` partials
+    written once."""
+    from eeg_gnn_tpu_torch.ops.cuda_recurrent import dw_size
+
+    rows = T * b * N
+    diff = 2 * (m - 1) * N * N * (d + 2 * H) * T * b
+    nbytes = rows * (d + 2 * H) * stream_bytes + rows * 3 * H * 4
+    nbytes += m * a_batch * N * N * 4 + splits * dw_size(m, d, H) * 4
+    tc = diff + 2 * rows * (m * d * 3 * H + m * H * 2 * H + m * H * H)
+    return (float(rows * 3 * H), float(nbytes), *_tc(tc, stream_bytes))
+
+
+def dx_work(*, d: int, m: int, b: int, a_batch: int,
+            stream_bytes: int) -> tuple:
+    """One bulk dx product: A_m^T dpre and the (3H, M*D) product at the
+    tensor-core rate; dpre, Wx, the operators read once, dx written
+    once."""
+    rows = T * b * N
+    diff = 2 * (m - 1) * N * N * 3 * H * T * b
+    nbytes = (rows * 3 * H * 4 + m * d * 3 * H * 4
+              + m * a_batch * N * N * 4 + rows * d * stream_bytes)
+    return (0.0, float(nbytes),
+            *_tc(diff + 2 * rows * 3 * H * m * d, stream_bytes))
 
 
 def _cell_fwd_flops(d: int, m: int) -> int:
@@ -354,9 +451,14 @@ def reduce_work(b: int, w: int) -> tuple[float, float]:
 
 
 def bound_ms(work) -> tuple[float, str]:
-    flops = sum(w[0] for w in work)
-    nbytes = sum(w[1] for w in work)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    """The least time for the work items, one per kernel launch (FMA
+    FLOPs, bytes[, tensor-core FLOPs, their rate]): in each item FMA at
+    the non-tensor f32 rate and tensor-core products at theirs, which
+    overlap (the larger of the two); bytes at the HBM rate; the larger of
+    operations and bytes over all items."""
+    t_ops = sum(max(w[0] / PEAK_F32_FLOPS, w[2] / w[3] if len(w) > 2 else 0)
+                for w in work)
+    t_bytes = sum(w[1] for w in work) / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -429,8 +531,8 @@ def phase_build(torch):
         sddmm,
     )
 
-    names = ("dcgru_recurrence", "dcgru_recurrence_bwd", "dcgru_decoder",
-             "fused_diffusion_conv", "sddmm")
+    names = ("dcgru_recurrence", "dcgru_recurrence_bwd", "dcgru_xin_gemm",
+             "dcgru_decoder", "fused_diffusion_conv", "sddmm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = list(pool.map(_build.build, names))
@@ -444,6 +546,7 @@ def phase_build(torch):
                 log(f"  ptxas: {line.strip()}")
     cuda_recurrent._lib()
     cuda_recurrent._lib_bwd()
+    cuda_recurrent._lib_xin()
     cuda_decoder._lib()
     cuda_kernels._lib()
     sddmm._lib()
@@ -451,10 +554,13 @@ def phase_build(torch):
 
 
 def phase_parity(torch, dev):
+    """The forward kernels against their plain versions: the x-in layer as
+    a whole, and each of its two kernels on the same inputs (the loop fed
+    the plain projection), and the hoisted kernel."""
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
-    worst = {"dcgru_recurrence_xin_fwd": 0.0, "dcgru_recurrence_fwd": 0.0}
-    main_abs = {"dcgru_recurrence_xin_fwd": 0.0, "dcgru_recurrence_fwd": 0.0}
+    worst = {k: 0.0 for k in FWD + XIN_FWD}
+    main_abs = dict(worst)
     ops_cases = [(3, False), (3, True), (5, False)]
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -469,19 +575,37 @@ def phase_parity(torch, dev):
                                      b=b, dtype=dtype, seed=seed)
                     residuals = (b == BATCH and d == 100 and m == 3
                                  and not shared and dtype == torch.float32)
-                    runs = [("dcgru_recurrence_xin_fwd", cr.dcgru_recurrence_xin_fwd,
-                             cr.dcgru_recurrence_xin_fwd_plain, xin_args(a))]
+                    wx = torch.cat([a["wxg_f"], a["wxc_f"]], dim=1)
+                    kw = dict(residuals=residuals)
+                    runs = [(FWD[0], cr.dcgru_recurrence_xin_fwd,
+                             cr.dcgru_recurrence_xin_fwd_plain, xin_args(a),
+                             kw),
+                            (XIN_FWD[0], cr.dcgru_xin_proj,
+                             cr.dcgru_xin_proj_plain,
+                             (a["x"], a["a_ops"], wx), {}),
+                            (XIN_FWD[1], cr.dcgru_xin_fwd_loop,
+                             cr.dcgru_xin_fwd_loop_plain,
+                             (cr.dcgru_xin_proj_plain(a["x"], a["a_ops"],
+                                                      wx),
+                              *hoisted_args(a)[1:]),
+                             dict(kw, stream_dtype=dtype))]
                     if d == 100:
-                        runs.append(("dcgru_recurrence_fwd", cr.dcgru_recurrence_fwd,
+                        runs.append((FWD[1], cr.dcgru_recurrence_fwd,
                                      cr.dcgru_recurrence_fwd_plain,
-                                     hoisted_args(a)))
-                    for name, kern, plain, args in runs:
-                        got = kern(*args, residuals=residuals)
+                                     hoisted_args(a), kw))
+                    for name, kern, plain, args, kw in runs:
+                        got = kern(*args, **kw)
                         torch.cuda.synchronize()
-                        want = plain(*args, residuals=residuals)
-                        outs = ("h_seq", "ru_seq", "c_seq") if residuals \
-                            else ("h_seq",)
+                        want = plain(*args, **kw)
+                        if name == XIN_FWD[0]:
+                            got, want = (got,), (want,)
+                        outs = (("xp",) if name == XIN_FWD[0] else
+                                ("h_seq", "ru_seq", "c_seq") if residuals
+                                else ("h_seq",))
                         for i, out in enumerate(outs):
+                            if got[i].dtype != want[i].dtype:
+                                fail(f"{name} {out}: {got[i].dtype} != "
+                                     f"{want[i].dtype}")
                             err, max_abs = norm_err(got[i], want[i])
                             if not np.isfinite(err) or err > tol:
                                 fail(f"{name} {out} D={d} M={m} shared="
@@ -500,10 +624,13 @@ def phase_parity(torch, dev):
 
 def phase_bwd_parity(torch, dev):
     """Backward kernels and the dW reduction against their plain versions
-    on the forward grid; every output of every case."""
+    on the forward grid; every output of every case: the x-in layer's
+    BPTT as a whole, and each of its kernels on the same inputs (the dW
+    and dx products fed the plain loop's dpre); twice on the same inputs,
+    bitwise-equal gradients."""
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
-    worst = {k: 0.0 for k in BWD + ("dcgru_dw_reduce",)}
+    worst = {k: 0.0 for k in BWD + XIN_BWD + ("dcgru_dw_reduce",)}
     main_abs = dict(worst)
     seed = 500
     for dtype in (torch.float32, torch.bfloat16):
@@ -517,9 +644,22 @@ def phase_bwd_parity(torch, dev):
                     a = layer_inputs(torch, dev, d=d, m=m, shared=shared,
                                      b=b, dtype=dtype, seed=seed)
                     xin, hoisted = bwd_args(torch, a, seed)
+                    loop = (*xin[:1], *xin[3:8], xin[9])
+                    dpre, _ = cr.dcgru_xin_bwd_loop_plain(*loop)
+                    wx = torch.cat([a["wxg_f"], a["wxc_f"]], dim=1)
                     runs = [(BWD[0], cr.dcgru_recurrence_xin_bwd,
                              cr.dcgru_recurrence_xin_bwd_plain, xin,
-                             XIN_GRADS)]
+                             XIN_GRADS),
+                            (XIN_BWD[0], cr.dcgru_xin_bwd_loop,
+                             cr.dcgru_xin_bwd_loop_plain, loop,
+                             ("dpre", "dh0")),
+                            (XIN_BWD[1], cr.dcgru_xin_dw,
+                             cr.dcgru_xin_dw_plain,
+                             (a["a_ops"], *xin[5:7], a["x"], dpre),
+                             ("partials",)),
+                            (XIN_BWD[2], cr.dcgru_xin_dx,
+                             cr.dcgru_xin_dx_plain,
+                             (a["a_ops"], wx, dpre, dtype), ("dx",))]
                     if d == 100:
                         runs.append((BWD[1], cr.dcgru_recurrence_bwd,
                                      cr.dcgru_recurrence_bwd_plain, hoisted,
@@ -528,8 +668,16 @@ def phase_bwd_parity(torch, dev):
                         got = kern(*args)
                         torch.cuda.synchronize()
                         want = plain(*args)
+                        if len(outs) == 1:
+                            got, want = (got,), (want,)
                         pairs = list(zip(outs, got, want))
                         if name == BWD[0] and d == 100:
+                            # the same inputs again: bitwise the same
+                            again = kern(*args)
+                            for out, g, w in zip(outs, got, again):
+                                if not torch.equal(g, w):
+                                    fail(f"{name} {out} D={d} M={m} B={b} "
+                                         f"{dtype}: two runs differ")
                             # need_dx=False, as for the first layer: no dx,
                             # the rest as the plain version's
                             nodx = kern(*args, need_dx=False)
@@ -558,6 +706,8 @@ def phase_bwd_parity(torch, dev):
                             f"{'shared' if shared else 'per-clip'} B={b} "
                             f"{str(dtype)[6:]} (tol {tol:.0e}): "
                             + ", ".join(errs))
+    log("parity: dcgru_recurrence_xin_bwd twice on the same inputs gave "
+        "bitwise-equal dx, dW, db and dh0 at D=100 (every M, B, dtype)")
     gen = torch.Generator().manual_seed(1)
     part = torch.randn((BATCH, cr.dw_size(3, 100, H)), generator=gen).to(dev)
     err, max_abs = norm_err(cr.dcgru_dw_reduce(part),
@@ -900,7 +1050,6 @@ def flagship_cfg(graph_type, dtype, input_fusion, **kw):
 
 def phase_serve(torch):
     from eeg_gnn_tpu_torch.models.registry import build_model
-    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
     from eeg_gnn_tpu_torch.serve import Predictor
 
     rng = np.random.RandomState(7)
@@ -910,7 +1059,6 @@ def phase_serve(torch):
                          rng.randint(T // 2, T + 1, size=n),
                          adjacency(rng, n)))
     batches = sum(-(-len(r[0]) // BATCH) for r in requests)
-    kernels = {True: cr.dcgru_recurrence_xin_fwd, False: cr.dcgru_recurrence_fwd}
     # the serving path's run: counts start at 0 here and are read at the end
     reset_counts()
     checked_cpu = False
@@ -923,14 +1071,16 @@ def phase_serve(torch):
                 pred = Predictor(cfg, params)
                 plain = Predictor(dataclasses.replace(cfg, recurrence="stacked"),
                                   params)
-                before = {f: k.launches for f, k in kernels.items()}
+                before = counts()
                 probs = [pred.predict_proba(x, lens, adjacency=adj)
                          for x, lens, adj in requests]
-                rose = {f: k.launches - before[f] for f, k in kernels.items()}
-                if rose[fusion] != 2 * batches or rose[not fusion] != 0:
+                after = counts()
+                rose = {k: after[k] - before[k] for k in KERNELS}
+                want = {k: SERVE_BATCH[fusion].get(k, 0) * batches
+                        for k in KERNELS}
+                if rose != want:
                     fail(f"{gt} {dtype} fusion={fusion}: launches rose by "
-                         f"{rose}, want {2 * batches} of the "
-                         f"{kernels[fusion].__name__} kernel only")
+                         f"{rose}, want {want}")
                 tol = F32_TOL if dtype == "float32" else BF16_TOL
                 diff = 0.0
                 for (x, lens, adj), p in zip(requests, probs):
@@ -945,7 +1095,8 @@ def phase_serve(torch):
                              f" = {diff:.3e} > {tol:.0e}")
                 log(f"serve {gt} {dtype} input_fusion={fusion}: "
                     f"{sum(len(r[0]) for r in requests)} clips, launches "
-                    f"+{rose[fusion]}, max |kernel - plain| {diff:.3e}, "
+                    f"+{ {k: v for k, v in rose.items() if v} }, "
+                    f"max |kernel - plain| {diff:.3e}, "
                     f"mean p {float(np.mean(probs[0])):.4f}")
                 if not checked_cpu and dtype == "float32":
                     x, lens, adj = requests[1]
@@ -959,7 +1110,7 @@ def phase_serve(torch):
                         f"{diff:.3e}")
                     checked_cpu = True
     launched = counts()
-    if any(launched[k] for k in BWD + ("dcgru_dw_reduce",)):
+    if any(launched[k] for k in (BWD[1], "dcgru_dw_reduce") + XIN_BWD):
         fail(f"serving launched a backward kernel: {launched}")
     log(f"serve: launches {launched}")
     return launched
@@ -1029,11 +1180,9 @@ def phase_train(torch, dev):
     counts per step, finite losses, step-1 gradients against the stacked
     step on the card, and once the card against the CPU."""
     from eeg_gnn_tpu_torch.models.registry import build_model
-    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
     from eeg_gnn_tpu_torch.train import TrainStep
 
     batch = train_batch(torch, dev, BATCH, seed=21)
-    pair = {True: (FWD[0], BWD[0]), False: (FWD[1], BWD[1])}
     # the training path's run: counts start at 0 here and are read below
     reset_counts()
     first, vjp_cases = None, []
@@ -1054,9 +1203,7 @@ def phase_train(torch, dev):
                     step.update()
                     after = counts()
                     rose = {k: after[k] - before[k] for k in KERNELS}
-                    want = {k: 0 for k in KERNELS}
-                    want.update({pair[fusion][0]: 2, pair[fusion][1]: 2,
-                                 "dcgru_dw_reduce": 2})
+                    want = {k: TRAIN_STEP[fusion].get(k, 0) for k in KERNELS}
                     if rose != want:
                         fail(f"train {gt} {dtype} fusion={fusion} step {i}: "
                              f"launches rose by {rose}, want {want}")
@@ -1154,6 +1301,10 @@ def phase_train(torch, dev):
 
 
 def phase_times(torch, dev):
+    """Each encoder kernel and its plain version at each layer of the
+    detector (B=128, M=3; the x-in layer's kernels alone, and its two
+    wrappers as a whole), the dW reduction beside torch.sum, then the
+    Predictor's and the train step's end-to-end times."""
     from eeg_gnn_tpu_torch.graphs import compute_supports_torch
     from eeg_gnn_tpu_torch.models.registry import build_model
     from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
@@ -1161,70 +1312,95 @@ def phase_times(torch, dev):
     from eeg_gnn_tpu_torch.serve import Predictor
     from eeg_gnn_tpu_torch.train import TrainStep
 
-    out = {}
+    def report(key, name, kern, plain, args, work, note=""):
+        ms = time_ms(torch, lambda: kern(*args))
+        # the plain versions repeat the kernels' arithmetic op by op and are
+        # no yardstick of speed: a median of 5
+        plain_ms = time_ms(torch, lambda: plain(*args), reps=5, warmup=1)
+        bms, by = bound_ms(work)
+        out[key] = (ms, plain_ms, work)
+        flops = sum(w[0] + (w[2] if len(w) > 2 else 0) for w in work)
+        log(f"time {name} D={d} M=3 B={BATCH} {key[1]}{note}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}; {flops / 1e9:.2f} GFLOP, "
+            f"{sum(w[1] for w in work) / 1e6:.2f} MB)")
+
+    out, reduce_shapes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
         sb = 2 if dtype == torch.bfloat16 else 4
         for d in (100, 64):
+            kw = dict(m=3, b=BATCH, a_batch=BATCH, stream_bytes=sb)
             a = layer_inputs(torch, dev, d=d, m=3, shared=False, b=BATCH,
                              dtype=dtype, seed=100 + d)
-            runs = [("dcgru_recurrence_xin_fwd", cr.dcgru_recurrence_xin_fwd,
-                     cr.dcgru_recurrence_xin_fwd_plain, xin_args(a), True),
-                    ("dcgru_recurrence_fwd", cr.dcgru_recurrence_fwd,
-                     cr.dcgru_recurrence_fwd_plain, hoisted_args(a), False)]
-            for name, kern, plain, args, xin in runs:
-                ms = time_ms(torch, lambda: kern(*args))
-                plain_ms = time_ms(torch, lambda: plain(*args))
-                work = layer_work(xin=xin, d=d, m=3, b=BATCH, a_batch=BATCH,
-                                  stream_bytes=sb)
-                bms, by = bound_ms([work])
-                out[(name, tag, d)] = (ms, plain_ms, work)
-                log(f"time {name} D={d} M=3 B={BATCH} {tag}: kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                    f"{bms:.4f} ms ({by}; {work[0] / 1e9:.2f} GFLOP, "
-                    f"{work[1] / 1e6:.2f} MB), {work[0] / ms / 1e9:.2f} "
-                    f"TFLOP/s")
+            wx = torch.cat([a["wxg_f"], a["wxc_f"]], dim=1)
+            xp = cr.dcgru_xin_proj_plain(a["x"], a["a_ops"], wx)
+            pw = proj_work(d=d, **kw)
+            lw = layer_work(xin=False, d=d, xp_bytes=4, **kw)
+            report((FWD[0], tag, d), FWD[0], cr.dcgru_recurrence_xin_fwd,
+                   cr.dcgru_recurrence_xin_fwd_plain, xin_args(a), [pw, lw])
+            report((XIN_FWD[0], tag, d), XIN_FWD[0], cr.dcgru_xin_proj,
+                   cr.dcgru_xin_proj_plain, (a["x"], a["a_ops"], wx), [pw])
+            loop_args = (xp, *hoisted_args(a)[1:], "tanh", False, dtype)
+            report((XIN_FWD[1], tag, d), XIN_FWD[1], cr.dcgru_xin_fwd_loop,
+                   cr.dcgru_xin_fwd_loop_plain, loop_args, [lw])
+            report((FWD[1], tag, d), FWD[1], cr.dcgru_recurrence_fwd,
+                   cr.dcgru_recurrence_fwd_plain, hoisted_args(a),
+                   [layer_work(xin=False, d=d, **kw)])
+            out[(FWD[0], tag, d, "f32 bound")] = layer_work(xin=True, d=d,
+                                                            **kw)
+
             xin_b, hoisted_b = bwd_args(torch, a, seed=200 + d)
+            loop = (*xin_b[:1], *xin_b[3:8], xin_b[9])
+            dpre, _ = cr.dcgru_xin_bwd_loop_plain(*loop)
+            splits = cr.dw_splits(a["x"], H, 3)
+            if dtype == torch.bfloat16:  # the main path's split partials
+                reduce_shapes[d] = (splits, cr.dw_size(3, d, H))
+            blw = bwd_loop_work(**kw)
+            dww = dw_work(d=d, splits=splits, **kw)
+            dxw = dx_work(d=d, **kw)
+            rw = reduce_work(splits, cr.dw_size(3, d, H))
             # the main path's first layer (D=100) is fed data and asks for
             # no dx; with dx it is timed too, as the A/B of that skip
-            runs = [("dcgru_recurrence_xin_bwd", cr.dcgru_recurrence_xin_bwd,
-                     cr.dcgru_recurrence_xin_bwd_plain, xin_b, True,
-                     d != 100)]
-            if d == 100:
-                runs.append(runs[0][:5] + (True,))
-            runs.append(("dcgru_recurrence_bwd", cr.dcgru_recurrence_bwd,
-                         cr.dcgru_recurrence_bwd_plain, hoisted_b, False,
-                         True))
-            for name, kern, plain, args, xin, need_dx in runs:
-                kw = dict(need_dx=need_dx) if xin else {}
-                ms = time_ms(torch, lambda: kern(*args, **kw))
-                plain_ms = time_ms(torch, lambda: plain(*args, **kw))
-                work = bwd_work(xin=xin, d=d, m=3, b=BATCH, a_batch=BATCH,
-                                stream_bytes=sb, need_dx=need_dx)
-                bms, by = bound_ms([work])
-                key = (name, tag, d) if (d != 100 or not need_dx
-                                         or not xin) else (name, tag, "dx")
-                out[key] = (ms, plain_ms, work)
-                log(f"time {name} D={d} M=3 B={BATCH} {tag}"
-                    f"{f' need_dx={need_dx}' if xin else ''}: kernel "
-                    f"{ms:.4f} ms (with its dW reduce), plain "
-                    f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-                    f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
-                    f"{work[0] / ms / 1e9:.2f} TFLOP/s")
+            for need_dx in ((False, True) if d == 100 else (True,)):
+                key = (BWD[0], tag, d if d != 100 or not need_dx else "dx")
+                report(key, BWD[0],
+                       lambda *z, nd=need_dx: cr.dcgru_recurrence_xin_bwd(
+                           *z, need_dx=nd),
+                       lambda *z, nd=need_dx: cr.dcgru_recurrence_xin_bwd_plain(
+                           *z, need_dx=nd), xin_b,
+                       [blw, dww, rw] + ([dxw] if need_dx else []),
+                       f" need_dx={need_dx} (all its kernels)")
+                out[key + ("f32 bound",)] = bwd_work(
+                    xin=True, d=d, need_dx=need_dx, **kw)
+            report((XIN_BWD[0], tag, d), XIN_BWD[0], cr.dcgru_xin_bwd_loop,
+                   cr.dcgru_xin_bwd_loop_plain, loop, [blw])
+            report((XIN_BWD[1], tag, d), XIN_BWD[1], cr.dcgru_xin_dw,
+                   cr.dcgru_xin_dw_plain,
+                   (a["a_ops"], *xin_b[5:7], a["x"], dpre), [dww])
+            report((XIN_BWD[2], tag, d), XIN_BWD[2], cr.dcgru_xin_dx,
+                   cr.dcgru_xin_dx_plain, (a["a_ops"], wx, dpre, dtype),
+                   [dxw])
+            report((BWD[1], tag, d), BWD[1], cr.dcgru_recurrence_bwd,
+                   cr.dcgru_recurrence_bwd_plain, hoisted_b,
+                   [bwd_work(xin=False, d=d, **kw)], " (with its dW reduce)")
     log("library_ms: none — no single PyTorch call computes a DCGRU "
-        "recurrence or its BPTT (torch.nn.GRU has no graph diffusion)")
-    # the encoder's slabs per layer (D=100, 64) and the SSL decoder's slab
-    for d, width in ((100, cr.dw_size(3, 100, H)), (64, cr.dw_size(3, 64, H)),
-                     ("dec", cd.dec_dw_size(3, 100, H, SSL_LAYERS))):
-        gen = torch.Generator().manual_seed(width)
-        part = torch.randn((BATCH, width), generator=gen).to(dev)
+        "recurrence or its BPTT (torch.nn.GRU has no graph diffusion), nor "
+        "a diffused input projection or its dW / dx (each is a diffusion "
+        "per clip and a product)")
+    # the x-in layers' bf16 split partials (D=100, 64) and the SSL
+    # decoder's per-clip slab
+    for d, shape in ((100, reduce_shapes[100]), (64, reduce_shapes[64]),
+                     ("dec", (BATCH, cd.dec_dw_size(3, 100, H, SSL_LAYERS)))):
+        gen = torch.Generator().manual_seed(shape[1])
+        part = torch.randn(shape, generator=gen).to(dev)
         ms = time_ms(torch, lambda: cr.dcgru_dw_reduce(part))
         plain_ms = time_ms(torch, lambda: cr.dcgru_dw_reduce_plain(part))
         lib_ms = time_ms(torch, lambda: torch.sum(part, dim=0))
-        work = reduce_work(BATCH, width)
+        work = reduce_work(*shape)
         bms, by = bound_ms([work])
         out[("dcgru_dw_reduce", "float32", d)] = (ms, plain_ms, work, lib_ms)
-        log(f"time dcgru_dw_reduce D={d} M=3 B={BATCH} W={width}: "
+        log(f"time dcgru_dw_reduce D={d} M=3 ({shape[0]}, {shape[1]}): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
             f"{work[1] / 1e6:.2f} MB)")
@@ -1297,7 +1473,8 @@ def phase_ssl_times(torch, dev):
             # the train step's forward saves its residuals
             rkw = {"residuals": True} if name == DEC[0] else {}
             ms = time_ms(torch, lambda: kern(*a, SSL_LAYERS, **rkw))
-            plain_ms = time_ms(torch, lambda: plain(*a, SSL_LAYERS, **rkw))
+            plain_ms = time_ms(torch, lambda: plain(*a, SSL_LAYERS, **rkw),
+                               reps=5, warmup=1)
             bms, by = bound_ms([work])
             out[(name, tag)] = (ms, plain_ms, work)
             log(f"time {name} L={SSL_LAYERS} T_out={T_OUT} D=100 M=3 "
@@ -1902,8 +2079,9 @@ def main():
              "train_pallas": phase_pallas_train(torch, dev),
              "ssl_pallas": phase_pallas_ssl(torch, dev),
              "rescore": phase_rescore(torch, mts)}
-    for path, names in (("serve", FWD), ("train", FWD + BWD +
-                                          ("dcgru_dw_reduce",)),
+    for path, names in (("serve", (FWD[1],) + XIN_FWD),
+                        ("train", (FWD[1], BWD[1], "dcgru_dw_reduce")
+                         + XIN_FWD + XIN_BWD),
                         ("ssl", SSL_KERNELS), ("serve_pallas", (FDC,)),
                         ("train_pallas", (FDC,)),
                         ("ssl_pallas", (FDC,) + DEC), ("rescore", (SDDMM,))):
@@ -1914,35 +2092,63 @@ def main():
     times.update(phase_ssl_times(torch, dev))
     times.update(phase_pallas_times(torch, dev, mts))
 
-    kernels = []
+    kernels, composites = [], []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"
+    csrc = "eeg_gnn_tpu_torch/csrc/"
+    xin_src = [csrc + "dcgru_xin_gemm.cu", csrc + "dcgru_recurrence.cu",
+               csrc + "dcgru_recurrence_bwd.cu"]
     for name, replaces, source in (
-            (FWD[0], f"{pallas}:730", "dcgru_recurrence.cu"),
-            (FWD[1], f"{pallas}:240", "dcgru_recurrence.cu"),
-            (BWD[0], f"{pallas}:782", "dcgru_recurrence_bwd.cu"),
-            (BWD[1], f"{pallas}:283", "dcgru_recurrence_bwd.cu"),
+            (FWD[0], f"{pallas}:730", xin_src[:2]),
+            (XIN_FWD[0], f"{pallas}:730", xin_src[0]),
+            (XIN_FWD[1], f"{pallas}:730", xin_src[1]),
+            (FWD[1], f"{pallas}:240", xin_src[1]),
+            (BWD[0], f"{pallas}:782", [xin_src[2], xin_src[0]]),
+            (XIN_BWD[0], f"{pallas}:782", xin_src[2]),
+            (XIN_BWD[1], f"{pallas}:782", xin_src[0]),
+            (XIN_BWD[2], f"{pallas}:782", xin_src[0]),
+            (BWD[1], f"{pallas}:283", xin_src[2]),
             # the cross-grid dW accumulation of _bwd_kernel_xin/_bwd_kernel
-            ("dcgru_dw_reduce", f"{pallas}:794", "dcgru_recurrence_bwd.cu")):
-        # one batch or step: layer 0 (D=100) then layer 1 (D=64)
+            ("dcgru_dw_reduce", f"{pallas}:794", xin_src[2])):
+        # one batch or step: layer 0 (D=100) then layer 1 (D=64); layer 0
+        # runs no dx
         tag = "float32" if name == "dcgru_dw_reduce" else "bfloat16"
-        l0, l1 = times[(name, tag, 100)], times[(name, tag, 64)]
-        bms, by = bound_ms([l0[2], l1[2]])
-        kernels.append({
+        layers = [times[(name, tag, d)] for d in
+                  ((64,) if name == XIN_BWD[2] else (100, 64))]
+        work = [w for layer in layers for w in
+                (layer[2] if isinstance(layer[2], list) else [layer[2]])]
+        bms, by = bound_ms(work)
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"eeg_gnn_tpu_torch/csrc/{source}",
+            "source": source if isinstance(source, str) else source[0],
             "replaces": replaces,
-            "launches": sum(c[name] for c in paths.values()),
-            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": main_abs[name],
-            "ms": l0[0] + l1[0], "plain_ms": l0[1] + l1[1],
+            "ms": sum(v[0] for v in layers),
+            "plain_ms": sum(v[1] for v in layers),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": (l0[3] + l1[3] if name == "dcgru_dw_reduce"
-                           else None),
+            "library_ms": (sum(v[3] for v in layers)
+                           if name == "dcgru_dw_reduce" else None),
             "shape": ("2 layers (D=100, 64), T=60, B=128, N=19, H=64, M=3, "
-                      + ("f32 slabs of (B, W)" if tag == "float32"
+                      + ("f32 split partials (S, W)" if tag == "float32"
                          else "bf16 streams")
-                      + ("; layer 0 without dx" if name == BWD[0] else "")),
-        })
+                      + ("; layer 0 without dx" if name == BWD[0] else "")
+                      + ("; layer 1 only (layer 0 asks for no dx)"
+                         if name == XIN_BWD[2] else "")),
+        }
+        if name in (FWD[0], BWD[0]):
+            # a wrapper that launches no kernel of its own: its kernels'
+            # time as a whole, and the bound of the same function with every
+            # product at the non-tensor f32 rate; no launch count
+            del entry["route"], entry["source"]
+            entry["sources"] = source
+            entry["kernels"] = list(XIN_FWD if name == FWD[0] else
+                                    XIN_BWD + ("dcgru_dw_reduce",))
+            entry["bound_f32_ms"] = bound_ms([
+                times[(name, tag, d, "f32 bound")] for d in (100, 64)])[0]
+            composites.append(entry)
+            continue
+        entry["launches"] = sum(c[name] for c in paths.values())
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        kernels.append(entry)
         if name == "dcgru_dw_reduce":
             # the SSL step also sums the decoder's slab once
             ms, plain_ms, work, lib_ms = times[(name, tag, "dec")]
@@ -2008,6 +2214,7 @@ def main():
         "topk": entry["topk"],
     })
     log(f"total {time.perf_counter() - t0:.1f} s on {card}")
+    log("wrappers " + json.dumps({"wrappers": composites}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,70 +1,63 @@
 // Whole-sequence DCGRU layer recurrence, backward (BPTT), for NVIDIA
 // Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of eeg_gnn_tpu/ops/pallas_recurrent.py:
-//   dcgru_recurrence_xin_bwd  <- _bwd_kernel_xin (:782, launched from
-//                                _backward_xin :964/:986): BPTT of the
-//                                x-in-kernel forward; dx, dWx, dWh, db, dh0.
-//   dcgru_recurrence_bwd      <- _bwd_kernel (:283, launched from _backward
-//                                :462/:482): BPTT of the hoisted forward;
-//                                dx_proj = [dru_pre | dc_pre], dWh, db, dh0.
-//   dcgru_dw_reduce           <- the cross-grid dW accumulation of both
-//                                (:294-297, :794-801): the TPU grid runs in
-//                                order and sums into one resident block; on
-//                                the GPU the clips run in parallel, so each
-//                                leaves a partial slab and this kernel sums
-//                                them in a fixed order (no atomics).
+// Replaces the serial part of two Pallas TPU kernels of
+// eeg_gnn_tpu/ops/pallas_recurrent.py:
+//   dcgru_recurrence_bwd  <- _bwd_kernel (:283, launched from _backward
+//                            :462/:482): BPTT of the hoisted forward;
+//                            dx_proj = [dru_pre | dc_pre], dWh, db, dh0.
+//   (no slab)             <- the state chain of _bwd_kernel_xin (:782,
+//                            launched from _backward_xin :964/:986): the same
+//                            loop without any dW, writing dpre = [dru_pre |
+//                            dc_pre] in f32 for the bulk dW and dx products
+//                            of dcgru_xin_gemm.cu.
+//   dcgru_dw_reduce       <- the cross-grid dW accumulation of both
+//                            (:294-297, :794-801): the TPU grid runs in
+//                            order and sums into one resident block; on
+//                            the GPU the partial slabs (one per clip here,
+//                            one per split of the clip-steps in
+//                            dcgru_xin_gemm.cu) are summed in a fixed order
+//                            (no atomics).
 //
 // One step, walking t from T-1 down to 0 (A_0 = I; math of
-// eeg_gnn_tpu/ops/recurrent.py:36-46, the x half at pallas_recurrent.py
-// :820-892):
+// eeg_gnn_tpu/ops/recurrent.py:36-46):
 //   g       = dh + d_seq[t]
 //   du      = g (h_prev - c);  dc_pre = g (1-u) act'(c)
-//   feats   = A_m [h_prev | r h_prev | x]          (recomputed)
-//   dWc    += (A r h_prev)^T dc_pre;  dWxc += (A x)^T dc_pre;  dbc += dc_pre
-//   drh     = sum_m A_m^T (dc_pre Wc_m^T);  dx  = sum_m A_m^T (dc_pre Wxc_m^T)
+//   drh     = sum_m A_m^T (dc_pre Wc_m^T)
 //   dru_pre = [drh h_prev | du] ru (1-ru)
-//   dWg    += (A h_prev)^T dru_pre;  dWxg += (A x)^T dru_pre;  dbg += dru_pre
-//   dh_prev = g u + drh r + sum_m A_m^T (dru_pre Wg_m^T)[:H]
-//   dx[t]  += sum_m A_m^T (dru_pre Wxg_m^T)
+//   dh_prev = g u + drh r + sum_m A_m^T (dru_pre Wg_m^T)
+//   with the slab: feats = A_m [h_prev | r h_prev] (recomputed),
+//   dWc += (A r h_prev)^T dc_pre, dWg += (A h_prev)^T dru_pre, db += dpre
 // and at the end dh0 = dh.
 //
-// What bounds it on an H100. Per step and clip, layer 0 at M=3, D=100
-// does ~0.33 MFLOP of recomputed diffusions, ~3.6 MFLOP of dW products,
-// ~3.6 MFLOP of weight-transpose products and ~0.5 MFLOP of A^T applies:
-// ~61 GFLOP over T=60 x B=128 (~42 GFLOP without dx, as the first layer
-// runs; layer 1, D=64: ~48 GFLOP), ~1.3 ms for both at the 67 TFLOP/s
-// non-tensor f32 rate this kernel uses (f32 FMA, no TF32), against ~45 us
-// for the ~150 MB of streams it must move: it is bound by operations.
-// This simple design adds traffic the bound does not count: each clip
-// reads and writes its whole f32 dW slab every step (94,656 floats at
-// M=3, D=100), ~5.8 GB per layer-0 launch, ~2 ms at HBM rate (partly
-// absorbed by the 50 MB L2).
+// What bounds it on an H100. Per step and clip at M=3, H=64 the chain does
+// ~1.4 MFLOP of weight-transpose products and ~0.2 MFLOP of A^T applies
+// (~12 GFLOP over T=60 x B=128, ~0.18 ms at the 67 TFLOP/s non-tensor
+// f32 rate this kernel uses: f32 FMA, no TF32); the slab adds ~0.3 MFLOP
+// of recomputed diffusions and ~1.4 MFLOP of dW products, and traffic the
+// bound does not count: each clip reads and writes its f32 dW slab every
+// step.
 //
 // Design.
 // - One thread block per clip with the reverse T loop inside the block,
-//   as in the forward kernels: the TPU's sequential (batch-tile, time)
+//   as in the forward kernel: the TPU's sequential (batch-tile, time)
 //   grid becomes an in-block loop and the clips run in parallel.
 // - The state cotangent dh (f32), the clip's M-1 non-identity operators,
 //   the step's streams, recomputed features and weight-transpose products
-//   stay in shared memory (146 KB at M=3, 209 KB at M=5 for D=100). The
-//   TPU's 19 -> 24 node padding and J-clip block diagonals are dropped:
-//   ragged rows are masked.
+//   stay in shared memory. The TPU's 19 -> 24 node padding and J-clip
+//   block diagonals are dropped: ragged rows are masked.
 // - Weights are read from global memory (L2-resident across the batch),
 //   transposed by the wrapper so one output column per thread reads them
 //   coalesced; every weight value is used for up to kRows node rows held
 //   in registers.
-// - dW: every block owns an f32 partial slab in global memory, which it
-//   writes at its first step (t = T-1) and adds into after (no zero fill);
-//   one (row-quad, column) task per thread, the same task every step.
-// - need_dx = 0 (a layer fed data, whose x needs no gradient) skips the
-//   x columns of the weight-transpose products and of the A^T applies and
-//   the dx store; the x features are still recomputed for dWx.
-// - Streams (h_prev, ru, c, x, d_seq in; dx / dx_proj out) are f32 or
-//   bf16, converted on load/store; weights, state, dW and every
-//   accumulation are f32 (pallas_recurrent.py:807-813).
-// wgmma, TMA, register-tiled dW over a chunk of steps, several clips per
-// block and bf16 weights are later work.
+// - dW (the slab kernel only): every block owns an f32 partial slab in
+//   global memory, which it writes at its first step (t = T-1) and adds
+//   into after (no zero fill); one (row-quad, column) task per thread, the
+//   same task every step.
+// - Streams (h_prev, ru, c, d_seq in) are f32 or bf16, converted on load;
+//   dx_proj is written in the stream dtype, dpre in f32; weights, state,
+//   dW and every accumulation are f32 (pallas_recurrent.py:807-813).
+// Tensor cores for the chain and several clips per block are later work.
 
 #include "dcgru_common.cuh"
 
@@ -74,76 +67,64 @@ using namespace dcgru;
 
 struct Params {
   const float* a_ops;  // (M, a_batch, N, N), a_batch in {1, B}
-  const float* wxgT;   // (2H, M*D) transposed m-major input rows (xin)
-  const float* wxcT;   // (H, M*D)                                 (xin)
   const float* wgT;    // (2H, M*H) transposed m-major hidden rows
   const float* wcT;    // (H, M*H)
   const void* h_prev;  // (T, B, N, H)
   const void* ru;      // (T, B, N, 2H)
   const void* c;       // (T, B, N, H)
-  const void* x;       // (T, B, N, D) (xin)
   const void* d_seq;   // (T, B, N, H) cotangent of h_seq
-  void* dx;            // xin: (T, B, N, D); hoisted: dx_proj (T, B, N, 3H)
+  void* dpre;          // (T, B, N, 3H) [dru_pre | dc_pre]
   float* dh0;          // (B, N, H)
-  float* part;         // (B, slab) per-clip dW partials
-  int T, B, N, D, H, M, a_batch, act;
-  int need_dx;         // xin: 0 skips the x cotangent (a layer fed data)
+  float* part;         // (B, slab) per-clip dW partials (slab kernel)
+  int T, B, N, H, M, a_batch, act;
 };
 
 // Shared-memory layout, in floats; every array starts 16-byte aligned.
-// D is 0 for the hoisted kernel (no x, x features or x cotangent).
+// The features exist only in the slab kernel.
 struct Smem {
-  int a, dh, hp, ru, c, x, hf, rf, xf, dyh, dyx, dru, drh, dxa, total;
-  __host__ __device__ Smem(int N, int D, int H, int M) {
+  int a, dh, hp, ru, c, hf, rf, dyh, dru, drh, total;
+  __host__ __device__ Smem(int N, int H, int M, bool slab) {
+    const int feats = slab ? pad4(N * M * H) : 0;
     a = 0;                               // (M-1, N, N) operators
     dh = a + pad4((M - 1) * N * N);      // (N, H) dh, then g, then dh_prev
     hp = dh + pad4(N * H);               // (N, H) h_prev
     ru = hp + pad4(N * H);               // (N, 2H) r | u
     c = ru + pad4(N * 2 * H);            // (N, H) dc_pre
-    x = c + pad4(N * H);                 // (N, D) step input
-    hf = x + pad4(N * D);                // (N, M*H) A h_prev
-    rf = hf + pad4(N * M * H);           // (N, M*H) A (r h_prev)
-    xf = rf + pad4(N * M * H);           // (N, M*D) A x
-    dyh = xf + pad4(N * M * D);          // (N, M*H) dpre W_h^T
-    dyx = dyh + pad4(N * M * H);         // (N, M*D) dpre W_x^T
-    dru = dyx + pad4(N * M * D);         // (N, 2H) dru_pre
+    hf = c + pad4(N * H);                // (N, M*H) A h_prev
+    rf = hf + feats;                     // (N, M*H) A (r h_prev)
+    dyh = rf + feats;                    // (N, M*H) dpre W_h^T
+    dru = dyh + pad4(N * M * H);         // (N, 2H) dru_pre
     drh = dru + pad4(N * 2 * H);         // (N, H) drh
-    dxa = drh + pad4(N * H);             // (N, D) candidate part of dx
-    total = dxa + pad4(N * D);
+    total = drh + pad4(N * H);
   }
 };
 
-template <typename S, bool XIN>
+// S: the dtype of the input streams; O: of dpre (S, or f32); SLAB: also
+// accumulate the per-clip dWg / dWc / db slab.
+template <typename S, typename O, bool SLAB>
 __global__ void __launch_bounds__(kMaxThreads)
     dcgru_bwd_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const int N = p.N, H = p.H, M = p.M, D = XIN ? p.D : 0;
-  const Smem L(N, D, H, M);
+  const int N = p.N, H = p.H, M = p.M;
+  const Smem L(N, H, M, SLAB);
   float* sA = smem + L.a;
   float* sdh = smem + L.dh;
   float* shp = smem + L.hp;
   float* sru = smem + L.ru;
   float* sdc = smem + L.c;
-  float* sx = smem + L.x;
   float* shf = smem + L.hf;
   float* srf = smem + L.rf;
-  float* sxf = smem + L.xf;
   float* sdyh = smem + L.dyh;
-  float* sdyx = smem + L.dyx;
   float* sdru = smem + L.dru;
   float* sdrh = smem + L.drh;
-  float* sdxa = smem + L.dxa;
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int NN = N * N, MH = M * H, MD = M * D, H2 = 2 * H, H3 = 3 * H;
+  const int NN = N * N, MH = M * H, H2 = 2 * H, H3 = 3 * H;
   const int chunks = (N + kRows - 1) / kRows;
   const int tchunks = (N + kTRows - 1) / kTRows;
 
-  // this clip's dW slab and its blocks
-  float* part = p.part + (size_t)b * slab_size(D, H, M);
-  float* dwxg = part;
-  float* dwxc = dwxg + (size_t)MD * H2;
-  float* dwg = dwxc + (size_t)MD * H;
+  // this clip's dW slab and its blocks (slab kernel)
+  float* dwg = SLAB ? p.part + (size_t)b * slab_size(0, H, M) : nullptr;
   float* dwc = dwg + (size_t)MH * H2;
   float* dbg = dwc + (size_t)MH * H;
   float* dbc = dbg + H2;
@@ -159,20 +140,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   const S* hps = static_cast<const S*>(p.h_prev);
   const S* rus = static_cast<const S*>(p.ru);
   const S* cs = static_cast<const S*>(p.c);
-  const S* xs = static_cast<const S*>(p.x);
   const S* ds = static_cast<const S*>(p.d_seq);
-  S* dxs = static_cast<S*>(p.dx);
+  O* dps = static_cast<O*>(p.dpre);
 
-  // x columns of the weight-transpose products and the A^T applies: only
-  // dx needs them (dWx reads the x features, not the products)
-  const int MDx = p.need_dx ? MD : 0, Dx = p.need_dx ? D : 0;
   // task counts of the merged dW / gate phase (fixed across steps, so each
   // slab entry has one owner thread)
-  const int n_wt = (MH + MDx) * chunks;      // weight-transpose columns
-  const int q_x = MD / kWRows, q_h = MH / kWRows;
-  const int n_dw[6] = {q_x * H2, q_x * H, q_h * H2, q_h * H, H2, H};
+  const int n_wt = MH * chunks;              // weight-transpose columns
+  const int q_h = MH / kWRows;
+  const int n_dw[4] = {q_h * H2, q_h * H, H2, H};
   const int n_phase5 =
-      n_wt + n_dw[0] + n_dw[1] + n_dw[2] + n_dw[3] + n_dw[4] + n_dw[5];
+      n_wt + (SLAB ? n_dw[0] + n_dw[1] + n_dw[2] + n_dw[3] : 0);
   __syncthreads();
 
   for (int t = p.T - 1; t >= 0; --t) {
@@ -196,183 +173,117 @@ __global__ void __launch_bounds__(kMaxThreads)
       sdc[i] = g * (1.0f - u) * act_grad(c, p.act);
       sdru[n * H2 + H + j] = g * (hp - c) * u * (1.0f - u);
     }
-    if (XIN) {
-      const S* xt = xs + slab * N * D;
-      for (int i = tid; i < N * D; i += nthr) sx[i] = to_f(xt[i]);
-    }
     __syncthreads();
 
-    // P1: recompute the diffusions [h_prev | r h_prev | x], one (m, column)
-    // per task
-    const int fcols = 2 * H + D;
-    for (int task = tid; task < M * fcols; task += nthr) {
-      const int m = task / fcols, cc = task - m * fcols;
-      float v[kMaxNodes];
-      if (cc < H) {
+    // P1 (slab kernel): recompute the diffusions [h_prev | r h_prev], one
+    // (m, column) per task
+    if (SLAB) {
+      for (int task = tid; task < M * H2; task += nthr) {
+        const int m = task / H2, cc = task - m * H2;
+        float v[kMaxNodes];
+        if (cc < H) {
 #pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = shp[k * H + cc];
-        diffuse_col(v, sA, N, m, shf + m * H + cc, MH);
-      } else if (cc < H2) {
-        const int j = cc - H;
+          for (int k = 0; k < kMaxNodes; ++k)
+            if (k < N) v[k] = shp[k * H + cc];
+          diffuse_col(v, sA, N, m, shf + m * H + cc, MH);
+        } else {
+          const int j = cc - H;
 #pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = sru[k * H2 + j] * shp[k * H + j];
-        diffuse_col(v, sA, N, m, srf + m * H + j, MH);
-      } else {
-        const int j = cc - H2;
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = sx[k * D + j];
-        diffuse_col(v, sA, N, m, sxf + m * D + j, MD);
+          for (int k = 0; k < kMaxNodes; ++k)
+            if (k < N) v[k] = sru[k * H2 + j] * shp[k * H + j];
+          diffuse_col(v, sA, N, m, srf + m * H + j, MH);
+        }
       }
     }
-    __syncthreads();
 
-    // P2: candidate weight-transpose products dc_pre [Wc | Wxc]^T
+    // P2: candidate weight-transpose products dc_pre Wc^T
     for (int task = tid; task < n_wt; task += nthr) {
-      const int chunk = task / (MH + MDx), j = task - chunk * (MH + MDx);
+      const int chunk = task / MH, j = task - chunk * MH;
       const int r0 = chunk * kRows;
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      float* dst;
-      int ldd;
-      if (j < MH) {
-        gemm_col(acc, sdc, H, r0, N, p.wcT + j, MH);
-        dst = sdyh + j;
-        ldd = MH;
-      } else {
-        gemm_col(acc, sdc, H, r0, N, p.wxcT + (j - MH), MD);
-        dst = sdyx + (j - MH);
-        ldd = MD;
-      }
+      gemm_col(acc, sdc, H, r0, N, p.wcT + j, MH);
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
+        if (r0 + r < N) sdyh[(r0 + r) * MH + j] = acc[r];
     }
     __syncthreads();
 
-    // P3: A^T applies: drh (and the gate half of dru_pre), and the
-    // candidate part of dx
-    for (int task = tid; task < (H + Dx) * tchunks; task += nthr) {
-      const int chunk = task / (H + Dx), cc = task - chunk * (H + Dx);
+    // P3: A^T applies: drh, and the gate half of dru_pre
+    for (int task = tid; task < H * tchunks; task += nthr) {
+      const int chunk = task / H, cc = task - chunk * H;
       const int n0 = chunk * kTRows;
       float acc[kTRows];
-      if (cc < H) {
-        diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
+      diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
 #pragma unroll
-        for (int i = 0; i < kTRows; ++i) {
-          const int n = n0 + i;
-          if (n < N) {
-            const float r = sru[n * H2 + cc];
-            sdrh[n * H + cc] = acc[i];
-            sdru[n * H2 + cc] = acc[i] * shp[n * H + cc] * r * (1.0f - r);
-          }
+      for (int i = 0; i < kTRows; ++i) {
+        const int n = n0 + i;
+        if (n < N) {
+          const float r = sru[n * H2 + cc];
+          sdrh[n * H + cc] = acc[i];
+          sdru[n * H2 + cc] = acc[i] * shp[n * H + cc] * r * (1.0f - r);
         }
-      } else {
-        const int j = cc - H;
-        diffuse_t_col(acc, sA, N, M, sdyx + j, MD, D, n0);
-#pragma unroll
-        for (int i = 0; i < kTRows; ++i)
-          if (n0 + i < N) sdxa[(n0 + i) * D + j] = acc[i];
       }
     }
     __syncthreads();
 
-    // P4: gate weight-transpose products dru_pre [Wg | Wxg]^T, and every
-    // dW / db accumulation of the step (independent of each other)
+    // P4: gate weight-transpose products dru_pre Wg^T, and (slab kernel)
+    // every dW / db accumulation of the step (independent of each other)
     for (int task = tid; task < n_phase5; task += nthr) {
       int k = task;
       if (k < n_wt) {
-        const int chunk = k / (MH + MDx), j = k - chunk * (MH + MDx);
+        const int chunk = k / MH, j = k - chunk * MH;
         const int r0 = chunk * kRows;
         float acc[kRows];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        float* dst;
-        int ldd;
-        if (j < MH) {
-          gemm_col(acc, sdru, H2, r0, N, p.wgT + j, MH);
-          dst = sdyh + j;
-          ldd = MH;
-        } else {
-          gemm_col(acc, sdru, H2, r0, N, p.wxgT + (j - MH), MD);
-          dst = sdyx + (j - MH);
-          ldd = MD;
-        }
+        gemm_col(acc, sdru, H2, r0, N, p.wgT + j, MH);
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
-          if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
+          if (r0 + r < N) sdyh[(r0 + r) * MH + j] = acc[r];
         continue;
       }
       k -= n_wt;
-      if (k < n_dw[0]) {  // dWxg += (A x)^T dru_pre
-        dw_quad(sxf, MD, (k / H2) * kWRows, sdru, H2, k % H2, N, dwxg, H2,
-                first);
-        continue;
-      }
-      k -= n_dw[0];
-      if (k < n_dw[1]) {  // dWxc += (A x)^T dc_pre
-        dw_quad(sxf, MD, (k / H) * kWRows, sdc, H, k % H, N, dwxc, H,
-                first);
-        continue;
-      }
-      k -= n_dw[1];
-      if (k < n_dw[2]) {  // dWg += (A h_prev)^T dru_pre
+      if (k < n_dw[0]) {  // dWg += (A h_prev)^T dru_pre
         dw_quad(shf, MH, (k / H2) * kWRows, sdru, H2, k % H2, N, dwg, H2,
                 first);
         continue;
       }
-      k -= n_dw[2];
-      if (k < n_dw[3]) {  // dWc += (A r h_prev)^T dc_pre
+      k -= n_dw[0];
+      if (k < n_dw[1]) {  // dWc += (A r h_prev)^T dc_pre
         dw_quad(srf, MH, (k / H) * kWRows, sdc, H, k % H, N, dwc, H, first);
         continue;
       }
-      k -= n_dw[3];
-      if (k < n_dw[4]) {
+      k -= n_dw[1];
+      if (k < n_dw[2]) {
         db_col(sdru, H2, k, N, dbg, first);
         continue;
       }
-      db_col(sdc, H, k - n_dw[4], N, dbc, first);
+      db_col(sdc, H, k - n_dw[2], N, dbc, first);
     }
     __syncthreads();
 
-    // P5: the gate A^T applies: dh_prev, and the rest of dx[t]; the
-    // hoisted kernel writes dx_proj[t] = [dru_pre | dc_pre] instead
-    for (int task = tid; task < (H + Dx) * tchunks; task += nthr) {
-      const int chunk = task / (H + Dx), cc = task - chunk * (H + Dx);
+    // P5: the gate A^T applies: dh_prev; and dpre[t] = [dru_pre | dc_pre]
+    for (int task = tid; task < H * tchunks; task += nthr) {
+      const int chunk = task / H, cc = task - chunk * H;
       const int n0 = chunk * kTRows;
       float acc[kTRows];
-      if (cc < H) {
-        diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
+      diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
 #pragma unroll
-        for (int i = 0; i < kTRows; ++i) {
-          const int n = n0 + i;
-          if (n < N) {
-            const float g = sdh[n * H + cc];
-            const float r = sru[n * H2 + cc], u = sru[n * H2 + H + cc];
-            sdh[n * H + cc] = g * u + sdrh[n * H + cc] * r + acc[i];
-          }
-        }
-      } else {
-        const int j = cc - H;
-        diffuse_t_col(acc, sA, N, M, sdyx + j, MD, D, n0);
-#pragma unroll
-        for (int i = 0; i < kTRows; ++i) {
-          const int n = n0 + i;
-          if (n < N)
-            dxs[(slab * N + n) * D + j] =
-                from_f<S>(sdxa[n * D + j] + acc[i]);
+      for (int i = 0; i < kTRows; ++i) {
+        const int n = n0 + i;
+        if (n < N) {
+          const float g = sdh[n * H + cc];
+          const float r = sru[n * H2 + cc], u = sru[n * H2 + H + cc];
+          sdh[n * H + cc] = g * u + sdrh[n * H + cc] * r + acc[i];
         }
       }
     }
-    if (!XIN) {
-      for (int i = tid; i < N * H3; i += nthr) {
-        const int n = i / H3, j = i - n * H3;
-        const float v = j < H2 ? sdru[n * H2 + j] : sdc[n * H + j - H2];
-        dxs[slab * N * H3 + i] = from_f<S>(v);
-      }
+    for (int i = tid; i < N * H3; i += nthr) {
+      const int n = i / H3, j = i - n * H3;
+      const float v = j < H2 ? sdru[n * H2 + j] : sdc[n * H + j - H2];
+      dps[slab * N * H3 + i] = from_f<O>(v);
     }
     __syncthreads();
   }
@@ -391,14 +302,13 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-template <typename S, bool XIN>
+template <typename S, typename O, bool SLAB>
 int launch(const Params& p, cudaStream_t stream) {
-  if (p.N > kMaxNodes || p.N < 1 || p.H % 4 || p.H < 4 ||
-      (XIN && p.D % 4) || p.M < 1 || p.B < 1 || p.T < 1)
+  if (p.N > kMaxNodes || p.N < 1 || p.H % 4 || p.H < 4 || p.M < 1 ||
+      p.B < 1 || p.T < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)Smem(p.N, XIN ? p.D : 0, p.H, p.M).total * sizeof(float);
-  auto kern = dcgru_bwd_kernel<S, XIN>;
+  const size_t smem = (size_t)Smem(p.N, p.H, p.M, SLAB).total * sizeof(float);
+  auto kern = dcgru_bwd_kernel<S, O, SLAB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -411,35 +321,32 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // act: 0 tanh, 1 relu, 2 linear. bf16: streams are bf16 (else f32).
-// part: B * slab_size(D, H, M) floats of scratch, written before read.
-// need_dx: 0 skips dx (then dx may be null), as for a layer fed data.
+// part: B * slab_size(0, H, M) floats of scratch, written before read.
+// dx_proj (T, B, N, 3H) in the stream dtype.
 // Returns a cudaError_t: 0 on a launch that was accepted.
-int dcgru_recurrence_xin_bwd(const float* a_ops, int a_batch,
-                             const float* wxgT, const float* wxcT,
-                             const float* wgT, const float* wcT,
-                             const void* h_prev, const void* ru,
-                             const void* c, const void* x, const void* d_seq,
-                             void* dx, float* dh0, float* part, int T, int B,
-                             int N, int D, int H, int M, int act, int bf16,
-                             int need_dx, void* stream) {
-  Params p{a_ops, wxgT, wxcT, wgT, wcT, h_prev, ru, c, x, d_seq, dx,
-           dh0,   part, T,    B,   N,   D,      H,  M, a_batch, act,
-           need_dx};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, true>(p, s) : launch<float, true>(p, s);
-}
-
 int dcgru_recurrence_bwd(const float* a_ops, int a_batch, const float* wgT,
                          const float* wcT, const void* h_prev, const void* ru,
                          const void* c, const void* d_seq, void* dx_proj,
                          float* dh0, float* part, int T, int B, int N, int H,
                          int M, int act, int bf16, void* stream) {
-  Params p{a_ops,   nullptr, nullptr, wgT, wcT, h_prev, ru, c,
-           nullptr, d_seq,   dx_proj, dh0, part, T,     B,  N,
-           0,       H,       M,       a_batch, act, 1};
+  Params p{a_ops, wgT, wcT, h_prev, ru, c, d_seq, dx_proj, dh0, part,
+           T,     B,   N,   H,      M,  a_batch, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, false>(p, s)
-              : launch<float, false>(p, s);
+  return bf16 ? launch<__nv_bfloat16, __nv_bfloat16, true>(p, s)
+              : launch<float, float, true>(p, s);
+}
+
+// The state chain alone: dpre (T, B, N, 3H) f32 and dh0; no dW.
+int dcgru_xin_bwd_loop(const float* a_ops, int a_batch, const float* wgT,
+                       const float* wcT, const void* h_prev, const void* ru,
+                       const void* c, const void* d_seq, float* dpre,
+                       float* dh0, int T, int B, int N, int H, int M, int act,
+                       int bf16, void* stream) {
+  Params p{a_ops, wgT, wcT, h_prev, ru, c, d_seq, dpre, dh0, nullptr,
+           T,     B,   N,   H,      M,  a_batch, act};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, float, false>(p, s)
+              : launch<float, float, false>(p, s);
 }
 
 // out (W) = sum over b of part (B, W).

@@ -1,29 +1,39 @@
 """Whole-sequence DCGRU layer recurrence: CUDA kernels, their wrappers,
 their plain PyTorch versions, and the autograd Functions built on them.
 
-Four kernels replace the JAX package's Pallas kernels
+They replace the JAX package's Pallas kernels
 (``eeg_gnn_tpu/ops/pallas_recurrent.py``):
 
-- :func:`dcgru_recurrence_xin_fwd` <- ``_fwd_kernel_xin``
-  (``csrc/dcgru_recurrence.cu``): reads the raw (T, B, N, D) layer input
-  and runs the input diffusion and projection inside the kernel (the
-  default ``input_fusion`` path);
-- :func:`dcgru_recurrence_fwd` <- ``_fwd_kernel`` (same source): the same
-  recurrence fed a precomputed fused ``x_proj = [gate | cand]``
-  (T, B, N, 3H) stream (``--no_input_fusion``);
-- :func:`dcgru_recurrence_xin_bwd` <- ``_bwd_kernel_xin``
-  (``csrc/dcgru_recurrence_bwd.cu``): the BPTT of the first;
-- :func:`dcgru_recurrence_bwd` <- ``_bwd_kernel`` (same source): the BPTT
-  of the second.
-
-The backward kernels leave one f32 partial dW slab per clip; a fifth
-kernel, :func:`dcgru_dw_reduce`, sums the slabs in a fixed order (the TPU
-kernels summed into one resident block across their sequential grid).
+- :func:`dcgru_recurrence_fwd` <- ``_fwd_kernel``
+  (``csrc/dcgru_recurrence.cu``): the recurrence fed a precomputed fused
+  ``x_proj = [gate | cand]`` (T, B, N, 3H) stream (``--no_input_fusion``);
+- :func:`dcgru_recurrence_bwd` <- ``_bwd_kernel``
+  (``csrc/dcgru_recurrence_bwd.cu``): its BPTT; one f32 partial dW slab
+  per clip, which :func:`dcgru_dw_reduce` sums in a fixed order (the TPU
+  kernels summed into one resident block across their sequential grid);
+- :func:`dcgru_recurrence_xin_fwd` <- ``_fwd_kernel_xin``: the default
+  ``input_fusion`` path, fed the raw (T, B, N, D) layer input. Two
+  kernels: the bulk input projection :func:`dcgru_xin_proj`
+  (``csrc/dcgru_xin_gemm.cu``) over all T steps at once, then
+  :func:`dcgru_xin_fwd_loop`, the loop of :func:`dcgru_recurrence_fwd`
+  fed that f32 projection, which it adds unrounded as the TPU kernel adds
+  ``xg`` (``:766-767``);
+- :func:`dcgru_recurrence_xin_bwd` <- ``_bwd_kernel_xin``: its BPTT.
+  :func:`dcgru_xin_bwd_loop` carries only the state cotangent and writes
+  ``dpre = [dru_pre | dc_pre]`` in f32; then the bulk kernels
+  :func:`dcgru_xin_dw` (``dWx = sum (A x)^T dpre``, ``dWg = sum (A
+  h_prev)^T dru_pre``, ``dWc = sum (A (r h_prev))^T dc_pre``, ``db = sum
+  dpre``, the features recomputed from the streams as the TPU kernel does,
+  ``:820-838``; one f32 partial slab per fixed split of the (t, b) pairs,
+  summed by :func:`dcgru_dw_reduce`) and, when dx is asked for,
+  :func:`dcgru_xin_dx` (``dx = sum_m A_m^T (dpre Wx_m^T)``), over all T
+  steps at once. No dW is accumulated in the serial loop.
 
 Each wrapper computes the kernel's function with its plain version when
 its input lies on the CPU, launches the kernel when it lies on a CUDA
 device, and raises otherwise or on what the kernel does not take. Each
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``. The two xin wrappers launch
+no kernel of their own and have no counter: their kernels count.
 
 Streams (x / x_proj, h_seq, ru_seq, c_seq, the h_seq cotangent and the
 x / x_proj cotangent) are float32 or bfloat16; operators, weights,
@@ -61,6 +71,7 @@ _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_NODES = 32  # csrc kMaxNodes
 _LIB = "dcgru_recurrence"
 _LIB_BWD = "dcgru_recurrence_bwd"
+_LIB_XIN = "dcgru_xin_gemm"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,11 +80,8 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
-    lib.dcgru_recurrence_xin_fwd.argtypes = (
-        [_P, _P, _I] + [_P] * 7 + [_P, _P, _P] + [_I] * 8 + [_P])
-    lib.dcgru_recurrence_xin_fwd.restype = _I
     lib.dcgru_recurrence_fwd.argtypes = (
-        [_P, _P, _I] + [_P] * 5 + [_P, _P, _P] + [_I] * 7 + [_P])
+        [_P, _P, _I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P])
     lib.dcgru_recurrence_fwd.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
@@ -83,17 +91,50 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load(_LIB_BWD)
-    lib.dcgru_recurrence_xin_bwd.argtypes = (
-        [_P, _I] + [_P] * 4 + [_P] * 5 + [_P] * 3 + [_I] * 9 + [_P])
-    lib.dcgru_recurrence_xin_bwd.restype = _I
     lib.dcgru_recurrence_bwd.argtypes = (
         [_P, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3 + [_I] * 7 + [_P])
     lib.dcgru_recurrence_bwd.restype = _I
+    lib.dcgru_xin_bwd_loop.argtypes = (
+        [_P, _I] + [_P] * 2 + [_P] * 4 + [_P] * 2 + [_I] * 7 + [_P])
+    lib.dcgru_xin_bwd_loop.restype = _I
     lib.dcgru_dw_reduce.argtypes = [_P, _P, _I, _I, _P]
     lib.dcgru_dw_reduce.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_xin() -> ctypes.CDLL:
+    lib = _build.load(_LIB_XIN)
+    for fn in (lib.dcgru_xin_proj, lib.dcgru_xin_dx):
+        fn.argtypes = [_P, _P, _I, _P, _P] + [_I] * 7 + [_P]
+        fn.restype = _I
+    lib.dcgru_xin_dw.argtypes = [_P] * 5 + [_I, _P, _I] + [_I] * 7 + [_P]
+    lib.dcgru_xin_dw.restype = _I
+    lib.dcgru_xin_dw_splits.argtypes = [_I] * 7
+    lib.dcgru_xin_dw_splits.restype = _I
+    lib.dcgru_error_string.argtypes = [_I]
+    lib.dcgru_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dw_splits(x, h_units: int, m: int) -> int:
+    """The splits of the T*B (t, b) pairs into :func:`dcgru_xin_dw`'s
+    partials for the input ``x`` (T, B, N, D): on a CUDA device, the
+    kernel library's choice for this shape and card (whole waves of its
+    blocks); 1 elsewhere. Split s sums the pairs [s*per, (s+1)*per),
+    per = ceil(T*B / splits)."""
+    if x.device.type != "cuda":
+        return 1
+    t, b, n, d = x.shape
+    with torch.cuda.device(x.device):
+        splits = _lib_xin().dcgru_xin_dw_splits(
+            t, b, n, d, h_units, m, int(x.dtype == torch.bfloat16))
+    if splits < 1:
+        raise ValueError(f"dcgru_xin_dw: no launch fits T={t} B={b} N={n} "
+                         f"D={d} H={h_units} M={m}")
+    return splits
 
 
 def _outputs(like, t, b, n, h_units, dtype, residuals):
@@ -104,9 +145,9 @@ def _outputs(like, t, b, n, h_units, dtype, residuals):
 
 
 def dw_size(m: int, d: int, h_units: int) -> int:
-    """Floats of one clip's dW partial slab: [dWxg (M*D, 2H) | dWxc (M*D,
-    H) | dWg (M*H, 2H) | dWc (M*H, H) | dbg (2H) | dbc (H)]; d=0 for the
-    hoisted kernel, which has no dWx."""
+    """Floats of one dW partial slab: [dWxg (M*D, 2H) | dWxc (M*D, H) |
+    dWg (M*H, 2H) | dWc (M*H, H) | dbg (2H) | dbc (H)]; d=0 for the
+    hoisted kernel's per-clip slabs, which have no dWx."""
     return (m * d + m * h_units) * 3 * h_units + 3 * h_units
 
 
@@ -157,12 +198,22 @@ def dcgru_recurrence_fwd_plain(x_proj, a_ops, wg_r, wc_r, gate_b, cand_b,
                                h0, activation="tanh", residuals=False):
     """Plain version of :func:`dcgru_recurrence_fwd`: the operator-stacked
     loop of ``ops/recurrent.py`` on the fused x_proj stream."""
+    return dcgru_xin_fwd_loop_plain(x_proj, a_ops, wg_r, wc_r, gate_b,
+                                    cand_b, h0, activation, residuals,
+                                    x_proj.dtype)
+
+
+def dcgru_xin_fwd_loop_plain(xp, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
+                             activation="tanh", residuals=False,
+                             stream_dtype=torch.float32):
+    """Plain version of :func:`dcgru_xin_fwd_loop`: results in
+    ``stream_dtype``."""
     h_units = h0.shape[-1]
-    xp = x_proj.float()
+    xp = xp.float()
     _, h_seq, ru_seq, c_seq = _scan_forward(
         a_ops, xp[..., :2 * h_units], xp[..., 2 * h_units:], wg_r, wc_r,
-        gate_b, cand_b, h0, activation, x_proj.dtype)
-    h_seq = h_seq.to(x_proj.dtype)
+        gate_b, cand_b, h0, activation, stream_dtype)
+    h_seq = h_seq.to(stream_dtype)
     return (h_seq, ru_seq, c_seq) if residuals else (h_seq, None, None)
 
 
@@ -174,6 +225,15 @@ def dcgru_recurrence_bwd_plain(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq,
         a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq, activation)
     dxp = torch.cat([dgx, dcx], dim=-1).to(h_prev.dtype)
     return dxp, dwg, dwc, dbg, dbc, dh0
+
+
+def dcgru_xin_bwd_loop_plain(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq,
+                             d_seq, activation="tanh"):
+    """Plain version of :func:`dcgru_xin_bwd_loop`: the reverse loop of
+    ``ops/recurrent.py``; (dpre (T, B, N, 3H) float32, dh0)."""
+    dgx, dcx, _, _, _, _, dh0 = _scan_backward(
+        a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq, activation)
+    return torch.cat([dgx, dcx], dim=-1), dh0
 
 
 def dcgru_recurrence_xin_bwd_plain(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
@@ -207,6 +267,55 @@ def dcgru_recurrence_xin_bwd_plain(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
 def dcgru_dw_reduce_plain(partials):
     """Plain version of :func:`dcgru_dw_reduce`: sum over the clip axis."""
     return partials.sum(dim=0)
+
+
+def dcgru_xin_proj_plain(x, a_ops, wx):
+    """Plain version of :func:`dcgru_xin_proj`."""
+    m = a_ops.shape[0]
+    feats = _apply_ops(a_ops, x.float())  # (M, T, B, N, D)
+    return torch.tensordot(feats, wx.reshape(m, x.shape[-1], -1),
+                           dims=([0, 4], [0, 1]))
+
+
+def dcgru_xin_dx_plain(a_ops, wx, dpre, dtype):
+    """Plain version of :func:`dcgru_xin_dx`."""
+    m = a_ops.shape[0]
+    wx_r = wx.reshape(m, wx.shape[0] // m, -1)
+    dy = torch.movedim(torch.tensordot(dpre, wx_r, dims=([3], [2])), 3, 0)
+    return _apply_ops_t(a_ops, dy).to(dtype)
+
+
+def dcgru_xin_dw_plain(a_ops, h_prev, ru_seq, x, dpre, splits=None):
+    """Plain version of :func:`dcgru_xin_dw`: the same split partials
+    (``splits`` of them; by default :func:`dw_splits`, the kernel's count
+    on a CUDA device)."""
+    t, b, n, _ = x.shape
+    h_units = h_prev.shape[-1]
+    pairs = t * b
+    if splits is None:
+        splits = dw_splits(x, h_units, a_ops.shape[0])
+    per = max(1, -(-pairs // splits))
+    flat = lambda s: s.reshape(pairs, n, -1).float()
+    xs, hs, gs = flat(x), flat(h_prev), flat(dpre)
+    rhs = flat(ru_seq)[..., :h_units] * hs
+    out = []
+    for s in range(splits):
+        sl = slice(min(pairs, s * per), min(pairs, (s + 1) * per))
+        a = a_ops
+        if a_ops.shape[1] != 1:  # pair p is clip p % B
+            a = a_ops[:, torch.arange(sl.start, sl.stop,
+                                      device=a_ops.device) % b]
+        g = gs[sl]
+        dw = lambda src, cols: torch.einsum(
+            "mpnk,pnj->mkj", _apply_ops(a, src[sl]), g[..., cols])
+        dwx = dw(xs, slice(None))
+        dwx = dwx.reshape(-1, dwx.shape[-1])
+        out.append(torch.cat([
+            dwx[:, :2 * h_units].reshape(-1), dwx[:, 2 * h_units:].reshape(-1),
+            dw(hs, slice(0, 2 * h_units)).reshape(-1),
+            dw(rhs, slice(2 * h_units, None)).reshape(-1),
+            g.sum(dim=(0, 1))]))
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +383,11 @@ def _stream(t):
 
 def dcgru_recurrence_xin_fwd(x, a_ops, wxg_f, wxc_f, wg_r, wc_r, gate_b,
                              cand_b, h0, activation="tanh", residuals=False):
-    """One DCGRU layer over all T steps, input diffusion in-kernel.
+    """One DCGRU layer over all T steps, fed its raw input.
+
+    On a CUDA device: the bulk input projection (:func:`dcgru_xin_proj`,
+    float32) over all T steps, then the state loop
+    (:func:`dcgru_xin_fwd_loop`).
 
     Args:
         x: (T, B, N, D) raw layer input, float32 or bfloat16 (the stream
@@ -306,22 +419,49 @@ def dcgru_recurrence_xin_fwd(x, a_ops, wxg_f, wxc_f, wg_r, wc_r, gate_b,
     _check_shapes(name, "weight", weights, (
         (m * d, 2 * h_units), (m * d, h_units), (m, h_units, 2 * h_units),
         (m, h_units, h_units), (2 * h_units,), (h_units,)))
-    h_seq, ru_seq, c_seq = _outputs(x, t, b, n, h_units, x.dtype, residuals)
+    if b == 0 or t == 0:
+        return _outputs(x, t, b, n, h_units, x.dtype, residuals)
+    xp = dcgru_xin_proj(x, a_ops, torch.cat([wxg_f, wxc_f], dim=1))
+    return dcgru_xin_fwd_loop(xp, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
+                              activation, residuals, x.dtype)
+
+
+def _fwd_loop(wrapper, x_proj, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
+              activation, residuals, stream_dtype):
+    """Launch the state loop of ``csrc/dcgru_recurrence.cu`` for
+    ``wrapper`` (its name in errors, its launch count): x_proj in the
+    stream dtype, or float32."""
+    name = wrapper.__name__
+    t, b, n, w3 = x_proj.shape
+    m = a_ops.shape[0]
+    h_units = h0.shape[-1]
+    weights = (wg_r, wc_r, gate_b, cand_b)
+    _check(name, (x_proj,), a_ops, (*weights, h0), activation, b, n,
+           h_units)
+    if stream_dtype not in _STREAM_DTYPES:
+        raise TypeError(f"{name}: stream dtype {stream_dtype} is not "
+                        "float32 or bfloat16")
+    if w3 != 3 * h_units:
+        raise ValueError(f"{name}: x_proj width {w3} != 3H = {3 * h_units}")
+    _check_shapes(name, "h0", (h0,), ((b, n, h_units),))
+    _check_shapes(name, "weight", weights, (
+        (m, h_units, 2 * h_units), (m, h_units, h_units), (2 * h_units,),
+        (h_units,)))
+    h_seq, ru_seq, c_seq = _outputs(x_proj, t, b, n, h_units, stream_dtype,
+                                    residuals)
     if b == 0 or t == 0:
         return h_seq, ru_seq, c_seq
-    with torch.cuda.device(x.device):
-        err = _lib().dcgru_recurrence_xin_fwd(
-            x.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
+    with torch.cuda.device(x_proj.device):
+        err = _lib().dcgru_recurrence_fwd(
+            x_proj.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
             *(w.data_ptr() for w in weights), h0.data_ptr(),
             h_seq.data_ptr(), _ptr(ru_seq), _ptr(c_seq),
-            t, b, n, d, h_units, m, _ACT_CODES[activation],
-            int(x.dtype == torch.bfloat16), _stream(x))
+            t, b, n, h_units, m, _ACT_CODES[activation],
+            int(stream_dtype == torch.bfloat16),
+            int(x_proj.dtype != stream_dtype), _stream(x_proj))
     _raise_on(err, name)
-    dcgru_recurrence_xin_fwd.launches += 1
+    wrapper.launches += 1
     return h_seq, ru_seq, c_seq
-
-
-dcgru_recurrence_xin_fwd.launches = 0
 
 
 def dcgru_recurrence_fwd(x_proj, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
@@ -333,41 +473,38 @@ def dcgru_recurrence_fwd(x_proj, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
     if x_proj.device.type == "cpu":
         return dcgru_recurrence_fwd_plain(x_proj, a_ops, wg_r, wc_r, gate_b,
                                           cand_b, h0, activation, residuals)
-    t, b, n, w3 = x_proj.shape
-    m = a_ops.shape[0]
-    h_units = h0.shape[-1]
-    name = "dcgru_recurrence_fwd"
-    weights = (wg_r, wc_r, gate_b, cand_b)
-    _check(name, (x_proj,), a_ops, (*weights, h0), activation, b, n,
-           h_units)
-    if w3 != 3 * h_units:
-        raise ValueError(f"{name}: x_proj width {w3} != 3H = {3 * h_units}")
-    _check_shapes(name, "h0", (h0,), ((b, n, h_units),))
-    _check_shapes(name, "weight", weights, (
-        (m, h_units, 2 * h_units), (m, h_units, h_units), (2 * h_units,),
-        (h_units,)))
-    h_seq, ru_seq, c_seq = _outputs(x_proj, t, b, n, h_units, x_proj.dtype,
-                                    residuals)
-    if b == 0 or t == 0:
-        return h_seq, ru_seq, c_seq
-    with torch.cuda.device(x_proj.device):
-        err = _lib().dcgru_recurrence_fwd(
-            x_proj.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
-            *(w.data_ptr() for w in weights), h0.data_ptr(),
-            h_seq.data_ptr(), _ptr(ru_seq), _ptr(c_seq),
-            t, b, n, h_units, m, _ACT_CODES[activation],
-            int(x_proj.dtype == torch.bfloat16), _stream(x_proj))
-    _raise_on(err, name)
-    dcgru_recurrence_fwd.launches += 1
-    return h_seq, ru_seq, c_seq
+    return _fwd_loop(dcgru_recurrence_fwd, x_proj, a_ops, wg_r, wc_r, gate_b,
+                     cand_b, h0, activation, residuals, x_proj.dtype)
 
 
 dcgru_recurrence_fwd.launches = 0
 
 
+def dcgru_xin_fwd_loop(xp, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
+                       activation="tanh", residuals=False,
+                       stream_dtype=torch.float32):
+    """The state loop of :func:`dcgru_recurrence_xin_fwd`: the kernel of
+    :func:`dcgru_recurrence_fwd` fed ``xp`` (T, B, N, 3H) float32 (the
+    bulk projection, added unrounded), with h_seq / ru_seq / c_seq in
+    ``stream_dtype``."""
+    if xp.device.type == "cpu":
+        return dcgru_xin_fwd_loop_plain(xp, a_ops, wg_r, wc_r, gate_b,
+                                        cand_b, h0, activation, residuals,
+                                        stream_dtype)
+    if xp.dtype != torch.float32:
+        raise TypeError(f"dcgru_xin_fwd_loop: xp must be float32, got "
+                        f"{xp.dtype}")
+    return _fwd_loop(dcgru_xin_fwd_loop, xp, a_ops, wg_r, wc_r, gate_b,
+                     cand_b, h0, activation, residuals, stream_dtype)
+
+
+dcgru_xin_fwd_loop.launches = 0
+
+
 def dcgru_dw_reduce(partials):
-    """Sum (B, W) per-clip dW partial slabs over B -> (W,) float32, in a
-    fixed order (deterministic, no atomics)."""
+    """Sum (S, W) dW partial slabs (per clip, or per split of the clip
+    steps) over S -> (W,) float32, in a fixed order (deterministic, no
+    atomics)."""
     if partials.device.type == "cpu":
         return dcgru_dw_reduce_plain(partials)
     name = "dcgru_dw_reduce"
@@ -403,24 +540,35 @@ def _split_dw(flat, m, d, h_units):
             dbc)
 
 
-def _bwd_outputs(like, t, b, n, width, m, d, h_units):
-    """dx or dx_proj (None when ``width`` is None), dh0 and the slabs."""
-    dev = like.device
-    return (None if width is None else
-            torch.empty((t, b, n, width), dtype=like.dtype, device=dev),
-            torch.empty((b, n, h_units), dtype=torch.float32, device=dev),
-            torch.empty((b, dw_size(m, d, h_units)), dtype=torch.float32,
-                        device=dev))
-
-
 def _transposed(w2d):
     return w2d.t().contiguous()
+
+
+def _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation):
+    """The checks of the backward loops' arguments (``streams`` = h_prev,
+    ru_seq, c_seq, d_seq); returns the transposed hidden weights the
+    kernel reads."""
+    t, b, n, h_units = streams[0].shape
+    m = a_ops.shape[0]
+    _check(name, streams, a_ops, (wg_r, wc_r), activation, b, n, h_units)
+    _check_shapes(name, "stream", streams, (
+        (t, b, n, h_units), (t, b, n, 2 * h_units), (t, b, n, h_units),
+        (t, b, n, h_units)))
+    _check_shapes(name, "weight", (wg_r, wc_r), (
+        (m, h_units, 2 * h_units), (m, h_units, h_units)))
+    return (_transposed(wg_r.reshape(m * h_units, -1)),
+            _transposed(wc_r.reshape(m * h_units, -1)))
 
 
 def dcgru_recurrence_xin_bwd(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
                              ru_seq, c_seq, x, d_seq, activation="tanh",
                              need_dx=True):
     """BPTT of :func:`dcgru_recurrence_xin_fwd` over all T steps.
+
+    On a CUDA device: the state loop (:func:`dcgru_xin_bwd_loop`, dpre in
+    float32), then the bulk dW kernel (:func:`dcgru_xin_dw`) and
+    :func:`dcgru_dw_reduce` over its split partials, and with ``need_dx``
+    the bulk dx kernel (:func:`dcgru_xin_dx`).
 
     Args:
         a_ops, wxg_f, wxc_f, wg_r, wc_r: as the forward, float32.
@@ -454,24 +602,44 @@ def dcgru_recurrence_xin_bwd(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
     _check_shapes(name, "weight", weights, (
         (m * d, 2 * h_units), (m * d, h_units), (m, h_units, 2 * h_units),
         (m, h_units, h_units)))
-    dx, dh0, part = _bwd_outputs(x, t, b, n, d if need_dx else None, m, d,
-                                 h_units)
-    w_t = (_transposed(wxg_f), _transposed(wxc_f),
-           _transposed(wg_r.reshape(m * h_units, -1)),
-           _transposed(wc_r.reshape(m * h_units, -1)))
-    with torch.cuda.device(x.device):
-        err = _lib_bwd().dcgru_recurrence_xin_bwd(
-            a_ops.data_ptr(), a_ops.shape[1], *(w.data_ptr() for w in w_t),
-            *(s.data_ptr() for s in streams),
-            _ptr(dx), dh0.data_ptr(), part.data_ptr(),
-            t, b, n, d, h_units, m, _ACT_CODES[activation],
-            int(x.dtype == torch.bfloat16), int(need_dx), _stream(x))
-    _raise_on(err, name, _lib_bwd)
-    dcgru_recurrence_xin_bwd.launches += 1
+    dpre, dh0 = dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq,
+                                   d_seq, activation)
+    part = dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre)
+    dx = (dcgru_xin_dx(a_ops, torch.cat([wxg_f, wxc_f], dim=1), dpre,
+                       x.dtype) if need_dx else None)
     return (dx, *_split_dw(dcgru_dw_reduce(part), m, d, h_units), dh0)
 
 
-dcgru_recurrence_xin_bwd.launches = 0
+def dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
+                       activation="tanh"):
+    """The state loop of :func:`dcgru_recurrence_xin_bwd`: the reverse loop
+    of :func:`dcgru_recurrence_bwd` without any dW. Arguments as it;
+    returns (dpre (T, B, N, 3H) = [dru_pre | dc_pre] float32, dh0
+    (B, N, H) float32)."""
+    if h_prev.device.type == "cpu":
+        return dcgru_xin_bwd_loop_plain(a_ops, wg_r, wc_r, h_prev, ru_seq,
+                                        c_seq, d_seq, activation)
+    name = "dcgru_xin_bwd_loop"
+    streams = (h_prev, ru_seq, c_seq, d_seq)
+    w_t = _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
+    t, b, n, h_units = h_prev.shape
+    m = a_ops.shape[0]
+    dev = h_prev.device
+    dpre = torch.empty((t, b, n, 3 * h_units), dtype=torch.float32,
+                       device=dev)
+    dh0 = torch.empty((b, n, h_units), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib_bwd().dcgru_xin_bwd_loop(
+            a_ops.data_ptr(), a_ops.shape[1], *(w.data_ptr() for w in w_t),
+            *(s.data_ptr() for s in streams), dpre.data_ptr(),
+            dh0.data_ptr(), t, b, n, h_units, m, _ACT_CODES[activation],
+            int(h_prev.dtype == torch.bfloat16), _stream(h_prev))
+    _raise_on(err, name, _lib_bwd)
+    dcgru_xin_bwd_loop.launches += 1
+    return dpre, dh0
+
+
+dcgru_xin_bwd_loop.launches = 0
 
 
 def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
@@ -486,21 +654,16 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
     if h_prev.device.type == "cpu":
         return dcgru_recurrence_bwd_plain(a_ops, wg_r, wc_r, h_prev, ru_seq,
                                           c_seq, d_seq, activation)
-    t, b, n, h_units = h_prev.shape
-    m = a_ops.shape[0]
     name = "dcgru_recurrence_bwd"
     streams = (h_prev, ru_seq, c_seq, d_seq)
-    weights = (wg_r, wc_r)
-    _check(name, streams, a_ops, weights, activation, b, n, h_units)
-    _check_shapes(name, "stream", streams, (
-        (t, b, n, h_units), (t, b, n, 2 * h_units), (t, b, n, h_units),
-        (t, b, n, h_units)))
-    _check_shapes(name, "weight", weights, (
-        (m, h_units, 2 * h_units), (m, h_units, h_units)))
-    dxp, dh0, part = _bwd_outputs(h_prev, t, b, n, 3 * h_units, m, 0,
-                                  h_units)
-    w_t = (_transposed(wg_r.reshape(m * h_units, -1)),
-           _transposed(wc_r.reshape(m * h_units, -1)))
+    w_t = _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
+    t, b, n, h_units = h_prev.shape
+    m = a_ops.shape[0]
+    dev = h_prev.device
+    dxp = torch.empty((t, b, n, 3 * h_units), dtype=h_prev.dtype, device=dev)
+    dh0 = torch.empty((b, n, h_units), dtype=torch.float32, device=dev)
+    part = torch.empty((b, dw_size(m, 0, h_units)), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(h_prev.device):
         err = _lib_bwd().dcgru_recurrence_bwd(
             a_ops.data_ptr(), a_ops.shape[1], *(w.data_ptr() for w in w_t),
@@ -516,6 +679,131 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
 
 
 dcgru_recurrence_bwd.launches = 0
+
+
+def dcgru_xin_proj(x, a_ops, wx):
+    """The x-in layer's input projection for all T steps at once:
+    ``XP = sum_m (A_m x) Wx_m``.
+
+    Args:
+        x: (T, B, N, D) layer input, float32 or bfloat16.
+        a_ops: (M, B or 1, N, N) operator stack, float32.
+        wx: (M*D, 3H) = [Wxg | Wxc], m-major rows, float32.
+
+    Returns:
+        XP (T, B, N, 3H) float32 (bf16 streams: bf16 products with f32
+        sums, the reference's one MXU pass; f32 streams: 3xTF32).
+    """
+    if x.device.type == "cpu":
+        return dcgru_xin_proj_plain(x, a_ops, wx)
+    name = "dcgru_xin_proj"
+    t, b, n, d = x.shape
+    m, h3 = a_ops.shape[0], wx.shape[-1]
+    _check(name, (x,), a_ops, (wx,), None, b, n, h3 // 3)
+    if d % 4:
+        raise ValueError(f"{name}: D={d} is not a multiple of 4")
+    _check_shapes(name, "weight", (wx,), ((m * d, 3 * (h3 // 3)),))
+    xp = torch.empty((t, b, n, h3), dtype=torch.float32, device=x.device)
+    if t * b == 0:
+        return xp
+    with torch.cuda.device(x.device):
+        err = _lib_xin().dcgru_xin_proj(
+            x.data_ptr(), a_ops.data_ptr(), a_ops.shape[1], wx.data_ptr(),
+            xp.data_ptr(), t, b, n, d, h3 // 3, m,
+            int(x.dtype == torch.bfloat16), _stream(x))
+    _raise_on(err, name, _lib_xin)
+    dcgru_xin_proj.launches += 1
+    return xp
+
+
+dcgru_xin_proj.launches = 0
+
+
+def dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre):
+    """The x-in layer's weight and bias gradients from the state loop's
+    dpre, over all T steps at once.
+
+    Args:
+        a_ops: (M, B or 1, N, N) float32.
+        h_prev (T,B,N,H), ru_seq (T,B,N,2H), x (T,B,N,D): the streams, in
+            one dtype.
+        dpre: (T, B, N, 3H) [dru_pre | dc_pre] float32.
+
+    Returns:
+        (dw_splits(x, H, M), dw_size(M, D, H)) float32 partial slabs [dWxg
+        | dWxc | dWg | dWc | dbg | dbc], one per split of the (t, b) pairs;
+        their sum over axis 0 (:func:`dcgru_dw_reduce`) is the gradient.
+    """
+    if dpre.device.type == "cpu":
+        return dcgru_xin_dw_plain(a_ops, h_prev, ru_seq, x, dpre)
+    name = "dcgru_xin_dw"
+    t, b, n, d = x.shape
+    m, h_units = a_ops.shape[0], h_prev.shape[-1]
+    _check(name, (h_prev, ru_seq, x), a_ops, (dpre,), None, b, n, h_units)
+    if d % 4:
+        raise ValueError(f"{name}: D={d} is not a multiple of 4")
+    _check_shapes(name, "stream", (h_prev, ru_seq, dpre), (
+        (t, b, n, h_units), (t, b, n, 2 * h_units), (t, b, n, 3 * h_units)))
+    if t * b == 0:
+        return torch.zeros((1, dw_size(m, d, h_units)), dtype=torch.float32,
+                           device=dpre.device)
+    splits = dw_splits(x, h_units, m)
+    part = torch.empty((splits, dw_size(m, d, h_units)), dtype=torch.float32,
+                       device=dpre.device)
+    with torch.cuda.device(dpre.device):
+        err = _lib_xin().dcgru_xin_dw(
+            x.data_ptr(), h_prev.data_ptr(), ru_seq.data_ptr(),
+            dpre.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
+            part.data_ptr(), splits, t, b, n, d, h_units, m,
+            int(x.dtype == torch.bfloat16), _stream(dpre))
+    _raise_on(err, name, _lib_xin)
+    dcgru_xin_dw.launches += 1
+    return part
+
+
+dcgru_xin_dw.launches = 0
+
+
+def dcgru_xin_dx(a_ops, wx, dpre, dtype):
+    """The x-in layer input's cotangent from the state loop's dpre, over
+    all T steps at once: ``dx = sum_m A_m^T (dpre Wx_m^T)``.
+
+    Args:
+        a_ops: (M, B or 1, N, N) float32; wx: (M*D, 3H) float32.
+        dpre: (T, B, N, 3H) float32.
+        dtype: the stream dtype of dx (float32 or bfloat16).
+
+    Returns:
+        dx (T, B, N, D) in ``dtype``.
+    """
+    if dpre.device.type == "cpu":
+        return dcgru_xin_dx_plain(a_ops, wx, dpre, dtype)
+    name = "dcgru_xin_dx"
+    t, b, n, h3 = dpre.shape
+    m = a_ops.shape[0]
+    d = wx.shape[0] // max(m, 1)
+    _check(name, (dpre,), a_ops, (wx,), None, b, n, h3 // 3)
+    if dtype not in _STREAM_DTYPES:
+        raise TypeError(f"{name}: stream dtype {dtype} is not float32 or "
+                        "bfloat16")
+    if d % 4:
+        raise ValueError(f"{name}: D={d} is not a multiple of 4")
+    _check_shapes(name, "weight", (wx, dpre),
+                  ((m * d, h3), (t, b, n, 3 * (h3 // 3))))
+    dx = torch.empty((t, b, n, d), dtype=dtype, device=dpre.device)
+    if t * b == 0:
+        return dx
+    with torch.cuda.device(dpre.device):
+        err = _lib_xin().dcgru_xin_dx(
+            dpre.data_ptr(), a_ops.data_ptr(), a_ops.shape[1], wx.data_ptr(),
+            dx.data_ptr(), t, b, n, d, h3 // 3, m,
+            int(dtype == torch.bfloat16), _stream(dpre))
+    _raise_on(err, name, _lib_xin)
+    dcgru_xin_dx.launches += 1
+    return dx
+
+
+dcgru_xin_dx.launches = 0
 
 
 # ---------------------------------------------------------------------------

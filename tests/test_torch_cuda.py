@@ -69,15 +69,17 @@ def test_kernels_match_plain(dev, t, b, d, h, num_supports, shared, bf16):
                            num_supports=num_supports, shared=shared,
                            stream=stream)
     tol = 2e-2 if bf16 else 1e-4
-    for kern, plain, args in (
+    # the x-in wrapper launches no kernel of its own: its two kernels count
+    for kern, plain, args, counters in (
             (cr.dcgru_recurrence_xin_fwd, cr.dcgru_recurrence_xin_fwd_plain,
-             xin),
+             xin, (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop)),
             (cr.dcgru_recurrence_fwd, cr.dcgru_recurrence_fwd_plain,
-             hoisted)):
-        before = kern.launches
+             hoisted, (cr.dcgru_recurrence_fwd,))):
+        before = [k.launches for k in counters]
         got = kern(*args, residuals=True)
         torch.cuda.synchronize()
-        assert kern.launches == before + 1
+        assert [k.launches - b_ for k, b_ in zip(counters, before)] == \
+            [1] * len(counters)
         for g, w in zip(got, plain(*args, residuals=True)):
             assert g.dtype == stream and g.shape == w.shape
             assert _err(g, w) <= tol
@@ -144,16 +146,18 @@ def test_bwd_kernels_match_plain(dev, t, b, d, h, num_supports, shared,
                                num_supports=num_supports, shared=shared,
                                stream=stream)
     tol = 2e-2 if bf16 else 1e-4
-    for kern, plain, args in (
+    # the x-in wrapper launches no kernel of its own: its four kernels count
+    for kern, plain, args, counters in (
             (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_xin_bwd_plain,
-             xin),
+             xin, (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
+                   cr.dcgru_dw_reduce)),
             (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain,
-             hoisted)):
-        before = (kern.launches, cr.dcgru_dw_reduce.launches)
+             hoisted, (cr.dcgru_recurrence_bwd, cr.dcgru_dw_reduce))):
+        before = [k.launches for k in counters]
         got = kern(*args)
         torch.cuda.synchronize()
-        assert (kern.launches, cr.dcgru_dw_reduce.launches) == \
-            (before[0] + 1, before[1] + 1)
+        assert [k.launches - b_ for k, b_ in zip(counters, before)] == \
+            [1] * len(counters)
         want = plain(*args)
         assert len(got) == len(want)
         assert got[0].dtype == stream  # dx / dx_proj in the stream dtype
@@ -216,6 +220,89 @@ def test_bwd_wrappers_raise_on_what_the_kernel_does_not_take(dev):
         cr.dcgru_recurrence_bwd(*hoisted[:-1], d_seq[:4].contiguous())
 
 
+@pytest.mark.parametrize("t,b,d,h", [(5, 4, 12, 16), (60, 37, 100, 64),
+                                     (60, 128, 64, 64)])
+@pytest.mark.parametrize("num_supports,shared", [(1, False), (1, True),
+                                                 (2, False)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_xin_pieces_match_plain(dev, t, b, d, h, num_supports, shared,
+                                bf16):
+    """The x-in layer's five kernels against their plain versions on the
+    same inputs: the bulk projection, the state loops (forward, and
+    backward without dW), the bulk dW split partials and the bulk dx."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    xin, _ = _bwd_inputs(dev, t=t, b=b, d=d, h=h, num_supports=num_supports,
+                         shared=shared, stream=stream)
+    a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev, ru, c, x, d_seq = xin
+    fwd, _ = _inputs(dev, t=t, b=b, d=d, h=h, num_supports=num_supports,
+                     shared=shared, stream=stream)
+    wx = torch.cat([wxg_f, wxc_f], dim=1)
+    xp = cr.dcgru_xin_proj_plain(x, a_ops, wx)
+    dpre, _ = cr.dcgru_xin_bwd_loop_plain(a_ops, wg_r, wc_r, h_prev, ru, c,
+                                          d_seq)
+    cases = [
+        (cr.dcgru_xin_proj, cr.dcgru_xin_proj_plain, (x, a_ops, wx), {}),
+        (cr.dcgru_xin_fwd_loop, cr.dcgru_xin_fwd_loop_plain,
+         (xp, a_ops, *fwd[4:]), dict(residuals=True, stream_dtype=stream)),
+        (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_bwd_loop_plain,
+         (a_ops, wg_r, wc_r, h_prev, ru, c, d_seq), {}),
+        (cr.dcgru_xin_dw, cr.dcgru_xin_dw_plain, (a_ops, h_prev, ru, x, dpre),
+         {}),
+        (cr.dcgru_xin_dx, cr.dcgru_xin_dx_plain, (a_ops, wx, dpre, stream),
+         {}),
+    ]
+    for kern, plain, args, kw in cases:
+        before = kern.launches
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        want = plain(*args, **kw)
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, \
+                (kern.__name__, i)
+            assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
+    # the split partials sum to the plain backward's dW and db
+    total = cr.dcgru_dw_reduce(cr.dcgru_xin_dw(a_ops, h_prev, ru, x, dpre))
+    want = cr.dcgru_recurrence_xin_bwd_plain(*xin)
+    m = a_ops.shape[0]
+    for g, w in zip(cr._split_dw(total, m, d, h), want[1:7]):
+        assert _err(g, w) <= tol
+
+
+def test_xin_bwd_dw_is_bitwise_deterministic(dev):
+    """Two runs of the xin backward on the same inputs give bitwise-equal
+    dW and db (fixed splits summed in order, no atomics)."""
+    for stream in (torch.float32, torch.bfloat16):
+        xin, _ = _bwd_inputs(dev, t=60, b=128, d=100, h=64, num_supports=1,
+                             shared=False, stream=stream)
+        runs = [cr.dcgru_recurrence_xin_bwd(*xin, need_dx=False)
+                for _ in range(2)]
+        for g, w in zip(runs[0][1:], runs[1][1:]):
+            assert torch.equal(g, w)
+
+
+def test_xin_piece_wrappers_raise(dev):
+    xin, _ = _bwd_inputs(dev, t=5, b=3, d=12, h=16, num_supports=1,
+                         shared=False, stream=torch.float32)
+    a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev, ru, c, x, d_seq = xin
+    wx = torch.cat([wxg_f, wxc_f], dim=1)
+    dpre = torch.zeros(5, 3, N, 48, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cr.dcgru_xin_proj(x.half(), a_ops, wx)
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.dcgru_xin_dx(a_ops, wx.t().contiguous().t(), dpre, torch.float32)
+    with pytest.raises(TypeError, match="must be float32"):
+        cr.dcgru_xin_dw(a_ops, h_prev, ru, x, dpre.bfloat16())
+    with pytest.raises(TypeError, match="xp must be float32"):
+        cr.dcgru_xin_fwd_loop(dpre.bfloat16(), a_ops, wg_r, wc_r,
+                              torch.zeros(32, device=dev),
+                              torch.zeros(16, device=dev),
+                              torch.zeros(3, N, 16, device=dev))
+
+
 def test_flagship_train_step_matches_stacked(dev):
     """One flagship detection step (B=128, T=60, 2x64, D=100, combined
     graph, f32): the kernels' gradients against the stacked step's."""
@@ -235,13 +322,14 @@ def test_flagship_train_step_matches_stacked(dev):
         c = dataclasses.replace(cfg, recurrence=rec)
         step = TrainStep(c, build_model(c, torch.Generator().manual_seed(0)),
                          100, device=dev)
-        before = (cr.dcgru_recurrence_xin_fwd.launches,
-                  cr.dcgru_recurrence_xin_bwd.launches)
+        counters = (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+                    cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
+                    cr.dcgru_dw_reduce)
+        before = [k.launches for k in counters]
         loss = step.loss_and_grads(batch)
-        after = (cr.dcgru_recurrence_xin_fwd.launches,
-                 cr.dcgru_recurrence_xin_bwd.launches)
-        want = (2, 2) if rec == "pallas" else (0, 0)
-        assert tuple(a - b_ for a, b_ in zip(after, before)) == want
+        rose = [k.launches - b_ for k, b_ in zip(counters, before)]
+        # the first layer, fed data, asks for no dx
+        assert rose == ([2, 2, 2, 2, 1, 2] if rec == "pallas" else [0] * 6)
         assert torch.isfinite(loss)
         grads[rec] = {n: p.grad.clone()
                       for n, p in step.model.named_parameters()}
@@ -384,7 +472,8 @@ def test_ssl_train_step_matches_stacked(dev):
     cfg = ExperimentConfig(task="SS pre-training", graph_type="combined",
                            num_rnn_layers=3, use_curriculum_learning=True,
                            lr_init=5e-4).finalize()
-    counters = (cr.dcgru_recurrence_xin_fwd, cr.dcgru_recurrence_xin_bwd,
+    counters = (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+                cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
                 cd.dcgru_decoder_fwd, cd.dcgru_decoder_bwd,
                 cr.dcgru_dw_reduce)
     grads = {}
@@ -396,7 +485,8 @@ def test_ssl_train_step_matches_stacked(dev):
         before = [k.launches for k in counters]
         loss = step.loss_and_grads(batch, batches_seen=24000)
         rose = [k.launches - b_ for k, b_ in zip(counters, before)]
-        assert rose == ([3, 3, 1, 1, 4] if rec == "pallas" else [0] * 5)
+        assert rose == ([3, 3, 3, 3, 2, 1, 1, 4] if rec == "pallas"
+                        else [0] * 8)
         assert torch.isfinite(loss)
         grads[rec] = {n: p.grad.clone()
                       for n, p in step.model.named_parameters()}
@@ -541,13 +631,14 @@ def test_use_pallas_predictor_launches_the_conv_kernel(dev):
     cfg = ExperimentConfig(graph_type="individual", use_pallas=True,
                            test_batch_size=64).finalize()
     params = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
-    others = (cr.dcgru_recurrence_xin_fwd, cr.dcgru_recurrence_fwd)
+    others = (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+              cr.dcgru_recurrence_fwd)
     before = [ck.fused_diffusion_conv_fwd.launches] + [
         k.launches for k in others]
     probs = Predictor(cfg, params, device=dev).predict_proba(x, adjacency=adj)
     after = [ck.fused_diffusion_conv_fwd.launches] + [
         k.launches for k in others]
-    assert [a - b_ for a, b_ in zip(after, before)] == [2 * 60 * 2, 0, 0]
+    assert [a - b_ for a, b_ in zip(after, before)] == [2 * 60 * 2, 0, 0, 0]
     naive = Predictor(dataclasses.replace(cfg, use_pallas=False,
                                           recurrence="naive"),
                       params, device=dev).predict_proba(x, adjacency=adj)

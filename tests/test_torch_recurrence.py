@@ -222,15 +222,15 @@ def test_cpu_wrappers_use_plain_and_do_not_count(rng):
     hidden = [_torch(L[k]) for k in ("wg", "wc", "bg", "bc", "h0")]
     xin_args = (_torch(L["x"]), a_t, _torch(_mmajor(L["wxg"], D, m)),
                 _torch(_mmajor(L["wxc"], D, m)), *hidden)
-    before = (cr.dcgru_recurrence_xin_fwd.launches,
-              cr.dcgru_recurrence_fwd.launches)
+    counters = (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+                cr.dcgru_recurrence_fwd)
+    before = [k.launches for k in counters]
     torch.testing.assert_close(cr.dcgru_recurrence_xin_fwd(*xin_args)[0],
                                cr.dcgru_recurrence_xin_fwd_plain(*xin_args)[0])
     hoisted_args = (_torch(L["xp"]), a_t, *hidden)
     torch.testing.assert_close(cr.dcgru_recurrence_fwd(*hoisted_args)[0],
                                cr.dcgru_recurrence_fwd_plain(*hoisted_args)[0])
-    assert (cr.dcgru_recurrence_xin_fwd.launches,
-            cr.dcgru_recurrence_fwd.launches) == before
+    assert [k.launches for k in counters] == before
 
 
 def test_wrappers_raise_off_cpu_without_cuda(rng):
@@ -392,8 +392,8 @@ def _bwd_args(L, m):
 def test_cpu_bwd_wrappers_use_plain_and_do_not_count(rng):
     L = _layer(rng, 1, 2, False)
     xin, hoisted = _bwd_args(L, L["m"])
-    counters = (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_bwd,
-                cr.dcgru_dw_reduce)
+    counters = (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
+                cr.dcgru_recurrence_bwd, cr.dcgru_dw_reduce)
     before = [k.launches for k in counters]
     for kern, plain, args in (
             (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_xin_bwd_plain,
