@@ -26,15 +26,20 @@ Phases (any failure exits non-zero and prints no result line):
    (the bf16 bound of benchmarks/tpu_kernel_parity.json); then the
    seq2seq decoder kernels at T_out=12, D=100 (L=3, 2 and 1; the same M,
    B and dtype grid; force none, all and mixed): proj (and once each
-   residual), and on a seeded proj cotangent dx, dh0 and all 14 weight
-   and bias gradients, under the same bounds; the fused diffusion conv at
+   residual), and on a seeded proj cotangent the backward as a whole (dx,
+   dh0 and all 14 weight and bias gradients; twice, bitwise equal) and
+   each of its kernels on the same inputs (the state loop's dx, dh0, dpre
+   and dproj; the bulk dW of layer 0 and of the tied cell, each reduced;
+   the dWp partials), under the same bounds; the fused diffusion conv at
    the use_pallas loop's shapes (D=H=64, O=128 and 64, M=3 and 5, B=128
    and 37, once K=3; float32 <= 1e-4) and its autograd Function's dx, dW,
    db against autograd of the plain version; the block-sparse SDDMM at the
    re-score study's montages (benchmarks/graph_build_bench.py:69-107:
-   D=6000, N=19, 1024 and 4096 top-3, 4096 banded +-32; <= 1e-4), and a
-   19-node clip's normalized edge scores against its correlation
-   adjacency (<= 1e-5);
+   D=6000, N=19, 1024 and 4096 top-3, 4096 banded +-32; <= 1e-5, a bar
+   that one TF32 pass on the same inputs, read beside it, must miss; twice,
+   bitwise equal; at top-3 the edges its scores keep against a float64
+   host oracle's), and a 19-node clip's normalized edge scores against
+   its correlation adjacency (<= 1e-5);
 3. serve the flagship DCRNN detector (2 DCGRU layers x 64 units, K=2,
    input_dim 100, T=60, batch 128, random weights from a seeded
    torch.Generator) through ``Predictor`` for both graph types, float32
@@ -64,9 +69,9 @@ Phases (any failure exits non-zero and prints no result line):
    and bfloat16, curriculum on at batches_seen 24,000 (teacher-forcing
    ratio ~0.5, so the force vectors mix), 3 steps each, plus one
    curriculum-off run: each step launches exactly the kernels of
-   ``SSL_STEP`` (3 x-in layers, 2 with dx, 1 decoder forward, 1 decoder
-   backward, 4 dW reductions: one per encoder layer and one for the
-   decoder's slabs); finite
+   ``SSL_STEP`` (3 x-in layers, 2 with dx; the decoder's forward, its
+   backward loop, its 2 bulk dW products and dWp; 6 dW reductions, one
+   per encoder layer and 3 for the decoder); finite
    losses; float32 step-1 gradients against a stacked step from the same
    weights and force draws (<= 1e-4) and, on 4 clips, the CPU; in
    bfloat16 the decoder's gradients under one seeded cotangent, and the
@@ -76,14 +81,16 @@ Phases (any failure exits non-zero and prints no result line):
    its plain version: of 5): the encoder's per layer (B=128, M=3; the
    x-in wrappers as a whole and each of their kernels alone; the first
    layer's backward without dx, as the train step runs it, and with dx),
-   the decoder's (B=128, M=3, L=3), the dW reduction beside ``torch.sum``
-   (at each x-in layer's split partials and at the decoder's per-clip
-   slabs); bounds with every product of the bulk kernels (diffusions
-   included) at the tensor-core rate for the stream dtype (bf16, or
-   3xTF32 for f32), the serial chains at the non-tensor f32 rate, with
-   the all-f32 bound of the x-in wrappers beside; the wrappers, which
-   launch no kernel of their own, on a ``wrappers`` line of their own
-   without a launch count; the Predictor's clips/s, the detection and SSL train
+   the decoder's (B=128, M=3, L=3: the forward, the backward as a whole
+   and each of its kernels; dWp beside one ``torch.matmul``), the dW
+   reduction beside ``torch.sum`` (at each x-in layer's split partials
+   and at the decoder's three); bounds with every product of the bulk
+   kernels (diffusions included) and dWp at the tensor-core rate for the
+   stream dtype (bf16, or 3xTF32 for f32), the serial chains at the
+   non-tensor f32 rate, split partials not counted (scratch), with the
+   all-f32 bound of the x-in wrappers beside; the wrappers, which launch
+   no kernel of their own, on a
+   ``wrappers`` line of their own without a launch count; the Predictor's clips/s, the detection and SSL train
    steps' ms and clips/s; trace one bfloat16 batch, one bfloat16
    detection step and one SSL step in each dtype with torch.profiler;
 7. the ``use_pallas`` paths: the detector served through ``Predictor`` and
@@ -94,17 +101,19 @@ Phases (any failure exits non-zero and prints no result line):
    bfloat16 2e-2); float32 step-1 gradients against a stacked step (1e-4);
    in bfloat16 the encoder's VJP against the float32 stacked encoder
    (2e-2); and one SSL configuration (combined, float32, 3 steps, 360
-   launches per step beside the decoder's kernels);
+   launches per step beside the decoder's kernels, ``DEC_BWD_STEP``);
 8. the correlation re-score of each montage's fixed graph through
    ``sddmm_edges_blocksparse`` (one launch each), against the plain edge
    list;
-9. time the two kernels beside their plain versions and bounds, the
-   SDDMM also beside ``torch.sparse.sampled_addmm`` and the dense
-   ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms.
+9. time the two kernels beside their plain versions and bounds (the
+   SDDMM's at the 3xTF32 tensor-core rate), the SDDMM also beside
+   ``torch.sparse.sampled_addmm`` and the dense ``x @ x.T``; the
+   use_pallas Predictor's clips/s and train step's ms.
 
 The second-to-last line is a JSON object describing the kernels (the
-x-in wrappers, which launch none of their own, are on the ``wrappers``
-line before it); the last is ``{"ok": true, "device": {...}}``.
+x-in wrappers and the decoder's backward, which launch none of their
+own, are on the ``wrappers`` line before it); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,6 +133,9 @@ T_OUT, SSL_LAYERS = 12, 3   # configs/run_dcrnn_ssl.sh, ssl_bench.py:55-66
 BATCHES_SEEN = 24_000       # ratio 3000 / (3000 + e^8) ~ 0.5
 BATCH = 128
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+# the 3xTF32 SDDMM against full f32: above its f32-accurate reading, below
+# one TF32 pass's, which phase_sddmm_parity reads beside it as a control
+SDDMM_TOL = 1e-5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, non-tensor float32 (NVIDIA data sheet)
 PEAK_BF16_TC = 989e12    # dense bf16 tensor cores
 PEAK_TF32_TC = 495e12    # dense TF32 tensor cores; 3xTF32 does 3 per product
@@ -137,15 +149,17 @@ SSL_KW = dict(lr_init=5e-4, l2_wd=5e-4, max_grad_norm=5.0,
 FWD = ("dcgru_recurrence_xin_fwd", "dcgru_recurrence_fwd")
 BWD = ("dcgru_recurrence_xin_bwd", "dcgru_recurrence_bwd")
 DEC = ("dcgru_decoder_fwd", "dcgru_decoder_bwd")
+DEC_BWD = ("dcgru_dec_bwd_loop", "dcgru_dec_dwp")  # kernels of DEC[1]
 FDC = "fused_diffusion_conv_fwd"  # kernel #7, the use_pallas loop's
 SDDMM = "sddmm_blocksparse"       # kernel #8, the correlation re-score
 XIN_FWD = ("dcgru_xin_proj", "dcgru_xin_fwd_loop")  # the kernels of FWD[0]
 XIN_BWD = ("dcgru_xin_bwd_loop", "dcgru_xin_dw", "dcgru_xin_dx")  # of BWD[0]
-# FWD[0] and BWD[0] launch no kernel of their own: they are timed and held
-# against their plain versions as wrappers, and their kernels are counted
-KERNELS = ((FWD[1], BWD[1], "dcgru_dw_reduce") + XIN_FWD + XIN_BWD + DEC
-           + (FDC, SDDMM))
-SSL_KERNELS = ("dcgru_dw_reduce",) + XIN_FWD + XIN_BWD + DEC
+# FWD[0], BWD[0] and DEC[1] launch no kernel of their own: they are timed
+# and held against their plain versions as wrappers, and their kernels are
+# counted
+KERNELS = ((FWD[1], BWD[1], "dcgru_dw_reduce") + XIN_FWD + XIN_BWD
+           + (DEC[0],) + DEC_BWD + (FDC, SDDMM))
+SSL_KERNELS = ("dcgru_dw_reduce",) + XIN_FWD + XIN_BWD + (DEC[0],) + DEC_BWD
 # launches per batch or step: the x-in layer's forward is a projection and
 # a loop, its backward a loop, a dW product (+ its reduction) and, on every
 # layer but the first (fed data), a dx product
@@ -153,9 +167,13 @@ SERVE_BATCH = {True: {XIN_FWD[0]: 2, XIN_FWD[1]: 2}, False: {FWD[1]: 2}}
 TRAIN_STEP = {True: {"dcgru_dw_reduce": 2, XIN_FWD[0]: 2, XIN_FWD[1]: 2,
                      XIN_BWD[0]: 2, XIN_BWD[1]: 2, XIN_BWD[2]: 1},
               False: {FWD[1]: 2, BWD[1]: 2, "dcgru_dw_reduce": 2}}
-SSL_STEP = {"dcgru_dw_reduce": 4, DEC[0]: 1, DEC[1]: 1, XIN_FWD[0]: 3,
-            XIN_FWD[1]: 3, XIN_BWD[0]: 3, XIN_BWD[1]: 3,
-            XIN_BWD[2]: 2}  # at 3 layers
+# the decoder's backward (L > 1): its loop, one bulk dW product per cell
+# (layer 0; the tied cell over layers 1..L-1), dWp, and a reduction each
+DEC_BWD_STEP = {DEC_BWD[0]: 1, XIN_BWD[1]: 2, DEC_BWD[1]: 1,
+                "dcgru_dw_reduce": 3}
+SSL_STEP = {"dcgru_dw_reduce": 3 + 3, DEC[0]: 1, DEC_BWD[0]: 1,
+            DEC_BWD[1]: 1, XIN_FWD[0]: 3, XIN_FWD[1]: 3, XIN_BWD[0]: 3,
+            XIN_BWD[1]: 3 + 2, XIN_BWD[2]: 2}  # at 3 layers
 XIN_GRADS = ("dx", "dwxg_f", "dwxc_f", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
@@ -265,7 +283,7 @@ def wrappers() -> dict:
     )
 
     module = {FDC: cuda_kernels, SDDMM: sddmm}
-    module.update({k: cuda_decoder for k in DEC})
+    module.update({k: cuda_decoder for k in (DEC[0],) + DEC_BWD})
     return {k: getattr(module.get(k, cuda_recurrent), k) for k in KERNELS}
 
 
@@ -370,17 +388,17 @@ def bwd_loop_work(*, m: int, b: int, a_batch: int, stream_bytes: int):
 
 
 def dw_work(*, d: int, m: int, b: int, a_batch: int, stream_bytes: int,
-            splits: int) -> tuple:
-    """One bulk dW product: the features A_m [x | h_prev | r h_prev] and
-    the three products at the tensor-core rate, db's sums on FMA; x,
-    h_prev, r, dpre and the operators read once, the ``splits`` partials
-    written once."""
+            t: int = T) -> tuple:
+    """One bulk dW product over ``t`` steps: the features A_m [x | h_prev |
+    r h_prev] and the three products at the tensor-core rate, db's sums on
+    FMA; x, h_prev, r, dpre and the operators read once, dW and db written
+    once (the split partials are scratch of the design)."""
     from eeg_gnn_tpu_torch.ops.cuda_recurrent import dw_size
 
-    rows = T * b * N
-    diff = 2 * (m - 1) * N * N * (d + 2 * H) * T * b
+    rows = t * b * N
+    diff = 2 * (m - 1) * N * N * (d + 2 * H) * t * b
     nbytes = rows * (d + 2 * H) * stream_bytes + rows * 3 * H * 4
-    nbytes += m * a_batch * N * N * 4 + splits * dw_size(m, d, H) * 4
+    nbytes += m * a_batch * N * N * 4 + dw_size(m, d, H) * 4
     tc = diff + 2 * rows * (m * d * 3 * H + m * H * 2 * H + m * H * H)
     return (float(rows * 3 * H), float(nbytes), *_tc(tc, stream_bytes))
 
@@ -426,23 +444,48 @@ def dec_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
     return float(per_step) * T_OUT * b, float(nbytes)
 
 
-def dec_bwd_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
-                 stream_bytes: int) -> tuple[float, float]:
-    """(FLOPs, bytes) one decoder backward launch needs, by the counting
-    of ``bwd_work`` for each layer (with its input cotangent) plus the
-    projection's dWp, dbp and dproj Wp^T; the per-clip dW slabs are
-    scratch and not counted."""
+def dec_loop_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
+                  stream_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of the decoder's backward state loop, all at the f32
+    FMA rate: per clip-step dproj Wp^T and per layer the weight-transpose
+    products dpre W^T and two A^T applies (layer 0 with its D-wide input
+    cotangent); h_prev, ru, c, d_seq read once, dx, dpre and dproj (f32)
+    and dh0 written once."""
     def cell(din):
-        return (2 * (m - 1) * N * N * (2 * H + din)       # recomputed
-                + 2 * N * m * (H + din) * 3 * H + N * 3 * H  # dW, db
-                + 2 * N * 3 * H * m * (H + din)            # dpre W^T
-                + 2 * 2 * (m - 1) * N * N * (H + din))     # A^T applies
-    per_step = cell(d) + (layers - 1) * cell(H) + 4 * N * H * d + N * d
-    nbytes = 2 * _dec_weights(d, m, layers) * 4 + T_OUT * 4
+        return (2 * N * 3 * H * m * (H + din)             # dpre W^T
+                + 2 * 2 * (m - 1) * N * N * (H + din))    # A^T applies
+    per_step = cell(d) + (layers - 1) * cell(H) + 2 * N * d * H
+    weights = m * (d + H) * 3 * H + H * d            # no biases read
+    weights += m * 2 * H * 3 * H if layers > 1 else 0
+    nbytes = weights * 4 + T_OUT * 4
     nbytes += m * a_batch * N * N * 4 + layers * b * N * H * 4
-    # h_prev, h, ru, c, in0, d_seq in; dx out
-    nbytes += T_OUT * b * N * (5 * layers * H + 3 * d) * stream_bytes
+    rows = T_OUT * b * N
+    nbytes += rows * (4 * layers * H + 2 * d) * stream_bytes  # in; dx out
+    nbytes += rows * (3 * layers * H + d) * 4                 # dpre, dproj
     return float(per_step) * T_OUT * b, float(nbytes)
+
+
+def dec_dw_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
+                stream_bytes: int) -> list:
+    """The decoder's two bulk dW products: layer 0 (input width d, T_out
+    steps) and the tied cell (width H, (L-1) T_out stacked steps)."""
+    kw = dict(m=m, b=b, a_batch=a_batch, stream_bytes=stream_bytes)
+    work = [dw_work(d=d, t=T_OUT, **kw)]
+    if layers > 1:
+        work.append(dw_work(d=H, t=(layers - 1) * T_OUT, **kw))
+    return work
+
+
+def dwp_work(*, d: int, b: int, stream_bytes: int) -> tuple:
+    """dWp = h_top^T dproj over T_out*B*N rows: the product at the
+    tensor-core rate for the stream dtype (the reference's one bf16 pass,
+    ``pallas_decoder.py:262``), dbp's sums on FMA; h_top and dproj (f32)
+    read once, dWp and dbp written once (the split partials are scratch of
+    the design)."""
+    rows = T_OUT * b * N
+    return (float(rows * d),
+            float(rows * (H * stream_bytes + d * 4) + (H * d + d) * 4),
+            *_tc(2 * rows * H * d, stream_bytes))
 
 
 def reduce_work(b: int, w: int) -> tuple[float, float]:
@@ -759,25 +802,28 @@ def dec_bwd_args(torch, args, layers, seed):
     """Decoder-backward arguments: the plain forward's residuals and a
     random seeded proj cotangent."""
     from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
-    from eeg_gnn_tpu_torch.ops.recurrent import shift_h_prev
 
     _, in0, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*args, layers,
                                                       residuals=True)
     a_ops, x, force, *w = args
-    h0 = w[14]
-    h0f = h0.permute(1, 2, 0, 3).reshape(h0.shape[1], N, layers * H)
     gen = torch.Generator().manual_seed(seed)
     d_seq = torch.randn(tuple(x.shape), generator=gen).to(x.device, x.dtype)
-    return (a_ops, *w[0:4], *w[6:10], w[12], shift_h_prev(h0f, h_seq),
+    return (a_ops, *w[0:4], *w[6:10], w[12], cd.decoder_h_prev(w[14], h_seq),
             h_seq, ru, c, in0, d_seq, force)
 
 
 def phase_dec_parity(torch, dev):
-    """The decoder kernels against their plain versions: every output of
-    every case of the grid."""
+    """The decoder kernels against their plain versions, every output of
+    every case of the grid: the forward; the backward as a whole (the
+    composite of its kernels) and each of its kernels on the same inputs
+    (the loop; the two bulk dW products fed the plain loop's dpre, each
+    reduced; dWp fed its dproj); and the whole backward twice on the same
+    inputs, bitwise equal."""
     from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
-    worst = {k: 0.0 for k in DEC}
+    names = DEC + DEC_BWD + ("dcgru_xin_dw (decoder)",)
+    worst = {k: 0.0 for k in names}
     main_abs = dict(worst)
     seed = 900
     for dtype in (torch.float32, torch.bfloat16):
@@ -801,18 +847,45 @@ def phase_dec_parity(torch, dev):
                         torch.cuda.synchronize()
                         want = cd.dcgru_decoder_fwd_plain(
                             *args, layers, residuals=residuals)
-                        names = ("proj", "in0", "h_seq", "ru_seq", "c_seq")
-                        fwd = [(o, g, w) for o, g, w in zip(names, got, want)
-                               if w is not None]
+                        outs = ("proj", "in0", "h_seq", "ru_seq", "c_seq")
+                        checks = {DEC[0]: [(o, g, w) for o, g, w in
+                                           zip(outs, got, want)
+                                           if w is not None]}
                         bwd_a = dec_bwd_args(torch, args, layers, seed)
                         got = cd.dcgru_decoder_bwd(*bwd_a, layers)
                         torch.cuda.synchronize()
+                        again = cd.dcgru_decoder_bwd(*bwd_a, layers)
+                        for out, g, w in zip(DEC_GRADS, got, again):
+                            if (g is None) != (w is None) or (
+                                    g is not None and not torch.equal(g, w)):
+                                fail(f"{DEC[1]} {out} L={layers} M={m} "
+                                     f"B={b} {dtype}: two runs differ")
                         want = cd.dcgru_decoder_bwd_plain(*bwd_a, layers)
-                        bwd = [(o, g, w) for o, g, w in zip(DEC_GRADS, got,
-                                                            want)
-                               if w is not None]
+                        checks[DEC[1]] = [(o, g, w) for o, g, w in
+                                          zip(DEC_GRADS, got, want)
+                                          if w is not None]
+                        loop_a, dw_cells, h_top = cd.decoder_bwd_pieces(
+                            *bwd_a, layers)
+                        got = cd.dcgru_dec_bwd_loop(*loop_a)
+                        torch.cuda.synchronize()
+                        want = cd.dcgru_dec_bwd_loop_plain(*loop_a)
+                        checks[DEC_BWD[0]] = list(zip(
+                            ("dx", "dh0", "dpre", "dproj"), got, want))
+                        dpre, dproj = want[2], want[3]
+                        checks[names[-1]] = []
+                        for cell, dw_a in zip(("layer0", "tied"),
+                                              dw_cells(dpre)):
+                            got = cr.dcgru_dw_reduce(cr.dcgru_xin_dw(*dw_a))
+                            torch.cuda.synchronize()
+                            want = cr.dcgru_xin_dw_plain(*dw_a).sum(0)
+                            checks[names[-1]].append((cell, got, want))
+                        got = cd.dcgru_dec_dwp(h_top, dproj)
+                        torch.cuda.synchronize()
+                        checks[DEC_BWD[1]] = [
+                            ("partials", got,
+                             cd.dcgru_dec_dwp_plain(h_top, dproj))]
                         errs = []
-                        for name, pairs in ((DEC[0], fwd), (DEC[1], bwd)):
+                        for name, pairs in checks.items():
                             for out, g, w in pairs:
                                 if g.shape != w.shape or g.dtype != w.dtype:
                                     fail(f"{name} {out}: {g.dtype} "
@@ -833,6 +906,8 @@ def phase_dec_parity(torch, dev):
                             f"{'shared' if shared else 'per-clip'} B={b} "
                             f"{str(dtype)[6:]} force={force} (tol "
                             f"{tol:.0e}): " + ", ".join(errs))
+    log("parity: dcgru_decoder_bwd twice on the same inputs gave "
+        "bitwise-equal dx, dh0, dW, db, dWp and dbp (every case)")
     return worst, main_abs
 
 
@@ -1307,7 +1382,6 @@ def phase_times(torch, dev):
     Predictor's and the train step's end-to-end times."""
     from eeg_gnn_tpu_torch.graphs import compute_supports_torch
     from eeg_gnn_tpu_torch.models.registry import build_model
-    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
     from eeg_gnn_tpu_torch.serve import Predictor
     from eeg_gnn_tpu_torch.train import TrainStep
@@ -1357,11 +1431,11 @@ def phase_times(torch, dev):
             if dtype == torch.bfloat16:  # the main path's split partials
                 reduce_shapes[d] = (splits, cr.dw_size(3, d, H))
             blw = bwd_loop_work(**kw)
-            dww = dw_work(d=d, splits=splits, **kw)
+            dww = dw_work(d=d, **kw)
             dxw = dx_work(d=d, **kw)
-            rw = reduce_work(splits, cr.dw_size(3, d, H))
             # the main path's first layer (D=100) is fed data and asks for
-            # no dx; with dx it is timed too, as the A/B of that skip
+            # no dx; with dx it is timed too, as the A/B of that skip (the
+            # bound leaves out the reduction of the split partials, scratch)
             for need_dx in ((False, True) if d == 100 else (True,)):
                 key = (BWD[0], tag, d if d != 100 or not need_dx else "dx")
                 report(key, BWD[0],
@@ -1369,7 +1443,7 @@ def phase_times(torch, dev):
                            *z, need_dx=nd),
                        lambda *z, nd=need_dx: cr.dcgru_recurrence_xin_bwd_plain(
                            *z, need_dx=nd), xin_b,
-                       [blw, dww, rw] + ([dxw] if need_dx else []),
+                       [blw, dww] + ([dxw] if need_dx else []),
                        f" need_dx={need_dx} (all its kernels)")
                 out[key + ("f32 bound",)] = bwd_work(
                     xin=True, d=d, need_dx=need_dx, **kw)
@@ -1388,10 +1462,8 @@ def phase_times(torch, dev):
         "recurrence or its BPTT (torch.nn.GRU has no graph diffusion), nor "
         "a diffused input projection or its dW / dx (each is a diffusion "
         "per clip and a product)")
-    # the x-in layers' bf16 split partials (D=100, 64) and the SSL
-    # decoder's per-clip slab
-    for d, shape in ((100, reduce_shapes[100]), (64, reduce_shapes[64]),
-                     ("dec", (BATCH, cd.dec_dw_size(3, 100, H, SSL_LAYERS)))):
+    # the x-in layers' bf16 split partials (D=100, 64)
+    for d, shape in ((100, reduce_shapes[100]), (64, reduce_shapes[64])):
         gen = torch.Generator().manual_seed(shape[1])
         part = torch.randn(shape, generator=gen).to(dev)
         ms = time_ms(torch, lambda: cr.dcgru_dw_reduce(part))
@@ -1450,13 +1522,29 @@ def phase_times(torch, dev):
 
 
 def phase_ssl_times(torch, dev):
-    """The decoder kernels beside their plain versions and bounds, and the
-    SSL train step's ms and clips/s."""
+    """The decoder's kernels beside their plain versions and bounds (the
+    forward; the backward as a whole and each of its kernels: the loop,
+    the two bulk dW products, dWp, the three reductions beside
+    torch.sum), and the SSL train step's ms and clips/s."""
     from eeg_gnn_tpu_torch.graphs import compute_supports_torch
     from eeg_gnn_tpu_torch.models.registry import build_model
     from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
     out = {}
+
+    def report(key, name, kern, plain, work, note=""):
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+        bms, by = bound_ms(work)
+        out[key] = (ms, plain_ms, work)
+        flops = sum(w[0] + (w[2] if len(w) > 2 else 0) for w in work)
+        log(f"time {name} L={SSL_LAYERS} T_out={T_OUT} D=100 M=3 "
+            f"B={BATCH} {key[1]}{note}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{flops / 1e9:.2f} GFLOP, {sum(w[1] for w in work) / 1e6:.2f} "
+            f"MB), {flops / ms / 1e9:.2f} TFLOP/s")
+
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
         args = dec_inputs(torch, dev, layers=SSL_LAYERS, m=3, shared=False,
@@ -1465,26 +1553,76 @@ def phase_ssl_times(torch, dev):
         sb = 2 if dtype == torch.bfloat16 else 4
         kw = dict(d=100, m=3, layers=SSL_LAYERS, b=BATCH, a_batch=BATCH,
                   stream_bytes=sb)
-        for name, kern, plain, a, work in (
-                (DEC[0], cd.dcgru_decoder_fwd, cd.dcgru_decoder_fwd_plain,
-                 args, dec_work(**kw)),
-                (DEC[1], cd.dcgru_decoder_bwd, cd.dcgru_decoder_bwd_plain,
-                 bwd, dec_bwd_work(**kw))):
-            # the train step's forward saves its residuals
-            rkw = {"residuals": True} if name == DEC[0] else {}
-            ms = time_ms(torch, lambda: kern(*a, SSL_LAYERS, **rkw))
-            plain_ms = time_ms(torch, lambda: plain(*a, SSL_LAYERS, **rkw),
-                               reps=5, warmup=1)
-            bms, by = bound_ms([work])
-            out[(name, tag)] = (ms, plain_ms, work)
-            log(f"time {name} L={SSL_LAYERS} T_out={T_OUT} D=100 M=3 "
-                f"B={BATCH} {tag}: kernel {ms:.4f} ms"
-                f"{' (with its dW reduce)' if name == DEC[1] else ''}, "
-                f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-                f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
-                f"{work[0] / ms / 1e9:.2f} TFLOP/s")
+        loop_a, dw_cells, h_top = cd.decoder_bwd_pieces(*bwd, SSL_LAYERS)
+        _, _, dpre, dproj = cd.dcgru_dec_bwd_loop_plain(*loop_a)
+        dw_a = dw_cells(dpre)
+        splits = tuple(cr.dw_splits(a[3], H, 3) for a in dw_a)
+        rows = T_OUT * BATCH * N
+        dws = cd.dwp_splits(rows)
+        lw = dec_loop_work(**kw)
+        dww = dec_dw_work(**kw)
+        pw = dwp_work(d=100, b=BATCH, stream_bytes=sb)
+        shapes = [(sp, cr.dw_size(3, d, H)) for sp, d in zip(splits,
+                                                             (100, H))]
+        shapes.append((dws, H * 100 + 100))
+        rws = [reduce_work(*sh) for sh in shapes]
+        report((DEC[0], tag), DEC[0],
+               lambda: cd.dcgru_decoder_fwd(*args, SSL_LAYERS,
+                                            residuals=True),
+               lambda: cd.dcgru_decoder_fwd_plain(*args, SSL_LAYERS,
+                                                  residuals=True),
+               [dec_work(**kw)], " (with residuals, as the train step)")
+        # the bound leaves out the reductions of the split partials, scratch
+        report((DEC[1], tag), DEC[1],
+               lambda: cd.dcgru_decoder_bwd(*bwd, SSL_LAYERS),
+               lambda: cd.dcgru_decoder_bwd_plain(*bwd, SSL_LAYERS),
+               [lw, *dww, pw], " (all its kernels)")
+        report((DEC_BWD[0], tag), DEC_BWD[0],
+               lambda: cd.dcgru_dec_bwd_loop(*loop_a),
+               lambda: cd.dcgru_dec_bwd_loop_plain(*loop_a), [lw])
+        report(("dcgru_xin_dw (decoder)", tag), "dcgru_xin_dw (decoder: "
+               "layer 0 + tied cell)",
+               lambda: [cr.dcgru_xin_dw(*a) for a in dw_a],
+               lambda: [cr.dcgru_xin_dw_plain(*a) for a in dw_a], dww,
+               f" (splits {splits})")
+        report((DEC_BWD[1], tag), DEC_BWD[1],
+               lambda: cd.dcgru_dec_dwp(h_top, dproj),
+               lambda: cd.dcgru_dec_dwp_plain(h_top, dproj), [pw],
+               f" ({dws} splits)")
+        if dtype == torch.bfloat16:
+            # dWp's library call: one product [h_top | 1]^T dproj gives
+            # [dWp; dbp] (the ones column built beforehand)
+            aug = torch.cat([h_top.reshape(rows, H).float(),
+                             torch.ones((rows, 1), device=dev)], dim=1)
+            g = dproj.reshape(rows, 100)
+            out[(DEC_BWD[1], "library")] = time_ms(
+                torch, lambda: torch.matmul(aug.t(), g))
+            # what the composite runs for it: the kernel and its reduction
+            out[(DEC_BWD[1], "with reduce")] = time_ms(
+                torch, lambda: cr.dcgru_dw_reduce(cd.dcgru_dec_dwp(h_top,
+                                                                   dproj)))
+            log(f"time dWp library call torch.matmul([h_top | 1]^T, dproj) "
+                f"({rows} rows, f32): {out[(DEC_BWD[1], 'library')]:.4f} ms; "
+                f"{DEC_BWD[1]} with its dcgru_dw_reduce "
+                f"{out[(DEC_BWD[1], 'with reduce')]:.4f} ms")
+            # the main path's three reductions
+            gen = torch.Generator().manual_seed(7)
+            parts = [torch.randn(sh, generator=gen).to(dev) for sh in shapes]
+            ms = time_ms(torch, lambda: [cr.dcgru_dw_reduce(q)
+                                         for q in parts])
+            plain_ms = time_ms(torch, lambda: [cr.dcgru_dw_reduce_plain(q)
+                                               for q in parts])
+            lib_ms = time_ms(torch, lambda: [torch.sum(q, dim=0)
+                                             for q in parts])
+            bms, by = bound_ms(rws)
+            out[("dcgru_dw_reduce", "float32", "dec")] = (ms, plain_ms, rws,
+                                                          lib_ms)
+            log(f"time dcgru_dw_reduce decoder partials {shapes}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
+                f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     log("library_ms: none — no single PyTorch call computes a DCGRU "
-        "seq2seq decoder or its BPTT")
+        "seq2seq decoder, its BPTT, its state loop or a diffused dW; dWp "
+        "is one product, timed above")
 
     # the SSL step as ssl_bench.py times it: supports built once, on device
     batch = ssl_batch(torch, dev, BATCH, seed=6)
@@ -1526,15 +1664,17 @@ def fdc_work(*, s: int, k: int, o: int, b: int, d: int = H):
 
 
 def sddmm_work(n: int, d: int, block_rows, block_cols,
-               block: int = 128) -> tuple[float, float]:
-    """(FLOPs, bytes) of one block-sparse SDDMM of x with itself: 2 D FLOPs
-    per output entry inside N (those past N are zeros), x and the block
-    coordinates read once, the blocks written once."""
+               block: int = 128) -> tuple:
+    """(FMA FLOPs, bytes, tensor-core FLOPs, their rate) of one block-sparse
+    SDDMM of x with itself: 2 D FLOPs per output entry inside N (those past
+    N are zeros) at the 3xTF32 rate (a third of the TF32 one: the exact-f32
+    product the kernel runs); x and the block coordinates read once, the
+    blocks written once."""
     vr = np.clip(n - np.asarray(block_rows, np.int64) * block, 0, block)
     vc = np.clip(n - np.asarray(block_cols, np.int64) * block, 0, block)
     nnzb = len(vr)
-    return (float(2 * d * np.sum(vr * vc)),
-            float(n * d * 4 + 2 * nnzb * 4 + nnzb * block * block * 4))
+    return (0.0, float(n * d * 4 + 2 * nnzb * 4 + nnzb * block * block * 4),
+            *_tc(float(2 * d * np.sum(vr * vc)), 4))
 
 
 def fdc_inputs(torch, dev, *, s, k, o, b, seed):
@@ -1638,11 +1778,36 @@ def montages(torch, dev):
     return out
 
 
+def sddmm_tf32_control(torch, x, y, block_rows, block_cols, block=128):
+    """The plain SDDMM's gathered product in one TF32 pass (cuBLAS with
+    TF32 on): the lower precision the 3xTF32 kernel exists to avoid."""
+    n, d = x.shape
+    slabs = lambda v: torch.nn.functional.pad(
+        v, (0, 0, 0, (-n) % block)).view(-1, block, d)
+    idx = lambda b: torch.as_tensor(np.asarray(b), device=x.device).long()
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.matmul(slabs(x)[idx(block_rows)],
+                            slabs(y)[idx(block_cols)].transpose(1, 2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def phase_sddmm_parity(torch, dev, mts):
-    """Kernel #8 against its plain version at every montage (D=6000), and
-    a 19-node clip's normalized edge scores against its correlation
+    """Kernel #8 against its plain version at every montage (D=6000; twice,
+    bitwise equal), within a bar that one TF32 pass on the same inputs must
+    miss (the control, read beside it); at the top-k montages, whose every
+    block is occupied,
+    the top-3 of |x x^T| re-scored by the kernel against the host oracle's
+    (the top-3 of the float64 Gram on the host, ``graphs/xcorr.keep_topk``);
+    and a 19-node clip's normalized edge scores against its correlation
     adjacency."""
-    from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
+    from eeg_gnn_tpu_torch.graphs.xcorr import (
+        correlation_adjacency_torch,
+        keep_topk,
+        keep_topk_torch,
+    )
     from eeg_gnn_tpu_torch.ops import sddmm as sd
 
     worst, main_abs = 0.0, 0.0
@@ -1650,16 +1815,48 @@ def phase_sddmm_parity(torch, dev, mts):
         args = (mt["x"], mt["x"], mt["block_rows"], mt["block_cols"])
         got = sd.sddmm_blocksparse(*args)
         torch.cuda.synchronize()
-        err, max_abs = norm_err(got, sd.sddmm_blocksparse_plain(*args))
-        if not np.isfinite(err) or err > F32_TOL:
+        if not torch.equal(sd.sddmm_blocksparse(*args), got):
+            fail(f"{SDDMM} N={mt['n']} {mt['topology']}: two runs differ")
+        plain = sd.sddmm_blocksparse_plain(*args)
+        err, max_abs = norm_err(got, plain)
+        if not np.isfinite(err) or err > SDDMM_TOL:
             fail(f"{SDDMM} N={mt['n']} {mt['topology']}: normalized error "
-                 f"{err:.3e} > {F32_TOL:.0e}")
+                 f"{err:.3e} > {SDDMM_TOL:.0e}")
+        # the control: the same products in one TF32 pass must miss the bar
+        ctrl = norm_err(sddmm_tf32_control(torch, *args), plain)[0]
+        del plain
+        if not ctrl > SDDMM_TOL:
+            fail(f"{SDDMM} N={mt['n']} {mt['topology']}: one TF32 pass reads "
+                 f"{ctrl:.3e}, within the bar {SDDMM_TOL:.0e}: the check "
+                 "cannot tell it from 3xTF32")
         worst = max(worst, err)
         if (mt["n"], mt["topology"]) == (4096, "banded"):
             main_abs = max_abs
         log(f"parity {SDDMM} N={mt['n']} {mt['topology']} D={D_SIG} "
             f"({len(mt['block_rows'])} blocks): norm err {err:.3e} (max abs "
-            f"{max_abs:.3e}, tol {F32_TOL:.0e})")
+            f"{max_abs:.3e}, tol {SDDMM_TOL:.0e}); one TF32 pass (control) "
+            f"{ctrl:.3e}")
+        if mt["topology"] != "topk":
+            continue
+        n, nb = mt["n"], (mt["n"] + 127) // 128
+        if len(mt["block_rows"]) != nb * nb:
+            fail(f"top-k montage N={n}: {len(mt['block_rows'])} of "
+                 f"{nb * nb} blocks occupied, the re-score check needs all")
+        dense = torch.zeros((nb, nb, 128, 128), device=dev)
+        dense[torch.as_tensor(mt["block_rows"], device=dev).long(),
+              torch.as_tensor(mt["block_cols"], device=dev).long()] = got
+        dense = dense.transpose(1, 2).reshape(nb * 128, nb * 128)[:n, :n]
+        kept = keep_topk_torch(dense.abs(), TOP_K).fill_diagonal_(0.0)
+        x64 = mt["x"].double().cpu().numpy()
+        oracle = keep_topk(np.abs(x64 @ x64.T), TOP_K)
+        np.fill_diagonal(oracle, 0.0)
+        same = np.array_equal(kept.cpu().numpy() != 0, oracle != 0)
+        if not same:
+            fail(f"top-k montage N={n}: the kernel's re-scored top-{TOP_K} "
+                 "edges differ from the host oracle's")
+        log(f"parity {SDDMM} N={n} top-{TOP_K}: the edges kept from the "
+            f"kernel's scores are the host float64 oracle's "
+            f"({int(np.count_nonzero(oracle))} edges)")
     rng = np.random.RandomState(19)
     clip = torch.from_numpy(rng.randn(T, N, 100).astype(np.float32)).to(dev)
     adj = correlation_adjacency_torch(clip)
@@ -1852,8 +2049,9 @@ def phase_pallas_train(torch, dev):
 
 def phase_pallas_ssl(torch, dev):
     """SSL pre-training with use_pallas (combined, float32, curriculum on,
-    3 steps): per step 3 * 2 T = 360 launches of kernel #7, one each of the
-    decoder's kernels and one dW reduction (the decoder ignores the flag);
+    3 steps): per step 3 * 2 T = 360 launches of kernel #7 and the
+    decoder's kernels (the decoder ignores the flag: its forward, and its
+    backward's ``DEC_BWD_STEP``);
     finite losses; step-1 gradients against a stacked step from the same
     weights and force draws."""
     from eeg_gnn_tpu_torch.models.registry import build_model
@@ -1864,8 +2062,7 @@ def phase_pallas_ssl(torch, dev):
     init = {k: v.clone() for k, v in build_model(
         cfg, torch.Generator().manual_seed(11)).state_dict().items()}
     per_step = {k: 0 for k in KERNELS}
-    per_step.update({FDC: PALLAS_SSL, DEC[0]: 1, DEC[1]: 1,
-                     "dcgru_dw_reduce": 1})
+    per_step.update({FDC: PALLAS_SSL, DEC[0]: 1, **DEC_BWD_STEP})
     # the use_pallas SSL path's run: counts start at 0 here
     reset_counts()
     step = ssl_step(torch, cfg, init, dev)
@@ -1975,8 +2172,8 @@ def phase_pallas_times(torch, dev, mts):
             f"{plain_ms:.4f} ms, {lib}: "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, dense x x^T "
             f"{dense_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
-            f"{work[0] / ms / 1e9:.2f} TFLOP/s")
+            f"{work[2] / 1e9:.2f} GFLOP, {work[1] / 1e6:.2f} MB), "
+            f"{work[2] / ms / 1e9:.2f} TFLOP/s")
 
     rng = np.random.RandomState(3)
     xs = rng.randn(BATCH, T, N, 100).astype(np.float32)
@@ -2084,7 +2281,8 @@ def main():
                          + XIN_FWD + XIN_BWD),
                         ("ssl", SSL_KERNELS), ("serve_pallas", (FDC,)),
                         ("train_pallas", (FDC,)),
-                        ("ssl_pallas", (FDC,) + DEC), ("rescore", (SDDMM,))):
+                        ("ssl_pallas", (FDC, DEC[0]) + DEC_BWD),
+                        ("rescore", (SDDMM,))):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
@@ -2149,32 +2347,56 @@ def main():
         entry["launches"] = sum(c[name] for c in paths.values())
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         kernels.append(entry)
+        dec_shape = (f"{SSL_LAYERS}-layer decoder, T_out={T_OUT}, "
+                     f"B={BATCH}, N=19, H=64, D=100, M=3")
         if name == "dcgru_dw_reduce":
-            # the SSL step also sums the decoder's slab once
+            # the SSL step also sums the decoder's three split partials
             ms, plain_ms, work, lib_ms = times[(name, tag, "dec")]
-            dbms, dby = bound_ms([work])
-            kernels[-1]["decoder_slab"] = {
+            dbms, dby = bound_ms(work)
+            kernels[-1]["decoder"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": dbms,
                 "bound_by": dby, "library_ms": lib_ms,
-                "shape": f"B={BATCH}, W={int(work[0]) // BATCH} f32 "
-                         f"({SSL_LAYERS}-layer decoder, D=100, M=3)"}
+                "shape": f"{dec_shape}: layer 0, tied cell, dWp partials"}
+        if name == XIN_BWD[1]:
+            # the SSL decoder's two launches: layer 0 and the tied cell
+            ms, plain_ms, work = times[(f"{name} (decoder)", "bfloat16")]
+            dbms, dby = bound_ms(work)
+            kernels[-1]["decoder"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": dbms,
+                "bound_by": dby, "library_ms": None,
+                "max_abs_err": main_abs[f"{name} (decoder)"],
+                "shape": f"{dec_shape}, bf16 streams: layer 0 (D=100) + "
+                         f"the tied cell ({SSL_LAYERS - 1} layers stacked)"}
     dec = "eeg_gnn_tpu/ops/pallas_decoder.py"
-    for name, replaces in ((DEC[0], f"{dec}:157"), (DEC[1], f"{dec}:229")):
+    dec_src = "eeg_gnn_tpu_torch/csrc/dcgru_decoder.cu"
+    for name, replaces in ((DEC[0], f"{dec}:157"), (DEC[1], f"{dec}:229"),
+                           (DEC_BWD[0], f"{dec}:229"),
+                           (DEC_BWD[1], f"{dec}:281")):
         ms, plain_ms, work = times[(name, "bfloat16")]
-        bms, by = bound_ms([work])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "eeg_gnn_tpu_torch/csrc/dcgru_decoder.cu",
+        bms, by = bound_ms(work)
+        entry = {
+            "name": name, "route": "cuda", "source": dec_src,
             "replaces": replaces,
-            "launches": sum(c[name] for c in paths.values()),
-            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": main_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": times.get((name, "library")),
             "shape": (f"{SSL_LAYERS} layers, T_out={T_OUT}, B={BATCH}, "
-                      f"N=19, H=64, D=100, M=3, bf16 streams"
-                      + ("; with its dW reduce" if name == DEC[1] else "")),
-        })
+                      f"N=19, H=64, D=100, M=3, bf16 streams"),
+        }
+        if name == DEC_BWD[1]:
+            # beside library_ms: the kernel and its reduction, as run
+            entry["ms_with_reduce"] = times[(name, "with reduce")]
+        if name == DEC[1]:
+            # a wrapper that launches no kernel of its own
+            del entry["route"], entry["source"]
+            entry["sources"] = [dec_src, xin_src[0], xin_src[2]]
+            entry["kernels"] = list(DEC_BWD + (XIN_BWD[1],
+                                               "dcgru_dw_reduce"))
+            composites.append(entry)
+            continue
+        entry["launches"] = sum(c[name] for c in paths.values())
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        kernels.append(entry)
     gate, cand = times[(FDC, 1, 2 * H)], times[(FDC, 1, H)]
     bms, by = bound_ms([gate[2], cand[2]])
     gate5, cand5 = times[(FDC, 2, 2 * H)], times[(FDC, 2, H)]

@@ -1,11 +1,12 @@
-// Device helpers shared by the DCGRU kernels of this directory
-// (dcgru_recurrence.cu, dcgru_recurrence_bwd.cu, dcgru_decoder.cu): stream
-// conversions, activations, the shared-memory layout rule, and the small
-// per-thread products every recurrence step is built from.
+// Device helpers shared by the kernels of this directory: stream
+// conversions, activations, the shared-memory layout rule, the small
+// per-thread products every recurrence step is built from (f32 FMA), and
+// the warp-level tensor-core fragments and cp.async copies of the bulk
+// products (dcgru_xin_gemm.cu, sddmm.cu).
 //
 // Conventions: node rows are ragged (N <= kMaxNodes) and masked; features
 // and weights are m-major, row n of an (N, M*W) feature slab holding
-// [A_0 v | A_1 v | ... ] with A_0 = I; every sum is f32 FMA.
+// [A_0 v | A_1 v | ... ] with A_0 = I.
 
 #pragma once
 
@@ -173,6 +174,109 @@ __device__ __forceinline__ void db_col(const float* __restrict__ dpre,
   float acc = 0.0f;
   for (int n = 0; n < N; ++n) acc += dpre[n * ldp + j];
   dst[j] = first ? acc : dst[j] + acc;
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core fragments (warp-level mma.sync)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// v rounded to TF32's 10 mantissa bits, to nearest with ties away from
+// zero: for v not NaN the bits of cvt.rna.tf32.f32 (an infinity stays
+// one), in two integer ops rather than on the conversion unit, which
+// issues at a fraction of the integer rate and would limit the 3xTF32
+// products below. The add carries a NaN's mantissa into its exponent or
+// sign (0x7fffffff becomes -0): split_tf32 keeps the NaN in lo.
+__device__ __forceinline__ uint32_t round_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// 3xTF32: v = hi + lo; hi*hi + hi*lo + lo*hi carries ~f32 accuracy
+// through the TF32 tensor cores (lo*lo is below f32 rounding). lo goes in
+// as the f32 bits of v - hi, exact since hi is v rounded: the tensor
+// cores read its TF32 bits, cut toward zero rather than rounded (the
+// same parity on the H100 as rounding it, one op less per element). A
+// NaN v makes v - hi NaN, so lo spreads it through the products as f32
+// does (an infinite v gives NaN too, as a split by cvt.rna does).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = round_tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16 x 8) += a (16 x 8) b (8 x 8). Lane (g = lane / 4, t = lane % 4)
+// holds a[g][t], a[g+8][t], a[g][t+4], a[g+8][t+4]; b[t][g], b[t+4][g];
+// d[g][2t], d[g][2t+1], d[g+8][2t], d[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tensor cores add in f32 without rounding to nearest, so a long sum
+// in one accumulator drifts one way: over a dW split's ~1,700 adds it
+// moved float32 gradients by 1e-4 (measured on the H100). A long
+// reduction adds each chunk's partial product into `sum` with an ordinary
+// f32 add, and the accumulator starts again at 0.
+template <int J>
+__device__ __forceinline__ void flush(float (&sum)[J][4], float (&acc)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sum[j][e] += acc[j][e];
+      acc[j][e] = 0.0f;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: global -> shared copies that bypass the registers
+// ---------------------------------------------------------------------------
+
+// 4 stream elements (16 or 8 bytes), zero-filled when not valid
+template <typename S>
+__device__ __forceinline__ void cp_quad(void* dst, const S* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 * (int)sizeof(S) : 0;
+  if constexpr (sizeof(S) == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+}
+
+// one float, zero-filled when not valid
+__device__ __forceinline__ void cp_word(float* dst, const float* src,
+                                        bool valid = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 }  // namespace dcgru

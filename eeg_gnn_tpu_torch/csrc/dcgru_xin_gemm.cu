@@ -69,43 +69,8 @@ constexpr int kMaxSmem = 232448;
 constexpr int kMaxSplitPairs = 512;  // (t, b) pairs a dW split sums, at most
 
 // ---------------------------------------------------------------------------
-// tensor-core fragments
+// tensor-core fragments (helpers in dcgru_common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One warp: acc[j] += A (16 x 16) B (16 x 8) for the n8 tiles j < nt_live,
 // A(i, k) = a[i*ai + k*ak], B(k, n) = b[k*bk + (8j + n)*bn], f32 in shared
@@ -158,53 +123,14 @@ __device__ __forceinline__ void mma_k16(float (&acc)[8][4],
   }
 }
 
-// The tensor cores add in f32 without rounding to nearest, so a long sum
-// in one accumulator drifts one way: over a dW split's ~1,700 adds it
-// moved float32 gradients by 1e-4 (measured on the H100). Each chunk's
-// partial product is added into `sum` with an ordinary f32 add, and the
-// accumulator starts again at 0. The projection's and dx's sums run over
-// M*D and M*3H (a few hundred adds at most) and keep one accumulator:
-// their float32 error stays within 6e-6 of the plain version (PERF.md).
-__device__ __forceinline__ void flush(float (&sum)[8][4], float (&acc)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sum[j][e] += acc[j][e];
-      acc[j][e] = 0.0f;
-    }
-}
+// dW's long sums flush each chunk into an f32 register sum (flush, in
+// dcgru_common.cuh). The projection's and dx's sums run over M*D and
+// M*3H (a few hundred adds at most) and keep one accumulator: their
+// float32 error stays within 6e-6 of the plain version (PERF.md).
 
 // ---------------------------------------------------------------------------
-// cp.async: 4 stream elements at a time, zero-filled where not valid
+// cp.async tiles (copies in dcgru_common.cuh)
 // ---------------------------------------------------------------------------
-
-template <typename S>
-__device__ __forceinline__ void cp_quad(void* dst, const S* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 4 * (int)sizeof(S) : 0;
-  if constexpr (sizeof(S) == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_word(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 
 // Rows [0, RB) x quads [0, W/4) of a row-major global tile into shared
 // memory (ld elements a row); rows >= rows_ok or columns >= cols_ok (both

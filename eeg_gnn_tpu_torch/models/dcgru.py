@@ -20,17 +20,18 @@ Each encoder layer runs over the whole sequence at once (:func:`_layer_scan`):
   (``ops/cuda_kernels.py``) with ``use_pallas`` and per-clip supports,
   and ``chebyshev_diffusion`` + matmul otherwise.
 
-The decoder (:func:`decoder_apply`) runs as two CUDA kernels over all
-T_out steps and all layers (``ops/cuda_decoder.py``) with
-``recurrence="pallas"``, and as a plain scan of
+The decoder (:func:`decoder_apply`) runs through the CUDA kernels of
+``ops/cuda_decoder.py`` with ``recurrence="pallas"`` (the forward one
+launch over all T_out steps and all layers, its BPTT a state loop and
+bulk dW and dWp products), and as a plain scan of
 :func:`dcgru_cell_apply_ops` under autograd with ``"stacked"`` or with
 dropout in training. The scheduled-sampling draws are one (T_out,) force
 vector drawn from a ``torch.Generator`` before the loop, or given.
 
 When autograd records (training), the ``pallas`` branches run through the
 autograd Functions of ``ops/cuda_recurrent.py`` and ``ops/cuda_decoder.py``,
-whose forward kernels save their residuals and whose backward is the BPTT
-kernel; otherwise (serving, ``torch.inference_mode``) they call the
+whose forward kernels save their residuals and whose backward runs the
+BPTT kernels; otherwise (serving, ``torch.inference_mode``) they call the
 forward kernels without residuals. On CPU tensors the kernel wrappers
 compute with their plain versions.
 

@@ -1,30 +1,38 @@
 """Whole-sequence DCGRU seq2seq decoder: CUDA kernels, their wrappers,
 their plain PyTorch versions, and the autograd Function built on them.
 
-The counterpart of the JAX package's ``ops/pallas_decoder.py``. Two
-kernels of ``csrc/dcgru_decoder.cu`` replace its Pallas kernels:
+The counterpart of the JAX package's ``ops/pallas_decoder.py``. Kernels of
+``csrc/dcgru_decoder.cu`` replace its Pallas kernels:
 
 - :func:`dcgru_decoder_fwd` <- ``_fwd_kernel_dec``: every step's L DCGRU
   cells (layer 0 at the output width D, layers >= 1 one shared cell, the
   reference's tied-weight quirk), the output projection and the
   scheduled-sampling feedback select by the per-step force ``f_t``;
-- :func:`dcgru_decoder_bwd` <- ``_bwd_kernel_dec``: its BPTT, with the
-  per-layer dh carries and the ``din0`` feedback cotangent
-  (``pallas_decoder.py:31-41``); its per-clip dW slabs are summed by
-  ``ops/cuda_recurrent.dcgru_dw_reduce``.
+- :func:`dcgru_decoder_bwd` <- ``_bwd_kernel_dec``: its BPTT, which
+  launches no kernel of its own. :func:`dcgru_dec_bwd_loop` carries the
+  per-layer dh and the ``din0`` feedback cotangent
+  (``pallas_decoder.py:31-41``) and writes each layer's ``dpre =
+  [dru_pre | dc_pre]`` and each step's ``dproj`` in float32; the cells'
+  dW and db then come from the bulk x-in dW kernel
+  (``ops/cuda_recurrent.dcgru_xin_dw``), once for layer 0 and once for
+  the shared cell over layers 1..L-1 stacked as (L-1)*T steps (the sum
+  over layers that the weight tying needs), and dWp / dbp from
+  :func:`dcgru_dec_dwp`; ``dcgru_dw_reduce`` sums each one's partials.
+  No dW is accumulated in the serial loop.
 
-Each wrapper computes with its plain version when its input lies on the
-CPU, launches the kernel when it lies on a CUDA device, and raises
+Each kernel's wrapper computes with its plain version when its input lies
+on the CPU, launches the kernel when it lies on a CUDA device, and raises
 otherwise or on what the kernel does not take; each counts its launches
 in ``<wrapper>.launches``.
 
-Layouts are the JAX kernels': weights m-major (input rows (M*Din, O),
-hidden rows (M*H, O)), ``wp`` = ``proj_w.T`` (H, D); residuals per node
-row with the layers side by side: in0 (T, B, N, D), h_seq and c_seq
-(T, B, N, L*H), ru_seq (T, B, N, L*2H). The x stream, proj, the residuals,
-the proj cotangent and dx are float32 or bfloat16 (the stream dtype);
-operators, force, weights, biases, h0_stack, dh0, every weight gradient
-and every sum are float32 (``pallas_decoder.py:441-449, 527-536``).
+Layouts are the JAX kernels' weights: m-major (input rows (M*Din, O),
+hidden rows (M*H, O)), ``wp`` = ``proj_w.T`` (H, D). The residuals are
+layer-major, so each layer's stream (and layers 1..L-1 together) is
+contiguous: in0 (T, B, N, D), h_seq and c_seq (L, T, B, N, H), ru_seq
+(L, T, B, N, 2H). The x stream, proj, the residuals, the proj cotangent
+and dx are float32 or bfloat16 (the stream dtype); operators, force,
+weights, biases, h0_stack, dh0, dpre, dproj, every weight gradient and
+every sum are float32 (``pallas_decoder.py:441-449, 527-536``).
 
 :func:`dcgru_decoder_recurrence` is the ``torch.autograd.Function``
 counterpart of the ``custom_vjp`` ``dcgru_decoder_pallas``: no gradient
@@ -50,7 +58,7 @@ from eeg_gnn_tpu_torch.ops.cuda_recurrent import (
     _stream,
     _transposed,
     dcgru_dw_reduce,
-    dw_size,
+    dcgru_xin_dw,
     xin_cell_step,
 )
 from eeg_gnn_tpu_torch.ops.recurrent import (
@@ -59,10 +67,10 @@ from eeg_gnn_tpu_torch.ops.recurrent import (
     _apply_ops_t,
     _contract_w_t,
     _weight_grad,
-    shift_h_prev,
 )
 
 _LIB = "dcgru_decoder"
+_DWP_ROWS = 256  # csrc kDwpRows: node rows a dWp split sums
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,20 +82,28 @@ def _lib() -> ctypes.CDLL:
     lib.dcgru_decoder_fwd.argtypes = (
         [_P, _P, _P, _I] + [_P] * 12 + [_P] * 3 + [_P] * 5 + [_I] * 9 + [_P])
     lib.dcgru_decoder_fwd.restype = _I
-    lib.dcgru_decoder_bwd.argtypes = (
-        [_P, _I] + [_P] * 9 + [_P] * 6 + [_P] * 4 + [_I] * 9 + [_P])
-    lib.dcgru_decoder_bwd.restype = _I
+    lib.dcgru_dec_bwd_loop.argtypes = (
+        [_P, _I] + [_P] * 9 + [_P] * 5 + [_P] * 4 + [_I] * 9 + [_P])
+    lib.dcgru_dec_bwd_loop.restype = _I
+    lib.dcgru_dec_dwp.argtypes = [_P] * 3 + [_I] * 4 + [_P]
+    lib.dcgru_dec_dwp.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def dec_dw_size(m: int, d: int, h_units: int, num_layers: int) -> int:
-    """Floats of one clip's dW partial slab: [layer 0 cell | shared cell
-    (only when num_layers > 1) | dWp (H, D) | dbp (D)], each cell as
-    :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.dw_size`."""
-    shared = dw_size(m, h_units, h_units) if num_layers > 1 else 0
-    return dw_size(m, d, h_units) + shared + h_units * d + d
+def dwp_splits(rows: int) -> int:
+    """The splits of :func:`dcgru_dec_dwp`'s partials for ``rows`` =
+    T*B*N node rows: one per 256 rows, on every device (split s sums rows
+    [256 s, 256 (s+1)))."""
+    return max(1, -(-rows // _DWP_ROWS))
+
+
+def decoder_h_prev(h0_stack, h_seq):
+    """Each step's incoming states, layer-major (L, T, B, N, H) in
+    h_seq's dtype: [h0_l, h_seq[l, :-1]] for every layer l."""
+    return torch.cat([h0_stack.to(h_seq.dtype)[:, None], h_seq[:, :-1]],
+                     dim=1)
 
 
 def _cell_shapes(m, d_in, h_units):
@@ -128,6 +144,7 @@ def dcgru_decoder_fwd_plain(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c,
                      (wxsg, wxsc, whsg, whsc, bsg, bsc))
     h = list(h0_stack.float().unbind(0))
     inp = torch.zeros((b, n, d), dtype=torch.float32, device=x_seq.device)
+    # per step: proj, in0; per step and layer: h, ru, c
     seqs = {"proj": [], "in0": [], "h": [], "ru": [], "c": []}
     for ti in range(t):
         seqs["in0"].append(inp)
@@ -140,13 +157,34 @@ def dcgru_decoder_fwd_plain(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c,
         proj = torch.matmul(out, wp) + bp
         seqs["proj"].append(proj)
         for k, v in step.items():
-            seqs[k].append(torch.cat(v, dim=-1))
+            seqs[k].append(torch.stack(v))
         # scheduled sampling: the feedback uses the f32 projection
         f = force[ti]
         inp = f * x_seq[ti].float() + (1.0 - f) * proj
-    outs = [torch.stack(seqs[k]).to(x_seq.dtype) for k in
+    # the layer residuals layer-major: (T, L, ...) -> (L, T, ...)
+    outs = [torch.stack(seqs[k], dim=1 if k in ("h", "ru", "c") else 0)
+            .to(x_seq.dtype) for k in
             (("proj", "in0", "h", "ru", "c") if residuals else ("proj",))]
     return tuple(outs) + (None,) * (5 - len(outs))
+
+
+def _xin_cell_bwd_state(a_ops, h_prev, ru, c, g, wxg_r, wxc_r, wg_r, wc_r,
+                        act_grad):
+    """The state part of the BPTT of
+    :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.xin_cell_step` at one
+    step, g the cotangent of h'. Returns (dh_prev, dx, dru_pre, dc_pre),
+    all float32."""
+    h_units = h_prev.shape[-1]
+    r, u = ru[..., :h_units], ru[..., h_units:]
+    du = g * (h_prev - c)
+    dc_pre = g * (1.0 - u) * act_grad(c)
+    drh = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wc_r))
+    dx = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wxc_r))
+    dru_pre = torch.cat([drh * h_prev, du], dim=-1) * ru * (1.0 - ru)
+    dh_prev = (g * u + drh * r
+               + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wg_r)))
+    dx = dx + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wxg_r))
+    return dh_prev, dx, dru_pre, dc_pre
 
 
 def _xin_cell_bwd(a_ops, h_prev, ru, c, x, g, wxg_r, wxc_r, wg_r, wc_r,
@@ -155,18 +193,11 @@ def _xin_cell_bwd(a_ops, h_prev, ru, c, x, g, wxg_r, wxc_r, wg_r, wc_r,
     at one step, g the cotangent of h'. Returns (dh_prev, dx, (dwxg_r,
     dwxc_r, dwg_r, dwc_r, dbg, dbc)), all float32."""
     h_units = h_prev.shape[-1]
-    r, u = ru[..., :h_units], ru[..., h_units:]
-    du = g * (h_prev - c)
-    dc_pre = g * (1.0 - u) * act_grad(c)
+    dh_prev, dx, dru_pre, dc_pre = _xin_cell_bwd_state(
+        a_ops, h_prev, ru, c, g, wxg_r, wxc_r, wg_r, wc_r, act_grad)
     hf = _apply_ops(a_ops, h_prev)
-    rf = _apply_ops(a_ops, r * h_prev)
+    rf = _apply_ops(a_ops, ru[..., :h_units] * h_prev)
     xf = _apply_ops(a_ops, x)
-    drh = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wc_r))
-    dx = _apply_ops_t(a_ops, _contract_w_t(dc_pre, wxc_r))
-    dru_pre = torch.cat([drh * h_prev, du], dim=-1) * ru * (1.0 - ru)
-    dh_prev = (g * u + drh * r
-               + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wg_r)))
-    dx = dx + _apply_ops_t(a_ops, _contract_w_t(dru_pre, wxg_r))
     grads = (_weight_grad(xf, dru_pre), _weight_grad(xf, dc_pre),
              _weight_grad(hf, dru_pre), _weight_grad(rf, dc_pre),
              dru_pre.sum(dim=(0, 1)), dc_pre.sum(dim=(0, 1)))
@@ -177,7 +208,8 @@ def dcgru_decoder_bwd_plain(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg,
                             whsc, wp, h_prev, h_seq, ru_seq, c_seq, in0,
                             d_seq, force, num_layers, activation="tanh"):
     """Plain version of :func:`dcgru_decoder_bwd`: the reverse loop of
-    ``_bwd_kernel_dec`` (same arguments and results)."""
+    ``_bwd_kernel_dec``, every dW summed inside it as the TPU kernel does
+    (same arguments and results)."""
     t, b, n, d = in0.shape
     m = a_ops.shape[0]
     h_units = wp.shape[0]
@@ -199,19 +231,16 @@ def dcgru_decoder_bwd_plain(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg,
         f = force[ti]
         dproj = d_seq[ti].float() + (1.0 - f) * din
         dx[ti] = f * din
-        top = h_seq[ti][..., (ll - 1) * h_units:].float()
+        top = h_seq[ll - 1, ti].float()
         dwp += torch.tensordot(top, dproj, dims=([0, 1], [0, 1]))
         dbp += dproj.sum(dim=(0, 1))
         dcur = torch.matmul(dproj, wp.t())  # into the top layer's h
         for li in reversed(range(ll)):
-            hs = slice(li * h_units, (li + 1) * h_units)
-            inp = in0[ti] if li == 0 else \
-                h_seq[ti][..., (li - 1) * h_units:li * h_units]
+            inp = in0[ti] if li == 0 else h_seq[li - 1, ti]
             dh[li], dinp, cell_grads = _xin_cell_bwd(
-                a_ops, h_prev[ti][..., hs].float(),
-                ru_seq[ti][..., 2 * li * h_units:2 * (li + 1) * h_units]
-                .float(), c_seq[ti][..., hs].float(), inp.float(),
-                dh[li] + dcur, *cells[li], act_grad)
+                a_ops, h_prev[li, ti].float(), ru_seq[li, ti].float(),
+                c_seq[li, ti].float(), inp.float(), dh[li] + dcur,
+                *cells[li], act_grad)
             for acc, g in zip(grads[min(li, 1)], cell_grads):
                 acc += g
             if li == 0:
@@ -222,6 +251,58 @@ def dcgru_decoder_bwd_plain(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg,
             for cell in grads]
     shared = flat[1] if ll > 1 else [None] * 6
     return (dx, torch.stack(dh), *flat[0], *shared, dwp, dbp)
+
+
+def dcgru_dec_bwd_loop_plain(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc,
+                             whsg, whsc, wp, h_prev, ru_seq, c_seq, d_seq,
+                             force, num_layers, activation="tanh"):
+    """Plain version of :func:`dcgru_dec_bwd_loop`: the reverse loop of
+    :func:`dcgru_decoder_bwd_plain` without any dW (same arguments and
+    results)."""
+    ll, t, b, n, h_units = h_prev.shape
+    d = d_seq.shape[-1]
+    m = a_ops.shape[0]
+    _, act_grad = _act_pair(activation)
+    cells = _cells_r(m, d, h_units, ll, (wx0g, wx0c, wh0g, wh0c),
+                     (wxsg, wxsc, whsg, whsc))
+    dev = d_seq.device
+    dpre = torch.empty((ll, t, b, n, 3 * h_units), device=dev)
+    dproj = torch.empty((t, b, n, d), device=dev)
+    dh = [torch.zeros((b, n, h_units), device=dev) for _ in range(ll)]
+    din = torch.zeros((b, n, d), device=dev)
+    dx = torch.empty_like(d_seq)
+    for ti in reversed(range(t)):
+        f = force[ti]
+        dproj[ti] = d_seq[ti].float() + (1.0 - f) * din
+        dx[ti] = f * din
+        dcur = torch.matmul(dproj[ti], wp.t())  # into the top layer's h
+        for li in reversed(range(ll)):
+            dh[li], dinp, dru_pre, dc_pre = _xin_cell_bwd_state(
+                a_ops, h_prev[li, ti].float(), ru_seq[li, ti].float(),
+                c_seq[li, ti].float(), dh[li] + dcur, *cells[li], act_grad)
+            dpre[li, ti] = torch.cat([dru_pre, dc_pre], dim=-1)
+            if li == 0:
+                din = dinp  # for x_{t-1} and proj_{t-1}
+            else:
+                dcur = dinp  # into the layer below's h at this step
+    return dx, torch.stack(dh), dpre, dproj
+
+
+def dcgru_dec_dwp_plain(h_top, dproj, splits=None):
+    """Plain version of :func:`dcgru_dec_dwp`: the same split partials
+    (``splits`` of them; by default :func:`dwp_splits`)."""
+    h_units, d = h_top.shape[-1], dproj.shape[-1]
+    hs = h_top.reshape(-1, h_units).float()
+    gs = dproj.reshape(-1, d).float()
+    rows = hs.shape[0]
+    splits = dwp_splits(rows) if splits is None else splits
+    per = max(1, -(-rows // splits))
+    out = []
+    for s in range(splits):
+        sl = slice(min(rows, s * per), min(rows, (s + 1) * per))
+        out.append(torch.cat([(hs[sl].t() @ gs[sl]).reshape(-1),
+                              gs[sl].sum(dim=0)]))
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +325,8 @@ def dcgru_decoder_fwd(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
         wxsg .. bsc: the shared cell of layers >= 1 (input width H); None
             when ``num_layers == 1``.
         wp: (H, D) = ``proj_w.T``; bp: (D,); h0_stack: (L, B, N, H) f32.
-        residuals: also return in0, h_seq, ru_seq and c_seq.
+        residuals: also return in0 (T, B, N, D), h_seq (L, T, B, N, H),
+            ru_seq (L, T, B, N, 2H) and c_seq (L, T, B, N, H).
 
     Returns:
         (proj, in0, h_seq, ru_seq, c_seq) in the stream dtype: proj
@@ -276,7 +358,9 @@ def dcgru_decoder_fwd(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
     mk = lambda w: torch.empty((t, b, n, w), dtype=x_seq.dtype,
                                device=x_seq.device)
     proj = mk(d)
-    res = ((mk(d), mk(ll * h_units), mk(2 * ll * h_units), mk(ll * h_units))
+    mkl = lambda w: torch.empty((ll, t, b, n, w), dtype=x_seq.dtype,
+                                device=x_seq.device)
+    res = ((mk(d), mkl(h_units), mkl(2 * h_units), mkl(h_units))
            if residuals else (None,) * 4)
     if b == 0 or t == 0:
         return (proj, *res)
@@ -297,15 +381,63 @@ def dcgru_decoder_fwd(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
 dcgru_decoder_fwd.launches = 0
 
 
+def _cell_grads(flat, m, d_in, h_units):
+    """A cell's reduced dW slab -> (dwxg, dwxc, dwg, dwc, dbg, dbc) in the
+    decoder's m-major 2-D layout."""
+    dwxg, dwxc, dwg, dwc, dbg, dbc = _split_dw(flat, m, d_in, h_units)
+    return (dwxg, dwxc, dwg.reshape(m * h_units, -1),
+            dwc.reshape(m * h_units, -1), dbg, dbc)
+
+
+def _steps(s):
+    """A layer-major stream (L', T, B, N, W) as L'*T steps."""
+    return s.reshape((-1,) + tuple(s.shape[2:]))
+
+
+def decoder_dw_cells(a_ops, h_prev, h_seq, ru_seq, in0, dpre):
+    """The bulk dW product's arguments (a_ops, h_prev, ru_seq, x, dpre)
+    for each cell: layer 0, fed in0; with L > 1 the shared cell, its
+    layers 1..L-1 stacked as (L-1)*T steps, each fed the layer below's h.
+    Step p of the stack holds clip p % B, so every row meets its own
+    operators, and the stack's sum is the sum over the tied layers."""
+    cells = [(a_ops, h_prev[0], ru_seq[0], in0, dpre[0])]
+    if h_prev.shape[0] > 1:
+        cells.append((a_ops, _steps(h_prev[1:]), _steps(ru_seq[1:]),
+                      _steps(h_seq[:-1]), _steps(dpre[1:])))
+    return cells
+
+
+def decoder_bwd_pieces(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
+                       wp, h_prev, h_seq, ru_seq, c_seq, in0, d_seq, force,
+                       num_layers, activation="tanh"):
+    """:func:`dcgru_decoder_bwd`'s arguments as its pieces take them: the
+    state loop's arguments (:func:`dcgru_dec_bwd_loop`), a function from
+    the loop's dpre to the bulk dW launches' arguments
+    (:func:`decoder_dw_cells`), and dWp's h_top (the top layer's h)."""
+    loop = (a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
+            h_prev, ru_seq, c_seq, d_seq, force, num_layers, activation)
+    dw_cells = functools.partial(decoder_dw_cells, a_ops, h_prev, h_seq,
+                                 ru_seq, in0)
+    return loop, dw_cells, h_seq[num_layers - 1]
+
+
 def dcgru_decoder_bwd(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
                       wp, h_prev, h_seq, ru_seq, c_seq, in0, d_seq, force,
                       num_layers, activation="tanh"):
     """BPTT of :func:`dcgru_decoder_fwd` over all T_out steps.
 
+    On a CUDA device: the state loop (:func:`dcgru_dec_bwd_loop`: dx, dh0,
+    dpre and dproj), the bulk dW kernel
+    (``cuda_recurrent.dcgru_xin_dw``) for layer 0 and, with
+    ``num_layers > 1``, for the shared cell over layers 1..L-1 stacked, the
+    dWp / dbp kernel (:func:`dcgru_dec_dwp`), and ``dcgru_dw_reduce`` over
+    each one's split partials. It launches no kernel of its own.
+
     Args:
         a_ops, the weights (the shared ones None when ``num_layers == 1``),
             wp, force: as the forward.
-        h_prev: (T, B, N, L*H) each step's incoming states [h0, h_seq[:-1]];
+        h_prev: (L, T, B, N, H) each step's incoming states
+            (:func:`decoder_h_prev`);
         h_seq, ru_seq, c_seq, in0: the forward's residuals;
         d_seq: (T, B, N, D) the cotangent of proj. All six in the stream
             dtype.
@@ -327,54 +459,134 @@ def dcgru_decoder_bwd(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
     ll = num_layers
     name = "dcgru_decoder_bwd"
     streams = (h_prev, h_seq, ru_seq, c_seq, in0, d_seq)
+    _check(name, streams, a_ops, (force, wp), activation, b, n, h_units)
+    _check_shapes(name, "stream", streams, (
+        (ll, t, b, n, h_units), (ll, t, b, n, h_units),
+        (ll, t, b, n, 2 * h_units), (ll, t, b, n, h_units), (t, b, n, d),
+        (t, b, n, d)))
+    loop, dw_cells, h_top = decoder_bwd_pieces(
+        a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp, h_prev,
+        h_seq, ru_seq, c_seq, in0, d_seq, force, ll, activation)
+    dx, dh0, dpre, dproj = dcgru_dec_bwd_loop(*loop)
+    cells = [_cell_grads(dcgru_dw_reduce(dcgru_xin_dw(*c)), m,
+                         c[3].shape[-1], h_units) for c in dw_cells(dpre)]
+    shared = cells[1] if ll > 1 else (None,) * 6
+    flat = dcgru_dw_reduce(dcgru_dec_dwp(h_top, dproj))
+    return (dx, dh0, *cells[0], *shared,
+            flat[:h_units * d].view(h_units, d), flat[h_units * d:])
+
+
+def dcgru_dec_bwd_loop(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
+                       wp, h_prev, ru_seq, c_seq, d_seq, force, num_layers,
+                       activation="tanh"):
+    """The state loop of :func:`dcgru_decoder_bwd`: the reverse loop over
+    T_out and the L layers without any dW.
+
+    Args:
+        a_ops, the weights, wp, force, num_layers, activation: as
+            :func:`dcgru_decoder_bwd`; h_prev, ru_seq, c_seq (layer-major)
+            and d_seq (T, B, N, D) in the stream dtype.
+
+    Returns:
+        (dx (T, B, N, D) in the stream dtype, dh0 (L, B, N, H), dpre (L, T,
+        B, N, 3H) = [dru_pre | dc_pre] per layer, dproj (T, B, N, D)
+        = d_seq + (1 - f) din0), the last three float32.
+    """
+    if h_prev.device.type == "cpu":
+        return dcgru_dec_bwd_loop_plain(
+            a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
+            h_prev, ru_seq, c_seq, d_seq, force, num_layers, activation)
+    ll, t, b, n, h_units = h_prev.shape
+    d = d_seq.shape[-1]
+    m = a_ops.shape[0]
+    name = "dcgru_dec_bwd_loop"
+    streams = (h_prev, ru_seq, c_seq, d_seq)
     layer0 = (wx0g, wx0c, wh0g, wh0c)
     shared = (wxsg, wxsc, whsg, whsc) if ll > 1 else ()
     _check(name, streams, a_ops, (force, *layer0, *shared, wp), activation,
            b, n, h_units)
     if d % 4:
         raise ValueError(f"{name}: D={d} is not a multiple of 4")
-    lh = ll * h_units
     _check_shapes(name, "stream", streams, (
-        (t, b, n, lh), (t, b, n, lh), (t, b, n, 2 * lh), (t, b, n, lh),
-        (t, b, n, d), (t, b, n, d)))
+        (ll, t, b, n, h_units), (ll, t, b, n, 2 * h_units),
+        (ll, t, b, n, h_units), (t, b, n, d)))
     _check_shapes(name, "force or projection", (force, wp),
                   ((t,), (h_units, d)))
     _check_shapes(name, "layer-0 weight", layer0,
                   _cell_shapes(m, d, h_units)[:4])
     _check_shapes(name, "shared weight", shared,
                   _cell_shapes(m, h_units, h_units)[:4])
-    dev = in0.device
-    dx = torch.empty((t, b, n, d), dtype=in0.dtype, device=dev)
+    dev = d_seq.device
+    dx = torch.empty((t, b, n, d), dtype=d_seq.dtype, device=dev)
     dh0 = torch.empty((ll, b, n, h_units), dtype=torch.float32, device=dev)
-    part = torch.empty((b, dec_dw_size(m, d, h_units, ll)),
-                       dtype=torch.float32, device=dev)
+    dpre = torch.empty((ll, t, b, n, 3 * h_units), dtype=torch.float32,
+                       device=dev)
+    dproj = torch.empty((t, b, n, d), dtype=torch.float32, device=dev)
     w_t = [_transposed(w) for w in (*layer0, *shared)] + [None] * (
         4 if ll == 1 else 0) + [_transposed(wp)]
     with torch.cuda.device(dev):
-        err = _lib().dcgru_decoder_bwd(
+        err = _lib().dcgru_dec_bwd_loop(
             a_ops.data_ptr(), a_ops.shape[1], *(_ptr(w) for w in w_t),
             *(s.data_ptr() for s in streams), force.data_ptr(),
-            dx.data_ptr(), dh0.data_ptr(), part.data_ptr(),
+            dx.data_ptr(), dh0.data_ptr(), dpre.data_ptr(), dproj.data_ptr(),
             t, b, n, d, h_units, m, ll, _ACT_CODES[activation],
-            int(in0.dtype == torch.bfloat16), _stream(in0))
+            int(d_seq.dtype == torch.bfloat16), _stream(d_seq))
     _raise_on(err, name, _lib)
-    dcgru_decoder_bwd.launches += 1
-    flat = dcgru_dw_reduce(part)
-    cut0 = dw_size(m, d, h_units)
-    cut1 = cut0 + (dw_size(m, h_units, h_units) if ll > 1 else 0)
-
-    def cell(slab, d_in):
-        dwxg, dwxc, dwg, dwc, dbg, dbc = _split_dw(slab, m, d_in, h_units)
-        return (dwxg, dwxc, dwg.reshape(m * h_units, -1),
-                dwc.reshape(m * h_units, -1), dbg, dbc)
-
-    shared_g = cell(flat[cut0:cut1], h_units) if ll > 1 else (None,) * 6
-    dwp = flat[cut1:cut1 + h_units * d].view(h_units, d)
-    return (dx, dh0, *cell(flat[:cut0], d), *shared_g, dwp,
-            flat[cut1 + h_units * d:])
+    dcgru_dec_bwd_loop.launches += 1
+    return dx, dh0, dpre, dproj
 
 
-dcgru_decoder_bwd.launches = 0
+dcgru_dec_bwd_loop.launches = 0
+
+
+def dcgru_dec_dwp(h_top, dproj):
+    """The output projection's gradient over all T*B*N node rows at once:
+    ``dWp = h_top^T dproj``, ``dbp = sum dproj``.
+
+    Args:
+        h_top: (T, B, N, H) the top layer's states, float32 or bfloat16.
+        dproj: (T, B, N, D) float32, from :func:`dcgru_dec_bwd_loop`.
+
+    Returns:
+        (dwp_splits(T*B*N), H*D + D) float32 partials [dWp (H, D) | dbp
+        (D)], one per split of the rows; their sum over axis 0
+        (``dcgru_dw_reduce``) is the gradient.
+    """
+    if dproj.device.type == "cpu":
+        return dcgru_dec_dwp_plain(h_top, dproj)
+    name = "dcgru_dec_dwp"
+    if dproj.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dproj.device} are neither on "
+                         "the CPU nor on a CUDA device")
+    if h_top.dtype not in (torch.float32, torch.bfloat16) \
+            or dproj.dtype != torch.float32:
+        raise TypeError(f"{name}: takes h_top float32 or bfloat16 and dproj "
+                        f"float32, got {h_top.dtype} and {dproj.dtype}")
+    if h_top.device != dproj.device or not h_top.is_contiguous() \
+            or not dproj.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors on "
+                         "one device")
+    t, b, n, h_units = h_top.shape
+    d = dproj.shape[-1]
+    if d % 4 or h_units % 4:
+        raise ValueError(f"{name}: H={h_units} or D={d} is not a multiple "
+                         "of 4")
+    _check_shapes(name, "dproj", (dproj,), ((t, b, n, d),))
+    rows = t * b * n
+    part = torch.empty((dwp_splits(rows), h_units * d + d),
+                       dtype=torch.float32, device=dproj.device)
+    if rows == 0:
+        return part.zero_()
+    with torch.cuda.device(dproj.device):
+        err = _lib().dcgru_dec_dwp(
+            h_top.data_ptr(), dproj.data_ptr(), part.data_ptr(), rows,
+            h_units, d, int(h_top.dtype == torch.bfloat16), _stream(dproj))
+    _raise_on(err, name, _lib)
+    dcgru_dec_dwp.launches += 1
+    return part
+
+
+dcgru_dec_dwp.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -402,12 +614,9 @@ class _DecoderRecurrence(torch.autograd.Function):
     def backward(ctx, d_proj):
         (a_ops, force, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
          h0_stack, in0, h_seq, ru_seq, c_seq) = ctx.saved_tensors
-        ll, b, n, h_units = h0_stack.shape
-        # (L, B, N, H) -> the residuals' (B, N, L*H) rows, in their dtype
-        h0f = h0_stack.permute(1, 2, 0, 3).reshape(b, n, ll * h_units)
         dx, dh0, *dw = dcgru_decoder_bwd(
             a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
-            shift_h_prev(h0f, h_seq), h_seq, ru_seq, c_seq, in0,
+            decoder_h_prev(h0_stack, h_seq), h_seq, ru_seq, c_seq, in0,
             d_proj.to(h_seq.dtype).contiguous(), force, ctx.num_layers,
             ctx.activation)
         return (None, dx, None, *dw, dh0, None, None)

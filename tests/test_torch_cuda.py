@@ -26,6 +26,9 @@ from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators, shift_h_prev
 pytestmark = pytest.mark.cuda
 
 N, K = 19, 2
+# the 3xTF32 SDDMM's bar (normalized): above its f32 reading, below one
+# TF32 pass's (chip_smoke.py reads both at D=6000; PERF.md)
+SDDMM_TOL = 1e-5
 
 
 @pytest.fixture()
@@ -378,14 +381,11 @@ def _dec_bwd_args(args, num_layers, seed=1):
     _, in0, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*args, num_layers,
                                                       residuals=True)
     a_ops, x, force, *w = args
-    h0 = w[14]
-    ll, b, n, h = h0.shape
-    h0f = h0.permute(1, 2, 0, 3).reshape(b, n, ll * h)
     rng = np.random.RandomState(seed)
     d_seq = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(
         x.device, x.dtype)
-    return (a_ops, *w[0:4], *w[6:10], w[12], shift_h_prev(h0f, h_seq), h_seq,
-            ru, c, in0, d_seq, force)
+    return (a_ops, *w[0:4], *w[6:10], w[12], cd.decoder_h_prev(w[14], h_seq),
+            h_seq, ru, c, in0, d_seq, force)
 
 
 @pytest.mark.parametrize("t,b,d,h", [(4, 3, 12, 16), (12, 37, 100, 64)])
@@ -413,11 +413,15 @@ def test_decoder_kernels_match_plain(dev, t, b, d, h, num_layers,
         assert g.dtype == stream and g.shape == w.shape
         assert _err(g, w) <= tol
     bwd = _dec_bwd_args(args, num_layers)
-    before = (cd.dcgru_decoder_bwd.launches, cr.dcgru_dw_reduce.launches)
+    counters = (cd.dcgru_dec_bwd_loop, cr.dcgru_xin_dw, cd.dcgru_dec_dwp,
+                cr.dcgru_dw_reduce)
+    before = [k.launches for k in counters]
     got = cd.dcgru_decoder_bwd(*bwd, num_layers)
     torch.cuda.synchronize()
-    assert (cd.dcgru_decoder_bwd.launches, cr.dcgru_dw_reduce.launches) == \
-        (before[0] + 1, before[1] + 1)
+    # the loop, one dW product per cell, dWp, and a reduction of each
+    cells = 2 if num_layers > 1 else 1
+    assert [k.launches - b_ for k, b_ in zip(counters, before)] == \
+        [1, cells, 1, cells + 1]
     want = cd.dcgru_decoder_bwd_plain(*bwd, num_layers)
     assert got[0].dtype == stream and len(got) == len(want) == 16
     for i, (g, w) in enumerate(zip(got, want)):
@@ -428,6 +432,52 @@ def test_decoder_kernels_match_plain(dev, t, b, d, h, num_layers,
         if i:
             assert g.dtype == torch.float32
         assert _err(g, w) <= tol, (i, _err(g, w))
+
+
+@pytest.mark.parametrize("t,b,d,h", [(4, 3, 12, 16), (12, 128, 100, 64)])
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decoder_bwd_pieces_match_plain(dev, t, b, d, h, num_layers, bf16):
+    """The decoder backward's kernels against their plain versions on the
+    same inputs: the state loop (dx, dh0, dpre, dproj), the two bulk dW
+    products (layer 0, the tied cell over the stacked layers) summed, and
+    dWp; and the composite twice on the same inputs, bitwise equal."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    args = _dec_inputs(dev, t=t, b=b, d=d, h=h, num_layers=num_layers,
+                       num_supports=1, shared=False, stream=stream,
+                       force="mixed")
+    bwd = _dec_bwd_args(args, num_layers)
+    loop_args, dw_cells, h_top = cd.decoder_bwd_pieces(*bwd, num_layers)
+    before = cd.dcgru_dec_bwd_loop.launches
+    got = cd.dcgru_dec_bwd_loop(*loop_args)
+    torch.cuda.synchronize()
+    assert cd.dcgru_dec_bwd_loop.launches == before + 1
+    want = cd.dcgru_dec_bwd_loop_plain(*loop_args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert _err(g, w) <= tol, (i, _err(g, w))
+    _, _, dpre, dproj = want
+    cells = dw_cells(dpre)
+    assert len(cells) == min(num_layers, 2)
+    for cell in cells:
+        part = cr.dcgru_xin_dw(*cell)
+        torch.cuda.synchronize()
+        want = cr.dcgru_xin_dw_plain(*cell)
+        assert _err(cr.dcgru_dw_reduce(part), want.sum(0)) <= tol
+    before = cd.dcgru_dec_dwp.launches
+    part = cd.dcgru_dec_dwp(h_top, dproj)
+    torch.cuda.synchronize()
+    assert cd.dcgru_dec_dwp.launches == before + 1
+    want = cd.dcgru_dec_dwp_plain(h_top, dproj)
+    assert part.shape == want.shape == (cd.dwp_splits(t * b * N),
+                                        h * d + d)
+    assert _err(part, want) <= 1e-4  # f32 FMA on f32 dproj in either dtype
+    runs = [cd.dcgru_decoder_bwd(*bwd, num_layers) for _ in range(2)]
+    for g, w in zip(*runs):
+        assert (g is None and w is None) or torch.equal(g, w)
 
 
 def test_decoder_wrappers_raise_on_what_the_kernel_does_not_take(dev):
@@ -474,8 +524,8 @@ def test_ssl_train_step_matches_stacked(dev):
                            lr_init=5e-4).finalize()
     counters = (cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
                 cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
-                cd.dcgru_decoder_fwd, cd.dcgru_decoder_bwd,
-                cr.dcgru_dw_reduce)
+                cd.dcgru_decoder_fwd, cd.dcgru_dec_bwd_loop,
+                cd.dcgru_dec_dwp, cr.dcgru_dw_reduce)
     grads = {}
     for rec in ("pallas", "stacked"):
         c = dataclasses.replace(cfg, recurrence=rec)
@@ -485,8 +535,10 @@ def test_ssl_train_step_matches_stacked(dev):
         before = [k.launches for k in counters]
         loss = step.loss_and_grads(batch, batches_seen=24000)
         rose = [k.launches - b_ for k, b_ in zip(counters, before)]
-        assert rose == ([3, 3, 3, 3, 2, 1, 1, 4] if rec == "pallas"
-                        else [0] * 8)
+        # the encoder's 3 layers; the decoder's forward, its loop, two dW
+        # products (layer 0, the tied cell), dWp, and 3 + 3 reductions
+        assert rose == ([3, 3, 3, 5, 2, 1, 1, 1, 6] if rec == "pallas"
+                        else [0] * 9)
         assert torch.isfinite(loss)
         grads[rec] = {n: p.grad.clone()
                       for n, p in step.model.named_parameters()}
@@ -573,11 +625,15 @@ def _banded(n, half=32):
 
 
 @pytest.mark.parametrize("n,d,banded", [(19, 60, False), (300, 77, False),
+                                        (150, 77, False), (150, 6000, False),
+                                        (1024, 6000, False),
                                         (4096, 6000, True)])
 def test_sddmm_blocksparse_matches_plain(dev, n, d, banded):
-    """Kernel #8 against its plain version (TF32 off): every occupied
-    block, zero rows and columns past N included; 4096 banded +-32 gives
-    96 occupied blocks."""
+    """Kernel #8 (3xTF32 tensor cores) against its plain version (full
+    f32, TF32 off): every occupied block, zero rows and columns past N
+    included, ragged N (19, 150, 300) and D (60, 77: not a multiple of 4,
+    copied one float at a time); 4096 banded +-32 gives 96 occupied
+    blocks. Twice on the same inputs, bitwise equal."""
     from eeg_gnn_tpu_torch.ops import sddmm as sd
 
     rng = np.random.RandomState(n)
@@ -597,10 +653,68 @@ def test_sddmm_blocksparse_matches_plain(dev, n, d, banded):
     assert sd.sddmm_blocksparse.launches == before + 1
     want = sd.sddmm_blocksparse_plain(x, y, br, bc)
     assert got.shape == want.shape == (len(br), 128, 128)
-    assert _err(got, want) <= 1e-4
+    assert _err(got, want) <= SDDMM_TOL
+    assert torch.equal(sd.sddmm_blocksparse(x, y, br, bc), got)
     vals = sd.sddmm_edges_blocksparse(rows, cols, x, x, n, normalize=True)
     ref = sd.sddmm_edges(rows, cols, x, x, normalize=True)
     assert _err(vals, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("d", [77, 600])
+def test_sddmm_tile_choice_leaves_every_bit(dev, d):
+    """With at least one occupied block per SM the kernel takes 128-wide
+    tiles, with fewer the 64-wide quarters (and with block=64 only those):
+    each output's sum runs the same instructions in the same order either
+    way, so a few of the blocks, or their 64-wide quarters, give the bits
+    of the whole set."""
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    n, nb = 2048, 16
+    rng = np.random.RandomState(d)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+    br, bc = (v.reshape(-1).astype(np.int32) for v in
+              np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij"))
+    assert nb * nb >= torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    full = sd.sddmm_blocksparse(x, y, br, bc)
+    assert _err(full, sd.sddmm_blocksparse_plain(x, y, br, bc)) <= SDDMM_TOL
+    few = sd.sddmm_blocksparse(x, y, br[:20], bc[:20])
+    assert torch.equal(few, full[:20])
+    # 64-blocks (0, 2) and (3, 1) are quarters of 128-blocks (0, 1), (1, 0)
+    quarters = sd.sddmm_blocksparse(x, y, [0, 3], [2, 1], block=64)
+    assert torch.equal(quarters[0], full[1, :64, :64])
+    assert torch.equal(quarters[1], full[nb, 64:, 64:])
+
+
+def test_3xtf32_products_keep_a_device_nan(dev):
+    """A NaN that a device op made (0/0 on the card: 0x7fffffff, whose
+    rounding to TF32 by integer add alone would carry into the sign and
+    give -0) spreads through the 3xTF32 products where it spreads through
+    the plain f32 ones: in a row of the SDDMM, and in x of the f32 bulk
+    input projection."""
+    from eeg_gnn_tpu_torch.ops import sddmm as sd
+
+    nan = torch.zeros(1, device=dev) / 0
+    assert nan.view(torch.int32).item() == 0x7FFFFFFF
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(300, 77).astype(np.float32)).to(dev)
+    x[7, 3] = nan[0]
+    br, bc = [0, 1, 2, 0, 1], [0, 1, 2, 2, 0]
+    got = sd.sddmm_blocksparse(x, x, br, bc)
+    want = sd.sddmm_blocksparse_plain(x, x, br, bc)
+    assert want.isnan().any() and not want.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+    xin, _ = _inputs(dev, t=5, b=4, d=12, h=16, num_supports=1,
+                     shared=False, stream=torch.float32)
+    xs, a_ops, wxg, wxc = xin[:4]
+    xs = xs.clone()
+    xs[2, 1, 4, 5] = nan[0]
+    wx = torch.cat([wxg, wxc], dim=1)
+    got = cr.dcgru_xin_proj(xs, a_ops, wx)
+    want = cr.dcgru_xin_proj_plain(xs, a_ops, wx)
+    assert want.isnan().any() and not want.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
 
 
 def test_sddmm_wrapper_raises(dev):

@@ -233,11 +233,9 @@ def test_plain_bwd_matches_autograd_of_plain_fwd(rng, num_layers,
     a_ops, x, force, *w = args
     layer0, shared, wp, h0 = w[:6], w[6:12], w[12], w[14]
     ll = num_layers
-    h0f = h0.permute(1, 2, 0, 3).reshape(3, N, ll * H)
     got = cd.dcgru_decoder_bwd_plain(
         a_ops, *layer0[:4], *shared[:4], wp,
-        torch.cat([h0f[None], h_seq[:-1]]).detach(), h_seq.detach(),
-        ru.detach(),
+        cd.decoder_h_prev(h0, h_seq).detach(), h_seq.detach(), ru.detach(),
         c.detach(), in0.detach(), cot, force, ll)
     # (dx, dh0, layer 0 six, shared six, dwp, dbp) vs the primals' order
     index = [1, 17, *range(3, 9), *range(9, 15), 15, 16]
@@ -250,19 +248,25 @@ def test_plain_bwd_matches_autograd_of_plain_fwd(rng, num_layers,
 
 
 def test_plain_fwd_residuals_layout(rng):
-    """The residuals' layout, as the JAX kernels write them: in0 is GO
-    then the feedback, h/ru/c hold the layers side by side, and proj is
-    the top layer's h projected."""
+    """The residuals' layout: in0 is GO then the feedback; h/ru/c are
+    layer-major (L, T, B, N, W), so each layer's stream is contiguous for
+    the bulk dW kernel; proj is the top layer's h projected; layer 1's
+    input is layer 0's h; each step's incoming states are h0 then h."""
     args = _plain_args(rng, num_layers=2, num_supports=1)
     proj, in0, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*args, 2,
                                                          residuals=True)
-    x, force, wp, bp = args[1], args[2], args[15], args[16]
-    assert h_seq.shape == (T_OUT, 3, N, 2 * H) and ru.shape[-1] == 4 * H
+    x, force, wp, bp, h0 = args[1], args[2], args[15], args[16], args[17]
+    assert h_seq.shape == c.shape == (2, T_OUT, 3, N, H)
+    assert ru.shape == (2, T_OUT, 3, N, 2 * H)
     assert torch.all(in0[0] == 0)
     for t in range(1, T_OUT):
         want = x[t - 1] if force[t - 1] else proj[t - 1]
         torch.testing.assert_close(in0[t], want)
-    torch.testing.assert_close(proj, h_seq[..., H:] @ wp + bp)
+    torch.testing.assert_close(proj, h_seq[1] @ wp + bp)
+    h_prev = cd.decoder_h_prev(h0, h_seq)
+    assert h_prev.shape == h_seq.shape
+    torch.testing.assert_close(h_prev[:, 0], h0)
+    torch.testing.assert_close(h_prev[:, 1:], h_seq[:, :-1])
     assert cd.dcgru_decoder_fwd_plain(*args, 2)[1:] == (None,) * 4
 
 
@@ -280,15 +284,22 @@ def test_decoder_bf16_residuals_and_dx_dtype(rng):
 
 
 def test_cpu_wrappers_use_plain_and_do_not_count(rng):
+    """On CPU tensors the forward and the backward composite run their
+    plain versions and no kernel counts a launch; the composite has no
+    counter of its own."""
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+
     args = _plain_args(rng, num_layers=2, num_supports=1)
-    before = (cd.dcgru_decoder_fwd.launches, cd.dcgru_decoder_bwd.launches)
+    kernels = (cd.dcgru_decoder_fwd, cd.dcgru_dec_bwd_loop, cd.dcgru_dec_dwp,
+               cr.dcgru_xin_dw, cr.dcgru_dw_reduce)
+    before = [k.launches for k in kernels]
     w = [t.clone().requires_grad_() for t in args[3:]]
     out = cd.dcgru_decoder_recurrence(args[0], args[1], args[2], *w, 2)
     out.sum().backward()
     want = cd.dcgru_decoder_fwd_plain(*args, 2)[0]
     torch.testing.assert_close(out.detach(), want)
-    assert (cd.dcgru_decoder_fwd.launches,
-            cd.dcgru_decoder_bwd.launches) == before
+    assert [k.launches for k in kernels] == before
+    assert not hasattr(cd.dcgru_decoder_bwd, "launches")
 
 
 def test_wrappers_raise_off_cpu_without_cuda(rng):
@@ -302,9 +313,9 @@ def test_wrappers_raise_off_cpu_without_cuda(rng):
     with pytest.raises(ValueError, match="neither on the CPU nor"):
         cd.dcgru_decoder_bwd(
             args[0], *args[3:7], *args[9:13], args[15],
-            m(T_OUT, 3, N, 2 * H), m(T_OUT, 3, N, 2 * H),
-            m(T_OUT, 3, N, 4 * H), m(T_OUT, 3, N, 2 * H), m(T_OUT, 3, N, D),
-            m(T_OUT, 3, N, D), args[2], 2)
+            m(2, T_OUT, 3, N, H), m(2, T_OUT, 3, N, H),
+            m(2, T_OUT, 3, N, 2 * H), m(2, T_OUT, 3, N, H),
+            m(T_OUT, 3, N, D), m(T_OUT, 3, N, D), args[2], 2)
 
 
 def test_dropout_in_training_takes_the_scan(rng, monkeypatch):

@@ -187,6 +187,65 @@ def test_rescored_edges_are_the_adjacency(rng):
                                rtol=1e-5, atol=1e-5)
 
 
+def _tf32(v):
+    """The kernel's ``round_tf32``: finite float32 rounded to TF32's 10
+    mantissa bits, to nearest, ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tf32_cut(v):
+    """float32 bits read as a TF32 operand: the 10 mantissa bits kept, the
+    rest cut (toward zero), as the kernel passes lo in."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _chunked_f32_sum(terms, d, shape, chunk=32):
+    """Sum ``terms(k)`` over k < d as the kernel does: f32 adds into an
+    accumulator that is added into an f32 sum, and restarted, after every
+    ``chunk`` of k (one K slice of the kernel)."""
+    total = np.zeros(shape, np.float32)
+    acc = np.zeros(shape, np.float32)
+    for k in range(d):
+        for t in terms(k):
+            acc = (acc + t).astype(np.float32)
+        if (k + 1) % chunk == 0 or k == d - 1:
+            total = (total + acc).astype(np.float32)
+            acc[:] = 0.0
+    return total
+
+
+def test_3xtf32_keeps_f32_accuracy_at_the_rescore_depth():
+    """The precision argument of the tensor-core SDDMM (csrc/sddmm.cu),
+    emulated in numpy on 64 re-score rows of D=6000 against their float64
+    Gram: x = hi + lo, hi rounded to TF32 and lo = x - hi cut to TF32 (as
+    the tensor cores read it); hi*hi + hi*lo + lo*hi (each product exact
+    in f32) summed in f32 per 32-wide K slice and the slices into an f32
+    sum. It stays within 1e-5 normalized, as close as an f32 FMA sum over
+    k; one TF32 pass (hi*hi) is an order of magnitude off. (The tensor
+    cores' own f32 adds do not round to nearest; the kernel's slice sums
+    keep each such run short.)"""
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 6000).astype(np.float32)
+    n, d = x.shape
+    exact = x.astype(np.float64) @ x.astype(np.float64).T
+    hi = _tf32(x)
+    lo = _tf32_cut(x - hi)
+    outer = lambda u, v, k: np.outer(u[:, k], v[:, k]).astype(np.float32)
+    three = _chunked_f32_sum(lambda k: (outer(lo, hi, k), outer(hi, lo, k),
+                                        outer(hi, hi, k)), d, (n, n))
+    one = _chunked_f32_sum(lambda k: (outer(hi, hi, k),), d, (n, n))
+    fma = np.zeros((n, n), np.float32)
+    for k in range(d):  # one rounding per step: fmaf
+        fma = (fma + np.outer(x[:, k].astype(np.float64), x[:, k])).astype(
+            np.float32)
+    err = lambda v: float(np.abs(v - exact).max() / np.abs(exact).max())
+    assert err(three) <= 1e-5
+    assert err(three) <= err(fma)
+    assert err(one) > 10 * err(three)
+
+
 def test_blocksparse_wrapper_raises_off_cpu_and_cuda():
     x = torch.zeros(19, 8, device="meta")
     with pytest.raises(ValueError, match="neither on the CPU nor"):
