@@ -9,10 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. print the card's name and power limit; turn TF32 off; build the six
    CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
-   nvcc each), and print ptxas' register and spill report;
+   nvcc each), and print ptxas' register and spill report, and the
+   encoder state loops' launch plans (dynamic shared memory, whether the
+   staged weights sit in it, stream buffers) at N=19, H=64, M=3 and 5;
 2. hold every kernel against its plain PyTorch version on the card at
-   T=60, N=19, H=64 (D=100 and 64; M=3 per-clip, M=3 shared, M=5
-   per-clip; B=128 and 37; float32 and bfloat16): the forward kernels
+   T=60, N=19, H=64 (D=100 and 64; M=3 and M=5, each per-clip and
+   shared; B=128 and 37; float32 and bfloat16): the forward kernels
    (the ru/c residuals in one case each): the x-in layer as a whole and
    its bulk projection and state loop each on the same inputs, and the
    hoisted kernel; then the backward kernels on the forward's residuals
@@ -86,13 +88,15 @@ Phases (any failure exits non-zero and prints no result line):
    reduction beside ``torch.sum`` (at each x-in layer's split partials
    and at the decoder's three); bounds with every product of the bulk
    kernels (diffusions included) and dWp at the tensor-core rate for the
-   stream dtype (bf16, or 3xTF32 for f32), the serial chains at the
-   non-tensor f32 rate, split partials not counted (scratch), with the
-   all-f32 bound of the x-in wrappers beside; the wrappers, which launch
-   no kernel of their own, on a
-   ``wrappers`` line of their own without a launch count; the Predictor's clips/s, the detection and SSL train
-   steps' ms and clips/s; trace one bfloat16 batch, one bfloat16
-   detection step and one SSL step in each dtype with torch.profiler;
+   stream dtype (bf16, or 3xTF32 for f32), the serial chains' products
+   (diffusions included) likewise, with the figure at the non-tensor f32
+   rate that stood before beside each chain kernel, split partials not
+   counted (scratch), with the all-f32 bound of the x-in wrappers beside;
+   the wrappers, which launch no kernel of their own, on a ``wrappers``
+   line of their own without a launch count; the Predictor's clips/s, the
+   detection and SSL train steps' ms and clips/s; trace one bfloat16
+   batch, one bfloat16 detection step and one SSL step in each dtype with
+   torch.profiler;
 7. the ``use_pallas`` paths: the detector served through ``Predictor`` and
    trained through ``TrainStep`` (3 steps) in the 4 configurations of
    both graph types and dtypes, per-clip adjacency: every forward launches
@@ -179,6 +183,9 @@ HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
              "db0c", "dwxsg", "dwxsc", "dwhsg", "dwhsc", "dbsg", "dbsc",
              "dwp", "dbp")
+# (M, shared graph) of the encoder kernels' parity cases: the combined
+# graph (M=3) per clip and shared, the individual graph (M=5) likewise
+OPS_CASES = ((3, False), (3, True), (5, False), (5, True))
 PALLAS_FWD = 2 * T * 2           # fused convs per 2-layer detector forward
 PALLAS_SSL = 2 * T * SSL_LAYERS  # per SSL step
 D_SIG, TOP_K, BAND = 6000, 3, 32  # benchmarks/graph_build_bench.py:70-100
@@ -309,12 +316,14 @@ def norm_err(k, p) -> tuple[float, float]:
 
 
 def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
-               stream_bytes: int, xp_bytes: int = 0) -> tuple[float, float]:
-    """(FLOPs, bytes) one forward launch needs, all its products at the f32
-    FMA rate: the identity operator A_0 is skipped, each input is read once
-    and each output written once. ``xin``: the old fused kernel's work, or
-    the x-in wrapper's as one; else the loop fed x_proj (``xp_bytes`` wide
-    elements, by default the stream's)."""
+               stream_bytes: int, xp_bytes: int = 0) -> tuple:
+    """The work of one forward launch: the identity operator A_0 is
+    skipped, each input is read once and each output written once. The
+    loop fed x_proj (``xp_bytes`` wide elements, by default the stream's):
+    (0, bytes, chain FLOPs, their rate), its products, diffusions included,
+    at the tensor-core rate for the stream dtype (``_tc``), as the loop
+    runs them. ``xin``: the x-in wrapper's work as one launch, (FLOPs,
+    bytes) with every product at the f32 FMA rate (its all-f32 bound)."""
     diff_h = 2 * (m - 1) * N * N * H           # A_m h and A_m (r*h)
     gemm_h = 2 * N * (m * H) * 3 * H           # hidden rows, gate + cand
     per_step = 2 * diff_h + gemm_h
@@ -327,31 +336,38 @@ def layer_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
         nbytes += T * b * N * 3 * H * (xp_bytes or stream_bytes)
     nbytes += m * a_batch * N * N * 4 + b * N * H * 4      # a_ops, h0
     nbytes += T * b * N * H * stream_bytes                 # h_seq
-    return float(per_step) * T * b, float(nbytes)
+    if xin:
+        return float(per_step) * T * b, float(nbytes)
+    return (0.0, float(nbytes), *_tc(per_step * T * b, stream_bytes))
 
 
 def bwd_work(*, xin: bool, d: int, m: int, b: int, a_batch: int,
-             stream_bytes: int, need_dx: bool = True) -> tuple[float, float]:
-    """(FLOPs, bytes) one backward launch needs, all at the f32 FMA rate
-    (A_0 = I skipped; the per-clip dW partial slabs are scratch and not
-    counted): the hoisted kernel's, or with ``xin`` the old fused x-in
-    kernel's (the all-f32 bound of the x-in wrapper). Per step and clip:
-    the diffusions of [h_prev | r h_prev | x] recomputed, the dW products,
-    the weight-transpose products and two A^T applies; without
-    ``need_dx`` the last two have no x columns and dx is not written."""
+             stream_bytes: int, need_dx: bool = True) -> tuple:
+    """The work of one backward launch (A_0 = I skipped; the per-clip dW
+    partial slabs are scratch and not counted). Per step and clip: the
+    diffusions of [h_prev | r h_prev | x] recomputed, the dW products, the
+    weight-transpose products and two A^T applies; without ``need_dx`` the
+    last two have no x columns and dx is not written. The hoisted kernel's:
+    (db's sums, bytes, the products, their rate), products at the
+    tensor-core rate for the stream dtype (``_tc``); with ``xin`` the old
+    fused x-in kernel's, (FLOPs, bytes) all at the f32 FMA rate (the
+    all-f32 bound of the x-in wrapper)."""
     dx = d if xin else 0
     dxo = dx if need_dx else 0
     per_step = 2 * (m - 1) * N * N * (2 * H + dx)    # recomputed features
-    per_step += 2 * N * m * (H + dx) * 3 * H         # dW (+ db: N*3H)
-    per_step += N * 3 * H
+    per_step += 2 * N * m * (H + dx) * 3 * H         # dW
     per_step += 2 * N * 3 * H * m * (H + dxo)        # dpre W^T
     per_step += 2 * 2 * (m - 1) * N * N * (H + dxo)  # two A^T applies
+    db = N * 3 * H
     wsize = m * (H + dx) * 3 * H
     nbytes = wsize * 4 * 2 + 3 * H * 4                 # W in, dW + db out
     nbytes += T * b * N * (5 * H + dx) * stream_bytes  # h_prev ru c d_seq x
     nbytes += T * b * N * (dxo if xin else 3 * H) * stream_bytes  # dx/dxp
     nbytes += m * a_batch * N * N * 4 + b * N * H * 4  # a_ops, dh0
-    return float(per_step) * T * b, float(nbytes)
+    if xin:
+        return float(per_step + db) * T * b, float(nbytes)
+    return (float(db) * T * b, float(nbytes),
+            *_tc(per_step * T * b, stream_bytes))
 
 
 def _tc(flops: float, stream_bytes: int) -> tuple[float, float]:
@@ -378,13 +394,14 @@ def proj_work(*, d: int, m: int, b: int, a_batch: int,
 
 
 def bwd_loop_work(*, m: int, b: int, a_batch: int, stream_bytes: int):
-    """(FLOPs, bytes) of the state-only backward loop: per step and clip
-    the weight-transpose products dpre W_h^T and two A^T applies; h_prev,
+    """(0, bytes, chain FLOPs, their rate) of the state-only backward loop:
+    per step and clip the weight-transpose products dpre W_h^T and two A^T
+    applies, at the tensor-core rate for the stream dtype (``_tc``); h_prev,
     ru, c, d_seq read once, dpre (f32) and dh0 written once."""
     per_step = 2 * N * 3 * H * m * H + 4 * (m - 1) * N * N * H
     nbytes = m * H * 3 * H * 4 + T * b * N * 5 * H * stream_bytes
     nbytes += T * b * N * 3 * H * 4 + m * a_batch * N * N * 4 + b * N * H * 4
-    return float(per_step) * T * b, float(nbytes)
+    return (0.0, float(nbytes), *_tc(per_step * T * b, stream_bytes))
 
 
 def dw_work(*, d: int, m: int, b: int, a_batch: int, stream_bytes: int,
@@ -431,26 +448,28 @@ def _dec_weights(d: int, m: int, layers: int) -> int:
 
 
 def dec_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
-             stream_bytes: int) -> tuple[float, float]:
-    """(FLOPs, bytes) one decoder forward launch needs: per clip-step each
-    layer's cell (layer 0 at width d, the rest at H) and the projection;
-    x, the operators, h0 and the weights read once, proj and the
-    residuals (in0, h, ru, c) written once."""
+             stream_bytes: int) -> tuple:
+    """(0, bytes, chain FLOPs, their rate) of one decoder forward launch:
+    per clip-step each layer's cell (layer 0 at width d, the rest at H) and
+    the projection, at the tensor-core rate for the stream dtype (``_tc``);
+    x, the operators, h0 and the weights read once, proj and the residuals
+    (in0, h, ru, c) written once."""
     per_step = _cell_fwd_flops(d, m) + (layers - 1) * _cell_fwd_flops(H, m)
     per_step += 2 * N * H * d
     nbytes = _dec_weights(d, m, layers) * 4 + T_OUT * 4
     nbytes += m * a_batch * N * N * 4 + layers * b * N * H * 4
     nbytes += T_OUT * b * N * (3 * d + 4 * layers * H) * stream_bytes
-    return float(per_step) * T_OUT * b, float(nbytes)
+    return (0.0, float(nbytes), *_tc(per_step * T_OUT * b, stream_bytes))
 
 
 def dec_loop_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
-                  stream_bytes: int) -> tuple[float, float]:
-    """(FLOPs, bytes) of the decoder's backward state loop, all at the f32
-    FMA rate: per clip-step dproj Wp^T and per layer the weight-transpose
-    products dpre W^T and two A^T applies (layer 0 with its D-wide input
-    cotangent); h_prev, ru, c, d_seq read once, dx, dpre and dproj (f32)
-    and dh0 written once."""
+                  stream_bytes: int) -> tuple:
+    """(0, bytes, chain FLOPs, their rate) of the decoder's backward state
+    loop, at the tensor-core rate for the stream dtype (``_tc``): per
+    clip-step dproj Wp^T and per layer the weight-transpose products dpre
+    W^T and two A^T applies (layer 0 with its D-wide input cotangent);
+    h_prev, ru, c, d_seq read once, dx, dpre and dproj (f32) and dh0
+    written once."""
     def cell(din):
         return (2 * N * 3 * H * m * (H + din)             # dpre W^T
                 + 2 * 2 * (m - 1) * N * N * (H + din))    # A^T applies
@@ -462,7 +481,7 @@ def dec_loop_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
     rows = T_OUT * b * N
     nbytes += rows * (4 * layers * H + 2 * d) * stream_bytes  # in; dx out
     nbytes += rows * (3 * layers * H + d) * 4                 # dpre, dproj
-    return float(per_step) * T_OUT * b, float(nbytes)
+    return (0.0, float(nbytes), *_tc(per_step * T_OUT * b, stream_bytes))
 
 
 def dec_dw_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
@@ -604,11 +623,10 @@ def phase_parity(torch, dev):
 
     worst = {k: 0.0 for k in FWD + XIN_FWD}
     main_abs = dict(worst)
-    ops_cases = [(3, False), (3, True), (5, False)]
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        for m, shared in ops_cases:
+        for m, shared in OPS_CASES:
             for b in (BATCH, 37):
                 # the hoisted kernel's input is x_proj (3H wide) whatever
                 # D is, so it runs once per case, beside D=100
@@ -678,7 +696,7 @@ def phase_bwd_parity(torch, dev):
     seed = 500
     for dtype in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        for m, shared in ((3, False), (3, True), (5, False)):
+        for m, shared in OPS_CASES:
             for b in (BATCH, 37):
                 # the hoisted kernel has no input x: once per case, with
                 # D=100's residuals
@@ -1458,6 +1476,14 @@ def phase_times(torch, dev):
             report((BWD[1], tag, d), BWD[1], cr.dcgru_recurrence_bwd,
                    cr.dcgru_recurrence_bwd_plain, hoisted_b,
                    [bwd_work(xin=False, d=d, **kw)], " (with its dW reduce)")
+        # the loops' wrappers stage the hidden weights at every launch
+        # (inside the loop times above): the staging alone
+        bf16 = dtype == torch.bfloat16
+        stage = [time_ms(torch, lambda f=f: f(a["wg_r"], a["wc_r"], bf16))
+                 for f in (cr.fwd_loop_weights, cr.bwd_loop_weights)]
+        log(f"time weight staging of the state loops H={H} M=3 {tag}: "
+            f"forward {stage[0]:.4f} ms, backward {stage[1]:.4f} ms a "
+            "launch")
     log("library_ms: none — no single PyTorch call computes a DCGRU "
         "recurrence or its BPTT (torch.nn.GRU has no graph diffusion), nor "
         "a diffused input projection or its dW / dx (each is a diffusion "

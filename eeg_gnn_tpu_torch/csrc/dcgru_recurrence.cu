@@ -16,30 +16,43 @@
 //   h'      = u*h + (1-u)*c
 //
 // What bounds it on an H100. At the flagship shape (T=60, B=128, N=19,
-// H=64, M=3) a layer does ~14 GFLOP on its serial chain (the diffusions of
-// h and r*h and the hidden products), ~0.2 ms at the card's 67 TFLOP/s
-// non-tensor f32 rate, which is what this kernel uses (f32 FMA, no TF32),
-// against ~25-40 us for its streams at 3.35 TB/s. The time loop is
-// sequential, so the parallelism is the batch.
+// H=64, M=3) a layer's chain does ~12 GFLOP of hidden products, 12 us at
+// the bf16 tensor-core rate, and ~0.7 GFLOP of diffusions, against
+// ~25-40 us for its streams at 3.35 TB/s. But the T steps are serial, and
+// one clip's step is short dependent work between four block-wide
+// barriers: a block alone takes as long as a full wave (loop_probe.py).
+// Each phase is hundreds of instructions that every warp dispatches
+// through the SM's four schedulers, so a step is bound by the
+// instructions dispatched, not by the tensor cores: the epilogues stay
+// one rolled copy each.
 //
 // Design.
 // - One thread block per clip with the T loop inside the block: the TPU's
 //   sequential (batch-tile, time) grid becomes an in-block loop, and 128
-//   clips fill ~all 132 SMs. The forward needs no cross-block reduction.
-// - h (f32), the clip's M-1 non-identity operators, the step's x_proj slab
-//   and the diffused features stay in shared memory for all T steps. The
-//   TPU's 19 -> 24 node padding and J-clip block diagonals are not needed:
-//   the ragged 19 rows are masked here.
-// - The hidden weights are read from global memory, where they stay
-//   L2-resident across the batch, one coalesced column per thread; every
-//   weight value read is used for up to kRows rows held in registers, and
-//   the features are read as 16-byte shared-memory broadcasts.
+//   clips fill ~all 132 SMs. The TPU's 19 -> 24 node padding and J-clip
+//   block diagonals are not needed: ragged node tiles are masked.
+// - The hidden weights [Wg^T | Wc^T], staged by the wrapper as tensor-core
+//   A fragments in the operand type, are copied once into shared memory
+//   (74 KB in bf16 at M=3, 123 KB at M=5; 147 KB in f32 at M=3) and read
+//   from there at every step; where they do not fit beside the state
+//   (f32 at M=5, large N or H), the warps read them from L2.
+// - Each step's products run on tensor cores (csrc/dcgru_common.cuh,
+//   chain_product): out^T = W^T F^T, weights as A, the node rows of the
+//   diffused features F as B, so the 19 nodes pad to 24, not 32. bf16
+//   streams take bf16 operands with f32 sums (the reference's one bf16
+//   pass, pallas_recurrent.py:113-122), f32 streams 3xTF32. The row tiles
+//   split their node tiles over more warps where they are fewer than the
+//   warps (the candidate's 4 over 2-3 warps each).
+// - The diffusions A_m h and A_m (r h) run on tensor cores too, in 3xTF32
+//   whatever the streams (diffuse_tc): the operators are split into hi
+//   and lo fragments once, when the block starts, and F is written rounded
+//   to the operand type. h, the gates and every sum are f32.
+// - Step t+1's x_proj slab arrives by cp.async into a second buffer while
+//   step t computes (one buffer, loaded at the step's head, where two do
+//   not fit).
 // - Streams (h_seq, ru_seq, c_seq) are f32 or bf16, x_proj the stream dtype
-//   or f32; state, operators, weights and accumulation are f32
-//   (pallas_recurrent.py:744,777). ru_seq / c_seq are written only when
-//   their pointers are non-null.
-// Tensor cores for the chain, bf16 weights and several clips per block are
-// later work.
+//   or f32 (pallas_recurrent.py:744,777). ru_seq / c_seq are written only
+//   when their pointers are non-null.
 
 #include "dcgru_common.cuh"
 
@@ -47,11 +60,15 @@ namespace {
 
 using namespace dcgru;
 
+// threads of a block: 16 warps where the registers allow (bf16 operands),
+// 8 for 3xTF32; a step is latency-bound, and more warps hide more of it
+template <typename FT>
+constexpr int kThreads = sizeof(FT) == 2 ? 512 : 256;
+
 struct Params {
   const void* x_proj;  // (T, B, N, 3H) = [gate | cand], no biases
   const float* a_ops;  // (M, a_batch, N, N), a_batch in {1, B}
-  const float* wg;     // (M*H, 2H) m-major rows
-  const float* wc;     // (M*H, H)
+  const void* w;       // staged A tiles: [Wg^T (2H, M*H) | Wc^T (H, M*H)]
   const float* bg;     // (2H)
   const float* bc;     // (H)
   const float* h0;     // (B, N, H) f32
@@ -61,141 +78,152 @@ struct Params {
   int T, B, N, H, M, a_batch, act;
 };
 
-// Shared-memory layout, in floats; every array starts 16-byte aligned.
-struct Smem {
-  int a, h, in, hf, ru, total;
-  __host__ __device__ Smem(int N, int H, int M) {
-    a = 0;                                     // (M-1, N, N) operators
-    h = a + pad4((M - 1) * N * N);             // (N, H) state
-    in = h + pad4(N * H);                      // (N, 3H) step x_proj slab
-    hf = in + pad4(N * 3 * H);                 // (N, M*H) state features
-    ru = hf + pad4(N * M * H);                 // (N, 2H) gates
-    total = ru + pad4(N * 2 * H);
+// Shared-memory plan, in bytes; every array starts 16-byte aligned. The
+// staged weights take no room when they are read from L2 (wsmem false);
+// nbuf x_proj buffers (2: the next step's arrives during this one).
+template <typename FT, typename X>
+struct Plan {
+  int w, op, h, ru, bias, x, f, total;
+  int wbytes, ldh, ldru, ldx, ldf, nbuf;
+  __host__ __device__ Plan(int N, int H, int M, bool wsmem, int nbuf_)
+      : nbuf(nbuf_) {
+    const int MH = M * H, rows = 8 * ((N + 7) / 8);
+    wbytes = chain_wbytes<FT>(2 * H, MH) + chain_wbytes<FT>(H, MH);
+    ldh = chain_ld(H);
+    ldru = chain_ld(2 * H);
+    ldx = chain_ld(3 * H);
+    ldf = ChainOps<FT>::ld(MH);
+    w = 0;                                                 // A tiles
+    op = w + (wsmem ? wbytes : 0);                         // A_m fragments
+    h = op + op_frag_bytes(N, M);                          // (rows, H) f32
+    ru = h + align16(rows * ldh * 4);                      // (rows, 2H) f32
+    bias = ru + align16(rows * ldru * 4);                  // [bg | bc]
+    x = bias + align16(3 * H * 4);                         // nbuf (N, 3H)
+    f = x + nbuf * align16(N * ldx * (int)sizeof(X));      // (rows, MH)
+    total = f + align16(rows * ldf * (int)sizeof(FT));
   }
 };
 
-// S: the dtype of h_seq, ru_seq, c_seq; X: of x_proj (S, or f32).
-template <typename S, typename X>
-__global__ void __launch_bounds__(kMaxThreads)
-    dcgru_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
+// S: the dtype of h_seq, ru_seq, c_seq; X: of x_proj (S, or f32); FT: the
+// products' operand type (bf16 for bf16 streams, f32 split into 3xTF32);
+// WSMEM: the staged weights sit in shared memory (else in L2).
+template <typename S, typename X, typename FT, bool WSMEM>
+__global__ void __launch_bounds__(kThreads<FT>, 1)
+    dcgru_fwd_kernel(const Params p, const int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int N = p.N, H = p.H, M = p.M;
-  const Smem L(N, H, M);
-  float* sA = smem + L.a;
-  float* sh = smem + L.h;
-  float* sx = smem + L.in;
-  float* hf = smem + L.hf;
-  float* sru = smem + L.ru;
+  const Plan<FT, X> L(N, H, M, WSMEM, nbuf);
+  uint4* sop = reinterpret_cast<uint4*>(smem + L.op);
+  float* sh = reinterpret_cast<float*>(smem + L.h);
+  float* sru = reinterpret_cast<float*>(smem + L.ru);
+  float* sb = reinterpret_cast<float*>(smem + L.bias);
+  X* sx = reinterpret_cast<X*>(smem + L.x);
+  FT* sf = reinterpret_cast<FT*>(smem + L.f);
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int NN = N * N, MH = M * H, H2 = 2 * H, H3 = 3 * H;
-  const int chunks = (N + kRows - 1) / kRows;
-
-  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1)
-  const float* a_clip = p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN;
-  for (int i = tid; i < (M - 1) * NN; i += nthr) {
-    int m = i / NN + 1, e = i - (m - 1) * NN;
-    sA[i] = a_clip[(size_t)m * p.a_batch * NN + e];
-  }
-  for (int i = tid; i < N * H; i += nthr) sh[i] = p.h0[(size_t)b * N * H + i];
+  const int xbuf = L.nbuf == 2 ? align16(N * L.ldx * (int)sizeof(X)) /
+                                     (int)sizeof(X) : 0;
+  const uint4* wg = WSMEM ? reinterpret_cast<const uint4*>(smem + L.w)
+                          : static_cast<const uint4*>(p.w);
+  const uint4* wc = wg + chain_wbytes<FT>(H2, MH) / 16;
 
   const X* xs = static_cast<const X*>(p.x_proj);
   S* hseq = static_cast<S*>(p.h_seq);
   S* ruseq = static_cast<S*>(p.ru_seq);
   S* cseq = static_cast<S*>(p.c_seq);
+  // step tt's x_proj slab into buffer tt % nbuf
+  auto load_x = [&](int tt) {
+    cp_rows(sx + (tt & 1) * xbuf, L.ldx, xs + ((size_t)tt * p.B + b) * N * H3,
+            N, H3);
+    cp_commit();
+  };
+
+  if (WSMEM) cp_block(smem + L.w, p.w, L.wbytes);
+  load_x(0);
+  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1)
+  stage_op_frags(sop, p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN,
+                 p.a_batch, N, M, false);
+  // the padding (node rows >= N of h, ru and the features, the features'
+  // columns >= M*H) stays zero
+  const int frows = 8 * ((N + 7) / 8);
+  for (int i = tid; i < frows * L.ldh; i += nthr) {
+    const int n = i / L.ldh, c = i - n * L.ldh;
+    sh[i] = n < N && c < H ? p.h0[((size_t)b * N + n) * H + c] : 0.0f;
+  }
+  for (int i = tid; i < frows * L.ldru; i += nthr) sru[i] = 0.0f;
+  for (int i = tid; i < H3; i += nthr) sb[i] = i < H2 ? p.bg[i] : p.bc[i - H2];
+  for (int i = tid; i < frows * L.ldf; i += nthr) sf[i] = from_f<FT>(0.0f);
+  cp_wait<0>();
+  __syncthreads();
+  DCGRU_PROBE_START;
 
   for (int t = 0; t < p.T; ++t) {
     const size_t slab = (size_t)t * p.B + b;  // (t, b) row of every stream
-    const X* xt = xs + slab * N * H3;
-    for (int i = tid; i < N * H3; i += nthr) sx[i] = to_f(xt[i]);
-    // diffuse h: one (m, column) per task
-    for (int task = tid; task < M * H; task += nthr) {
-      int m = task / H, c = task - m * H;
-      float v[kMaxNodes];
-#pragma unroll
-      for (int k = 0; k < kMaxNodes; ++k)
-        if (k < N) v[k] = sh[k * H + c];
-      diffuse_col(v, sA, N, m, hf + m * H + c, MH);
-    }
-    __syncthreads();
+    const X* sxt = sx + (L.nbuf == 2 ? (t & 1) * xbuf : 0);
+    if (L.nbuf == 2 && t + 1 < p.T) load_x(t + 1);
+    if (L.nbuf == 1 && t > 0) load_x(t);
 
-    // phase 1: gates
-    for (int task = tid; task < H2 * chunks; task += nthr) {
-      const int chunk = task / H2, j = task - chunk * H2;
-      const int r0 = chunk * kRows;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      gemm_col(acc, hf, MH, r0, N, p.wg + j, H2);
-      const float bj = p.bg[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int n = r0 + r;
-        if (n < N) {
-          const float v = sigmoid(acc[r] + bj + sx[n * H3 + j]);
-          sru[n * H2 + j] = v;
-          if (ruseq) ruseq[(slab * N + n) * H2 + j] = from_f<S>(v);
-        }
-      }
-    }
+    // the features [A_m h]
+    diffuse_tc(sop, [&](int k, int c) { return sh[k * L.ldh + c]; }, N, M, H,
+               sf, L.ldf);
+    if (L.nbuf == 1) cp_wait<0>();
     __syncthreads();
+    DCGRU_PROBE_MARK(0);
 
-    // diffuse r*h into the state-feature buffer (its h features are spent)
-    for (int task = tid; task < M * H; task += nthr) {
-      int m = task / H, c = task - m * H;
-      float v[kMaxNodes];
-#pragma unroll
-      for (int k = 0; k < kMaxNodes; ++k)
-        if (k < N) v[k] = sru[k * H2 + c] * sh[k * H + c];
-      diffuse_col(v, sA, N, m, hf + m * H + c, MH);
-    }
+    // gates: ru^T = Wg^T F^T
+    chain_product(wg, H2, MH, sf, L.ldf, N, [&](int j, int n, float v) {
+      const float r = sigmoid(v + sb[j] + to_f(sxt[n * L.ldx + j]));
+      sru[n * L.ldru + j] = r;
+      if (ruseq) ruseq[(slab * N + n) * H2 + j] = from_f<S>(r);
+    });
     __syncthreads();
+    DCGRU_PROBE_MARK(1);
 
-    // phase 2: candidate and state update; (n, j) of h has one owner
-    for (int task = tid; task < H * chunks; task += nthr) {
-      const int chunk = task / H, j = task - chunk * H;
-      const int r0 = chunk * kRows;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      gemm_col(acc, hf, MH, r0, N, p.wc + j, H);
-      const float bj = p.bc[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int n = r0 + r;
-        if (n < N) {
-          const float c = activate(acc[r] + bj + sx[n * H3 + H2 + j], p.act);
-          const float u = sru[n * H2 + H + j];
-          const float hn = u * sh[n * H + j] + (1.0f - u) * c;
-          sh[n * H + j] = hn;
-          const size_t o = (slab * N + n) * H + j;
-          hseq[o] = from_f<S>(hn);
-          if (cseq) cseq[o] = from_f<S>(c);
-        }
-      }
-    }
+    // the features [A_m (r h)] (the h features are spent)
+    diffuse_tc(
+        sop,
+        [&](int k, int c) { return sru[k * L.ldru + c] * sh[k * L.ldh + c]; },
+        N, M, H, sf, L.ldf);
     __syncthreads();
+    DCGRU_PROBE_MARK(2);
+
+    // candidate and state update; (n, j) of h has one owner
+    chain_product(wc, H, MH, sf, L.ldf, N, [&](int j, int n, float v) {
+      const float c = activate(v + sb[H2 + j] + to_f(sxt[n * L.ldx + H2 + j]),
+                               p.act);
+      const float u = sru[n * L.ldru + H + j];
+      const float hn = u * sh[n * L.ldh + j] + (1.0f - u) * c;
+      sh[n * L.ldh + j] = hn;
+      const size_t o = (slab * N + n) * H + j;
+      hseq[o] = from_f<S>(hn);
+      if (cseq) cseq[o] = from_f<S>(c);
+    });
+    if (L.nbuf == 2) cp_wait<0>();
+    __syncthreads();
+    DCGRU_PROBE_MARK(3);
   }
+  DCGRU_PROBE_STORE;
 }
 
-int threads_for(const Params& p) {
-  const int chunks = (p.N + kRows - 1) / kRows;
-  int nthr = ((2 * p.H * chunks + 31) / 32) * 32;
-  if (nthr < 128) nthr = 128;
-  if (nthr > kMaxThreads) nthr = kMaxThreads;
-  return nthr;
+bool valid(const Params& p) {
+  return p.N <= kMaxNodes && p.N >= 1 && p.H % 4 == 0 && p.H >= 4 &&
+         p.M >= 1 && p.B >= 1 && p.T >= 1;
 }
 
-template <typename S, typename X>
+template <typename S, typename X, typename FT>
 int launch(const Params& p, cudaStream_t stream) {
-  if (p.N > kMaxNodes || p.N < 1 || p.H % 4 || p.M < 1 || p.B < 1)
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  bool wsmem;
+  int nbuf, bytes;
+  if (!choose_plan<Plan<FT, X>>(p.N, p.H, p.M, wsmem, nbuf, bytes))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)Smem(p.N, p.H, p.M).total * 4;
-  auto kern = dcgru_fwd_kernel<S, X>;
+  auto kern = wsmem ? dcgru_fwd_kernel<S, X, FT, true>
+                    : dcgru_fwd_kernel<S, X, FT, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<p.B, threads_for(p), smem, stream>>>(p);
+  kern<<<p.B, kThreads<FT>, bytes, stream>>>(p, nbuf);
   return (int)cudaGetLastError();
 }
 
@@ -205,20 +233,32 @@ extern "C" {
 
 // act: 0 tanh, 1 relu, 2 linear. bf16: h_seq / ru_seq / c_seq are bf16
 // (else f32); xp_f32: x_proj is f32 (else the dtype of the other streams).
+// w: the staged hidden weights [Wg^T | Wc^T] (ops/cuda_recurrent.py,
+// stage_chain_weights), bf16 for bf16 streams, else f32.
 // Returns a cudaError_t: 0 on a launch that was accepted.
 int dcgru_recurrence_fwd(const void* x_proj, const float* a_ops, int a_batch,
-                         const float* wg, const float* wc, const float* bg,
-                         const float* bc, const float* h0, void* h_seq,
-                         void* ru_seq, void* c_seq, int T, int B, int N,
-                         int H, int M, int act, int bf16, int xp_f32,
-                         void* stream) {
-  Params p{x_proj, a_ops,  wg,    wc, bg, bc, h0, h_seq, ru_seq,
-           c_seq,  T,      B,     N,  H,  M,  a_batch, act};
+                         const void* w, const float* bg, const float* bc,
+                         const float* h0, void* h_seq, void* ru_seq,
+                         void* c_seq, int T, int B, int N, int H, int M,
+                         int act, int bf16, int xp_f32, void* stream) {
+  Params p{x_proj, a_ops, w,  bg, bc, h0, h_seq,   ru_seq,
+           c_seq,  T,     B,  N,  H,  M,  a_batch, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch<float, float>(p, s);
-  return xp_f32 ? launch<__nv_bfloat16, float>(p, s)
-                : launch<__nv_bfloat16, __nv_bfloat16>(p, s);
+  using bf = __nv_bfloat16;
+  if (!bf16) return launch<float, float, float>(p, s);
+  return xp_f32 ? launch<bf, float, bf>(p, s) : launch<bf, bf, bf>(p, s);
 }
+
+#ifdef DCGRU_PROBE
+// probe builds: block 0's phase clocks since the last read (kProbeSlots)
+int dcgru_probe_read(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, dcgru::probe_cycles,
+                                         sizeof(dcgru::probe_cycles));
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long zero[dcgru::kProbeSlots] = {};
+  return (int)cudaMemcpyToSymbol(dcgru::probe_cycles, zero, sizeof(zero));
+}
+#endif
 
 const char* dcgru_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -39,32 +39,33 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, defines: tuple = ()) -> str:
     """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
-    the shared ``csrc/*.cuh`` headers and the flags)."""
+    the shared ``csrc/*.cuh`` headers, the flags and any ``-D`` defines)."""
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     digest = hashlib.sha256()
     for f in (name + ".cu", *headers):
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:
             digest.update(fh.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(name: str) -> tuple[str, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists.
+def build(name: str, defines: tuple = ()) -> tuple[str, float, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists; ``defines``
+    (``-DNAME`` flags) build a variant of it, such as a probe build.
 
     Returns (library path, build seconds, nvcc's ptxas report). The
     library is written to a temporary name and renamed into place, so
     concurrent processes never load a half-written file.
     """
-    out = library_path(name)
+    out = library_path(name, defines)
     if os.path.exists(out):
         return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp,
            os.path.join(CSRC_DIR, name + ".cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -29,6 +29,13 @@ They replace the JAX package's Pallas kernels
   :func:`dcgru_xin_dx` (``dx = sum_m A_m^T (dpre Wx_m^T)``), over all T
   steps at once. No dW is accumulated in the serial loop.
 
+The two state loops (:func:`dcgru_xin_fwd_loop` / :func:`dcgru_recurrence_fwd`
+and :func:`dcgru_xin_bwd_loop`) run each step's hidden products on tensor
+cores, with the weights staged once per launch in shared memory:
+:func:`stage_chain_weights` lays them out as the kernels' A fragments, in
+bfloat16 for bf16 streams (the reference's one bf16 pass) and float32 for
+f32 streams (split into 3xTF32 in the kernel).
+
 Each wrapper computes the kernel's function with its plain version when
 its input lies on the CPU, launches the kernel when it lies on a CUDA
 device, and raises otherwise or on what the kernel does not take. Each
@@ -79,9 +86,13 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
+    return bind_fwd(_build.load(_LIB))
+
+
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/dcgru_recurrence.cu`` library."""
     lib.dcgru_recurrence_fwd.argtypes = (
-        [_P, _P, _I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P])
+        [_P, _P, _I] + [_P] * 4 + [_P, _P, _P] + [_I] * 8 + [_P])
     lib.dcgru_recurrence_fwd.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
@@ -90,12 +101,17 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _lib_bwd() -> ctypes.CDLL:
-    lib = _build.load(_LIB_BWD)
+    return bind_bwd(_build.load(_LIB_BWD))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/dcgru_recurrence_bwd.cu``
+    library."""
     lib.dcgru_recurrence_bwd.argtypes = (
         [_P, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3 + [_I] * 7 + [_P])
     lib.dcgru_recurrence_bwd.restype = _I
     lib.dcgru_xin_bwd_loop.argtypes = (
-        [_P, _I] + [_P] * 2 + [_P] * 4 + [_P] * 2 + [_I] * 7 + [_P])
+        [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 7 + [_P])
     lib.dcgru_xin_bwd_loop.restype = _I
     lib.dcgru_dw_reduce.argtypes = [_P, _P, _I, _I, _P]
     lib.dcgru_dw_reduce.restype = _I
@@ -135,6 +151,52 @@ def dw_splits(x, h_units: int, m: int) -> int:
         raise ValueError(f"dcgru_xin_dw: no launch fits T={t} B={b} N={n} "
                          f"D={d} H={h_units} M={m}")
     return splits
+
+
+def _chain_tiles(a, bf16: bool):
+    """One (R, K) float32 A operand as the kernels' tensor-core A fragments
+    (``csrc/dcgru_common.cuh``, ``ChainOps``): zero-padded to 16-row tiles
+    by 16-deep (bf16, m16n8k16) or 8-deep (f32, m16n8k8) tiles, each tile
+    32 lanes x 16 bytes, lane ``4g + t`` holding rows g and g+8 and the
+    columns of its fragment: (RT, KT, 32, 8) bfloat16 or (RT, KT, 32, 4)
+    float32."""
+    r, k = a.shape
+    depth = 16 if bf16 else 8
+    rt, kt = -(-r // 16), -(-k // depth)
+    pad = torch.zeros((rt * 16, kt * depth), dtype=torch.float32,
+                      device=a.device)
+    pad[:r, :k] = a
+    if bf16:
+        # row 16 rt + 8 hr + g, column 16 kt + 8 hc + 2 t + e -> lane 4g + t,
+        # element 2 (hr + 2 hc) + e
+        tiles = pad.view(rt, 2, 8, kt, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6)
+        return tiles.reshape(rt, kt, 32, 8).to(torch.bfloat16)
+    # row 16 rt + 8 hr + g, column 8 kt + 4 hc + t -> lane 4g + t, word
+    # hr + 2 hc
+    tiles = pad.view(rt, 2, 8, kt, 2, 4).permute(0, 3, 2, 5, 4, 1)
+    return tiles.reshape(rt, kt, 32, 4)
+
+
+def stage_chain_weights(mats, bf16: bool):
+    """The A operands of a state loop's per-step products, staged once per
+    launch: each (R, K) float32 matrix as :func:`_chain_tiles`, flat and
+    concatenated in order, bfloat16 (the bf16 streams' operands, rounded
+    to nearest) or float32 (split into 3xTF32 by the kernel)."""
+    return torch.cat([_chain_tiles(a, bf16).reshape(-1) for a in mats])
+
+
+def fwd_loop_weights(wg_r, wc_r, bf16: bool):
+    """The forward loop's staged weights [Wg^T (2H, M*H) | Wc^T (H, M*H)]."""
+    m, h_units, _ = wc_r.shape
+    return stage_chain_weights((wg_r.reshape(m * h_units, -1).t(),
+                                wc_r.reshape(m * h_units, -1).t()), bf16)
+
+
+def bwd_loop_weights(wg_r, wc_r, bf16: bool):
+    """The backward loop's staged weights [Wc (M*H, H) | Wg (M*H, 2H)]."""
+    m, h_units, _ = wc_r.shape
+    return stage_chain_weights((wc_r.reshape(m * h_units, -1),
+                                wg_r.reshape(m * h_units, -1)), bf16)
 
 
 def _outputs(like, t, b, n, h_units, dtype, residuals):
@@ -451,13 +513,14 @@ def _fwd_loop(wrapper, x_proj, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
                                     residuals)
     if b == 0 or t == 0:
         return h_seq, ru_seq, c_seq
+    bf16 = stream_dtype == torch.bfloat16
     with torch.cuda.device(x_proj.device):
+        w = fwd_loop_weights(wg_r, wc_r, bf16)
         err = _lib().dcgru_recurrence_fwd(
             x_proj.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
-            *(w.data_ptr() for w in weights), h0.data_ptr(),
-            h_seq.data_ptr(), _ptr(ru_seq), _ptr(c_seq),
-            t, b, n, h_units, m, _ACT_CODES[activation],
-            int(stream_dtype == torch.bfloat16),
+            w.data_ptr(), gate_b.data_ptr(), cand_b.data_ptr(),
+            h0.data_ptr(), h_seq.data_ptr(), _ptr(ru_seq), _ptr(c_seq),
+            t, b, n, h_units, m, _ACT_CODES[activation], int(bf16),
             int(x_proj.dtype != stream_dtype), _stream(x_proj))
     _raise_on(err, name)
     wrapper.launches += 1
@@ -546,8 +609,7 @@ def _transposed(w2d):
 
 def _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation):
     """The checks of the backward loops' arguments (``streams`` = h_prev,
-    ru_seq, c_seq, d_seq); returns the transposed hidden weights the
-    kernel reads."""
+    ru_seq, c_seq, d_seq)."""
     t, b, n, h_units = streams[0].shape
     m = a_ops.shape[0]
     _check(name, streams, a_ops, (wg_r, wc_r), activation, b, n, h_units)
@@ -556,8 +618,6 @@ def _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation):
         (t, b, n, h_units)))
     _check_shapes(name, "weight", (wg_r, wc_r), (
         (m, h_units, 2 * h_units), (m, h_units, h_units)))
-    return (_transposed(wg_r.reshape(m * h_units, -1)),
-            _transposed(wc_r.reshape(m * h_units, -1)))
 
 
 def dcgru_recurrence_xin_bwd(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
@@ -621,19 +681,21 @@ def dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
                                         c_seq, d_seq, activation)
     name = "dcgru_xin_bwd_loop"
     streams = (h_prev, ru_seq, c_seq, d_seq)
-    w_t = _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
+    _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
     t, b, n, h_units = h_prev.shape
     m = a_ops.shape[0]
     dev = h_prev.device
+    bf16 = h_prev.dtype == torch.bfloat16
     dpre = torch.empty((t, b, n, 3 * h_units), dtype=torch.float32,
                        device=dev)
     dh0 = torch.empty((b, n, h_units), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        w = bwd_loop_weights(wg_r, wc_r, bf16)
         err = _lib_bwd().dcgru_xin_bwd_loop(
-            a_ops.data_ptr(), a_ops.shape[1], *(w.data_ptr() for w in w_t),
+            a_ops.data_ptr(), a_ops.shape[1], w.data_ptr(),
             *(s.data_ptr() for s in streams), dpre.data_ptr(),
             dh0.data_ptr(), t, b, n, h_units, m, _ACT_CODES[activation],
-            int(h_prev.dtype == torch.bfloat16), _stream(h_prev))
+            int(bf16), _stream(h_prev))
     _raise_on(err, name, _lib_bwd)
     dcgru_xin_bwd_loop.launches += 1
     return dpre, dh0
@@ -656,9 +718,11 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
                                           c_seq, d_seq, activation)
     name = "dcgru_recurrence_bwd"
     streams = (h_prev, ru_seq, c_seq, d_seq)
-    w_t = _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
+    _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
     t, b, n, h_units = h_prev.shape
     m = a_ops.shape[0]
+    w_t = (_transposed(wg_r.reshape(m * h_units, -1)),
+           _transposed(wc_r.reshape(m * h_units, -1)))
     dev = h_prev.device
     dxp = torch.empty((t, b, n, 3 * h_units), dtype=h_prev.dtype, device=dev)
     dh0 = torch.empty((b, n, h_units), dtype=torch.float32, device=dev)

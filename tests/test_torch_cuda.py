@@ -287,6 +287,177 @@ def test_xin_bwd_dw_is_bitwise_deterministic(dev):
             assert torch.equal(g, w)
 
 
+def _loop_inputs(dev, *, t, b, n, h, num_supports, shared, stream,
+                 activation="tanh", seed=0, w_scale=0.1):
+    """The state loops' arguments at n nodes: (forward loop fed an f32
+    projection, the hoisted forward fed x_proj in the stream dtype, the
+    backward loop on the plain forward's residuals and a seeded h_seq
+    cotangent); hidden weights of std ``w_scale``."""
+    rng = np.random.RandomState(seed)
+    m = num_supports * K + 1
+    f = lambda *s, scale=0.1: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(
+        num_supports, 1 if shared else b, n, n)) / n).astype(np.float32))
+    a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+    hidden = (f(m, h, 2 * h, scale=w_scale), f(m, h, h, scale=w_scale),
+              f(2 * h), f(h), f(b, n, h))
+    xp = f(t, b, n, 3 * h, scale=0.5)
+    fwd = (xp, a_ops, *hidden)
+    h_seq, ru, c = cr.dcgru_xin_fwd_loop_plain(*fwd, activation, True,
+                                               stream)
+    d_seq = f(t, b, n, h, scale=1.0).to(stream)
+    bwd = (a_ops, hidden[0], hidden[1], shift_h_prev(hidden[4], h_seq), ru,
+           c, d_seq)
+    return fwd, (xp.to(stream), *fwd[1:]), bwd
+
+
+@pytest.mark.parametrize("t,n,h", [(1, 19, 16), (7, 19, 64), (5, 32, 16),
+                                   (3, 32, 64), (4, 7, 12)])
+@pytest.mark.parametrize("num_supports,shared", [(2, False), (2, True),
+                                                 (0, False)])
+@pytest.mark.parametrize("activation", ["tanh", "relu", "linear"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tensor_core_loops_match_plain(dev, t, n, h, num_supports, shared,
+                                       activation, bf16):
+    """The encoder's state loops (the forward fed an f32 projection or
+    x_proj in the stream dtype, the backward without dW) and #4's BPTT
+    beside them, against their plain versions: M=5 (and M=1), per-clip
+    and shared graphs, N=19 and 32 (and a ragged 7), H=16 and 64 (and
+    12: ragged tiles), T=1 upwards, every activation."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    fwd, hoisted, bwd = _loop_inputs(
+        dev, t=t, b=3, n=n, h=h, num_supports=num_supports, shared=shared,
+        stream=stream, activation=activation, seed=t * n + h)
+    kw = dict(residuals=True)
+    cases = [
+        (cr.dcgru_xin_fwd_loop, cr.dcgru_xin_fwd_loop_plain, fwd,
+         dict(kw, activation=activation, stream_dtype=stream)),
+        (cr.dcgru_recurrence_fwd, cr.dcgru_recurrence_fwd_plain, hoisted,
+         dict(kw, activation=activation)),
+        (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_bwd_loop_plain, bwd,
+         dict(activation=activation)),
+        (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain, bwd,
+         dict(activation=activation)),
+    ]
+    for kern, plain, args, kw in cases:
+        before = kern.launches
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        want = plain(*args, **kw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, \
+                (kern.__name__, i)
+            assert torch.isfinite(g.float()).all(), (kern.__name__, i)
+            assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
+
+
+def _err_past_rounding(got, want):
+    """Normalized inf-norm error left after ``got``'s own rounding to its
+    dtype: max(|got - want| - ulp(got) / 2, 0) / max|want| for a float32
+    ``want``. A bf16 ``got`` that is ``want`` rounded to nearest reads 0;
+    a float32 ``got`` reads as :func:`_err`."""
+    got32, want = got.float(), want.float()
+    half_ulp = torch.zeros_like(got32)
+    if got.dtype == torch.bfloat16:
+        half_ulp = torch.exp2(torch.floor(torch.log2(
+            got32.abs().clamp_min(1e-30))) - 8)
+    past = ((got32 - want).abs() - half_ulp).clamp_min(0)
+    return (past.max() / want.abs().max().clamp_min(1e-12)).item()
+
+
+# bar of the bf16 loops against their emulated operand rounding at T=2:
+# above what the kernels read, below what plain f32 products read against
+# the same emulation on their farthest output (PERF.md, section 6)
+ROUNDING_TOL = 1.2e-3
+
+
+@pytest.mark.parametrize("activation", ["tanh", "relu", "linear"])
+@pytest.mark.parametrize("shared", [False, True])
+def test_bf16_loops_compute_their_operand_rounding(dev, activation, shared,
+                                                   record_property):
+    """The bf16 loops compute the stated rounding: bf16 product operands
+    and f32 sums, emulated on the card (tests/chain_emulation.py), with
+    hidden weights of std 0.3 so that the operand rounding shows. The
+    forward's bf16 outputs are held to the emulation's f32 values past
+    their own rounding, the backward's f32 outputs as they are. The
+    plain loops (f32 products) must read above the bar on some output,
+    so a kernel with f32 products fails. Two steps: a bf16 operand that
+    the kernel's diffusions (summed in another f32 order) round the
+    other way moves a step's output by ~1e-3 here, and over more steps
+    such flips compound until no bar tells the two roundings apart."""
+    from chain_emulation import chain_bwd, chain_fwd
+
+    stream, tol = torch.bfloat16, ROUNDING_TOL
+    fwd, _, bwd = _loop_inputs(dev, t=2, b=3, n=N, h=64, num_supports=2,
+                               shared=shared, stream=stream,
+                               activation=activation, seed=197, w_scale=0.3)
+    got = cr.dcgru_xin_fwd_loop(*fwd, activation, True, stream)
+    want = chain_fwd(*fwd, torch.float32, activation)
+    plain = cr.dcgru_xin_fwd_loop_plain(*fwd, activation, True, stream)
+    errs = {}
+    for i, (g, w, p) in enumerate(zip(got, want, plain)):
+        errs[f"fwd{i}"] = (_err_past_rounding(g, w),
+                           _err_past_rounding(p, w))
+    got = cr.dcgru_xin_bwd_loop(*bwd, activation)
+    want = chain_bwd(*bwd, activation)
+    plain = cr.dcgru_xin_bwd_loop_plain(*bwd, activation)
+    for i, (g, w, p) in enumerate(zip(got, want, plain)):
+        errs[f"bwd{i}"] = (_err(g, w), _err(p, w))
+    # (kernel, plain) against the emulation, read from the junit XML
+    record_property("kernel_and_plain_vs_emulation", errs)
+    for k, (kern, _) in errs.items():
+        assert kern <= tol, (k, errs)
+    # and the bar tells the stated rounding from f32 products
+    assert max(p for _, p in errs.values()) > tol, errs
+
+
+def test_tensor_core_loops_are_bitwise_deterministic(dev):
+    """Two runs of each state loop on the same inputs give the same bits
+    (fixed tiles summed in a fixed order)."""
+    for stream in (torch.float32, torch.bfloat16):
+        fwd, hoisted, bwd = _loop_inputs(dev, t=60, b=128, n=N, h=64,
+                                         num_supports=2, shared=False,
+                                         stream=stream)
+        for kern, args, kw in (
+                (cr.dcgru_xin_fwd_loop, fwd,
+                 dict(residuals=True, stream_dtype=stream)),
+                (cr.dcgru_recurrence_fwd, hoisted, dict(residuals=True)),
+                (cr.dcgru_xin_bwd_loop, bwd, {})):
+            runs = [kern(*args, **kw) for _ in range(2)]
+            for g, w in zip(*runs):
+                assert torch.equal(g, w), kern.__name__
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tensor_core_loops_keep_a_device_nan(dev, bf16):
+    """A NaN that a device op made, in one entry of h0: the forward loop
+    carries it into h_seq (the whole clip, through the diffusions) and the
+    backward loop, fed it as h_prev[0] of otherwise finite residuals, into
+    dpre (that node's gate entries) and dh0, where the plain loops do."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    fwd, _, bwd = _loop_inputs(dev, t=5, b=4, n=N, h=16, num_supports=1,
+                               shared=False, stream=stream)
+    nan = torch.zeros(1, device=dev) / 0
+    h0 = fwd[-1].clone()
+    h0[2, 4, 5] = nan[0]
+    args = (*fwd[:-1], h0)
+    got = cr.dcgru_xin_fwd_loop(*args, stream_dtype=stream)[0]
+    want = cr.dcgru_xin_fwd_loop_plain(*args, stream_dtype=stream)[0]
+    assert want.isnan().any() and not want.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+    h_prev = bwd[3].clone()
+    h_prev[0, 2, 4, 5] = nan[0]
+    args = (*bwd[:3], h_prev, *bwd[4:])
+    got = cr.dcgru_xin_bwd_loop(*args)
+    want = cr.dcgru_xin_bwd_loop_plain(*args)
+    for g, w in zip(got, want):
+        assert w.isnan().any() and not w.isnan().all()
+        assert torch.equal(g.isnan(), w.isnan())
+
+
 def test_xin_piece_wrappers_raise(dev):
     xin, _ = _bwd_inputs(dev, t=5, b=3, d=12, h=16, num_supports=1,
                          shared=False, stream=torch.float32)
