@@ -9,9 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. print the card's name and power limit; turn TF32 off; build the six
    CUDA sources of ``eeg_gnn_tpu_torch/csrc`` with nvcc, in parallel (one
-   nvcc each), and print ptxas' register and spill report, and the
-   encoder state loops' launch plans (dynamic shared memory, whether the
-   staged weights sit in it, stream buffers) at N=19, H=64, M=3 and 5;
+   nvcc each), and print ptxas' register and spill report;
 2. hold every kernel against its plain PyTorch version on the card at
    T=60, N=19, H=64 (D=100 and 64; M=3 and M=5, each per-clip and
    shared; B=128 and 37; float32 and bfloat16): the forward kernels
@@ -84,14 +82,14 @@ Phases (any failure exits non-zero and prints no result line):
    x-in wrappers as a whole and each of their kernels alone; the first
    layer's backward without dx, as the train step runs it, and with dx),
    the decoder's (B=128, M=3, L=3: the forward, the backward as a whole
-   and each of its kernels; dWp beside one ``torch.matmul``), the dW
+   and each of its kernels; dWp beside one ``torch.matmul``; the state
+   loops' weight staging alone, and their launch plans), the dW
    reduction beside ``torch.sum`` (at each x-in layer's split partials
    and at the decoder's three); bounds with every product of the bulk
    kernels (diffusions included) and dWp at the tensor-core rate for the
    stream dtype (bf16, or 3xTF32 for f32), the serial chains' products
-   (diffusions included) likewise, with the figure at the non-tensor f32
-   rate that stood before beside each chain kernel, split partials not
-   counted (scratch), with the all-f32 bound of the x-in wrappers beside;
+   (diffusions included) likewise, split partials not counted (scratch),
+   with the all-f32 bound of the x-in wrappers beside;
    the wrappers, which launch no kernel of their own, on a ``wrappers``
    line of their own without a launch count; the Predictor's clips/s, the
    detection and SSL train steps' ms and clips/s; trace one bfloat16
@@ -467,12 +465,13 @@ def dec_loop_work(*, d: int, m: int, layers: int, b: int, a_batch: int,
     """(0, bytes, chain FLOPs, their rate) of the decoder's backward state
     loop, at the tensor-core rate for the stream dtype (``_tc``): per
     clip-step dproj Wp^T and per layer the weight-transpose products dpre
-    W^T and two A^T applies (layer 0 with its D-wide input cotangent);
+    W^T, two A^T applies of the state's width (drh, dh) and one of the
+    input's (both halves of dpre summed before it; layer 0's D wide);
     h_prev, ru, c, d_seq read once, dx, dpre and dproj (f32) and dh0
     written once."""
     def cell(din):
         return (2 * N * 3 * H * m * (H + din)             # dpre W^T
-                + 2 * 2 * (m - 1) * N * N * (H + din))    # A^T applies
+                + 2 * (m - 1) * N * N * (2 * H + din))    # A^T applies
     per_step = cell(d) + (layers - 1) * cell(H) + 2 * N * d * H
     weights = m * (d + H) * 3 * H + H * d            # no biases read
     weights += m * 2 * H * 3 * H if layers > 1 else 0
@@ -1592,6 +1591,20 @@ def phase_ssl_times(torch, dev):
                                                              (100, H))]
         shapes.append((dws, H * 100 + 100))
         rws = [reduce_work(*sh) for sh in shapes]
+        # the two loops' wrappers stage their weights at every launch
+        # (inside the loop times below): the staging alone, and the plans
+        w = args[3:17]
+        bf16 = dtype == torch.bfloat16
+        stage = [time_ms(torch, lambda f=f: f(w[0:4], w[6:10], w[12], bf16))
+                 for f in (cd.decoder_fwd_weights, cd.decoder_bwd_weights)]
+        plans = [cd.decoder_plan(f, N, 100, H, 3, SSL_LAYERS, bf16)
+                 for f in (True, False)]
+        log(f"time weight staging of the decoder loops L={SSL_LAYERS} D=100 "
+            f"M=3 {tag}: forward {stage[0]:.4f} ms, backward "
+            f"{stage[1]:.4f} ms a launch; plans: " + ", ".join(
+                f"{k} {p['in_smem']} of {p['staged']} staged bytes in "
+                f"shared memory, {p['smem']} bytes a block"
+                for k, p in zip(("forward", "backward"), plans)))
         report((DEC[0], tag), DEC[0],
                lambda: cd.dcgru_decoder_fwd(*args, SSL_LAYERS,
                                             residuals=True),

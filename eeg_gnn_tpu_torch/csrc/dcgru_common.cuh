@@ -1,10 +1,11 @@
 // Device helpers shared by the kernels of this directory: stream
 // conversions, activations, the shared-memory layout rule, the small
-// per-thread products the decoder's and #4's recurrence steps are built
-// from (f32 FMA), the warp-level tensor-core fragments and cp.async
-// copies of the bulk products (dcgru_xin_gemm.cu, sddmm.cu), and the
-// tensor-core step products and operator applies of the encoder's state
-// loops (dcgru_recurrence.cu, dcgru_recurrence_bwd.cu).
+// per-thread products #4's recurrence step is built from (f32 FMA), the
+// warp-level tensor-core fragments and cp.async copies of the bulk
+// products (dcgru_xin_gemm.cu, sddmm.cu), and the tensor-core step
+// products and operator applies of the serial state loops: the
+// encoder's (dcgru_recurrence.cu, dcgru_recurrence_bwd.cu) and the
+// seq2seq decoder's (dcgru_decoder.cu).
 //
 // Conventions: node rows are ragged (N <= kMaxNodes) and masked; features
 // and weights are m-major, row n of an (N, M*W) feature slab holding
@@ -607,14 +608,14 @@ __device__ __forceinline__ void diffuse_t_tc(const uint4* frags,
 // own builds have none of it
 // ---------------------------------------------------------------------------
 
-constexpr int kProbeSlots = 8;
+constexpr int kProbeSlots = 16;
 
 #ifdef DCGRU_PROBE
 // block 0's clocks in each phase, summed over its steps and launches
 __device__ unsigned long long probe_cycles[kProbeSlots];
-#define DCGRU_PROBE_START                             \
-  long long probe_last = clock64();                   \
-  long long probe_acc[kProbeSlots] = {0, 0, 0, 0, 0, 0, 0, 0}
+#define DCGRU_PROBE_START           \
+  long long probe_last = clock64(); \
+  long long probe_acc[kProbeSlots] = {}
 #define DCGRU_PROBE_MARK(i)                   \
   do {                                        \
     const long long now = clock64();          \

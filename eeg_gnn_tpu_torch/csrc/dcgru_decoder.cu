@@ -31,35 +31,73 @@
 //   proj_t = h_{L-1} Wp + bp   (the feedback uses it in f32)
 // Backward loop, walking t down (pallas_decoder.py:31-41):
 //   dproj = dseq_t + (1 - f_t) din0;  dx_t = f_t din0;  dh_{L-1} += dproj Wp^T
-//   layer l = L-1 .. 0: the state part of the x-in cell backward
-//     (dcgru_recurrence_bwd.cu) and its input cotangent, which adds into
-//     dh_{l-1} at the same step, or becomes din0 at l = 0.
+//   layer l = L-1 .. 0, g = dh_l (the cotangent from above added):
+//     du = g (h_prev - c);  dc_pre = g (1 - u) act'(c)
+//     drh = sum_m A_m^T (dc_pre Wc_m^T)
+//     dru_pre = [drh h_prev | du] ru (1 - ru)
+//     dh_l = g u + drh r + sum_m A_m^T (dru_pre Wg_m^T)
+//     din = sum_m A_m^T ([dru_pre | dc_pre] [Wxg | Wxc]_m^T), which adds
+//       into dh_{l-1} at the same step, or becomes din0 at l = 0.
 // The residuals are layer-major, (L, T, B, N, W), so each layer's stream,
 // and layers 1..L-1 together, are contiguous for the bulk dW kernel.
 //
 // What bounds it on an H100. At the SSL shape (T_out=12, B=128, N=19,
-// H=64, D=100, L=3, M=3) the forward does ~10.3 MFLOP per clip-step, ~16
-// GFLOP a launch, ~0.24 ms at the 67 TFLOP/s non-tensor f32 rate these
-// kernels use (f32 FMA, no TF32), against ~3 us for the ~10 MB of streams.
-// The backward loop does the weight-transpose products and A^T applies,
-// ~10 MFLOP per clip-step, ~0.23 ms; it writes dpre (67 MB f32), ~0.03 ms
-// of bytes. Both bound by operations. dWp is ~0.4 GFLOP over ~15 MB: on
-// the tensor cores (as the reference's one bf16 pass) bound by bytes.
+// H=64, D=100, L=3, M=3) the forward does ~10.3 MFLOP per clip-step,
+// ~15.9 GFLOP a launch, ~16 us on the bf16 tensor cores, against ~20 us
+// for its ~65 MB of streams (bf16): bound by bytes. The backward loop does
+// ~10.6 MFLOP per clip-step, ~16 us, against ~41 us for its streams, dpre
+// (f32) among them. But the T_out x L layer-steps are serial, and each is
+// a few phases of short dependent work between block-wide barriers: as in
+// the encoder's loops (dcgru_recurrence.cu), a step is bound by the
+// instructions its warps dispatch (loop_probe.py), not by the tensor cores
+// or memory. dWp is ~0.4 GFLOP over ~15 MB: on the tensor cores (as the
+// reference's one bf16 pass) bound by bytes.
 //
-// Design, as the encoder's kernels: one thread block per clip with the
-// T_out loop inside and the layer loop inside that; the L state
-// cotangents, din0, the clip's M-1 operators and the step's
-// weight-transpose products in shared memory (forward 105 KB, backward
-// loop 132 KB at M=5, D=100, L=3); the TPU's 19 -> 24 node padding and clip
-// block diagonals dropped (ragged rows are masked); weights from global
-// memory (L2), the backward's transposed by the wrapper. Streams (x, proj
-// and the residuals in0, h, ru, c; d_seq, dx) are f32 or bf16; state,
-// weights, dpre, dproj, dW and every sum are f32 (pallas_decoder.py:441-445,
-// 527-536). dWp: a block sums a 64 x 64 tile of (H, D) over a fixed split
-// of 256 rows on f32 FMA (16 outputs per thread), no atomics, the next 32
-// rows' loads in flight during each 32 rows' products.
-// Tensor cores for the loops' 19-row products, and several clips per
-// block, are later work.
+// Design of the two loops, as the encoder's state loops:
+// - One thread block per clip with the T_out loop inside and the layer
+//   loop inside that; the TPU's 19 -> 24 node padding and clip block
+//   diagonals dropped (ragged node tiles are masked).
+// - Each step's products on tensor cores (chain_product, dcgru_common.cuh):
+//   the weights are the A operand, staged by the wrapper at every launch
+//   as tensor-core fragments (ops/cuda_decoder.py, decoder_fwd_weights /
+//   decoder_bwd_weights), the node rows of the step's features or
+//   cotangents the B operand, so 19 nodes pad to 24, not 32. bf16 streams
+//   take bf16 operands with f32 sums (the reference's one bf16 pass),
+//   f32 streams 3xTF32.
+//     forward, a layer: the gates [Wg^T | Wxg^T] (2H rows) against
+//       [A_m h | A_m in], the candidate [Wc^T | Wxc^T] (H rows) against
+//       [A_m (r h) | A_m in], K = M (H + Din); the projection Wp^T (D
+//       rows, K = H);
+//     backward, a layer: dc_pre Wc^T (A = Wc, M H rows, K = H), then in
+//       one phase dru_pre Wg^T (Wg, K = 2H) and the input's
+//       [dru_pre | dc_pre] [Wxg | Wxc]^T (M Din rows, K = 3H); a step
+//       starts with dproj Wp^T (A = Wp, H rows, K = D).
+// - The operator applies A_m v and A_m^T v run on tensor cores in 3xTF32
+//   whatever the streams (diffuse_tc, diffuse_t_tc), on the clip's
+//   operators split into hi and lo fragments once, when the block starts.
+// - Shared memory (at most 227 KB a block): the loop's buffers, then as
+//   much of the tied cell's staged weights as fits, copied once: it runs
+//   L-1 of every L layer-steps. The rest is read from L2 in fragment
+//   order, one conflict-free 16-byte load a lane: layer 0 (186 KiB bf16
+//   at M=3), Wp, and every weight of f32 streams or M=5. The plan
+//   (dec_plan; dcgru_dec_plan reports it) takes the longest prefix of the
+//   staged weights that fits: bf16 at M=3 the whole tied cell forward
+//   (144 KiB), its Wg and Wx backward (120 KiB of 144).
+// - Phases of a step between barriers: forward four a layer (diffuse
+//   [h | in], gates, diffuse r h, candidate) and the projection, whose
+//   epilogue makes the next step's layer-0 input; backward one and four a
+//   layer (dproj Wp^T; dc_pre Wc^T, the A^T apply of drh, the gate and
+//   input products, the A^T applies of dh and din). A layer's elementwise
+//   head (g, du, dc_pre) runs in the epilogue of the phase that completes
+//   its g: the projection's product for the top layer, the input
+//   cotangent's apply above for the others; layer 0's input cotangent
+//   makes the next step's dproj and dx in its epilogue.
+// - Streams (x, proj and the residuals in0, h, ru, c; d_seq, dx) are f32
+//   or bf16; state, gates, cotangents, dpre, dproj and every sum are f32
+//   (pallas_decoder.py:441-445, 527-536).
+// dWp: a block sums a 64 x 64 tile of (H, D) over a fixed split of 256
+// rows on f32 FMA (16 outputs per thread), no atomics, the next 32 rows'
+// loads in flight during each 32 rows' products.
 
 #include "dcgru_common.cuh"
 
@@ -67,14 +105,20 @@ namespace {
 
 using namespace dcgru;
 
+// threads of a loop's block: 16 warps where the registers allow (bf16
+// operands), fewer for 3xTF32; a step is latency-bound, and more warps
+// hide more of it
+template <typename FT>
+constexpr int kFwdThreads = sizeof(FT) == 2 ? 512 : 256;
+template <typename FT>
+constexpr int kLoopThreads = sizeof(FT) == 2 ? 512 : 384;
+
 struct FwdParams {
   const void* x;         // (T, B, N, D) teacher-forcing stream
   const float* force;    // (T,) per-step force f_t in {0, 1}
   const float* a_ops;    // (M, a_batch, N, N), a_batch in {1, B}
-  const float* w[2][4];  // [layer 0 | shared] x [wxg (M*Din, 2H),
-                         // wxc (M*Din, H), wg (M*H, 2H), wc (M*H, H)]
+  const void* w;         // staged A tiles, DecOps::fwd order
   const float* bias[2][2];  // [layer 0 | shared] x [bg (2H), bc (H)]
-  const float* wp;       // (H, D) projection (proj_w^T)
   const float* bp;       // (D)
   const float* h0;       // (L, B, N, H) f32
   void* proj;            // (T, B, N, D)
@@ -87,9 +131,7 @@ struct FwdParams {
 
 struct LoopParams {
   const float* a_ops;
-  const float* wT[2][4];  // [layer 0 | shared] x [wxgT (2H, M*Din),
-                          // wxcT (H, M*Din), wgT (2H, M*H), wcT (H, M*H)]
-  const float* wpT;       // (D, H) = proj_w
+  const void* w;          // staged A tiles, DecOps::bwd order
   const void* h_prev;     // (L, T, B, N, H) [h0, h_seq[:-1]] per layer
   const void* ru;         // (L, T, B, N, 2H)
   const void* c;          // (L, T, B, N, H)
@@ -109,41 +151,113 @@ struct DwpParams {
   int R, H, D;
 };
 
-// Shared-memory layouts, in floats; every array starts 16-byte aligned.
-// Dm = max(D, H) is the widest layer input.
-struct FwdSmem {
-  int a, h, in, hf, xf, ru, xc, total;
-  __host__ __device__ FwdSmem(int N, int D, int H, int M, int L) {
-    const int Dm = D > H ? D : H;
-    a = 0;                               // (M-1, N, N) operators
-    h = a + pad4((M - 1) * N * N);       // (L, N, H) states
-    in = h + pad4(L * N * H);            // (N, D) layer-0 input (feedback)
-    hf = in + pad4(N * D);               // (N, M*H) state features
-    xf = hf + pad4(N * M * H);           // (N, M*Din) input features
-    ru = xf + pad4(N * M * Dm);          // (N, 2H) gates
-    xc = ru + pad4(N * 2 * H);           // (N, H) input part of cand
-    total = xc + pad4(N * H);
+// Byte offsets of the staged A operands (ops/cuda_decoder.py), the tied
+// cell's first (only with L > 1), so that a prefix of them can sit in
+// shared memory:
+//   fwd: [tied gate^T | tied cand^T |] l0 gate^T | l0 cand^T | Wp^T
+//        (gate^T = [Wg^T | Wxg^T] (2H, M(H+Din)), cand^T (H, M(H+Din)),
+//        Wp^T (D, H))
+//   bwd: [tied Wg | tied Wx | tied Wc |] l0 Wg | l0 Wx | l0 Wc | Wp
+//        (Wg (MH, 2H), Wx = [Wxg | Wxc] (M Din, 3H), Wc (MH, H), Wp (H, D))
+// cell[c][i]: operand i of cell c (0 layer 0, 1 tied); cuts: the prefix
+// sizes a plan may copy, longest first, the last 0.
+template <typename FT>
+struct DecOps {
+  int cell[2][3], wp, total, cuts[3];
+  __host__ __device__ DecOps(bool fwd, int D, int H, int M, int L) {
+    int off = 0;
+    int size[2][3];
+    for (int c = 1; c >= 0; --c) {
+      const int Din = c == 0 ? D : H, K = M * (H + Din);
+      if (fwd) {
+        size[c][0] = chain_wbytes<FT>(2 * H, K);
+        size[c][1] = chain_wbytes<FT>(H, K);
+        size[c][2] = 0;
+      } else {
+        size[c][0] = chain_wbytes<FT>(M * H, 2 * H);
+        size[c][1] = chain_wbytes<FT>(M * Din, 3 * H);
+        size[c][2] = chain_wbytes<FT>(M * H, H);
+      }
+      for (int i = 0; i < 3; ++i) {
+        cell[c][i] = off;
+        if (c == 0 || L > 1) off += size[c][i];
+      }
+    }
+    wp = off;
+    total = off + (fwd ? chain_wbytes<FT>(D, H) : chain_wbytes<FT>(H, D));
+    // the whole tied cell, all but its last operand, nothing
+    cuts[0] = L > 1 ? cell[0][0] : 0;
+    cuts[1] = L > 1 ? cell[1][fwd ? 1 : 2] : 0;
+    cuts[2] = 0;
   }
 };
 
-struct LoopSmem {
-  int a, dh, din, hp, ru, c, dyh, dyx, dru, drh, dxa, total;
-  __host__ __device__ LoopSmem(int N, int D, int H, int M, int L) {
-    const int Dm = D > H ? D : H;
-    a = 0;                               // (M-1, N, N) operators
-    dh = a + pad4((M - 1) * N * N);      // (L, N, H) state cotangents
-    din = dh + pad4(L * N * H);          // (N, D) din0, carried down in t
-    hp = din + pad4(N * D);              // (N, H) h_prev
-    ru = hp + pad4(N * H);               // (N, 2H) r | u
-    c = ru + pad4(N * 2 * H);            // (N, H) dc_pre
-    dyh = c + pad4(N * H);               // (N, M*H) dpre W_h^T
-    dyx = dyh + pad4(N * M * H);         // (N, M*Din) dpre W_x^T
-    dru = dyx + pad4(N * M * Dm);        // (N, 2H) dru_pre
-    drh = dru + pad4(N * 2 * H);         // (N, H) drh
-    dxa = drh + pad4(N * H);             // (N, Din) cand part of din;
-    total = dxa + pad4(N * Dm);          //   dproj (N, D) at the top
+// Shared-memory plans, in bytes; every array starts 16-byte aligned and
+// the staged-weight prefix (wsmem bytes) comes first. rows: the node rows
+// padded to the 8-node tile; a buffer that a product or an operator apply
+// reads as its B operand keeps rows N..rows-1 (and its padded columns)
+// zero.
+template <typename FT>
+struct FwdPlan {
+  int op, h, in, ru, f, p, total;
+  int ldh, ldi, ldru, ldf, ldp;
+  __host__ __device__ FwdPlan(int N, int D, int H, int M, int L, int wsmem) {
+    const int rows = 8 * ((N + 7) / 8), Dm = D > H ? D : H;
+    ldh = chain_ld(H);
+    ldi = chain_ld(D);
+    ldru = chain_ld(2 * H);
+    ldf = ChainOps<FT>::ld(M * (H + Dm));
+    ldp = ChainOps<FT>::ld(H);
+    op = wsmem;                                       // A_m fragments
+    h = op + op_frag_bytes(N, M);                     // (L, rows, H) f32
+    in = h + align16(L * rows * ldh * 4);             // (rows, D) f32 in_0
+    ru = in + align16(rows * ldi * 4);                // (rows, 2H) f32
+    f = ru + align16(rows * ldru * 4);                // (rows, M(H+Din))
+    p = f + align16(rows * ldf * (int)sizeof(FT));    // (rows, H) h_{L-1}
+    total = p + align16(rows * ldp * (int)sizeof(FT));
   }
 };
+
+template <typename FT, typename S>
+struct LoopPlan {
+  int op, dh, dy, pre, q, res, total;
+  int ldh, ldy, ldpre, ldq, ldres;
+  __host__ __device__ LoopPlan(int N, int D, int H, int M, int L,
+                               int wsmem) {
+    const int rows = 8 * ((N + 7) / 8), Dm = D > H ? D : H;
+    ldh = chain_ld(H);
+    ldy = chain_ld(M * (H + Dm));
+    ldpre = ChainOps<FT>::ld(3 * H);
+    ldq = ChainOps<FT>::ld(D);
+    ldres = 3 * H + 8;
+    op = wsmem;                                    // A_m^T fragments
+    dh = op + op_frag_bytes(N, M);                 // (L, N, H) f32
+    dy = dh + align16(L * N * ldh * 4);            // (rows, M(H+Din)) f32
+    pre = dy + align16(rows * ldy * 4);            // (rows, 3H) dpre
+    q = pre + align16(rows * ldpre * (int)sizeof(FT));  // (rows, D) dproj
+    res = q + align16(rows * ldq * (int)sizeof(FT));    // (N, 3H) S
+    total = res + align16(N * ldres * (int)sizeof(S));  //   [h_prev | r | u]
+  }
+};
+
+// The staged-weight prefix a loop copies into shared memory: the longest
+// cut of DecOps whose plan the current card gives a block; false where
+// none fits.
+template <typename Plan>
+bool dec_plan(const int (&cuts)[3], int N, int D, int H, int M, int L,
+              int& wsmem, int& bytes) {
+  int dev = 0, cap = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  for (int i = 0; i < 3; ++i) {
+    wsmem = cuts[i];
+    bytes = Plan(N, D, H, M, L, wsmem).total;
+    if (bytes <= cap) return true;
+  }
+  return false;
+}
 
 constexpr int kDwpTile = 64;   // dWp outputs of a block: 64 rows x 64 cols
 constexpr int kDwpK = 32;      // rows per shared-memory stage
@@ -151,36 +265,35 @@ constexpr int kDwpRows = 256;  // rows a split sums (ops/cuda_decoder.py)
 constexpr int kDwpThreads = 256;
 constexpr int kDwpLoads = kDwpK * kDwpTile / kDwpThreads;  // per thread
 
-template <typename S>
-__global__ void __launch_bounds__(kMaxThreads)
-    dcgru_dec_fwd_kernel(const FwdParams p) {
-  extern __shared__ __align__(16) float smem[];
+// An operand at byte offset off of the staged weights: the shared-memory
+// copy for the prefix [0, wsmem), else the wrapper's tiles in L2.
+__device__ __forceinline__ const uint4* staged(const unsigned char* smem,
+                                               const void* w, int off,
+                                               int wsmem) {
+  return reinterpret_cast<const uint4*>(
+      off < wsmem ? smem + off : static_cast<const unsigned char*>(w) + off);
+}
+
+// S: the dtype of the streams; FT: the products' operand type (bf16 for
+// bf16 streams, f32 split into 3xTF32). Probe slots (loop_probe.py): the
+// four phases of layer 0, of the tied layers, then the projection.
+template <typename S, typename FT>
+__global__ void __launch_bounds__(kFwdThreads<FT>, 1)
+    dcgru_dec_fwd_kernel(const FwdParams p, const int wsmem) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int N = p.N, D = p.D, H = p.H, M = p.M, L = p.L;
-  const FwdSmem sm(N, D, H, M, L);
-  float* sA = smem + sm.a;
-  float* sh = smem + sm.h;
-  float* sfeed = smem + sm.in;
-  float* hf = smem + sm.hf;
-  float* xf = smem + sm.xf;
-  float* sru = smem + sm.ru;
-  float* sxc = smem + sm.xc;
+  const FwdPlan<FT> P(N, D, H, M, L, wsmem);
+  const DecOps<FT> W(true, D, H, M, L);
+  uint4* sop = reinterpret_cast<uint4*>(smem + P.op);
+  float* sh = reinterpret_cast<float*>(smem + P.h);
+  float* sfeed = reinterpret_cast<float*>(smem + P.in);
+  float* sru = reinterpret_cast<float*>(smem + P.ru);
+  FT* sf = reinterpret_cast<FT*>(smem + P.f);
+  FT* sp = reinterpret_cast<FT*>(smem + P.p);
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int NN = N * N, NH = N * H, MH = M * H, H2 = 2 * H, H3 = 3 * H;
-  const int chunks = (N + kRows - 1) / kRows;
-
-  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1),
-  // the L initial states, and the GO symbol
-  const float* a_clip = p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN;
-  for (int i = tid; i < (M - 1) * NN; i += nthr) {
-    int m = i / NN + 1, e = i - (m - 1) * NN;
-    sA[i] = a_clip[(size_t)m * p.a_batch * NN + e];
-  }
-  for (int i = tid; i < L * NH; i += nthr) {
-    const int l = i / NH, e = i - l * NH;
-    sh[i] = p.h0[((size_t)l * p.B + b) * NH + e];
-  }
-  for (int i = tid; i < N * D; i += nthr) sfeed[i] = 0.0f;
+  const int rows = 8 * ((N + 7) / 8);
+  const int NN = N * N, MH = M * H, H2 = 2 * H, hslab = rows * P.ldh;
 
   const S* xs = static_cast<const S*>(p.x);
   S* projs = static_cast<S*>(p.proj);
@@ -189,359 +302,257 @@ __global__ void __launch_bounds__(kMaxThreads)
   S* rus = static_cast<S*>(p.ru_seq);
   S* cs = static_cast<S*>(p.c_seq);
 
+  if (wsmem) cp_block(smem, p.w, wsmem);
+  cp_commit();
+  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1)
+  stage_op_frags(sop, p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN,
+                 p.a_batch, N, M, false);
+  // the L initial states and the GO symbol; every padding stays zero
+  for (int i = tid; i < L * hslab; i += nthr) {
+    const int l = i / hslab, n = (i - l * hslab) / P.ldh;
+    const int c = i - l * hslab - n * P.ldh;
+    sh[i] = n < N && c < H ? p.h0[(((size_t)l * p.B + b) * N + n) * H + c]
+                           : 0.0f;
+  }
+  for (int i = tid; i < rows * P.ldi; i += nthr) sfeed[i] = 0.0f;
+  for (int i = tid; i < rows * P.ldru; i += nthr) sru[i] = 0.0f;
+  for (int i = tid; i < rows * P.ldf; i += nthr) sf[i] = from_f<FT>(0.0f);
+  for (int i = tid; i < rows * P.ldp; i += nthr) sp[i] = from_f<FT>(0.0f);
+  cp_wait<0>();
+  __syncthreads();
+  DCGRU_PROBE_START;
+
   for (int t = 0; t < p.T; ++t) {
     const size_t slab = (size_t)t * p.B + b;  // (t, b) row of x, proj, in0
-    __syncthreads();  // the previous step's states and feedback are in
-    if (in0s)
-      for (int i = tid; i < N * D; i += nthr)
-        in0s[slab * N * D + i] = from_f<S>(sfeed[i]);
-
     for (int l = 0; l < L; ++l) {
-      const int cell = l == 0 ? 0 : 1;
-      const int Din = l == 0 ? D : H, MD = M * Din;
-      const float* in = l == 0 ? sfeed : sh + (l - 1) * NH;
-      float* hl = sh + l * NH;
-      const float* wxg = p.w[cell][0];
-      const float* wxc = p.w[cell][1];
-      const float* wg = p.w[cell][2];
-      const float* wc = p.w[cell][3];
+      const int cell = l == 0 ? 0 : 1, slot = l == 0 ? 0 : 4;
+      const int Din = l == 0 ? D : H, K = M * (H + Din);
+      const float* in = l == 0 ? sfeed : sh + (l - 1) * hslab;
+      const int ldin = l == 0 ? P.ldi : P.ldh;
+      float* hl = sh + l * hslab;
+      const float* bg = p.bias[cell][0];
+      const float* bc = p.bias[cell][1];
       // the (l, t, b) row of the layer-major residuals
       const size_t lrow = ((size_t)l * p.T + t) * p.B + b;
 
-      // diffuse [h_l | in_l]: one (m, column) per task
-      const int wcols = H + Din;
-      for (int task = tid; task < M * wcols; task += nthr) {
-        const int m = task / wcols, cc = task - m * wcols;
-        const bool is_h = cc < H;
-        const float* src = is_h ? hl + cc : in + (cc - H);
-        const int lds = is_h ? H : Din;
-        float v[kMaxNodes];
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = src[k * lds];
-        if (is_h)
-          diffuse_col(v, sA, N, m, hf + m * H + cc, MH);
-        else
-          diffuse_col(v, sA, N, m, xf + m * Din + (cc - H), MD);
-      }
+      // the features [A_m h | A_m in]; the depth padding past this
+      // layer's K is zero (another layer's features may lie there)
+      diffuse_tc(sop, [&](int k, int c) { return hl[k * P.ldh + c]; }, N, M,
+                 H, sf, P.ldf);
+      diffuse_tc(sop, [&](int k, int c) { return in[k * ldin + c]; }, N, M,
+                 Din, sf + MH, P.ldf);
+      const int kpad = chain_ktiles<FT>(K) * ChainOps<FT>::kDepth - K;
+      for (int i = tid; i < N * kpad; i += nthr)
+        sf[(i / kpad) * P.ldf + K + i % kpad] = from_f<FT>(0.0f);
+      if (l == 0 && in0s)
+        for (int i = tid; i < N * D; i += nthr)
+          in0s[slab * N * D + i] = from_f<S>(sfeed[(i / D) * P.ldi + i % D]);
       __syncthreads();
+      DCGRU_PROBE_MARK(slot);
 
-      // gates, and the input half of the candidate
-      for (int task = tid; task < H3 * chunks; task += nthr) {
-        const int chunk = task / H3, j = task - chunk * H3;
-        const int r0 = chunk * kRows;
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        if (j < H2) {
-          gemm_col(acc, xf, MD, r0, N, wxg + j, H2);
-          gemm_col(acc, hf, MH, r0, N, wg + j, H2);
-          const float bj = p.bias[cell][0][j];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const int n = r0 + r;
-            if (n < N) {
-              const float v = sigmoid(acc[r] + bj);
-              sru[n * H2 + j] = v;
-              if (rus)
-                rus[(lrow * N + n) * H2 + j] = from_f<S>(v);
-            }
-          }
-        } else {
-          const int jj = j - H2;
-          gemm_col(acc, xf, MD, r0, N, wxc + jj, H);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            if (r0 + r < N) sxc[(r0 + r) * H + jj] = acc[r];
-        }
-      }
+      // gates: ru^T = [Wg^T | Wxg^T] F^T
+      chain_product(
+          staged(smem, p.w, W.cell[cell][0], wsmem), H2, K, sf, P.ldf, N,
+          [&](int j, int n, float v) {
+            const float r = sigmoid(v + __ldg(bg + j));
+            sru[n * P.ldru + j] = r;
+            if (rus) rus[(lrow * N + n) * H2 + j] = from_f<S>(r);
+          });
       __syncthreads();
+      DCGRU_PROBE_MARK(slot + 1);
 
-      // diffuse r*h into the state features (their h features are spent)
-      for (int task = tid; task < M * H; task += nthr) {
-        const int m = task / H, cc = task - m * H;
-        float v[kMaxNodes];
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = sru[k * H2 + cc] * hl[k * H + cc];
-        diffuse_col(v, sA, N, m, hf + m * H + cc, MH);
-      }
+      // the features [A_m (r h)] (the h features are spent; the input's
+      // stay)
+      diffuse_tc(
+          sop,
+          [&](int k, int c) { return sru[k * P.ldru + c] * hl[k * P.ldh + c]; },
+          N, M, H, sf, P.ldf);
       __syncthreads();
+      DCGRU_PROBE_MARK(slot + 2);
 
       // candidate and state update; (n, j) of h_l has one owner
-      for (int task = tid; task < H * chunks; task += nthr) {
-        const int chunk = task / H, j = task - chunk * H;
-        const int r0 = chunk * kRows;
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        gemm_col(acc, hf, MH, r0, N, wc + j, H);
-        const float bj = p.bias[cell][1][j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int n = r0 + r;
-          if (n < N) {
-            const float c = activate(acc[r] + bj + sxc[n * H + j], p.act);
-            const float u = sru[n * H2 + H + j];
-            const float hn = u * hl[n * H + j] + (1.0f - u) * c;
-            hl[n * H + j] = hn;
+      chain_product(
+          staged(smem, p.w, W.cell[cell][1], wsmem), H, K, sf, P.ldf, N,
+          [&](int j, int n, float v) {
+            const float c = activate(v + __ldg(bc + j), p.act);
+            const float u = sru[n * P.ldru + H + j];
+            const float hn = u * hl[n * P.ldh + j] + (1.0f - u) * c;
+            hl[n * P.ldh + j] = hn;
             const size_t o = (lrow * N + n) * H + j;
             if (hs) hs[o] = from_f<S>(hn);
             if (cs) cs[o] = from_f<S>(c);
-          }
-        }
-      }
+            if (l == L - 1) sp[n * P.ldp + j] = from_f<FT>(hn);
+          });
       __syncthreads();
+      DCGRU_PROBE_MARK(slot + 3);
     }
 
-    // projection of the top state, and the next step's layer-0 input
+    // the projection of the top state, and the next step's layer-0 input
+    // (the feedback uses the projection in f32)
     const float f = p.force[t];
-    const float* top = sh + (L - 1) * NH;
-    for (int task = tid; task < D * chunks; task += nthr) {
-      const int chunk = task / D, j = task - chunk * D;
-      const int r0 = chunk * kRows;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      gemm_col(acc, top, H, r0, N, p.wp + j, D);
-      const float bj = p.bp[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int n = r0 + r;
-        if (n < N) {
-          const float v = acc[r] + bj;
+    chain_product(
+        staged(smem, p.w, W.wp, wsmem), D, H, sp, P.ldp, N,
+        [&](int j, int n, float v) {
+          v += __ldg(p.bp + j);
           const size_t o = (slab * N + n) * D + j;
           projs[o] = from_f<S>(v);
-          sfeed[n * D + j] = f * to_f(xs[o]) + (1.0f - f) * v;
-        }
-      }
-    }
+          sfeed[n * P.ldi + j] = f * to_f(xs[o]) + (1.0f - f) * v;
+        });
+    __syncthreads();
+    DCGRU_PROBE_MARK(8);
   }
+  DCGRU_PROBE_STORE;
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kMaxThreads)
-    dcgru_dec_bwd_loop_kernel(const LoopParams p) {
-  extern __shared__ __align__(16) float smem[];
+// S: the dtype of the streams; FT: the products' operand type. Probe
+// slots: dproj Wp^T, the four phases of the tied layers, of layer 0.
+template <typename S, typename FT>
+__global__ void __launch_bounds__(kLoopThreads<FT>, 1)
+    dcgru_dec_bwd_loop_kernel(const LoopParams p, const int wsmem) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int N = p.N, D = p.D, H = p.H, M = p.M, L = p.L;
-  const LoopSmem sm(N, D, H, M, L);
-  float* sA = smem + sm.a;
-  float* sdh = smem + sm.dh;
-  float* sdin = smem + sm.din;
-  float* shp = smem + sm.hp;
-  float* sru = smem + sm.ru;
-  float* sdc = smem + sm.c;
-  float* sdyh = smem + sm.dyh;
-  float* sdyx = smem + sm.dyx;
-  float* sdru = smem + sm.dru;
-  float* sdrh = smem + sm.drh;
-  float* sdxa = smem + sm.dxa;
+  const LoopPlan<FT, S> P(N, D, H, M, L, wsmem);
+  const DecOps<FT> W(false, D, H, M, L);
+  uint4* sop = reinterpret_cast<uint4*>(smem + P.op);
+  float* sdh = reinterpret_cast<float*>(smem + P.dh);
+  float* sdy = reinterpret_cast<float*>(smem + P.dy);
+  FT* spre = reinterpret_cast<FT*>(smem + P.pre);
+  FT* sq = reinterpret_cast<FT*>(smem + P.q);
+  S* sres = reinterpret_cast<S*>(smem + P.res);
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int NN = N * N, NH = N * H, MH = M * H, H2 = 2 * H, H3 = 3 * H;
-  const int chunks = (N + kRows - 1) / kRows;
-  const int tchunks = (N + kTRows - 1) / kTRows;
-
-  const float* a_clip = p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN;
-  for (int i = tid; i < (M - 1) * NN; i += nthr) {
-    int m = i / NN + 1, e = i - (m - 1) * NN;
-    sA[i] = a_clip[(size_t)m * p.a_batch * NN + e];
-  }
-  for (int i = tid; i < L * NH; i += nthr) sdh[i] = 0.0f;
-  for (int i = tid; i < N * D; i += nthr) sdin[i] = 0.0f;
+  const int rows = 8 * ((N + 7) / 8);
+  const int NN = N * N, MH = M * H, H2 = 2 * H, H3 = 3 * H;
+  const int dhslab = N * P.ldh;
 
   const S* hps = static_cast<const S*>(p.h_prev);
   const S* rus = static_cast<const S*>(p.ru);
   const S* cs = static_cast<const S*>(p.c);
   const S* ds = static_cast<const S*>(p.d_seq);
   S* dxs = static_cast<S*>(p.dx);
+
+  // the elementwise head of layer l at step t, given g = dh_l (the
+  // cotangent from above added) at node n, column j: g kept as dh_l; du
+  // and dc_pre into dpre and the product operand; the residuals the
+  // layer's A^T apply of drh needs
+  auto head = [&](int l, int t, int n, int j, float g) {
+    const size_t lrow = ((size_t)l * p.T + t) * p.B + b;
+    const size_t o = (lrow * N + n) * H + j;
+    const size_t oru = (lrow * N + n) * H2 + j;
+    const S hp = hps[o], r = rus[oru], u = rus[oru + H];
+    const float uf = to_f(u), c = to_f(cs[o]);
+    const float dc = g * (1.0f - uf) * act_grad(c, p.act);
+    const float du = g * (to_f(hp) - c) * uf * (1.0f - uf);
+    sdh[l * dhslab + n * P.ldh + j] = g;
+    spre[n * P.ldpre + H + j] = from_f<FT>(du);
+    spre[n * P.ldpre + H2 + j] = from_f<FT>(dc);
+    float* dp = p.dpre + (lrow * N + n) * H3;
+    dp[H + j] = du;
+    dp[H2 + j] = dc;
+    S* rs = sres + n * P.ldres;
+    rs[j] = hp;
+    rs[H + j] = r;
+    rs[H2 + j] = u;
+  };
+  // the feedback cotangent din0 (from step t+1) at node n, column j splits
+  // between x_t and proj_t
+  auto feedback = [&](int t, int n, int j, float din) {
+    const float f = p.force[t];
+    const size_t o = (((size_t)t * p.B + b) * N + n) * D + j;
+    const float v = to_f(ds[o]) + (1.0f - f) * din;
+    p.dproj[o] = v;
+    sq[n * P.ldq + j] = from_f<FT>(v);
+    dxs[o] = from_f<S>(f * din);
+  };
+
+  if (wsmem) cp_block(smem, p.w, wsmem);
+  cp_commit();
+  // the clip's transposed operators (a shared graph has a_batch == 1)
+  stage_op_frags(sop, p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN,
+                 p.a_batch, N, M, true);
+  for (int i = tid; i < L * dhslab; i += nthr) sdh[i] = 0.0f;
+  // the operands' padding (node rows >= N, padded columns) stays zero
+  for (int i = tid; i < rows * P.ldy; i += nthr) sdy[i] = 0.0f;
+  for (int i = tid; i < rows * P.ldpre; i += nthr) spre[i] = from_f<FT>(0.0f);
+  for (int i = tid; i < rows * P.ldq; i += nthr) sq[i] = from_f<FT>(0.0f);
   __syncthreads();
+  // the last step's dproj and dx (no feedback cotangent yet)
+  for (int i = tid; i < N * D; i += nthr)
+    feedback(p.T - 1, i / D, i % D, 0.0f);
+  cp_wait<0>();
+  __syncthreads();
+  DCGRU_PROBE_START;
 
   for (int t = p.T - 1; t >= 0; --t) {
-    const size_t slab = (size_t)t * p.B + b;  // (t, b) row of d_seq, dx
-    const float f = p.force[t];
-
-    // S0: the feedback cotangent splits between x_t and proj_t
-    float* sdp = sdxa;  // dproj (N, D) until the layer loop
-    for (int i = tid; i < N * D; i += nthr) {
-      const size_t o = slab * N * D + i;
-      const float din = sdin[i];
-      const float v = to_f(ds[o]) + (1.0f - f) * din;
-      sdp[i] = v;
-      p.dproj[o] = v;
-      dxs[o] = from_f<S>(f * din);
-    }
+    // dh_{L-1} += dproj Wp^T, and the top layer's head
+    chain_product(
+        staged(smem, p.w, W.wp, wsmem), H, D, sq, P.ldq, N,
+        [&](int j, int n, float v) {
+          head(L - 1, t, n, j, sdh[(L - 1) * dhslab + n * P.ldh + j] + v);
+        });
     __syncthreads();
-
-    // S1: dh_{L-1} += dproj Wp^T
-    float* dtop = sdh + (L - 1) * NH;
-    for (int task = tid; task < H * chunks; task += nthr) {
-      const int chunk = task / H, j = task - chunk * H;
-      const int r0 = chunk * kRows;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      gemm_col(acc, sdp, D, r0, N, p.wpT + j, H);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r0 + r < N) dtop[(r0 + r) * H + j] += acc[r];
-    }
-    __syncthreads();
+    DCGRU_PROBE_MARK(0);
 
     for (int l = L - 1; l >= 0; --l) {
-      const int cell = l == 0 ? 0 : 1;
+      const int cell = l == 0 ? 0 : 1, slot = l == 0 ? 5 : 1;
       const int Din = l == 0 ? D : H, MD = M * Din;
-      const float* wxgT = p.wT[cell][0];
-      const float* wxcT = p.wT[cell][1];
-      const float* wgT = p.wT[cell][2];
-      const float* wcT = p.wT[cell][3];
-      float* sdhl = sdh + l * NH;
-      // the (l, t, b) row of the layer-major streams and of dpre
-      const size_t lrow = ((size_t)l * p.T + t) * p.B + b;
-      float* dpre = p.dpre + lrow * N * H3;
+      float* sdhl = sdh + l * dhslab;
+      float* dp = p.dpre + (((size_t)l * p.T + t) * p.B + b) * N * H3;
 
-      // P0: residuals in; g (dh_l, the cotangent from above already
-      // added), du_pre and dc_pre (written to dpre)
-      for (int i = tid; i < NH; i += nthr) {
-        const int n = i / H, j = i - n * H;
-        const size_t o = lrow * NH + i;
-        const size_t oru = (lrow * N + n) * H2 + j;
-        const float hp = to_f(hps[o]);
-        const float r = to_f(rus[oru]);
-        const float u = to_f(rus[oru + H]);
-        const float c = to_f(cs[o]);
-        const float g = sdhl[i];
-        const float dc = g * (1.0f - u) * act_grad(c, p.act);
-        const float du = g * (hp - c) * u * (1.0f - u);
-        shp[i] = hp;
-        sru[n * H2 + j] = r;
-        sru[n * H2 + H + j] = u;
-        sdc[i] = dc;
-        sdru[n * H2 + H + j] = du;
-        dpre[n * H3 + H + j] = du;
-        dpre[n * H3 + H2 + j] = dc;
-      }
+      // dc_pre Wc^T, as (Wc dc_pre^T)^T
+      chain_product(
+          staged(smem, p.w, W.cell[cell][2], wsmem), MH, H, spre + H2,
+          P.ldpre, N, [&](int k, int n, float v) { sdy[n * P.ldy + k] = v; });
       __syncthreads();
+      DCGRU_PROBE_MARK(slot);
 
-      // P2: candidate weight-transpose products dc_pre [Wc | Wxc]^T
-      const int n_wt = (MH + MD) * chunks;
-      for (int task = tid; task < n_wt; task += nthr) {
-        const int chunk = task / (MH + MD), j = task - chunk * (MH + MD);
-        const int r0 = chunk * kRows;
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        float* dst;
-        int ldd;
-        if (j < MH) {
-          gemm_col(acc, sdc, H, r0, N, wcT + j, MH);
-          dst = sdyh + j;
-          ldd = MH;
-        } else {
-          gemm_col(acc, sdc, H, r0, N, wxcT + (j - MH), MD);
-          dst = sdyx + (j - MH);
-          ldd = MD;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
-      }
+      // drh = sum A_m^T (dc_pre Wc_m^T); the r half of dru_pre; dh_l
+      // starts as g u + drh r
+      diffuse_t_tc(sop, sdy, P.ldy, N, M, H, [&](int n, int c, float drh) {
+        const S* rs = sres + n * P.ldres;
+        const float hp = to_f(rs[c]), r = to_f(rs[H + c]), u = to_f(rs[H2 + c]);
+        const float dr = drh * hp * r * (1.0f - r);
+        spre[n * P.ldpre + c] = from_f<FT>(dr);
+        dp[n * H3 + c] = dr;
+        sdhl[n * P.ldh + c] = sdhl[n * P.ldh + c] * u + drh * r;
+      });
       __syncthreads();
+      DCGRU_PROBE_MARK(slot + 1);
 
-      // P3: A^T applies: drh and the gate half of dru_pre (written to
-      // dpre), and the candidate part of the input cotangent
-      for (int task = tid; task < (H + Din) * tchunks; task += nthr) {
-        const int chunk = task / (H + Din), cc = task - chunk * (H + Din);
-        const int n0 = chunk * kTRows;
-        float acc[kTRows];
-        if (cc < H) {
-          diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
-#pragma unroll
-          for (int i = 0; i < kTRows; ++i) {
-            const int n = n0 + i;
-            if (n < N) {
-              const float r = sru[n * H2 + cc];
-              const float dr = acc[i] * shp[n * H + cc] * r * (1.0f - r);
-              sdrh[n * H + cc] = acc[i];
-              sdru[n * H2 + cc] = dr;
-              dpre[n * H3 + cc] = dr;
-            }
-          }
-        } else {
-          const int j = cc - H;
-          diffuse_t_col(acc, sA, N, M, sdyx + j, MD, Din, n0);
-#pragma unroll
-          for (int i = 0; i < kTRows; ++i)
-            if (n0 + i < N) sdxa[(n0 + i) * Din + j] = acc[i];
-        }
-      }
+      // dru_pre Wg^T, and the input's [dru_pre | dc_pre] [Wxg | Wxc]^T
+      chain_product(
+          staged(smem, p.w, W.cell[cell][0], wsmem), MH, H2, spre, P.ldpre,
+          N, [&](int k, int n, float v) { sdy[n * P.ldy + k] = v; });
+      chain_product(
+          staged(smem, p.w, W.cell[cell][1], wsmem), MD, H3, spre, P.ldpre,
+          N, [&](int k, int n, float v) { sdy[n * P.ldy + MH + k] = v; });
       __syncthreads();
+      DCGRU_PROBE_MARK(slot + 2);
 
-      // P4: gate weight-transpose products dru_pre [Wg | Wxg]^T
-      for (int task = tid; task < n_wt; task += nthr) {
-        const int chunk = task / (MH + MD), j = task - chunk * (MH + MD);
-        const int r0 = chunk * kRows;
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        float* dst;
-        int ldd;
-        if (j < MH) {
-          gemm_col(acc, sdru, H2, r0, N, wgT + j, MH);
-          dst = sdyh + j;
-          ldd = MH;
-        } else {
-          gemm_col(acc, sdru, H2, r0, N, wxgT + (j - MH), MD);
-          dst = sdyx + (j - MH);
-          ldd = MD;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (r0 + r < N) dst[(r0 + r) * ldd] = acc[r];
-      }
+      // the A^T applies: dh_l, and the input cotangent, which flows into
+      // the layer below at this step (its head), or is din0: the previous
+      // step's dproj and dx
+      diffuse_t_tc(sop, sdy, P.ldy, N, M, H, [&](int n, int c, float v) {
+        sdhl[n * P.ldh + c] += v;
+      });
+      diffuse_t_tc(sop, sdy + MH, P.ldy, N, M, Din,
+                   [&](int n, int j, float v) {
+                     if (l > 0)
+                       head(l - 1, t, n, j,
+                            sdh[(l - 1) * dhslab + n * P.ldh + j] + v);
+                     else if (t > 0)
+                       feedback(t - 1, n, j, v);
+                   });
       __syncthreads();
-
-      // P5: the gate A^T applies: dh_prev, and the rest of the input
-      // cotangent, which flows into the layer below at this step (or is
-      // din0, for x_{t-1} and proj_{t-1})
-      for (int task = tid; task < (H + Din) * tchunks; task += nthr) {
-        const int chunk = task / (H + Din), cc = task - chunk * (H + Din);
-        const int n0 = chunk * kTRows;
-        float acc[kTRows];
-        if (cc < H) {
-          diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
-#pragma unroll
-          for (int i = 0; i < kTRows; ++i) {
-            const int n = n0 + i;
-            if (n < N) {
-              const float g = sdhl[n * H + cc];
-              const float r = sru[n * H2 + cc], u = sru[n * H2 + H + cc];
-              sdhl[n * H + cc] = g * u + sdrh[n * H + cc] * r + acc[i];
-            }
-          }
-        } else {
-          const int j = cc - H;
-          diffuse_t_col(acc, sA, N, M, sdyx + j, MD, Din, n0);
-#pragma unroll
-          for (int i = 0; i < kTRows; ++i) {
-            const int n = n0 + i;
-            if (n < N) {
-              const float v = sdxa[n * Din + j] + acc[i];
-              if (l == 0)
-                sdin[n * D + j] = v;
-              else
-                sdh[(l - 1) * NH + n * H + j] += v;
-            }
-          }
-        }
-      }
-      __syncthreads();
+      DCGRU_PROBE_MARK(slot + 3);
     }
   }
+  DCGRU_PROBE_STORE;
 
-  for (int i = tid; i < L * NH; i += nthr) {
-    const int l = i / NH, e = i - l * NH;
-    p.dh0[((size_t)l * p.B + b) * NH + e] = sdh[i];
+  for (int i = tid; i < L * N * H; i += nthr) {
+    const int l = i / (N * H), n = (i / H) % N, c = i % H;
+    p.dh0[((size_t)l * p.B + b) * N * H + n * H + c] =
+        sdh[l * dhslab + n * P.ldh + c];
   }
 }
 
@@ -643,37 +654,44 @@ bool valid_shape(int T, int B, int N, int D, int H, int M, int L) {
          H % 4 == 0 && D >= 4 && D % 4 == 0 && M >= 1 && L >= 1;
 }
 
-template <typename S>
+// The plan of a loop (fwd: the forward, else the backward loop) at this
+// shape: the staged-weight prefix in shared memory and the block's bytes.
+template <typename S, typename FT>
+bool loop_plan(bool fwd, int N, int D, int H, int M, int L, int& wsmem,
+               int& bytes) {
+  const DecOps<FT> W(fwd, D, H, M, L);
+  return fwd ? dec_plan<FwdPlan<FT>>(W.cuts, N, D, H, M, L, wsmem, bytes)
+             : dec_plan<LoopPlan<FT, S>>(W.cuts, N, D, H, M, L, wsmem,
+                                         bytes);
+}
+
+template <typename S, typename FT>
 int launch_fwd(const FwdParams& p, cudaStream_t stream) {
   if (!valid_shape(p.T, p.B, p.N, p.D, p.H, p.M, p.L))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)FwdSmem(p.N, p.D, p.H, p.M, p.L).total * sizeof(float);
-  auto kern = dcgru_dec_fwd_kernel<S>;
+  int wsmem, bytes;
+  if (!loop_plan<S, FT>(true, p.N, p.D, p.H, p.M, p.L, wsmem, bytes))
+    return (int)cudaErrorInvalidValue;
+  auto kern = dcgru_dec_fwd_kernel<S, FT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = (p.N + kRows - 1) / kRows;
-  int work = 3 * p.H * chunks;
-  if (p.D * chunks > work) work = p.D * chunks;
-  int nthr = ((work + 31) / 32) * 32;
-  if (nthr < 128) nthr = 128;
-  if (nthr > kMaxThreads) nthr = kMaxThreads;
-  kern<<<p.B, nthr, smem, stream>>>(p);
+  kern<<<p.B, kFwdThreads<FT>, bytes, stream>>>(p, wsmem);
   return (int)cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, typename FT>
 int launch_loop(const LoopParams& p, cudaStream_t stream) {
   if (!valid_shape(p.T, p.B, p.N, p.D, p.H, p.M, p.L))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)LoopSmem(p.N, p.D, p.H, p.M, p.L).total * sizeof(float);
-  auto kern = dcgru_dec_bwd_loop_kernel<S>;
+  int wsmem, bytes;
+  if (!loop_plan<S, FT>(false, p.N, p.D, p.H, p.M, p.L, wsmem, bytes))
+    return (int)cudaErrorInvalidValue;
+  auto kern = dcgru_dec_bwd_loop_kernel<S, FT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<p.B, kMaxThreads, smem, stream>>>(p);
+  kern<<<p.B, kLoopThreads<FT>, bytes, stream>>>(p, wsmem);
   return (int)cudaGetLastError();
 }
 
@@ -693,63 +711,60 @@ int launch_dwp(const DwpParams& p, cudaStream_t stream) {
 extern "C" {
 
 // act: 0 tanh, 1 relu, 2 linear. bf16: streams are bf16 (else f32).
-// The shared cell's pointers are read only when L > 1; in0, h_seq,
-// ru_seq and c_seq are written only when non-null.
+// w: the staged weights (ops/cuda_decoder.py, decoder_fwd_weights), bf16
+// for bf16 streams, else f32. The shared cell's biases are read only when
+// L > 1; in0, h_seq, ru_seq and c_seq are written only when non-null.
 // Returns a cudaError_t: 0 on a launch that was accepted.
 int dcgru_decoder_fwd(const void* x, const float* force, const float* a_ops,
-                      int a_batch, const float* wx0g, const float* wx0c,
-                      const float* wh0g, const float* wh0c, const float* b0g,
-                      const float* b0c, const float* wxsg, const float* wxsc,
-                      const float* whsg, const float* whsc, const float* bsg,
-                      const float* bsc, const float* wp, const float* bp,
-                      const float* h0, void* proj, void* in0, void* h_seq,
-                      void* ru_seq, void* c_seq, int T, int B, int N, int D,
-                      int H, int M, int L, int act, int bf16, void* stream) {
-  FwdParams p{x,
-              force,
-              a_ops,
-              {{wx0g, wx0c, wh0g, wh0c}, {wxsg, wxsc, whsg, whsc}},
-              {{b0g, b0c}, {bsg, bsc}},
-              wp,
-              bp,
-              h0,
-              proj,
-              in0,
-              h_seq,
-              ru_seq,
-              c_seq,
-              T, B, N, D, H, M, L, a_batch, act};
+                      int a_batch, const void* w, const float* b0g,
+                      const float* b0c, const float* bsg, const float* bsc,
+                      const float* bp, const float* h0, void* proj, void* in0,
+                      void* h_seq, void* ru_seq, void* c_seq, int T, int B,
+                      int N, int D, int H, int M, int L, int act, int bf16,
+                      void* stream) {
+  FwdParams p{x,     force, a_ops, w, {{b0g, b0c}, {bsg, bsc}},
+              bp,    h0,    proj,  in0, h_seq, ru_seq, c_seq,
+              T,     B,     N,     D,   H,     M,      L,
+              a_batch, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16>(p, s) : launch_fwd<float>(p, s);
+  return bf16 ? launch_fwd<__nv_bfloat16, __nv_bfloat16>(p, s)
+              : launch_fwd<float, float>(p, s);
 }
 
-// Weights arrive transposed (see LoopParams); the streams are
-// layer-major. Writes dx, dh0, dpre and dproj.
-int dcgru_dec_bwd_loop(const float* a_ops, int a_batch, const float* wx0gT,
-                       const float* wx0cT, const float* wh0gT,
-                       const float* wh0cT, const float* wxsgT,
-                       const float* wxscT, const float* whsgT,
-                       const float* whscT, const float* wpT,
+// w: the staged weights (ops/cuda_decoder.py, decoder_bwd_weights), bf16
+// for bf16 streams, else f32; the streams are layer-major. Writes dx, dh0,
+// dpre and dproj.
+int dcgru_dec_bwd_loop(const float* a_ops, int a_batch, const void* w,
                        const void* h_prev, const void* ru, const void* c,
                        const void* d_seq, const float* force, void* dx,
                        float* dh0, float* dpre, float* dproj, int T, int B,
                        int N, int D, int H, int M, int L, int act, int bf16,
                        void* stream) {
-  LoopParams p{a_ops,
-               {{wx0gT, wx0cT, wh0gT, wh0cT}, {wxsgT, wxscT, whsgT, whscT}},
-               wpT,
-               h_prev,
-               ru,
-               c,
-               d_seq,
-               force,
-               dx,
-               dh0,
-               dpre,
-               dproj,
-               T, B, N, D, H, M, L, a_batch, act};
+  LoopParams p{a_ops, w,  h_prev, ru, c, d_seq, force, dx, dh0, dpre, dproj,
+               T,     B,  N,      D,  H, M,     L,     a_batch, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_loop<__nv_bfloat16>(p, s) : launch_loop<float>(p, s);
+  return bf16 ? launch_loop<__nv_bfloat16, __nv_bfloat16>(p, s)
+              : launch_loop<float, float>(p, s);
+}
+
+// The launch plan a loop takes on the current card (fwd != 0: the
+// forward, else the backward loop): out[0] the bytes of staged weights in
+// shared memory, out[1] the block's shared memory; the staged weights'
+// bytes in out[2]. Returns a cudaError_t (cudaErrorInvalidValue where no
+// plan fits).
+int dcgru_dec_plan(int fwd, int N, int D, int H, int M, int L, int bf16,
+                   int* out) {
+  if (!valid_shape(1, 1, N, D, H, M, L)) return (int)cudaErrorInvalidValue;
+  bool ok;
+  if (bf16) {
+    ok = loop_plan<__nv_bfloat16, __nv_bfloat16>(fwd, N, D, H, M, L, out[0],
+                                                 out[1]);
+    out[2] = DecOps<__nv_bfloat16>(fwd, D, H, M, L).total;
+  } else {
+    ok = loop_plan<float, float>(fwd, N, D, H, M, L, out[0], out[1]);
+    out[2] = DecOps<float>(fwd, D, H, M, L).total;
+  }
+  return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // part (ceil(R / 256), H*D + D) f32: split s sums the rows
@@ -762,6 +777,17 @@ int dcgru_dec_dwp(const void* h_top, const float* g, float* part, int R,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_dwp<__nv_bfloat16>(p, s) : launch_dwp<float>(p, s);
 }
+
+#ifdef DCGRU_PROBE
+// probe builds: block 0's phase clocks since the last read (kProbeSlots)
+int dcgru_probe_read(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, dcgru::probe_cycles,
+                                         sizeof(dcgru::probe_cycles));
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long zero[dcgru::kProbeSlots] = {};
+  return (int)cudaMemcpyToSymbol(dcgru::probe_cycles, zero, sizeof(zero));
+}
+#endif
 
 const char* dcgru_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

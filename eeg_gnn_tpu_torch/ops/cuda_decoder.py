@@ -20,6 +20,15 @@ The counterpart of the JAX package's ``ops/pallas_decoder.py``. Kernels of
   :func:`dcgru_dec_dwp`; ``dcgru_dw_reduce`` sums each one's partials.
   No dW is accumulated in the serial loop.
 
+The two state loops (:func:`dcgru_decoder_fwd`, :func:`dcgru_dec_bwd_loop`)
+run each step's products on tensor cores, as the encoder's loops do: the
+wrapper stages the weights at every launch as the kernels' A fragments
+(:func:`decoder_fwd_weights`, :func:`decoder_bwd_weights`), bfloat16 for
+bf16 streams (the reference's one bf16 pass) and float32 for f32 streams
+(split into 3xTF32 in the kernel); the kernel copies as much of the tied
+cell's as fits into shared memory and reads the rest from L2
+(:func:`decoder_plan`).
+
 Each kernel's wrapper computes with its plain version when its input lies
 on the CPU, launches the kernel when it lies on a CUDA device, and raises
 otherwise or on what the kernel does not take; each counts its launches
@@ -45,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from eeg_gnn_tpu_torch.ops import _build
@@ -56,8 +66,8 @@ from eeg_gnn_tpu_torch.ops.cuda_recurrent import (
     _raise_on,
     _split_dw,
     _stream,
-    _transposed,
     dcgru_dw_reduce,
+    _tile_layout,
     dcgru_xin_dw,
     xin_cell_step,
 )
@@ -78,18 +88,99 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
+    return bind(_build.load(_LIB))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/dcgru_decoder.cu`` library."""
     lib.dcgru_decoder_fwd.argtypes = (
-        [_P, _P, _P, _I] + [_P] * 12 + [_P] * 3 + [_P] * 5 + [_I] * 9 + [_P])
+        [_P, _P, _P, _I, _P] + [_P] * 5 + [_P] + [_P] * 5 + [_I] * 9 + [_P])
     lib.dcgru_decoder_fwd.restype = _I
     lib.dcgru_dec_bwd_loop.argtypes = (
-        [_P, _I] + [_P] * 9 + [_P] * 5 + [_P] * 4 + [_I] * 9 + [_P])
+        [_P, _I, _P] + [_P] * 5 + [_P] * 4 + [_I] * 9 + [_P])
     lib.dcgru_dec_bwd_loop.restype = _I
+    lib.dcgru_dec_plan.argtypes = [_I] * 7 + [_P]
+    lib.dcgru_dec_plan.restype = _I
     lib.dcgru_dec_dwp.argtypes = [_P] * 3 + [_I] * 4 + [_P]
     lib.dcgru_dec_dwp.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def decoder_plan(fwd: bool, n: int, d: int, h_units: int, m: int,
+                 num_layers: int, bf16: bool) -> dict:
+    """The launch plan the forward (``fwd``) or the backward state loop
+    takes on the current CUDA card: the bytes of its staged weights
+    (``staged``), how many of them (a prefix: the tied cell's first) sit
+    in shared memory (``in_smem``; the rest is read from L2), and the
+    block's shared memory (``smem``)."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().dcgru_dec_plan(int(fwd), n, d, h_units, m, num_layers,
+                                int(bf16), ctypes.addressof(out))
+    _raise_on(err, "dcgru_dec_plan", _lib)
+    return {"in_smem": out[0], "smem": out[1], "staged": out[2]}
+
+
+def _fwd_operands(layer0, shared, wp):
+    """The forward loop's A operands, in the kernel's order: per cell, the
+    tied one first when there is one, the gates [Wg^T | Wxg^T] (2H,
+    M(H+Din)) and the candidate [Wc^T | Wxc^T] (H, M(H+Din)); then Wp^T
+    (D, H)."""
+    def cell(wxg, wxc, wg, wc):
+        return (torch.cat([wg, wxg]).t(), torch.cat([wc, wxc]).t())
+    return (cell(*shared) if shared else ()) + cell(*layer0) + (wp.t(),)
+
+
+def _bwd_operands(layer0, shared, wp):
+    """The backward loop's A operands, in the kernel's order: per cell,
+    the tied one first, Wg (M*H, 2H), Wx = [Wxg | Wxc] (M*Din, 3H) and Wc
+    (M*H, H); then Wp (H, D)."""
+    def cell(wxg, wxc, wg, wc):
+        return (wg, torch.cat([wxg, wxc], dim=1), wc)
+    return (cell(*shared) if shared else ()) + cell(*layer0) + (wp,)
+
+
+@functools.lru_cache(maxsize=16)
+def _staging_index(operands, shapes, bf16, device):
+    """Where each element of the staged weights comes from: 1 + its
+    position in the weights flattened one after another (``shapes``, in
+    the order ``operands`` takes them), 0 for the tiles' zero padding."""
+    at, idx = 1, []
+    for shape in shapes:
+        n = int(np.prod(shape))
+        idx.append(torch.arange(at, at + n, device=device).view(shape))
+        at += n
+    mats = operands(idx[:4], idx[4:-1], idx[-1])
+    return torch.cat([_tile_layout(a, bf16).reshape(-1) for a in mats])
+
+
+def _stage(operands, layer0, shared, wp, bf16):
+    """The A operands of ``operands`` as tensor-core fragments, one
+    gather from the weights (the layout of
+    :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.stage_chain_weights`)."""
+    ws = (*layer0, *shared, wp)
+    idx = _staging_index(operands, tuple(tuple(w.shape) for w in ws), bf16,
+                         wp.device)
+    src = torch.cat([wp.new_zeros(1)] + [w.reshape(-1) for w in ws])
+    staged = src[idx]
+    return staged.to(torch.bfloat16) if bf16 else staged
+
+
+def decoder_fwd_weights(layer0, shared, wp, bf16: bool):
+    """The forward loop's weights, staged once per launch as tensor-core A
+    fragments (:func:`_fwd_operands`, in the layout of
+    :func:`~eeg_gnn_tpu_torch.ops.cuda_recurrent.stage_chain_weights`):
+    bfloat16 (rounded to nearest) or float32. ``layer0`` / ``shared``:
+    (wxg, wxc, wg, wc) m-major 2-D, ``shared`` empty with one layer; ``wp``
+    (H, D)."""
+    return _stage(_fwd_operands, layer0, shared, wp, bf16)
+
+
+def decoder_bwd_weights(layer0, shared, wp, bf16: bool):
+    """The backward loop's weights, staged as :func:`decoder_fwd_weights`
+    (:func:`_bwd_operands`)."""
+    return _stage(_bwd_operands, layer0, shared, wp, bf16)
 
 
 def dwp_splits(rows: int) -> int:
@@ -364,15 +455,17 @@ def dcgru_decoder_fwd(a_ops, x_seq, force, wx0g, wx0c, wh0g, wh0c, b0g, b0c,
            if residuals else (None,) * 4)
     if b == 0 or t == 0:
         return (proj, *res)
-    shared_p = [_ptr(w) for w in shared] or [None] * 6
+    bf16 = x_seq.dtype == torch.bfloat16
+    biases = [_ptr(v) for v in (b0g, b0c, *shared[4:])] + [None] * (
+        2 if ll == 1 else 0)
     with torch.cuda.device(x_seq.device):
+        w = decoder_fwd_weights(layer0[:4], shared[:4], wp, bf16)
         err = _lib().dcgru_decoder_fwd(
             x_seq.data_ptr(), force.data_ptr(), a_ops.data_ptr(),
-            a_ops.shape[1], *(w.data_ptr() for w in layer0), *shared_p,
-            wp.data_ptr(), bp.data_ptr(), h0_stack.data_ptr(),
-            proj.data_ptr(), *(_ptr(r) for r in res),
-            t, b, n, d, h_units, m, ll, _ACT_CODES[activation],
-            int(x_seq.dtype == torch.bfloat16), _stream(x_seq))
+            a_ops.shape[1], w.data_ptr(), *biases, bp.data_ptr(),
+            h0_stack.data_ptr(), proj.data_ptr(), *(_ptr(r) for r in res),
+            t, b, n, d, h_units, m, ll, _ACT_CODES[activation], int(bf16),
+            _stream(x_seq))
     _raise_on(err, name, _lib)
     dcgru_decoder_fwd.launches += 1
     return (proj, *res)
@@ -522,15 +615,15 @@ def dcgru_dec_bwd_loop(a_ops, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc,
     dpre = torch.empty((ll, t, b, n, 3 * h_units), dtype=torch.float32,
                        device=dev)
     dproj = torch.empty((t, b, n, d), dtype=torch.float32, device=dev)
-    w_t = [_transposed(w) for w in (*layer0, *shared)] + [None] * (
-        4 if ll == 1 else 0) + [_transposed(wp)]
+    bf16 = d_seq.dtype == torch.bfloat16
     with torch.cuda.device(dev):
+        w = decoder_bwd_weights(layer0, shared, wp, bf16)
         err = _lib().dcgru_dec_bwd_loop(
-            a_ops.data_ptr(), a_ops.shape[1], *(_ptr(w) for w in w_t),
+            a_ops.data_ptr(), a_ops.shape[1], w.data_ptr(),
             *(s.data_ptr() for s in streams), force.data_ptr(),
             dx.data_ptr(), dh0.data_ptr(), dpre.data_ptr(), dproj.data_ptr(),
-            t, b, n, d, h_units, m, ll, _ACT_CODES[activation],
-            int(d_seq.dtype == torch.bfloat16), _stream(d_seq))
+            t, b, n, d, h_units, m, ll, _ACT_CODES[activation], int(bf16),
+            _stream(d_seq))
     _raise_on(err, name, _lib)
     dcgru_dec_bwd_loop.launches += 1
     return dx, dh0, dpre, dproj

@@ -153,28 +153,36 @@ def dw_splits(x, h_units: int, m: int) -> int:
     return splits
 
 
-def _chain_tiles(a, bf16: bool):
-    """One (R, K) float32 A operand as the kernels' tensor-core A fragments
-    (``csrc/dcgru_common.cuh``, ``ChainOps``): zero-padded to 16-row tiles
-    by 16-deep (bf16, m16n8k16) or 8-deep (f32, m16n8k8) tiles, each tile
-    32 lanes x 16 bytes, lane ``4g + t`` holding rows g and g+8 and the
-    columns of its fragment: (RT, KT, 32, 8) bfloat16 or (RT, KT, 32, 4)
-    float32."""
+def _tile_layout(a, bf16: bool):
+    """The elements of one (R, K) A operand in the order of the kernels'
+    tensor-core A fragments (``csrc/dcgru_common.cuh``, ``ChainOps``), in
+    ``a``'s dtype: zero-padded to 16-row tiles by 16-deep (bf16,
+    m16n8k16) or 8-deep (f32, m16n8k8) tiles, each tile 32 lanes x 16
+    bytes of the operand type, lane ``4g + t`` holding rows g and g+8 and
+    the columns of its fragment: (RT, KT, 32, 8) for bf16, (RT, KT, 32, 4)
+    for f32."""
     r, k = a.shape
     depth = 16 if bf16 else 8
     rt, kt = -(-r // 16), -(-k // depth)
-    pad = torch.zeros((rt * 16, kt * depth), dtype=torch.float32,
-                      device=a.device)
+    pad = a.new_zeros((rt * 16, kt * depth))
     pad[:r, :k] = a
     if bf16:
         # row 16 rt + 8 hr + g, column 16 kt + 8 hc + 2 t + e -> lane 4g + t,
         # element 2 (hr + 2 hc) + e
         tiles = pad.view(rt, 2, 8, kt, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6)
-        return tiles.reshape(rt, kt, 32, 8).to(torch.bfloat16)
+        return tiles.reshape(rt, kt, 32, 8)
     # row 16 rt + 8 hr + g, column 8 kt + 4 hc + t -> lane 4g + t, word
     # hr + 2 hc
     tiles = pad.view(rt, 2, 8, kt, 2, 4).permute(0, 3, 2, 5, 4, 1)
     return tiles.reshape(rt, kt, 32, 4)
+
+
+def _chain_tiles(a, bf16: bool):
+    """One (R, K) float32 A operand as the kernels' tensor-core A fragments
+    (:func:`_tile_layout`): bfloat16 for bf16 operands (rounded to
+    nearest), float32 for 3xTF32."""
+    tiles = _tile_layout(a, bf16)
+    return tiles.to(torch.bfloat16) if bf16 else tiles
 
 
 def stage_chain_weights(mats, bf16: bool):

@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Where a step of the encoder's state loops spends its time, on one CUDA
-card (an NVIDIA H100).
+"""Where a step of the serial state loops spends its time, on one CUDA
+card (an NVIDIA H100): the encoder's two loops and the seq2seq decoder's.
 
 Run from the repository root:
 
-    python3 loop_probe.py [--sass DIR]
+    python3 loop_probe.py [--only encoder|decoder] [--sass DIR]
 
-It builds ``csrc/dcgru_recurrence.cu`` and ``csrc/dcgru_recurrence_bwd.cu``
-once more with ``-DDCGRU_PROBE`` (a variant library beside the real one:
-thread 0 of every block reads the SM clock at each barrier of a step and
-block 0 keeps the sums), runs both loops through their wrappers at the
-flagship layer's shape (T=60, N=19, H=64; M=3 and 5; bf16 and f32
-streams; B=128 and a single clip) and prints, per step, the clocks block
-0 spent in each phase, from one barrier to the next, beside the launch's
-time from CUDA events (the probe build's, weight staging included; the
-probe adds a few clock reads a step). Phases of the forward: the
-diffusions of h, the gate product and its epilogue, the diffusions of
-r*h, the candidate product and the state update (and the wait for the
-next step's x_proj); of the backward: P0 (streams in, g, du, dc_pre),
-P2 (dc_pre Wc^T), P3 (A^T: drh, dr_pre), P4 (dru_pre Wg^T), P5 (A^T:
-dh). It also prints each loop kernel's size in SASS instructions
-(``cuobjdump -sass``): most of a step's code runs once a step; with
-``--sass DIR`` it writes the two probe libraries' SASS listings there.
-Exits non-zero without a card.
+It builds ``csrc/dcgru_recurrence.cu``, ``csrc/dcgru_recurrence_bwd.cu``
+and ``csrc/dcgru_decoder.cu`` once more with ``-DDCGRU_PROBE`` (a variant
+library beside the real one: thread 0 of every block reads the SM clock
+at each barrier of a step and block 0 keeps the sums), runs the loops
+through their wrappers and prints, per step, the clocks block 0 spent in
+each phase, from one barrier to the next, beside the launch's time from
+CUDA events (the probe build's, weight staging included; the probe adds
+a few clock reads a step); M=3 and 5, bf16 and f32 streams, B=128 and a
+single clip.
+
+- The encoder's loops at the flagship layer's shape (T=60, N=19, H=64).
+  Phases of the forward: the diffusions of h, the gate product and its
+  epilogue, the diffusions of r*h, the candidate product and the state
+  update (and the wait for the next step's x_proj); of the backward: P0
+  (streams in, g, du, dc_pre), P2 (dc_pre Wc^T), P3 (A^T: drh, dr_pre),
+  P4 (dru_pre Wg^T), P5 (A^T: dh).
+- The decoder's loops at the SSL model's shape (T_out=12, N=19, H=64,
+  D=100, L=3), clocks per layer-step: layer 0's and the tied layers' (a
+  mean over layers 1..L-1) four phases each, and the per-step phase. The
+  forward's: the diffusions of [h | in], the gate product, the diffusions
+  of r*h, the candidate product and the state update; then the
+  projection and the next input. The backward's: dproj Wp^T with the top
+  layer's head (g, du, dc_pre); then per layer dc_pre Wc^T, the A^T apply
+  of drh (dr_pre, g u + drh r), the gate and input products, the A^T
+  applies of dh and of the input cotangent (with the head of the layer
+  below, or the previous step's dproj and dx). Each case's launch plan
+  (staged-weight bytes in shared memory) is printed beside it.
+
+It also prints each loop kernel's size in SASS instructions (``cuobjdump
+-sass``): most of a step's code runs once a step; with ``--sass DIR`` it
+writes the probe libraries' SASS listings there. Exits non-zero without
+a card.
 """
 
 from __future__ import annotations
@@ -38,12 +53,29 @@ import sys
 import numpy as np
 
 T, N, H, K = 60, 19, 64, 2
+T_OUT, D, L = 12, 100, 3
 REPS = 10
+SLOTS = 16  # csrc kProbeSlots
 PHASES = {
     "fwd": ("diffuse h", "gate product", "diffuse r*h",
             "candidate product"),
     "bwd": ("P0 streams", "P2 dc Wc^T", "P3 A^T drh", "P4 dru Wg^T",
             "P5 A^T dh"),
+    # the decoder's, by probe slot: (name, layers it sums over)
+    "dec_fwd": (("l0 diffuse [h|in]", "l0"), ("l0 gate product", "l0"),
+                ("l0 diffuse r*h", "l0"), ("l0 candidate product", "l0"),
+                ("tied diffuse [h|in]", "tied"),
+                ("tied gate product", "tied"),
+                ("tied diffuse r*h", "tied"),
+                ("tied candidate product", "tied"),
+                ("projection", "step")),
+    "dec_bwd": (("dproj Wp^T + top head", "step"),
+                ("tied dc Wc^T", "tied"), ("tied A^T drh", "tied"),
+                ("tied Wg, Wx products", "tied"),
+                ("tied A^T dh, din + head", "tied"),
+                ("l0 dc Wc^T", "l0"), ("l0 A^T drh", "l0"),
+                ("l0 Wg, Wx products", "l0"),
+                ("l0 A^T dh, din + dproj", "l0")),
 }
 
 
@@ -70,53 +102,29 @@ def sass_sizes(path: str, listing: str | None = None) -> dict:
     return {k: v for k, v in sizes.items() if "loop" in k or "fwd" in k}
 
 
-def main():
-    import torch
+def time_launches(torch, fn, args, kw, read) -> tuple[float, list]:
+    """(ms per launch, block 0's clocks per probe slot summed over REPS
+    launches) of ``fn(*args, **kw)`` after one warm-up launch."""
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    read()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn(*args, **kw)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPS, read()
 
-    if not torch.cuda.is_available():
-        sys.exit("loop_probe.py: torch.cuda.is_available() is false")
-    sass_dir = sys.argv[sys.argv.index("--sass") + 1] \
-        if "--sass" in sys.argv else None
-    if sass_dir:
-        os.makedirs(sass_dir, exist_ok=True)
-    from eeg_gnn_tpu_torch.ops import _build
-    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+
+def probe_encoder(torch, cr, read, results):
     from eeg_gnn_tpu_torch.ops.recurrent import (
         chebyshev_operators,
         shift_h_prev,
     )
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {}
-    for kind, name, bind in (("fwd", "dcgru_recurrence", cr.bind_fwd),
-                             ("bwd", "dcgru_recurrence_bwd", cr.bind_bwd)):
-        path, secs, _ = _build.build(name, ("-DDCGRU_PROBE",))
-        lib = bind(ctypes.CDLL(path))
-        lib.dcgru_probe_read.argtypes = [ctypes.c_void_p]
-        lib.dcgru_probe_read.restype = ctypes.c_int
-        libs[kind] = lib
-        print(f"build {name}.cu -DDCGRU_PROBE in {secs:.1f} s", flush=True)
-        listing = (os.path.join(sass_dir, f"{name}.sass") if sass_dir
-                   else None)
-        for fn, count in sass_sizes(path, listing).items():
-            print(f"sass {name}.cu {fn}: {count} instructions", flush=True)
-    # the wrappers launch the probe builds
-    cr._lib = lambda: libs["fwd"]
-    cr._lib_bwd = lambda: libs["bwd"]
-
-    def read(kind):
-        buf = (ctypes.c_ulonglong * 8)()
-        err = libs[kind].dcgru_probe_read(ctypes.addressof(buf))
-        if err:
-            raise RuntimeError(f"dcgru_probe_read: CUDA error {err}")
-        return list(buf)
-
     dev = torch.device("cuda")
-    results = []
     for num_supports in (1, 2):
         m = num_supports * K + 1
         for stream in (torch.bfloat16, torch.float32):
@@ -135,19 +143,10 @@ def main():
                        f(T, b, N, H, scale=1.0).to(stream))
                 for kind, fn, args in (("fwd", cr.dcgru_xin_fwd_loop, fwd),
                                        ("bwd", cr.dcgru_xin_bwd_loop, bwd)):
-                    fn(*args)
-                    torch.cuda.synchronize()
-                    read(kind)
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(REPS):
-                        fn(*args)
-                    end.record()
-                    end.synchronize()
-                    ms = start.elapsed_time(end) / REPS
+                    ms, slots = time_launches(torch, fn, args, {},
+                                              lambda k=kind: read(k))
                     names = PHASES[kind]
-                    per_step = [c / (REPS * T) for c in read(kind)[:len(names)]]
+                    per_step = [c / (REPS * T) for c in slots[:len(names)]]
                     total = sum(per_step)
                     row = {"loop": kind, "M": m, "B": b,
                            "streams": str(stream)[6:], "ms": ms,
@@ -162,6 +161,133 @@ def main():
                           + ", ".join(f"{p} {c:.0f}, {100 * c / total:.0f}%"
                                       for p, c in zip(names, per_step))
                           + ")", flush=True)
+
+
+def probe_decoder(torch, cd, read, results):
+    from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
+
+    dev = torch.device("cuda")
+    for num_supports in (1, 2):
+        m = num_supports * K + 1
+        for stream in (torch.bfloat16, torch.float32):
+            bf16 = stream == torch.bfloat16
+            for b in (128, 1):
+                rng = np.random.RandomState(7 * m + b)
+                f = lambda *s, scale: torch.from_numpy(
+                    (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+                sup = torch.from_numpy((np.abs(rng.randn(
+                    num_supports, b, N, N)) / N).astype(np.float32))
+                a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+
+                def cell(d_in):
+                    s = (2.0 / (m * (d_in + 2 * H))) ** 0.5
+                    return [f(m * d_in, 2 * H, scale=s),
+                            f(m * d_in, H, scale=s),
+                            f(m * H, 2 * H, scale=s), f(m * H, H, scale=s),
+                            f(2 * H, scale=0.1), f(H, scale=0.1)]
+
+                w = cell(D) + cell(H) + [f(H, D, scale=H ** -0.5),
+                                         f(D, scale=0.1)]
+                h0 = f(L, b, N, H, scale=0.1)
+                force = torch.tensor([float(i % 2) for i in range(T_OUT)],
+                                     device=dev)
+                fwd = (a_ops, f(T_OUT, b, N, D, scale=1.0).to(stream),
+                       force, *w, h0, L)
+                _, _, h_seq, ru, c = cd.dcgru_decoder_fwd(*fwd,
+                                                         residuals=True)
+                bwd = (a_ops, *w[0:4], *w[6:10], w[12],
+                       cd.decoder_h_prev(h0, h_seq), ru, c,
+                       f(T_OUT, b, N, D, scale=1.0).to(stream), force, L)
+                for kind, fn, args, kw in (
+                        ("fwd", cd.dcgru_decoder_fwd, fwd,
+                         dict(residuals=True)),
+                        ("bwd", cd.dcgru_dec_bwd_loop, bwd, {})):
+                    ms, slots = time_launches(torch, fn, args, kw,
+                                              lambda: read("dec"))
+                    plan = cd.decoder_plan(kind == "fwd", N, D, H, m, L,
+                                           bf16)
+                    steps = {"l0": REPS * T_OUT, "step": REPS * T_OUT,
+                             "tied": REPS * T_OUT * (L - 1)}
+                    phases = {name: slots[i] / steps[per] for i, (name, per)
+                              in enumerate(PHASES["dec_" + kind])}
+                    # clocks of a whole step: every layer's phases
+                    total = sum(slots[:len(phases)]) / (REPS * T_OUT)
+                    row = {"loop": "dec_" + kind, "M": m, "B": b,
+                           "streams": str(stream)[6:], "ms": ms,
+                           "us_per_step": ms * 1e3 / T_OUT,
+                           "cycles_per_step": total,
+                           "clock_ghz": total / (ms * 1e3 / T_OUT) / 1e3,
+                           "plan": plan, "phases": phases}
+                    results.append(row)
+                    print(f"probe decoder {kind} L={L} M={m} "
+                          f"{row['streams']} B={b} (plan: "
+                          f"{plan['in_smem']} of {plan['staged']} staged "
+                          f"bytes in shared memory, {plan['smem']} bytes "
+                          f"a block): {ms:.4f} ms/launch, "
+                          f"{row['us_per_step']:.2f} us/step; block 0: "
+                          f"{total:.0f} cycles/step; per layer-step "
+                          + ", ".join(f"{p} {c:.0f}"
+                                      for p, c in phases.items()),
+                          flush=True)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("loop_probe.py: torch.cuda.is_available() is false")
+    sass_dir = sys.argv[sys.argv.index("--sass") + 1] \
+        if "--sass" in sys.argv else None
+    only = sys.argv[sys.argv.index("--only") + 1] \
+        if "--only" in sys.argv else None
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
+    from eeg_gnn_tpu_torch.ops import _build
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sources = (("fwd", "dcgru_recurrence", cr.bind_fwd),
+               ("bwd", "dcgru_recurrence_bwd", cr.bind_bwd),
+               ("dec", "dcgru_decoder", cd.bind))
+    if only:
+        sources = [s for s in sources
+                   if (s[0] == "dec") == (only == "decoder")]
+    libs = {}
+    for kind, name, bind in sources:
+        path, secs, _ = _build.build(name, ("-DDCGRU_PROBE",))
+        lib = bind(ctypes.CDLL(path))
+        lib.dcgru_probe_read.argtypes = [ctypes.c_void_p]
+        lib.dcgru_probe_read.restype = ctypes.c_int
+        libs[kind] = lib
+        print(f"build {name}.cu -DDCGRU_PROBE in {secs:.1f} s", flush=True)
+        listing = (os.path.join(sass_dir, f"{name}.sass") if sass_dir
+                   else None)
+        for fn, count in sass_sizes(path, listing).items():
+            print(f"sass {name}.cu {fn}: {count} instructions", flush=True)
+    # the wrappers launch the probe builds
+    if "fwd" in libs:
+        cr._lib = lambda: libs["fwd"]
+        cr._lib_bwd = lambda: libs["bwd"]
+    if "dec" in libs:
+        cd._lib = lambda: libs["dec"]
+
+    def read(kind):
+        buf = (ctypes.c_ulonglong * SLOTS)()
+        err = libs[kind].dcgru_probe_read(ctypes.addressof(buf))
+        if err:
+            raise RuntimeError(f"dcgru_probe_read: CUDA error {err}")
+        return list(buf)
+
+    results = []
+    if "fwd" in libs:
+        probe_encoder(torch, cr, read, results)
+    if "dec" in libs:
+        probe_decoder(torch, cd, read, results)
     print(json.dumps({"loop_probe": results}), flush=True)
 
 

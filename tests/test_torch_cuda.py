@@ -354,18 +354,24 @@ def test_tensor_core_loops_match_plain(dev, t, n, h, num_supports, shared,
             assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
 
 
-def _err_past_rounding(got, want):
-    """Normalized inf-norm error left after ``got``'s own rounding to its
-    dtype: max(|got - want| - ulp(got) / 2, 0) / max|want| for a float32
-    ``want``. A bf16 ``got`` that is ``want`` rounded to nearest reads 0;
-    a float32 ``got`` reads as :func:`_err`."""
+def _past_rounding(got, want):
+    """Each element's error left after ``got``'s own rounding to its
+    dtype, normalized: max(|got - want| - ulp(got) / 2, 0) / max|want| for
+    a float32 ``want``. A bf16 ``got`` that is ``want`` rounded to nearest
+    reads 0; a float32 ``got`` reads |got - want| / max|want|."""
     got32, want = got.float(), want.float()
     half_ulp = torch.zeros_like(got32)
     if got.dtype == torch.bfloat16:
         half_ulp = torch.exp2(torch.floor(torch.log2(
             got32.abs().clamp_min(1e-30))) - 8)
     past = ((got32 - want).abs() - half_ulp).clamp_min(0)
-    return (past.max() / want.abs().max().clamp_min(1e-12)).item()
+    return past / want.abs().max().clamp_min(1e-12)
+
+
+def _err_past_rounding(got, want):
+    """The largest of :func:`_past_rounding`: a float32 ``got`` reads as
+    :func:`_err`."""
+    return _past_rounding(got, want).max().item()
 
 
 # bar of the bf16 loops against their emulated operand rounding at T=2:
@@ -672,6 +678,181 @@ def test_decoder_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     bwd = list(_dec_bwd_args(args, 2))
     with pytest.raises(TypeError, match="streams mix"):
         cd.dcgru_decoder_bwd(*bwd[:15], bwd[15].bfloat16(), bwd[16], 2)
+
+
+def _dec_loop_inputs(dev, *, t, b, n, d, h, num_layers, num_supports,
+                     stream, activation="tanh", seed=0, w_scale=None):
+    """The decoder loops' arguments at n nodes, per-clip graphs, force
+    alternating from 1: the forward's, and the backward loop's on the
+    plain forward's residuals and a seeded proj cotangent. Cell weights of
+    std ``w_scale`` (default xavier-scaled)."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    rng = np.random.RandomState(seed)
+    m = num_supports * K + 1
+    f = lambda *s, scale: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(num_supports, b, n, n)) / n)
+                           .astype(np.float32))
+    a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+
+    def cell(d_in):
+        sx = w_scale or (2.0 / (m * (d_in + h))) ** 0.5
+        sh = w_scale or (2.0 / (m * 2 * h)) ** 0.5
+        return [f(m * d_in, 2 * h, scale=sx), f(m * d_in, h, scale=sx),
+                f(m * h, 2 * h, scale=sh), f(m * h, h, scale=sh),
+                f(2 * h, scale=0.1), f(h, scale=0.1)]
+
+    w = cell(d) + (cell(h) if num_layers > 1 else [None] * 6)
+    w += [f(h, d, scale=h ** -0.5), f(d, scale=0.1)]
+    h0 = f(num_layers, b, n, h, scale=0.1)
+    force = torch.tensor([float((i + 1) % 2) for i in range(t)], device=dev)
+    fwd = (a_ops, f(t, b, n, d, scale=1.0).to(stream), force, *w, h0,
+           num_layers, activation)
+    _, _, h_seq, ru, c = cd.dcgru_decoder_fwd_plain(*fwd, residuals=True)
+    loop = (a_ops, *w[0:4], *w[6:10], w[12], cd.decoder_h_prev(h0, h_seq),
+            ru, c, f(t, b, n, d, scale=1.0).to(stream), force, num_layers,
+            activation)
+    return fwd, loop
+
+
+def _wbytes(r, k, bf16):
+    """chain_wbytes of csrc/dcgru_common.cuh: 512 bytes a tile."""
+    return -(-r // 16) * -(-k // (16 if bf16 else 8)) * 512
+
+
+def _dec_plan_branch(fwd, n, d, h, m, num_layers, bf16):
+    """Which of its plans a decoder loop takes here: the whole tied cell
+    in shared memory ("tied"), a part of it ("part"), or every weight
+    from L2 ("L2")."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    plan = cd.decoder_plan(fwd, n, d, h, m, num_layers, bf16)
+    mh = m * h
+    tied = (_wbytes(2 * h, 2 * mh, bf16) + _wbytes(h, 2 * mh, bf16) if fwd
+            else _wbytes(mh, 2 * h, bf16) + _wbytes(mh, 3 * h, bf16)
+            + _wbytes(mh, h, bf16))
+    if plan["in_smem"] == 0:
+        return "L2"
+    return "tied" if plan["in_smem"] == tied else "part"
+
+
+# (N, H, D) of the decoder loops' cases: ragged nodes, H and D (7, 12, 8);
+# the SSL model's widths at N=19 and 32; narrow at N=32
+DEC_LOOP_SHAPES = [(7, 12, 8), (19, 64, 100), (32, 64, 100), (32, 16, 20)]
+
+
+@pytest.mark.parametrize("n,h,d", DEC_LOOP_SHAPES)
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
+@pytest.mark.parametrize("num_supports", [1, 2])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decoder_tensor_core_loops_match_plain(dev, n, h, d, num_layers,
+                                               num_supports, bf16,
+                                               record_property):
+    """The decoder's two state loops (#5 dcgru_decoder_fwd with every
+    residual, 6.l dcgru_dec_bwd_loop) against their plain versions: N=7,
+    19 and 32, L=1..3, M=3 and 5, each activation; the launch plan each
+    case takes is recorded."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    activation = ("tanh", "relu", "linear")[(n + num_layers) % 3]
+    m = num_supports * K + 1
+    fwd, loop = _dec_loop_inputs(
+        dev, t=3, b=3, n=n, d=d, h=h, num_layers=num_layers,
+        num_supports=num_supports, stream=stream, activation=activation,
+        seed=n * h + num_layers)
+    record_property("plans", [_dec_plan_branch(f, n, d, h, m, num_layers,
+                                               bf16) for f in (True, False)])
+    for kern, plain, args, kw in (
+            (cd.dcgru_decoder_fwd, cd.dcgru_decoder_fwd_plain, fwd,
+             dict(residuals=True)),
+            (cd.dcgru_dec_bwd_loop, cd.dcgru_dec_bwd_loop_plain, loop, {})):
+        before = kern.launches
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1, kern.__name__
+        for i, (g, w) in enumerate(zip(got, plain(*args, **kw))):
+            assert g.dtype == w.dtype and g.shape == w.shape, \
+                (kern.__name__, i)
+            assert torch.isfinite(g.float()).all(), (kern.__name__, i)
+            assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
+
+
+def test_decoder_loop_plans_take_every_branch(dev, record_property):
+    """Over the cases above, each loop takes each of its plans: the whole
+    tied cell in shared memory, a part of it, every weight from L2."""
+    seen = {True: {}, False: {}}
+    for n, h, d in DEC_LOOP_SHAPES:
+        for num_layers in (1, 2, 3):
+            for m in (3, 5):
+                for bf16 in (False, True):
+                    for fwd in (True, False):
+                        branch = _dec_plan_branch(fwd, n, d, h, m,
+                                                  num_layers, bf16)
+                        seen[fwd].setdefault(branch, (n, h, d, m,
+                                                      num_layers, bf16))
+    record_property("first_case_of_each_plan", {
+        ("fwd" if k else "bwd"): v for k, v in seen.items()})
+    for fwd in (True, False):
+        assert set(seen[fwd]) == {"tied", "part", "L2"}, seen
+
+
+# the decoder loops against their emulated rounding: the 99th percentile
+# of the elements' errors past rounding, over two layer-steps. A bf16
+# operand that the kernel's diffusions (summed in another f32 order) round
+# the other way moves a few outputs by up to ~2e-3, an error the largest
+# reads and the percentile mostly leaves alone, while f32 products move
+# every element. The bar sits between the two: the kernels read up to
+# 2.3e-4 (a flip in layer 0 that the tied layer's diffusion spreads
+# before the projection), the plain loops at least 1.7e-3 on their
+# farthest output (PERF.md, section 6). Over more layer-steps the flips
+# spread further: at L=3, T_out=2 the kernels read up to 6.1e-4 and the
+# plain loops 1.2e-3-8.3e-3, and no bar tells the two apart everywhere
+DEC_ROUNDING_Q, DEC_ROUNDING_TOL = 0.99, 5e-4
+
+
+@pytest.mark.parametrize("activation", ["tanh", "relu", "linear"])
+@pytest.mark.parametrize("num_layers,t", [(1, 2), (2, 1)])
+def test_bf16_decoder_loops_compute_their_operand_rounding(
+        dev, activation, num_layers, t, record_property):
+    """The bf16 decoder loops compute the stated rounding (bf16 product
+    operands, f32 sums; tests/chain_emulation.py) over two layer-steps:
+    layer 0 over T_out=2, and layer 0 and the tied cell over one step; at
+    the SSL model's widths, M=5, cell weights of std 0.2 so that the
+    operand rounding shows. The forward's bf16 outputs are held to the
+    emulation's f32 values past their own rounding, the backward loop's
+    f32 outputs (and its bf16 dx past its rounding) as they are, by the
+    99th percentile of the elements' errors; the plain loops (f32
+    products) must read above the bar on some output. The largest errors
+    are recorded beside."""
+    from chain_emulation import dec_chain_bwd, dec_chain_fwd
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    fwd, loop = _dec_loop_inputs(
+        dev, t=t, b=3, n=N, d=100, h=64, num_layers=num_layers,
+        num_supports=2, stream=torch.bfloat16, activation=activation,
+        seed=197, w_scale=0.2)
+    pairs = {}
+    want = dec_chain_fwd(*fwd, torch.float32)
+    for i, (g, w, p) in enumerate(zip(
+            cd.dcgru_decoder_fwd(*fwd, residuals=True), want,
+            cd.dcgru_decoder_fwd_plain(*fwd, residuals=True))):
+        pairs[f"fwd{i}"] = (g, p, w)
+    want = dec_chain_bwd(*loop, torch.float32)
+    for i, (g, w, p) in enumerate(zip(cd.dcgru_dec_bwd_loop(*loop), want,
+                                      cd.dcgru_dec_bwd_loop_plain(*loop))):
+        pairs[f"bwd{i}"] = (g, p, w)
+    quant = lambda e: torch.quantile(e.flatten(), DEC_ROUNDING_Q).item()
+    errs = {k: tuple(f(_past_rounding(v, w)) for v in (g, p)
+                     for f in (quant, lambda e: e.max().item()))
+            for k, (g, p, w) in pairs.items()}
+    # (kernel q99, kernel max, plain q99, plain max) against the emulation
+    record_property("kernel_and_plain_vs_emulation", errs)
+    for k, (kern, _, _, _) in errs.items():
+        assert kern <= DEC_ROUNDING_TOL, (k, errs)
+    assert max(p for _, _, p, _ in errs.values()) > DEC_ROUNDING_TOL, errs
 
 
 def test_ssl_train_step_matches_stacked(dev):

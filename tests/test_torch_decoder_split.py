@@ -57,10 +57,11 @@ def _err(ours, ref):
 
 @functools.lru_cache(maxsize=None)
 def _case(num_layers, num_supports, shared, force_pat):
-    """Seeded numpy inputs, and JAX's float32 gradients of sum(out * wl)
-    through ``_decoder_pallas`` in interpret mode, re-packed into the
-    kernels' layout by the port's ``decoder_kernel_weights`` (a
-    permutation, so gradients map as weights do)."""
+    """Seeded numpy inputs with JAX's float32 output (``proj``), and its
+    gradients of sum(out * wl) through ``_decoder_pallas`` in interpret
+    mode, re-packed into the kernels' layout by the port's
+    ``decoder_kernel_weights`` (a permutation, so gradients map as weights
+    do)."""
     seed = 100 * num_layers + 10 * num_supports + 2 * shared + len(force_pat)
     rng = np.random.RandomState(seed)
     params, cfgs = jax_decoder_init(jax.random.PRNGKey(seed), D, H, K, N,
@@ -86,7 +87,7 @@ def _case(num_layers, num_supports, shared, force_pat):
         cfg0, to_t(g_params), num_layers)))
     want.update(dx=g_dec, dh0=g_h0)
     inputs = dict(params=to_t(params), sup=sup, dec=dec, h0=h0, wl=wl,
-                  force=force, cfg0=cfg0)
+                  force=force, cfg0=cfg0, proj=np.asarray(fn(*op)))
     return inputs, {k: None if v is None else np.asarray(v)
                     for k, v in want.items()}
 
