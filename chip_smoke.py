@@ -1444,7 +1444,7 @@ def phase_times(torch, dev):
             xin_b, hoisted_b = bwd_args(torch, a, seed=200 + d)
             loop = (*xin_b[:1], *xin_b[3:8], xin_b[9])
             dpre, _ = cr.dcgru_xin_bwd_loop_plain(*loop)
-            splits = cr.dw_splits(a["x"], H, 3)
+            splits = cr.dw_splits(T * BATCH, 3, d, H)
             if dtype == torch.bfloat16:  # the main path's split partials
                 reduce_shapes[d] = (splits, cr.dw_size(3, d, H))
             blw = bwd_loop_work(**kw)
@@ -1581,7 +1581,8 @@ def phase_ssl_times(torch, dev):
         loop_a, dw_cells, h_top = cd.decoder_bwd_pieces(*bwd, SSL_LAYERS)
         _, _, dpre, dproj = cd.dcgru_dec_bwd_loop_plain(*loop_a)
         dw_a = dw_cells(dpre)
-        splits = tuple(cr.dw_splits(a[3], H, 3) for a in dw_a)
+        splits = tuple(cr.dw_splits(a[3].shape[0] * a[3].shape[1], 3,
+                                    a[3].shape[-1], H) for a in dw_a)
         rows = T_OUT * BATCH * N
         dws = cd.dwp_splits(rows)
         lw = dec_loop_work(**kw)

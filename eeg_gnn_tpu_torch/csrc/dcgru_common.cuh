@@ -603,12 +603,12 @@ __device__ __forceinline__ void diffuse_t_tc(const uint4* frags,
 }
 
 // ---------------------------------------------------------------------------
-// phase clocks of the state loops: compiled in only with -DDCGRU_PROBE
-// (loop_probe.py builds such a library beside the real one); the kernels'
-// own builds have none of it
+// phase clocks of the state loops and the bulk dW kernel: compiled in
+// only with -DDCGRU_PROBE (loop_probe.py builds such a library beside the
+// real one); the kernels' own builds have none of it
 // ---------------------------------------------------------------------------
 
-constexpr int kProbeSlots = 16;
+constexpr int kProbeSlots = 48;
 
 #ifdef DCGRU_PROBE
 // block 0's clocks in each phase, summed over its steps and launches
@@ -628,10 +628,21 @@ __device__ unsigned long long probe_cycles[kProbeSlots];
       for (int i = 0; i < kProbeSlots; ++i)                        \
         probe_cycles[i] += (unsigned long long)probe_acc[i];       \
   } while (0)
+// thread 0 of a block of role `role` >= 0: slots [role*n, role*n + n)
+#define DCGRU_PROBE_STORE_ROLE(role, n)                          \
+  do {                                                           \
+    if ((role) >= 0 && threadIdx.x == 0)                         \
+      for (int i = 0; i < (n); ++i)                              \
+        probe_cycles[(role) * (n) + i] +=                        \
+            (unsigned long long)probe_acc[i];                    \
+  } while (0)
+#define DCGRU_PROBE_COUNT(i) (probe_acc[i] += 1)
 #else
 #define DCGRU_PROBE_START
 #define DCGRU_PROBE_MARK(i)
 #define DCGRU_PROBE_STORE
+#define DCGRU_PROBE_STORE_ROLE(role, n)
+#define DCGRU_PROBE_COUNT(i)
 #endif
 
 }  // namespace dcgru

@@ -122,59 +122,99 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _lib_xin() -> ctypes.CDLL:
-    lib = _build.load(_LIB_XIN)
+    return bind_xin(_build.load(_LIB_XIN))
+
+
+def bind_xin(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/dcgru_xin_gemm.cu`` library."""
     for fn in (lib.dcgru_xin_proj, lib.dcgru_xin_dx):
         fn.argtypes = [_P, _P, _I, _P, _P] + [_I] * 7 + [_P]
         fn.restype = _I
     lib.dcgru_xin_dw.argtypes = [_P] * 5 + [_I, _P, _I] + [_I] * 7 + [_P]
     lib.dcgru_xin_dw.restype = _I
-    lib.dcgru_xin_dw_splits.argtypes = [_I] * 7
-    lib.dcgru_xin_dw_splits.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
     lib.dcgru_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def dw_splits(x, h_units: int, m: int) -> int:
-    """The splits of the T*B (t, b) pairs into :func:`dcgru_xin_dw`'s
-    partials for the input ``x`` (T, B, N, D): on a CUDA device, the
-    kernel library's choice for this shape and card (whole waves of its
-    blocks); 1 elsewhere. Split s sums the pairs [s*per, (s+1)*per),
-    per = ceil(T*B / splits)."""
-    if x.device.type != "cuda":
-        return 1
-    t, b, n, d = x.shape
-    with torch.cuda.device(x.device):
-        splits = _lib_xin().dcgru_xin_dw_splits(
-            t, b, n, d, h_units, m, int(x.dtype == torch.bfloat16))
-    if splits < 1:
-        raise ValueError(f"dcgru_xin_dw: no launch fits T={t} B={b} N={n} "
-                         f"D={d} H={h_units} M={m}")
-    return splits
+DW_WAVE_BLOCKS = 132  # blocks of a wave: the H100's SMs, csrc kDwWaveBlocks
+DW_SPLIT_PAIRS = 192  # (t, b) pairs of a dW split, at most: csrc kDwSplitPairs
+DW_TILES = 11         # 16-feature tiles of a dW block: csrc kDwTiles
+
+
+def dw_blocks(m: int, d: int, h_units: int) -> int:
+    """The blocks of one split of :func:`dcgru_xin_dw`: one per m, per
+    64-column tile of the 2H gate and the H candidate columns, per group of
+    DW_TILES 16-feature tiles of [x | h_prev]."""
+    tiles = -(-d // 16) + -(-h_units // 16)
+    cols = -(-2 * h_units // 64) + -(-h_units // 64)
+    return m * cols * -(-tiles // DW_TILES)
+
+
+def dw_splits(pairs: int, m: int, d: int, h_units: int) -> int:
+    """The splits of ``pairs`` = T*B (t, b) pairs into
+    :func:`dcgru_xin_dw`'s partials, on every device: whole waves of
+    DW_WAVE_BLOCKS blocks (:func:`dw_blocks` a split), the fewest whose
+    splits hold at most DW_SPLIT_PAIRS pairs each, none empty. Split s sums
+    the pairs [s*per, (s+1)*per), per = ceil(pairs / splits). The count
+    follows from the shape alone, so dW and db are summed in the same
+    order on any card (and by the plain version)."""
+    per_split = dw_blocks(m, d, h_units)
+    waves = 1
+    while True:
+        splits = max(1, waves * DW_WAVE_BLOCKS // per_split)
+        if -(-pairs // splits) <= DW_SPLIT_PAIRS or splits >= pairs:
+            return -(-pairs // -(-pairs // splits))
+        waves += 1
 
 
 def _tile_layout(a, bf16: bool):
-    """The elements of one (R, K) A operand in the order of the kernels'
-    tensor-core A fragments (``csrc/dcgru_common.cuh``, ``ChainOps``), in
-    ``a``'s dtype: zero-padded to 16-row tiles by 16-deep (bf16,
-    m16n8k16) or 8-deep (f32, m16n8k8) tiles, each tile 32 lanes x 16
-    bytes of the operand type, lane ``4g + t`` holding rows g and g+8 and
-    the columns of its fragment: (RT, KT, 32, 8) for bf16, (RT, KT, 32, 4)
-    for f32."""
-    r, k = a.shape
+    """The elements of one (R, K) A operand (or a stack of them, (..., R,
+    K)) in the order of the kernels' tensor-core A fragments
+    (``csrc/dcgru_common.cuh``, ``ChainOps``), in ``a``'s dtype:
+    zero-padded to 16-row tiles by 16-deep (bf16, m16n8k16) or 8-deep
+    (f32, m16n8k8) tiles, each tile 32 lanes x 16 bytes of the operand
+    type, lane ``4g + t`` holding rows g and g+8 and the columns of its
+    fragment: (..., RT, KT, 32, 8) for bf16, (..., RT, KT, 32, 4) for
+    f32."""
+    *lead, r, k = a.shape
     depth = 16 if bf16 else 8
     rt, kt = -(-r // 16), -(-k // depth)
-    pad = a.new_zeros((rt * 16, kt * depth))
-    pad[:r, :k] = a
+    pad = a.new_zeros((*lead, rt * 16, kt * depth))
+    pad[..., :r, :k] = a
+    keep = tuple(range(len(lead)))
+    at = lambda *dims: keep + tuple(len(lead) + d for d in dims)
     if bf16:
         # row 16 rt + 8 hr + g, column 16 kt + 8 hc + 2 t + e -> lane 4g + t,
         # element 2 (hr + 2 hc) + e
-        tiles = pad.view(rt, 2, 8, kt, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6)
-        return tiles.reshape(rt, kt, 32, 8)
+        tiles = pad.view(*lead, rt, 2, 8, kt, 2, 4, 2).permute(
+            at(0, 3, 2, 5, 4, 1, 6))
+        return tiles.reshape(*lead, rt, kt, 32, 8)
     # row 16 rt + 8 hr + g, column 8 kt + 4 hc + t -> lane 4g + t, word
     # hr + 2 hc
-    tiles = pad.view(rt, 2, 8, kt, 2, 4).permute(0, 3, 2, 5, 4, 1)
-    return tiles.reshape(rt, kt, 32, 4)
+    tiles = pad.view(*lead, rt, 2, 8, kt, 2, 4).permute(at(0, 3, 2, 5, 4, 1))
+    return tiles.reshape(*lead, rt, kt, 32, 4)
+
+
+def round_tf32(v):
+    """float32 ``v`` rounded to TF32's 10 mantissa bits, ties away from
+    zero: the bits of ``round_tf32`` in ``csrc/dcgru_common.cuh``."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def dw_op_frags(a_ops, bf16: bool):
+    """The operators A_1..A_{M-1} of every clip, transposed, as the bulk
+    dW kernel's tensor-core A fragments (:func:`_tile_layout` of each
+    A_m^T): bfloat16, rounded to nearest (bf16 streams: G_m = A_m^T dpre
+    in one bf16 pass, m16n8k16 tiles), or float32 split into TF32 hi and
+    lo (f32 streams: 3xTF32, m16n8k8 tiles). (M-1, a_batch, RT, KT, 32, 8)
+    bf16 or (M-1, a_batch, RT, KT, 2, 32, 4) f32 [hi | lo]."""
+    tiles = _tile_layout(a_ops[1:].transpose(-1, -2), bf16)
+    if bf16:
+        return tiles.to(torch.bfloat16).contiguous()
+    hi = round_tf32(tiles)
+    return torch.stack([hi, tiles - hi], dim=-3).contiguous()
 
 
 def _chain_tiles(a, bf16: bool):
@@ -357,13 +397,13 @@ def dcgru_xin_dx_plain(a_ops, wx, dpre, dtype):
 
 def dcgru_xin_dw_plain(a_ops, h_prev, ru_seq, x, dpre, splits=None):
     """Plain version of :func:`dcgru_xin_dw`: the same split partials
-    (``splits`` of them; by default :func:`dw_splits`, the kernel's count
-    on a CUDA device)."""
+    (``splits`` of them; by default :func:`dw_splits`, the kernel's
+    count)."""
     t, b, n, _ = x.shape
     h_units = h_prev.shape[-1]
     pairs = t * b
     if splits is None:
-        splits = dw_splits(x, h_units, a_ops.shape[0])
+        splits = dw_splits(pairs, a_ops.shape[0], x.shape[-1], h_units)
     per = max(1, -(-pairs // splits))
     flat = lambda s: s.reshape(pairs, n, -1).float()
     xs, hs, gs = flat(x), flat(h_prev), flat(dpre)
@@ -802,9 +842,15 @@ def dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre):
         dpre: (T, B, N, 3H) [dru_pre | dc_pre] float32.
 
     Returns:
-        (dw_splits(x, H, M), dw_size(M, D, H)) float32 partial slabs [dWxg
-        | dWxc | dWg | dWc | dbg | dbc], one per split of the (t, b) pairs;
-        their sum over axis 0 (:func:`dcgru_dw_reduce`) is the gradient.
+        (dw_splits(T*B, M, D, H), dw_size(M, D, H)) float32 partial slabs
+        [dWxg | dWxc | dWg | dWc | dbg | dbc], one per split of the (t, b)
+        pairs; their sum over axis 0 (:func:`dcgru_dw_reduce`) is the
+        gradient.
+
+    The kernel computes ``dW_m = sum [x | h_prev | r h_prev]^T G_m`` with
+    ``G_m = A_m^T dpre`` per clip (the diffusion moved to dpre's side): in
+    bf16, G_m is one bf16 pass of bf16 A_m^T and dpre, rounded to bf16,
+    and r h_prev is rounded to bf16; in f32, 3xTF32 throughout.
     """
     if dpre.device.type == "cpu":
         return dcgru_xin_dw_plain(a_ops, h_prev, ru_seq, x, dpre)
@@ -819,15 +865,17 @@ def dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre):
     if t * b == 0:
         return torch.zeros((1, dw_size(m, d, h_units)), dtype=torch.float32,
                            device=dpre.device)
-    splits = dw_splits(x, h_units, m)
+    splits = dw_splits(t * b, m, d, h_units)
     part = torch.empty((splits, dw_size(m, d, h_units)), dtype=torch.float32,
                        device=dpre.device)
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(dpre.device):
+        frags = dw_op_frags(a_ops, bf16) if m > 1 else None
         err = _lib_xin().dcgru_xin_dw(
             x.data_ptr(), h_prev.data_ptr(), ru_seq.data_ptr(),
-            dpre.data_ptr(), a_ops.data_ptr(), a_ops.shape[1],
-            part.data_ptr(), splits, t, b, n, d, h_units, m,
-            int(x.dtype == torch.bfloat16), _stream(dpre))
+            dpre.data_ptr(), _ptr(frags), a_ops.shape[1],
+            part.data_ptr(), splits, t, b, n, d, h_units, m, int(bf16),
+            _stream(dpre))
     _raise_on(err, name, _lib_xin)
     dcgru_xin_dw.launches += 1
     return part

@@ -4,7 +4,7 @@ card (an NVIDIA H100): the encoder's two loops and the seq2seq decoder's.
 
 Run from the repository root:
 
-    python3 loop_probe.py [--only encoder|decoder] [--sass DIR]
+    python3 loop_probe.py [--only encoder|decoder|dw] [--sass DIR]
 
 It builds ``csrc/dcgru_recurrence.cu``, ``csrc/dcgru_recurrence_bwd.cu``
 and ``csrc/dcgru_decoder.cu`` once more with ``-DDCGRU_PROBE`` (a variant
@@ -34,10 +34,26 @@ single clip.
   below, or the previous step's dproj and dx). Each case's launch plan
   (staged-weight bytes in shared memory) is printed beside it.
 
-It also prints each loop kernel's size in SASS instructions (``cuobjdump
--sass``): most of a step's code runs once a step; with ``--sass DIR`` it
-writes the probe libraries' SASS listings there. Exits non-zero without
-a card.
+With ``--only dw`` it probes the bulk dW kernel instead
+(``csrc/dcgru_xin_gemm.cu`` built with ``-DDCGRU_PROBE``,
+``cuda_recurrent.dcgru_xin_dw``): thread 0 of three blocks of the first
+split, one of each role, reads the SM clock at each phase of a chunk of
+rows, and the probe prints each role's clocks per chunk and
+phase beside the launch's time from CUDA events and the launch plan
+(splits, pairs a split and a chunk, rows a chunk, shared bytes and
+threads a block, blocks a split and an SM), at the detector's two layers
+(T=60, B=128, D=100 and 64) and the SSL decoder's two launches (layer 0
+at D=100 over T_out=12 steps; the tied cell at D=64 over (L-1)*T_out=24
+stacked steps), M=3, bf16 and f32 streams, with ptxas' register and
+spill report of the dW kernels. A block owns one m and one 64-column
+tile of dpre; the three roles are m=0 on the first gate tile (which
+also sums db), and m=M-1 on the first gate and the first candidate
+tile.
+
+It also prints each probed kernel's size in SASS instructions
+(``cuobjdump -sass``): most of a step's code runs once a step; with
+``--sass DIR`` it writes the probe libraries' SASS listings there. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -55,7 +71,7 @@ import numpy as np
 T, N, H, K = 60, 19, 64, 2
 T_OUT, D, L = 12, 100, 3
 REPS = 10
-SLOTS = 16  # csrc kProbeSlots
+SLOTS = 48  # csrc kProbeSlots
 PHASES = {
     "fwd": ("diffuse h", "gate product", "diffuse r*h",
             "candidate product"),
@@ -79,10 +95,28 @@ PHASES = {
 }
 
 
-def sass_sizes(path: str, listing: str | None = None) -> dict:
-    """SASS instructions of each loop kernel in the library at ``path``,
-    by kernel name; empty where the toolkit has no cuobjdump. ``listing``:
-    also write the whole SASS listing to that file."""
+# the dW probe: 12 slots a block role (csrc/dcgru_xin_gemm.cu, xin_dw_kernel)
+DW_SLOTS = 12
+DW_CHUNKS = 10  # the slot that counts a role's chunks
+DW_ROLES = ("m=0 gate tile (+db)", "m=M-1 gate tile",
+            "m=M-1 candidate tile")
+DW_PHASES = ("prologue", "copies' wait", "barrier A",
+             "producer: issue x, h", "prep: G = A^T dpre, r h, db",
+             "barrier B", "producer: issue dpre, ru, A", "mma + flush",
+             "epilogue")
+# (name, T, D) of the dW launches probed: the detector's layers and the
+# SSL decoder's layer 0 and tied cell (L=3: 2 stacked layers)
+DW_CASES = (("detector layer 0", T, D), ("detector layer 1", T, H),
+            ("decoder layer 0", T_OUT, D),
+            ("decoder tied cell", (L - 1) * T_OUT, H))
+
+
+def sass_sizes(path: str, listing: str | None = None,
+               keep=("loop", "fwd")) -> dict:
+    """SASS instructions of each kernel in the library at ``path`` whose
+    name holds one of ``keep``, by kernel name; empty where the toolkit
+    has no cuobjdump. ``listing``: also write the whole SASS listing to
+    that file."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
@@ -99,7 +133,7 @@ def sass_sizes(path: str, listing: str | None = None) -> dict:
             sizes[name] = 0
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
             sizes[name] += 1
-    return {k: v for k, v in sizes.items() if "loop" in k or "fwd" in k}
+    return {k: v for k, v in sizes.items() if any(w in k for w in keep)}
 
 
 def time_launches(torch, fn, args, kw, read) -> tuple[float, list]:
@@ -231,6 +265,62 @@ def probe_decoder(torch, cd, read, results):
                           flush=True)
 
 
+def probe_dw(torch, cr, lib, read, results):
+    from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
+
+    dev = torch.device("cuda")
+    m, b = K + 1, 128  # the combined graph's operators: M=3
+    plan_keys = ("splits", "pairs_per_split", "pairs_per_chunk",
+                 "rows_per_chunk", "smem_bytes", "threads",
+                 "blocks_per_split", "blocks_per_sm")
+    for name, t, d in DW_CASES:
+        for stream in (torch.bfloat16, torch.float32):
+            rng = np.random.RandomState(t + d)
+            f = lambda *s, scale=1.0: torch.from_numpy(
+                (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+            sup = torch.from_numpy((np.abs(rng.randn(1, b, N, N)) / N)
+                                   .astype(np.float32))
+            a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+            args = (a_ops, f(t, b, N, H, scale=0.5).to(stream),
+                    torch.sigmoid(f(t, b, N, 2 * H)).to(stream),
+                    f(t, b, N, d).to(stream), f(t, b, N, 3 * H, scale=0.1))
+            ms, slots = time_launches(torch, cr.dcgru_xin_dw, args, {},
+                                      read)
+            out = (ctypes.c_int * 8)()
+            bf16 = int(stream == torch.bfloat16)
+            if lib.dcgru_xin_dw_plan(t, b, N, d, H, m, bf16,
+                                     ctypes.addressof(out)):
+                raise RuntimeError("dcgru_xin_dw_plan failed")
+            plan = dict(zip(plan_keys, list(out)))
+            roles = {}
+            for r, role in enumerate(DW_ROLES):
+                s = slots[r * DW_SLOTS:(r + 1) * DW_SLOTS]
+                chunks = s[DW_CHUNKS] / REPS
+                per_chunk = {p: s[i] / max(s[DW_CHUNKS], 1)
+                             for i, p in enumerate(DW_PHASES)
+                             if p not in ("prologue", "epilogue")}
+                roles[role] = {
+                    "chunks": chunks,
+                    "block_cycles": sum(s[:len(DW_PHASES)]) / REPS,
+                    "prologue": s[0] / REPS,
+                    "epilogue": s[len(DW_PHASES) - 1] / REPS,
+                    "per_chunk": per_chunk}
+            row = {"kernel": "dcgru_xin_dw", "case": name, "T": t, "B": b,
+                   "D": d, "M": m, "streams": str(stream)[6:], "ms": ms,
+                   "plan": plan, "roles": roles}
+            results.append(row)
+            print(f"probe dw {name} T={t} D={d} M={m} {row['streams']}: "
+                  f"{ms:.4f} ms/launch; plan {plan}", flush=True)
+            for role, v in roles.items():
+                print(f"  {role}: {v['chunks']:.0f} chunks, "
+                      f"{v['block_cycles']:.0f} cycles a block (prologue "
+                      f"{v['prologue']:.0f}, epilogue {v['epilogue']:.0f});"
+                      " per chunk " + ", ".join(
+                          f"{p} {c:.0f}" for p, c in v["per_chunk"].items())
+                      + f"; total {sum(v['per_chunk'].values()):.0f}",
+                      flush=True)
+
+
 def main():
     import torch
 
@@ -253,21 +343,33 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = (("fwd", "dcgru_recurrence", cr.bind_fwd),
                ("bwd", "dcgru_recurrence_bwd", cr.bind_bwd),
-               ("dec", "dcgru_decoder", cd.bind))
-    if only:
-        sources = [s for s in sources
-                   if (s[0] == "dec") == (only == "decoder")]
+               ("dec", "dcgru_decoder", cd.bind),
+               ("dw", "dcgru_xin_gemm", cr.bind_xin))
+    part = {"fwd": "encoder", "bwd": "encoder", "dec": "decoder",
+            "dw": "dw"}
+    sources = [s for s in sources if part[s[0]] == only
+               or (only is None and s[0] != "dw")]
     libs = {}
     for kind, name, bind in sources:
-        path, secs, _ = _build.build(name, ("-DDCGRU_PROBE",))
+        path, secs, report = _build.build(name, ("-DDCGRU_PROBE",))
         lib = bind(ctypes.CDLL(path))
         lib.dcgru_probe_read.argtypes = [ctypes.c_void_p]
         lib.dcgru_probe_read.restype = ctypes.c_int
         libs[kind] = lib
         print(f"build {name}.cu -DDCGRU_PROBE in {secs:.1f} s", flush=True)
+        keep = ("dw",) if kind == "dw" else ("loop", "fwd")
+        if kind == "dw":
+            entry = ""
+            for line in report.splitlines():
+                if "Compiling entry" in line:
+                    entry = line
+                elif "dw" in entry and any(w in line for w in (
+                        "registers", "spill")):
+                    print(f"ptxas {entry.split()[-3]} {line.strip()}",
+                          flush=True)
         listing = (os.path.join(sass_dir, f"{name}.sass") if sass_dir
                    else None)
-        for fn, count in sass_sizes(path, listing).items():
+        for fn, count in sass_sizes(path, listing, keep).items():
             print(f"sass {name}.cu {fn}: {count} instructions", flush=True)
     # the wrappers launch the probe builds
     if "fwd" in libs:
@@ -275,6 +377,11 @@ def main():
         cr._lib_bwd = lambda: libs["bwd"]
     if "dec" in libs:
         cd._lib = lambda: libs["dec"]
+    if "dw" in libs:
+        cr._lib_xin = lambda: libs["dw"]
+        libs["dw"].dcgru_xin_dw_plan.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        libs["dw"].dcgru_xin_dw_plan.restype = ctypes.c_int
 
     def read(kind):
         buf = (ctypes.c_ulonglong * SLOTS)()
@@ -288,6 +395,8 @@ def main():
         probe_encoder(torch, cr, read, results)
     if "dec" in libs:
         probe_decoder(torch, cd, read, results)
+    if "dw" in libs:
+        probe_dw(torch, cr, libs["dw"], lambda: read("dw"), results)
     print(json.dumps({"loop_probe": results}), flush=True)
 
 

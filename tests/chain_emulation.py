@@ -167,3 +167,26 @@ def dec_chain_bwd(a, wx0g, wx0c, wh0g, wh0c, wxsg, wxsc, whsg, whsc, wp,
             else:
                 dcur = dinp
     return dx, torch.stack(dh), dpre, dproj
+
+
+def dw_chain(a, h_prev, ru_seq, x, dpre, bf16=True):
+    """The bulk dW kernel's arithmetic (``csrc/dcgru_xin_gemm.cu``,
+    ``xin_dw_kernel``) summed over every (t, b) pair: G_m = A_m^T dpre per
+    clip, then dW_m = [x | h_prev | r h_prev]^T G_m and db = sum dpre.
+    With ``bf16`` the diffusion takes bf16 A_m^T and dpre with f32 sums,
+    G_m and r h_prev are rounded to bf16, and the products sum in f32;
+    without, everything is f32 (the kernel's 3xTF32). Returns the flat
+    slab [dWxg | dWxc | dWg | dWc | dbg | dbc]."""
+    rnd = bf16_operand if bf16 else (lambda v: v.float())
+    h_units = h_prev.shape[-1]
+    g = rnd(_apply_ops(rnd(a.transpose(-1, -2)), rnd(dpre)))
+    h = h_prev.float()
+    rh = rnd(ru_seq.float()[..., :h_units] * h)
+    prod = lambda f, gm: torch.einsum("tbni,mtbnj->mij", f, gm)
+    dwx = prod(x.float(), g)
+    dwx = dwx.reshape(-1, dwx.shape[-1])
+    return torch.cat([
+        dwx[:, :2 * h_units].reshape(-1), dwx[:, 2 * h_units:].reshape(-1),
+        prod(h, g[..., :2 * h_units]).reshape(-1),
+        prod(rh, g[..., 2 * h_units:]).reshape(-1),
+        dpre.float().sum(dim=(0, 1, 2))])

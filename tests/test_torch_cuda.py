@@ -287,6 +287,127 @@ def test_xin_bwd_dw_is_bitwise_deterministic(dev):
             assert torch.equal(g, w)
 
 
+def _dw_inputs(dev, *, t, b, n, d, h, num_supports, shared, stream,
+               seed=0):
+    """The bulk dW kernel's arguments (a_ops, h_prev, ru, x, dpre) at n
+    nodes: streams in the stream dtype, ru in (0, 1), dpre float32."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(
+        num_supports, 1 if shared else b, n, n)) / n).astype(np.float32))
+    a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+    return (a_ops, f(t, b, n, h, scale=0.5).to(stream),
+            torch.sigmoid(f(t, b, n, 2 * h)).to(stream),
+            f(t, b, n, d).to(stream), f(t, b, n, 3 * h, scale=0.1))
+
+
+# (N, D, H, T, B) of the bulk dW cases: ragged nodes and widths (7, 12);
+# the detector's layers at N=19 (T*B = 2,220 and 91: chunks of 5 pairs
+# end short, splits start off 16-byte alignment); N=32; H=12 (a
+# candidate tile of 12 columns)
+DW_SHAPES = [(7, 12, 16, 5, 37), (19, 64, 64, 7, 13), (19, 100, 64, 60, 37),
+             (32, 100, 64, 3, 9), (32, 12, 12, 4, 5)]
+
+
+@pytest.mark.parametrize("n,d,h,t,b", DW_SHAPES)
+@pytest.mark.parametrize("num_supports,shared", [(1, False), (1, True),
+                                                 (2, False), (2, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dw_kernel_matches_plain(dev, n, d, h, t, b, num_supports, shared,
+                                 bf16):
+    """The bulk dW kernel's split partials, and their sum, against the
+    plain version: N=7, 19 and 32, D=12, 64 and 100, T*B not a multiple
+    of a chunk, a_batch 1 and B, M=3 and 5."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    args = _dw_inputs(dev, t=t, b=b, n=n, d=d, h=h,
+                      num_supports=num_supports, shared=shared,
+                      stream=stream, seed=n + d + t)
+    before = cr.dcgru_xin_dw.launches
+    got = cr.dcgru_xin_dw(*args)
+    torch.cuda.synchronize()
+    assert cr.dcgru_xin_dw.launches == before + 1
+    want = cr.dcgru_xin_dw_plain(*args)
+    m = num_supports * K + 1
+    assert got.shape == want.shape == (cr.dw_splits(t * b, m, d, h),
+                                       cr.dw_size(m, d, h))
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= tol, _err(got, want)
+    assert _err(cr.dcgru_dw_reduce(got), want.sum(0)) <= tol
+
+
+@pytest.mark.parametrize("t,d", [(12, 100), (24, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dw_kernel_at_the_decoder_launch_shapes(dev, t, d, bf16):
+    """The SSL decoder's two dW launches (B=128, M=3): layer 0 at D=100
+    over T_out=12 steps, the tied cell at D=64 over (L-1) T_out = 24
+    stacked steps, each reduced, against the plain version."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    args = _dw_inputs(dev, t=t, b=128, n=N, d=d, h=64, num_supports=1,
+                      shared=False, stream=stream, seed=t)
+    got = cr.dcgru_dw_reduce(cr.dcgru_xin_dw(*args))
+    want = cr.dcgru_xin_dw_plain(*args).sum(0)
+    assert _err(got, want) <= (2e-2 if bf16 else 1e-4), _err(got, want)
+
+
+def test_dw_kernel_is_bitwise_deterministic(dev):
+    """Two launches on the same inputs give the same bits (fixed splits
+    and chunks, fixed sums, no atomics), per-clip and shared graphs."""
+    for stream in (torch.float32, torch.bfloat16):
+        for shared in (False, True):
+            args = _dw_inputs(dev, t=60, b=128, n=N, d=100, h=64,
+                              num_supports=1, shared=shared, stream=stream)
+            assert torch.equal(cr.dcgru_xin_dw(*args),
+                               cr.dcgru_xin_dw(*args))
+
+
+@pytest.mark.parametrize("where", ["dpre", "x", "h_prev", "r", "u"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dw_kernel_keeps_a_device_nan(dev, where, bf16):
+    """A NaN that a device op made, in one entry of dpre, x, h_prev or the
+    r or u half of ru, reaches exactly the partials' entries it reaches
+    in the plain version (u: none)."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    args = list(_dw_inputs(dev, t=5, b=37, n=N, d=100, h=64,
+                           num_supports=1, shared=False, stream=stream))
+    i, col = {"dpre": (4, 70), "x": (3, 33), "h_prev": (1, 5),
+              "r": (2, 9), "u": (2, 64 + 9)}[where]
+    nan = (torch.zeros(1, device=dev) / 0)[0]
+    v = args[i].clone()
+    v[4, 30, 11, col] = nan
+    args[i] = v
+    got = cr.dcgru_xin_dw(*args)
+    want = cr.dcgru_xin_dw_plain(*args)
+    assert not want.isnan().all()
+    assert want.isnan().any() == (where != "u")
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+# the bf16 dW kernel against its emulated rounding (chain_emulation.dw_chain)
+DW_ROUNDING_TOL = 1e-3
+
+
+@pytest.mark.parametrize("num_supports", [1, 2])
+def test_bf16_dw_kernel_computes_its_operand_rounding(dev, num_supports,
+                                                      record_property):
+    """The bf16 kernel computes the stated rounding (G_m = A_m^T dpre in
+    one bf16 pass, rounded to bf16; r h_prev rounded to bf16; f32 sums),
+    emulated on the card: the reduced dW and db within the bar of the
+    emulation; the plain version (f32 features) is recorded beside."""
+    from chain_emulation import dw_chain
+
+    args = _dw_inputs(dev, t=7, b=13, n=N, d=100, h=64,
+                      num_supports=num_supports, shared=False,
+                      stream=torch.bfloat16)
+    want = dw_chain(*args, bf16=True)
+    got = cr.dcgru_dw_reduce(cr.dcgru_xin_dw(*args))
+    plain = cr.dcgru_xin_dw_plain(*args).sum(0)
+    errs = {"kernel": _err(got, want), "plain": _err(plain, want)}
+    record_property("kernel_and_plain_vs_emulation", errs)
+    assert errs["kernel"] <= DW_ROUNDING_TOL, errs
+
+
 def _loop_inputs(dev, *, t, b, n, h, num_supports, shared, stream,
                  activation="tanh", seed=0, w_scale=0.1):
     """The state loops' arguments at n nodes: (forward loop fed an f32
@@ -778,6 +899,69 @@ def test_decoder_tensor_core_loops_match_plain(dev, n, h, d, num_layers,
                 (kern.__name__, i)
             assert torch.isfinite(g.float()).all(), (kern.__name__, i)
             assert _err(g, w) <= tol, (kern.__name__, i, _err(g, w))
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+def test_decoder_tensor_core_loops_are_bitwise_deterministic(dev,
+                                                             num_layers):
+    """Two runs of each decoder loop on the same inputs give the same bits
+    (fixed tiles summed in a fixed order), bf16 and f32, at the SSL
+    model's widths."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    for stream in (torch.float32, torch.bfloat16):
+        fwd, loop = _dec_loop_inputs(dev, t=12, b=37, n=N, d=100, h=64,
+                                     num_layers=num_layers, num_supports=1,
+                                     stream=stream)
+        for kern, args, kw in ((cd.dcgru_decoder_fwd, fwd,
+                                dict(residuals=True)),
+                               (cd.dcgru_dec_bwd_loop, loop, {})):
+            runs = [kern(*args, **kw) for _ in range(2)]
+            for g, w in zip(*runs):
+                assert torch.equal(g, w), kern.__name__
+
+
+@pytest.mark.parametrize("num_layers", [1, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decoder_tensor_core_loops_keep_a_device_nan(dev, num_layers, bf16):
+    """A NaN that a device op made reaches the entries it reaches in the
+    plain loops: in one entry of h0 (the top layer's) and in one entry of
+    the force-fed input (x_seq at a forced step), through the forward's
+    proj and every residual; and in the backward loop, fed finite
+    residuals, in that h0 entry as h_prev at step 0 and in one entry of
+    the proj cotangent at a forced step, through dx, dh0, dpre and
+    dproj."""
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+
+    stream = torch.bfloat16 if bf16 else torch.float32
+    fwd, loop = _dec_loop_inputs(dev, t=4, b=3, n=N, d=100, h=64,
+                                 num_layers=num_layers, num_supports=1,
+                                 stream=stream)
+    nan = (torch.zeros(1, device=dev) / 0)[0]
+    force = fwd[2]
+    step = int(torch.nonzero(force)[0])  # a forced step
+    h0 = fwd[17].clone()
+    h0[num_layers - 1, 1, 4, 5] = nan
+    x = fwd[1].clone()
+    x[step, 2, 7, 30] = nan
+    for args in ((*fwd[:17], h0, *fwd[18:]),
+                 (fwd[0], x, *fwd[2:])):
+        got = cd.dcgru_decoder_fwd(*args, residuals=True)
+        want = cd.dcgru_decoder_fwd_plain(*args, residuals=True)
+        assert any(w.isnan().any() for w in want)
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan())
+    h_prev = loop[10].clone()
+    h_prev[num_layers - 1, 0, 1, 4, 5] = nan
+    d_seq = loop[13].clone()
+    d_seq[step, 2, 7, 30] = nan
+    for args in ((*loop[:10], h_prev, *loop[11:]),
+                 (*loop[:13], d_seq, *loop[14:])):
+        got = cd.dcgru_dec_bwd_loop(*args)
+        want = cd.dcgru_dec_bwd_loop_plain(*args)
+        assert any(w.isnan().any() for w in want)
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan())
 
 
 def test_decoder_loop_plans_take_every_branch(dev, record_property):
