@@ -80,7 +80,9 @@ Phases (any failure exits non-zero and prints no result line):
 6. time each kernel with CUDA events (median of 20 runs after warm-up;
    its plain version: of 5): the encoder's per layer (B=128, M=3; the
    x-in wrappers as a whole and each of their kernels alone; the first
-   layer's backward without dx, as the train step runs it, and with dx),
+   layer's backward without dx, as the train step runs it, and with dx;
+   the bulk projection's and dx's operand staging alone, and their launch
+   plans),
    the decoder's (B=128, M=3, L=3: the forward, the backward as a whole
    and each of its kernels; dWp beside one ``torch.matmul``; the state
    loops' weight staging alone, and their launch plans), the dW
@@ -1472,6 +1474,21 @@ def phase_times(torch, dev):
             report((XIN_BWD[2], tag, d), XIN_BWD[2], cr.dcgru_xin_dx,
                    cr.dcgru_xin_dx_plain, (a["a_ops"], wx, dpre, dtype),
                    [dxw])
+            # the bulk projection's and dx's wrappers stage the operators
+            # and weights as fragments at every launch (inside their times
+            # above): the staging alone, and the launch plans
+            bf16 = dtype == torch.bfloat16
+            stage = [time_ms(torch, lambda tr=tr: (
+                cr.dw_op_frags(a["a_ops"], bf16, tr, batch_major=True),
+                cr.xin_weight_frags((a["wxg_f"], a["wxc_f"]), 3, tr, bf16)))
+                for tr in (False, True)]
+            plans = [cr.xin_bulk_plan(proj, T, BATCH, N, d, H, 3, BATCH, bf16)
+                     for proj in (True, False)]
+            log(f"time operand staging of the bulk projection and dx D={d} "
+                f"M=3 {tag}: projection {stage[0]:.4f} ms, dx "
+                f"{stage[1]:.4f} ms a launch; plans: " + "; ".join(
+                    f"{k} {pl}" for k, pl in zip(("projection", "dx"),
+                                                  plans)))
             report((BWD[1], tag, d), BWD[1], cr.dcgru_recurrence_bwd,
                    cr.dcgru_recurrence_bwd_plain, hoisted_b,
                    [bwd_work(xin=False, d=d, **kw)], " (with its dW reduce)")

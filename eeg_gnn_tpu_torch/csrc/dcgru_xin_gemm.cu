@@ -26,17 +26,45 @@
 // chip_smoke.py's proj_work, dw_work, dx_work), far below the serial
 // loops'.
 //
-// Projection and dx. Rows are clip-steps' node rows, (t, b, n) flattened;
-// a block takes a chunk of P whole (t, b) pairs, P*N rows padded to a
-// multiple of 16 only at the chunk's end, so the per-clip diffusion stays
-// inside the block. It runs on FMA in shared memory as a tile arrives; a
-// block covers up to three 64-column output tiles, one per group of
-// warps. Products are warp-level mma.sync: bf16 streams take m16n8k16 bf16
-// operands with f32 accumulation (the reference's Precision.DEFAULT: one
-// bf16 MXU pass); f32 streams take 3xTF32 (m16n8k8, a = hi + lo, hi*hi +
-// hi*lo + lo*hi), ~f32 accuracy with TF32 off everywhere else. Operand
-// tiles live in f32 shared memory, converted when a fragment is built;
-// tiles arrive by cp.async, double-buffered.
+// Projection and dx: one body (xin_bulk_kernel), out = sum_m (Op_m In) V_m
+// per clip; the projection takes Op_m = A_m, In = x, V_m = Wx_m (D x 3H)
+// and writes XP in f32, dx takes Op_m = A_m^T, In = dpre, V_m = Wx_m^T
+// (3H x D) and writes dx in the stream dtype. The first port staged K 16
+// columns at a time, diffused on FMA between three barriers a stage and
+// re-read its f32 weights from L2 for every chunk, converting them at
+// every fragment; its probe (loop_probe.py --only proj|dx, PERF.md) found
+// a stage spent in the products' conversions (proj), or the FMA
+// diffusion (dx at D=64), and issuing the next stage's copies. This design:
+// - diffuses on the tensor cores: the operators arrive as mma A fragments
+//   laid out once a launch by the wrapper (dw_op_frags, A_m or A_m^T), In
+//   is the B operand (bf16: F_0 read by ldmatrix.trans, the rows past a
+//   pair's N masked to zero; f32: In, split as read), and F_m = Op_m In
+//   is written once into a shared tile in the operand type (bf16, or TF32
+//   hi|lo pairs); m=0 is a copy. The product reads F as A fragments
+//   (ldmatrix, or 8-byte hi|lo loads, conflict-free) and converts
+//   nothing. bf16: F_m is one bf16 pass of bf16 A_m and In, rounded to
+//   bf16 (the reference's projection rounds the same F; its dx
+//   multiplies by Wx_m^T first: PERF.md says why this one does not);
+//   f32: 3xTF32.
+// - keeps the weights resident: the wrapper stages V_m as mma B fragments
+//   (xin_weight_frags: bf16, or TF32 hi and lo); a block owns one output
+//   column tile, copies its weights in once and walks many chunks of whole
+//   (t, b) pairs (a persistent grid of one wave of 132 blocks an SM slot;
+//   the H100's SM count is a constant). F holds one m at a time (K staged
+//   in pieces of one m). f32's hi|lo operands are 4x bf16's: the plan
+//   takes a narrower column tile where the weights would not fit, and
+//   splits each m's k tiles over up to 15 warps, whose partial sums are
+//   added in a fixed order (bulk_plan; PERF.md records each plan).
+// - stages by TMA from a producer warp: a weight tile as one 3-D tensor
+//   copy, a chunk's rows as one 2-D tensor copy (f32 In, rows padded for
+//   conflict-free reads) or 1-D bulk copies of their span (bf16 x), the
+//   pairs' operator fragments likewise (clip-major, so a chunk's are one
+//   span); the next chunk's copies are issued as soon as its In is read
+//   and run under the products. Two barriers an m a chunk; bf16 plans fit
+//   two blocks an SM (the projection) or 11 warps (dx), so one block's
+//   diffusion runs under the other's product.
+// - writes every output element from one block's registers: no sums
+//   across blocks, the same bits on every run.
 //
 // dW. The TPU kernel diffused [h_prev | r h_prev | x] at every step and
 // multiplied the features into resident dW blocks. The first port did the
@@ -95,138 +123,9 @@ namespace {
 
 using namespace dcgru;
 
-constexpr int kCT = 64;       // output columns of a warp (8 n8 tiles)
-constexpr int kGroup = 3;     // column tiles of a block, one per warp group
-constexpr int kLg = kGroup * kCT + 4;  // padded row of a group's columns
-constexpr int kLf = 2 * kCT + 4;       // padded row of dW's feature tile
-constexpr int kKC = 16;       // K per stage of the projection and dx
-constexpr int kLk = kKC + 4;  // padded row of a stage's f32 tile
-constexpr int kMaxThreads = 512;
-constexpr int kMaxSmem = 232448;
-constexpr int kMaxSplitPairs = 512;  // (t, b) pairs a dW split sums, at most
-
-// ---------------------------------------------------------------------------
-// tensor-core fragments (helpers in dcgru_common.cuh)
-// ---------------------------------------------------------------------------
-
-// One warp: acc[j] += A (16 x 16) B (16 x 8) for the n8 tiles j < nt_live,
-// A(i, k) = a[i*ai + k*ak], B(k, n) = b[k*bk + (8j + n)*bn], f32 in shared
-// memory. Accumulator j holds rows g, g+8 and columns 2t, 2t+1 of tile j
-// (g = lane / 4, t = lane % 4).
-template <bool BF16>
-__device__ __forceinline__ void mma_k16(float (&acc)[8][4],
-                                        const float* __restrict__ a, int ai,
-                                        int ak, const float* __restrict__ b,
-                                        int bk, int bn, int nt_live) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a0 = a + g * ai;
-  const float* a1 = a + (g + 8) * ai;
-  if constexpr (BF16) {
-    const int k0 = 2 * t, k1 = 2 * t + 8;
-    const uint32_t fa[4] = {pack_bf16(a0[k0 * ak], a0[(k0 + 1) * ak]),
-                            pack_bf16(a1[k0 * ak], a1[(k0 + 1) * ak]),
-                            pack_bf16(a0[k1 * ak], a0[(k1 + 1) * ak]),
-                            pack_bf16(a1[k1 * ak], a1[(k1 + 1) * ak])};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j < nt_live) {
-        const float* bj = b + (8 * j + g) * bn;
-        mma_bf16(acc[j], fa, pack_bf16(bj[k0 * bk], bj[(k0 + 1) * bk]),
-                 pack_bf16(bj[k1 * bk], bj[(k1 + 1) * bk]));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < 16; kk += 8) {
-      const int k0 = kk + t, k1 = kk + t + 4;
-      uint32_t hi[4], lo[4];
-      split_tf32(a0[k0 * ak], hi[0], lo[0]);
-      split_tf32(a1[k0 * ak], hi[1], lo[1]);
-      split_tf32(a0[k1 * ak], hi[2], lo[2]);
-      split_tf32(a1[k1 * ak], hi[3], lo[3]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j < nt_live) {
-          const float* bj = b + (8 * j + g) * bn;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(bj[k0 * bk], bh0, bl0);
-          split_tf32(bj[k1 * bk], bh1, bl1);
-          mma_tf32(acc[j], lo, bh0, bh1);
-          mma_tf32(acc[j], hi, bl0, bl1);
-          mma_tf32(acc[j], hi, bh0, bh1);
-        }
-      }
-    }
-  }
-}
-
-// dW's long sums flush each chunk into an f32 register sum (flush, in
-// dcgru_common.cuh). The projection's and dx's sums run over M*D and
-// M*3H (a few hundred adds at most) and keep one accumulator: their
-// float32 error stays within 6e-6 of the plain version (PERF.md).
-
-// ---------------------------------------------------------------------------
-// cp.async tiles (copies in dcgru_common.cuh)
-// ---------------------------------------------------------------------------
-
-// Rows [0, RB) x quads [0, W/4) of a row-major global tile into shared
-// memory (ld elements a row); rows >= rows_ok or columns >= cols_ok (both
-// relative to the tile) are zero-filled.
-template <typename S>
-__device__ __forceinline__ void load_tile(S* dst, int ld, const S* src,
-                                          size_t lds, int RB, int W,
-                                          int rows_ok, int cols_ok) {
-  const int q4 = W / 4;
-  for (int i = threadIdx.x; i < RB * q4; i += blockDim.x) {
-    const int r = i / q4, c = 4 * (i - r * q4);
-    const bool ok = r < rows_ok && c < cols_ok;
-    cp_quad(dst + r * ld + c, ok ? src + r * lds + c : src, ok);
-  }
-}
-
-// dst[n * ldd] = sum_k a[n * Np + k] v[k] for n < N: a holds N operator
-// rows padded to Np = pad4(N) floats (zeros past N; rows of A_m, or of
-// A_m^T), v[k] = 0 past N; a == nullptr is the identity. Four rows at a
-// time, so four FMA chains are in flight.
-__device__ __forceinline__ void apply_rows(const float (&v)[kMaxNodes],
-                                           const float* __restrict__ a, int N,
-                                           float* dst, int ldd) {
-  if (a == nullptr) {
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) dst[k * ldd] = v[k];
-    return;
-  }
-  const int Np = pad4(N);
-  for (int n = 0; n < N; n += 4) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k4 = 0; k4 < kMaxNodes / 4; ++k4)
-      if (4 * k4 < N) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (n + i < N) {
-            const float4 w = *reinterpret_cast<const float4*>(
-                a + (n + i) * Np + 4 * k4);
-            s[i] = fmaf(w.x, v[4 * k4], s[i]);
-            s[i] = fmaf(w.y, v[4 * k4 + 1], s[i]);
-            s[i] = fmaf(w.z, v[4 * k4 + 2], s[i]);
-            s[i] = fmaf(w.w, v[4 * k4 + 3], s[i]);
-          }
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (n + i < N) dst[(n + i) * ldd] = s[i];
-  }
-}
-
-// v[k] = src[k * lds] for k < N, 0 past N.
-template <typename S>
-__device__ __forceinline__ void load_col(float (&v)[kMaxNodes], const S* src,
-                                         int lds, int N) {
-#pragma unroll
-  for (int k = 0; k < kMaxNodes; ++k) v[k] = k < N ? to_f(src[k * lds]) : 0.0f;
-}
+constexpr int kMaxSmem = 232448;   // shared bytes a block may have
+constexpr int kSmemPerSm = 233472; // shared bytes of an SM (1 KB a block
+                                   // is the system's)
 
 // ---------------------------------------------------------------------------
 // chunks of whole (t, b) pairs
@@ -247,302 +146,13 @@ Geom geom(int N, int cap) {
   return best;
 }
 
-struct Common {
-  const float* a_ops;  // (M, a_batch, N, N)
-  const float* wx;     // (M*D, 3H) = [Wxg | Wxc], m-major rows
-  int pairs, B, N, D, H3, M, a_batch;
-  Geom g;
-};
-
-__host__ __device__ inline int ops_size(const Common& c) {
-  return c.g.P * (c.M - 1) * c.N * pad4(c.N);
-}
-
-// A_1..A_{M-1} (or their transposes) of the chunk's pairs -> s (P, M-1, N,
-// Np), rows padded with zeros; absent pairs' operators are zero.
-__device__ __forceinline__ void load_ops(float* s, const Common& c, int pair0,
-                                         int np, bool transpose) {
-  const int N = c.N, Np = pad4(N), NN = N * N, per = N * Np;
-  for (int i = threadIdx.x; i < ops_size(c); i += blockDim.x) {
-    const int q = i / ((c.M - 1) * per), e = i - q * (c.M - 1) * per;
-    const int m = e / per + 1, r = e - (m - 1) * per, n = r / Np;
-    const int k = r - n * Np;
-    float v = 0.0f;
-    if (q < np && k < N) {
-      const int b = c.a_batch == 1 ? 0 : (pair0 + q) % c.B;
-      v = c.a_ops[((size_t)m * c.a_batch + b) * NN +
-                  (transpose ? k * N + n : n * N + k)];
-    }
-    s[i] = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// projection: XP (pairs*N, 3H) f32; a block: a chunk x up to 3 column tiles
-// ---------------------------------------------------------------------------
-
-struct ProjSmem {
-  int a, x, w, f, total;  // in floats
-  __host__ __device__ ProjSmem(const Common& c, int sbytes) {
-    a = 0;
-    x = a + pad4(ops_size(c));
-    w = x + 2 * c.g.RB * kKC * sbytes / 4;
-    f = w + 2 * c.M * kKC * kLg;
-    total = f + c.M * c.g.RB * kLk;
-  }
-};
-
-template <typename S, bool BF16>
-__global__ void __launch_bounds__(kMaxThreads)
-    xin_proj_kernel(const Common c, const S* __restrict__ x, float* xp) {
-  extern __shared__ __align__(16) float smem[];
-  const ProjSmem L(c, sizeof(S));
-  const int N = c.N, Np = pad4(N), D = c.D, H3 = c.H3, M = c.M;
-  const int RB = c.g.RB, P = c.g.P;
-  const int pair0 = blockIdx.x * P, np = min(P, c.pairs - pair0);
-  const int rows = np * N, g0 = blockIdx.y * kGroup * kCT;
-  const size_t row0 = (size_t)pair0 * N;
-  float* sA = smem + L.a;
-  S* sx = reinterpret_cast<S*>(smem + L.x);
-  float* sw = smem + L.w;
-  float* sf = smem + L.f;
-  // warp (row tile wr, column tile wc of the group)
-  const int warp = threadIdx.x >> 5, mt = RB / 16;
-  const int wr = warp % mt, wc = warp / mt, c0 = g0 + wc * kCT;
-  const int nt_live = min(8, (H3 - c0 + 7) / 8);
-
-  auto issue = [&](int kc, int s) {
-    const int d0 = kc * kKC;
-    load_tile(sx + s * RB * kKC, kKC, x + row0 * D + d0, D, RB, kKC, rows,
-              D - d0);
-    for (int m = 0; m < M; ++m)
-      load_tile(sw + (s * M + m) * kKC * kLg, kLg,
-                c.wx + ((size_t)m * D + d0) * H3 + g0, H3, kKC, kGroup * kCT,
-                D - d0, H3 - g0);
-    cp_commit();
-  };
-
-  load_ops(sA, c, pair0, np, false);
-  for (int i = threadIdx.x; i < M * RB * kLk; i += blockDim.x) sf[i] = 0.0f;
-  float acc[8][4] = {};
-  const int nkc = (D + kKC - 1) / kKC;
-  issue(0, 0);
-  for (int kc = 0; kc < nkc; ++kc) {
-    const int s = kc & 1;
-    if (kc + 1 < nkc) {
-      issue(kc + 1, s ^ 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    // F_m = A_m x for this stage's columns, one (m, pair, column) per task
-    const S* xs = sx + s * RB * kKC;
-    for (int task = threadIdx.x; task < M * np * kKC; task += blockDim.x) {
-      const int m = task / (np * kKC), e = task - m * np * kKC;
-      const int q = e / kKC, col = e - q * kKC;
-      float v[kMaxNodes];
-      load_col(v, xs + q * N * kKC + col, kKC, N);
-      apply_rows(v, m ? sA + (q * (M - 1) + m - 1) * N * Np : nullptr, N,
-                 sf + (m * RB + q * N) * kLk + col, kLk);
-    }
-    __syncthreads();
-    if (nt_live > 0)
-      for (int m = 0; m < M; ++m)
-        mma_k16<BF16>(acc, sf + (m * RB + 16 * wr) * kLk, kLk, 1,
-                      sw + (s * M + m) * kKC * kLg + wc * kCT, kLg, 1,
-                      nt_live);
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * wr + g + (e >> 1) * 8;
-      const int col = c0 + 8 * j + 2 * t + (e & 1);
-      if (r < rows && col < H3) xp[(row0 + r) * H3 + col] = acc[j][e];
-    }
-}
-
-// ---------------------------------------------------------------------------
-// dx (pairs*N, D) in the stream dtype; a block: a chunk x up to 3 tiles of D
-// ---------------------------------------------------------------------------
-
-struct DxSmem {
-  int a, g, w, e, total;  // in floats
-  __host__ __device__ explicit DxSmem(const Common& c) {
-    a = 0;
-    g = a + pad4(ops_size(c));
-    w = g + 2 * c.g.RB * kKC;
-    e = w + 2 * c.M * kGroup * kCT * kLk;
-    total = e + c.M * c.g.RB * kLk;
-  }
-};
-
-template <typename S, bool BF16>
-__global__ void __launch_bounds__(kMaxThreads)
-    xin_dx_kernel(const Common c, const float* __restrict__ dpre, S* dx) {
-  extern __shared__ __align__(16) float smem[];
-  const DxSmem L(c);
-  const int N = c.N, Np = pad4(N), D = c.D, H3 = c.H3, M = c.M;
-  const int RB = c.g.RB, P = c.g.P;
-  const int pair0 = blockIdx.x * P, np = min(P, c.pairs - pair0);
-  const int rows = np * N, g0 = blockIdx.y * kGroup * kCT;
-  const size_t row0 = (size_t)pair0 * N;
-  float* sA = smem + L.a;
-  float* sg = smem + L.g;
-  float* sw = smem + L.w;
-  float* se = smem + L.e;
-  const int warp = threadIdx.x >> 5, mt = RB / 16;
-  const int wr = warp % mt, wc = warp / mt, d0 = g0 + wc * kCT;
-  const int nt_live = min(8, (D - d0 + 7) / 8);
-
-  // stage: dpre columns [j0, j0 + kKC) of the chunk's rows, and Wx_m^T
-  // kept as rows d (the group's 3 x 64) of Wx_m, columns j
-  auto issue = [&](int jc, int s) {
-    const int j0 = jc * kKC;
-    load_tile(sg + s * RB * kKC, kKC, dpre + row0 * H3 + j0, H3, RB, kKC,
-              rows, H3 - j0);
-    for (int m = 0; m < M; ++m)
-      load_tile(sw + (s * M + m) * kGroup * kCT * kLk, kLk,
-                c.wx + ((size_t)m * D + g0) * H3 + j0, H3, kGroup * kCT, kKC,
-                D - g0, H3 - j0);
-    cp_commit();
-  };
-
-  load_ops(sA, c, pair0, np, true);
-  for (int i = threadIdx.x; i < M * RB * kLk; i += blockDim.x) se[i] = 0.0f;
-  float acc[8][4] = {};
-  const int njc = (H3 + kKC - 1) / kKC;
-  issue(0, 0);
-  for (int jc = 0; jc < njc; ++jc) {
-    const int s = jc & 1;
-    if (jc + 1 < njc) {
-      issue(jc + 1, s ^ 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    // E_m = A_m^T dpre for this stage's columns
-    const float* gs = sg + s * RB * kKC;
-    for (int task = threadIdx.x; task < M * np * kKC; task += blockDim.x) {
-      const int m = task / (np * kKC), e = task - m * np * kKC;
-      const int q = e / kKC, col = e - q * kKC;
-      float v[kMaxNodes];
-      load_col(v, gs + q * N * kKC + col, kKC, N);
-      apply_rows(v, m ? sA + (q * (M - 1) + m - 1) * N * Np : nullptr, N,
-                 se + (m * RB + q * N) * kLk + col, kLk);
-    }
-    __syncthreads();
-    if (nt_live > 0)
-      for (int m = 0; m < M; ++m)
-        mma_k16<BF16>(acc, se + (m * RB + 16 * wr) * kLk, kLk, 1,
-                      sw + ((s * M + m) * kGroup * kCT + wc * kCT) * kLk, 1,
-                      kLk, nt_live);
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * wr + g + (e >> 1) * 8;
-      const int col = d0 + 8 * j + 2 * t + (e & 1);
-      if (r < rows && col < D)
-        dx[(row0 + r) * D + col] = from_f<S>(acc[j][e]);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// dW: (S, slab) f32 partials, one per split of the (t, b) pairs
+// TMA copies and tensor-core helpers (others in dcgru_common.cuh)
 // ---------------------------------------------------------------------------
 //
-// Per clip, (A_m F)^T dpre = F^T (A_m^T dpre): dW_m = sum over the pairs of
-// [x | h_prev | r h_prev]^T G_m with G_m = A_m^T dpre (G_0 = dpre). A block
-// owns one m, one tile of up to 64 dpre columns (all gate or all
-// candidate columns) and a group of up to kDwTiles 16-feature tiles of
-// [x | h_prev] (gate) or [x | r h_prev] (candidate), one warp a tile.
-// Per chunk of whole pairs it diffuses its dpre tile once, on the tensor
-// cores, into G^T in the operand type; every feature tile's product reads
-// that G^T, and the raw features need no diffusion.
-
-constexpr int kDwCols = 64;         // dpre columns of a block: 8 n8 tiles
-constexpr int kDwTiles = 11;        // 16-feature tiles of a block, at most
-constexpr int kDwMaxPairs = 6;      // pairs of a chunk, at most
-// the split rule's constants (ops/cuda_recurrent.py, dw_splits, which
-// chooses the splits; dcgru_xin_dw takes their count)
-constexpr int kDwWaveBlocks = 132;  // blocks of a wave: the H100's SMs, a
-                                    // constant (the sums' order follows
-                                    // from the shape alone)
-constexpr int kDwSplitPairs = 192;  // (t, b) pairs of a split, at most
-
-struct DwParams {
-  const void* x;       // (T, B, N, D)
-  const void* h_prev;  // (T, B, N, H)
-  const void* ru;      // (T, B, N, 2H)
-  const float* dpre;   // (T, B, N, 3H) f32
-  const uint4* frags;  // (M-1, a_batch, fw) A_m^T as mma A fragments
-  float* part;         // (splits, slab)
-  int pairs, B, N, D, H, M, a_batch;
-  int pps;             // pairs a split
-  int P, RB;           // pairs a chunk; rows a chunk, padded to 16
-  int fw;              // 16-byte words of one operator's fragments
-  int ct_g, ct;        // column tiles of the 2H gate columns; of all 3H
-  int xt, ft, fg;      // feature tiles of x; of x and h; groups of them
-  int warps;           // a block's warps: one a feature tile, then the
-                       // producer
-};
-
-// the smallest row stride >= rb that is r modulo 16 (elements)
-__host__ __device__ inline int dw_ld(int rb, int r) {
-  return rb + (r - rb % 16 + 16) % 16;
-}
-
-// Byte offsets of a block's shared memory: x and h_prev double-buffered
-// (the product of chunk i reads them while chunk i+1 arrives); ru, dpre's
-// tile and the chunk's operator fragments single (the diffusion reads
-// them before the product starts, and the next chunk's are issued then;
-// double-buffering dpre too read no faster on the H100);
-// G^T and the h part of the features (h_prev, or r h_prev) in the
-// operand type, rows padded for conflict-free fragment reads; db's partial
-// sums; the copies' mbarriers (x and h_prev per buffer; the rest).
-struct DwSmem {
-  int x, h, r, dp, op, gt, rh, db, bar, total;
-  int xn, hn, rn;  // stream elements of one x / h_prev / ru buffer
-  int ldp, ldg;    // row strides of dpre's tile and of G^T
-  int ldo;         // row stride of the h part: 8 mod 32 elements
-  __host__ __device__ DwSmem(const DwParams& p, int sb) {
-    const bool bf = sb == 2;
-    // slack: a span's copy starts up to 12 bytes before its first row and
-    // ends padded to 16 bytes; a feature tile's fragment reads run up to
-    // 15 features past the last row's end (their output rows are dropped)
-    xn = p.RB * p.D + 32;
-    hn = p.RB * p.H + 32;
-    rn = p.RB * 2 * p.H + 32;
-    // conflict-free fragment reads: dpre's B pairs (bf16: rows 2t, 2t+1;
-    // f32: rows t), G^T's 32-bit B words (bf16) or 8-byte hi|lo pairs
-    // (f32), and the padded h part's A words (8 mod 32 elements)
-    ldp = kDwCols + (bf ? 4 : 8);
-    ldg = dw_ld(p.RB, bf ? 8 : 4);
-    ldo = p.H + (40 - p.H % 32) % 32;
-    x = 0;
-    h = x + align16(2 * xn * sb);
-    r = h + align16(2 * hn * sb);
-    dp = (r + rn * sb + 127) & ~127;  // a tensor copy's destination
-    op = dp + p.RB * ldp * 4;
-    gt = op + p.P * p.fw * 16;
-    rh = gt + align16(kDwCols * ldg * (bf ? 2 : 8));
-    db = rh + align16((p.RB * ldo + 16) * sb);
-    bar = db + kDwMaxPairs * kDwCols * 4;  // blockDim / kDwCols <= 6
-    total = bar + 32;
-  }
-};
-
-// The copies are the Tensor Memory Accelerator's 1-D bulk copies
-// (cp.async.bulk): one thread issues a whole span and an mbarrier counts
-// its bytes in, so no thread stalls on a chunk's loads.
+// The copies are the Tensor Memory Accelerator's bulk copies
+// (cp.async.bulk): one thread issues a whole span or tensor box and an
+// mbarrier counts its bytes in, so no thread stalls on a chunk's loads.
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -674,7 +284,8 @@ __device__ __forceinline__ void store_g(float2* gt, int ldg, int j, int k,
   gt[j * ldg + k] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
 }
 
-// G^T (column j, chunk rows k and k+1, k even) = (va, vb)
+// G^T (column j, chunk rows k and k+1, k even) = (va, vb); also row j,
+// columns k and k+1 of the projection's and dx's F
 __device__ __forceinline__ void store_g2(__nv_bfloat16* gt, int ldg, int j,
                                          int k, float va, float vb) {
   *reinterpret_cast<uint32_t*>(gt + j * ldg + k) = pack_bf16(va, vb);
@@ -686,6 +297,574 @@ __device__ __forceinline__ void store_g2(float2* gt, int ldg, int j, int k,
   split_tf32(vb, hb, lb);
   *reinterpret_cast<uint4*>(gt + j * ldg + k) = make_uint4(ha, la, hb, lb);
 }
+
+// a box of the 3-D tensor map at (c0, c1, c2) -> shared memory (128-byte
+// aligned), counted in `bar`; its parts past the tensor read as zeros
+__device__ __forceinline__ void tensor_copy3(void* dst, const CUtensorMap* map,
+                                             int c0, int c1, int c2,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the four 8x8 bf16 matrices of an m16n8k16 A fragment from shared memory:
+// lane l gives row (l & 15), column 8 (l >> 4) of the 16 x 16 tile
+// (volatile: never moved across a barrier; other loads may pass it)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// the same, transposed: B fragments (k = 2t, 2t+1; n = g) of a k-major
+// tile, lane l giving row (l & 15), column 8 (l >> 4)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&b)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// two adjacent output elements (the first 8-byte aligned)
+__device__ __forceinline__ void store_out2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_out2(__nv_bfloat16* o, float a,
+                                           float b) {
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// projection and dx: out = sum_m (Op_m In) V_m, a block a column tile
+// ---------------------------------------------------------------------------
+//
+// Rows are clip-steps' node rows, (t, b, n) flattened; a chunk is P whole
+// (t, b) pairs, P*N rows padded to RB (a multiple of 16) only at its end,
+// so the per-clip diffusion stays inside it. A block owns columns
+// [ctile*ct, ctile*ct + ct) of the output and walks the chunks walker,
+// walker + walkers, ...; per chunk and m it writes F = Op_m In (m=0: In)
+// into the shared operand tile, then every compute warp multiplies its
+// 16 rows of F by its columns of V_m. Rows past a chunk's pairs hold stale
+// values and meet only output rows that are never stored.
+
+constexpr int kBulkWarps = 11;    // compute warps of a bf16 block, at most
+constexpr int kBulkWarps32 = 15;  // of an f32 block (one block an SM)
+constexpr int kBulkRows = 96;     // rows of a chunk, at most
+constexpr int kBulkWave = 132;    // blocks of a wave: the H100's SMs, a
+                                  // constant (the plan follows the shape)
+
+struct BulkParams {
+  const void* in;      // (pairs*N, K): x in the stream dtype, or dpre f32
+  const uint4* ops;    // (a_batch, M-1, fw) Op_m as mma A fragments
+  void* out;           // (pairs*N, C): XP f32, or dx in the stream dtype
+  int pairs, B, N, K, C, M, a_batch;
+  int P, RB;           // pairs a chunk; rows a chunk, padded to 16
+  int ct, ctn;         // columns of a block's tile (64, 32, 16 or 8; a
+                       // warp takes min(32, ct)); column tiles
+  int ks;              // warps that split a piece's k tiles (f32)
+  int kt;              // k tiles of one m: K padded to 16 (bf16) or 8 (f32)
+  int fw;              // 16-byte words of one operator's fragments
+  int wb;              // bytes of one n8 tile's B fragments, one k tile
+  int tmap;            // In by the 2-D tensor map, rows ldk apart; else by
+                       // 1-D bulk copies of the rows' span (ldk = K)
+  int ldk, ldf;        // row strides: In (elements), F (bf16 or float2)
+  int warps;           // compute warps; the producer is one more
+  int walkers;         // blocks of one column tile
+};
+
+// Byte offsets of a block's shared memory: the weight tile (all m: M*kt k
+// tiles by ct/8 n tiles, as the 3-D tensor copy lands it), the chunk's In
+// rows (single: bf16 reads it once, into F_0, and the next chunk's copy is
+// issued then; f32 diffuses from it and issues the next after the last
+// m), the pairs' operator fragments (one set for a shared graph, copied
+// once), F, the copies' mbarriers (weights and shared operators; a
+// chunk's In; its operators). bf16: F_0 (= In, the diffusion's B operand
+// too, rows to the last pair's last k tile) and F_m for one m at a time;
+// f32: one F, F_0 and then each F_m, and at a chunk's end the k-split
+// warps' partial sums.
+struct BulkSmem {
+  int w, in, ops, f, fm, bar, total;
+  __host__ __device__ BulkSmem(const BulkParams& p, int ib, bool bf) {
+    w = 0;
+    in = (p.M * p.kt * (p.ct / 8) * p.wb + 127) & ~127;
+    // a span's copy starts up to 12 bytes early and ends padded to 16
+    const int inb = p.tmap ? p.P * p.N * p.ldk * ib : p.P * p.N * p.K * ib + 32;
+    ops = align16(in + inb);
+    f = ops + (p.M > 1 ? (p.a_batch == 1 ? 1 : p.P) * (p.M - 1) * p.fw * 16
+                       : 0);
+    const int r0 = max(p.RB, (p.P - 1) * p.N + 16 * ((p.N + 15) / 16));
+    fm = bf ? f + r0 * p.ldf * 2 : f;
+    bar = align16(fm + p.RB * p.ldf * (bf ? 2 : 8));
+    total = bar + 32;
+  }
+};
+
+// bytes of the k-split warps' partial sums (f32; in F at a chunk's end)
+__host__ __device__ inline int bulk_red_bytes(const BulkParams& p) {
+  return (p.ks - 1) * (p.warps / p.ks) * 4 * 4 * 32 * 4;
+}
+
+// PROJ: In = x (S), Op_m = A_m, out = XP (f32); else In = dpre (f32),
+// Op_m = A_m^T, out = dx (S). BF16: one bf16 pass (bf16 streams), else
+// 3xTF32. wmap: the staged weights (M*kt, C/8 n tiles, one n tile's
+// words) as a 3-D tensor map whose box is a block's column tile; imap:
+// In (pairs*N rows, K columns) f32 as a 2-D tensor map whose box is a
+// chunk's P*N rows by ldk columns (when p.tmap).
+template <bool PROJ, typename S, bool BF16>
+__global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
+                                       : 32 * (kBulkWarps32 + 1),
+                                  BF16 ? 2 : 1)
+    xin_bulk_kernel(const BulkParams p,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap imap) {
+  using IT = typename std::conditional<PROJ, S, float>::type;
+  using OT = typename std::conditional<PROJ, float, S>::type;
+  using FT = typename std::conditional<BF16, __nv_bfloat16, float2>::type;
+  constexpr int kNt = 4;  // n8 tiles of a warp's columns, at most
+  extern __shared__ __align__(128) unsigned char dsm[];
+  const BulkSmem L(p, sizeof(IT), BF16);
+  const int N = p.N, K = p.K, M = p.M, P = p.P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the last warp issues the copies and helps build F_0
+  const bool producer = warp == p.warps;
+  DCGRU_PROBE_START;
+
+  IT* sin = reinterpret_cast<IT*>(dsm + L.in);
+  uint4* sops = reinterpret_cast<uint4*>(dsm + L.ops);
+  FT* sf0 = reinterpret_cast<FT*>(dsm + L.f);
+  FT* sfm = reinterpret_cast<FT*>(dsm + L.fm);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dsm + L.bar);
+  const int ctile = blockIdx.x % p.ctn, walker = blockIdx.x / p.ctn;
+  const int chunks = (p.pairs + P - 1) / P;
+  const int mine =
+      walker < chunks ? (chunks - walker + p.walkers - 1) / p.walkers : 0;
+  const IT* ig = static_cast<const IT*>(p.in);
+  const IT* iend = ig + (size_t)p.pairs * N * K;
+  const bool per_clip = M > 1 && p.a_batch > 1;
+  const unsigned opw = (M - 1) * p.fw;  // 16-byte words of a clip's ops
+  auto pair0_of = [&](int it) { return (walker + it * p.walkers) * P; };
+  // chunk it's In rows, by the producer's lane 0
+  auto issue_in = [&](int it) {
+    const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+    if (p.tmap) {
+      mbar_expect(&bars[1], P * N * p.ldk * (int)sizeof(IT));
+      tensor_copy(sin, &imap, 0, pair0 * N, &bars[1]);
+    } else {
+      const Span s = span16(ig + (size_t)pair0 * N * K,
+                            np * N * K * (int)sizeof(IT), iend);
+      mbar_expect(&bars[1], s.bytes);
+      copy_span(sin, s, &bars[1]);
+    }
+  };
+  // its pairs' operators (per-clip graphs): runs of consecutive clips
+  auto issue_ops = [&](int it) {
+    const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+    mbar_expect(&bars[2], np * opw * 16);
+    for (int q = 0, b = pair0 % p.B; q < np; b = 0) {
+      const int run = min(np - q, p.B - b);
+      bulk_copy(sops + q * opw, p.ops + (size_t)b * opw, run * opw * 16,
+                &bars[2]);
+      q += run;
+    }
+  };
+
+  // zero every buffer once: F's pad columns and the tile's pad rows stay
+  // zero
+  for (int i = threadIdx.x; i < L.total / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(dsm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (producer && lane == 0) {
+    const bool shared_ops = M > 1 && p.a_batch == 1;
+    mbar_expect(&bars[0], M * p.kt * (p.ct / 8) * p.wb +
+                              (shared_ops ? opw * 16 : 0));
+    tensor_copy3(dsm + L.w, &wmap, 0, ctile * (p.ct / 8), 0, &bars[0]);
+    if (shared_ops) bulk_copy(sops, p.ops, opw * 16, &bars[0]);
+    if (mine) {
+      issue_in(0);
+      if (per_clip) issue_ops(0);
+    }
+  }
+  mbar_wait(&bars[0], 0);
+  DCGRU_PROBE_MARK(0);
+
+  // this warp's product tile: rows 16 wr.., n8 tiles of columns col0..
+  // (wn of them), k tiles [k0, k1) of each m
+  const int rtiles = p.RB / 16, ntc = p.ct / 8, wn = min(32, p.ct);
+  const int wtiles = rtiles * (p.ct / wn);  // warps of one k slice
+  const int wr = warp % rtiles, wc = (warp % wtiles) / rtiles;
+  const int ksi = warp / wtiles;
+  const int k0 = ksi * p.kt / p.ks, k1 = (ksi + 1) * p.kt / p.ks;
+  const int col0 = ctile * p.ct + wc * wn;
+  const int nt_live =
+      producer ? 0 : max(0, min(wn / 8, (p.C - col0 + 7) / 8));
+  const int NTk = (K + 7) / 8;  // In's n8 column tiles
+  const int RT = (N + 15) / 16;
+
+  for (int it = 0; it < mine; ++it) {
+    const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+    const int rows = np * N;
+    // in shared memory a span's first row sits `lead` elements in
+    const IT* xs =
+        sin + (p.tmap ? 0
+                      : (int)(reinterpret_cast<uintptr_t>(
+                                  ig + (size_t)pair0 * N * K) & 15) /
+                            (int)sizeof(IT));
+    DCGRU_PROBE_COUNT(10);
+    mbar_wait(&bars[1], it & 1);
+    DCGRU_PROBE_MARK(1);
+    float acc[kNt][4] = {}, sml[kNt][4] = {}, sum[kNt][4] = {};
+    // F_0 = In in the operand type, 4 columns a lane, a row a warp
+    auto copy_f0 = [&]() {
+      for (int r = warp; r < rows; r += p.warps + 1)
+        for (int c = 4 * lane; c < K; c += 128) {
+          if constexpr (sizeof(IT) == 2) {
+            *reinterpret_cast<uint2*>(sf0 + r * p.ldf + c) =
+                *reinterpret_cast<const uint2*>(xs + r * p.ldk + c);
+          } else {
+            const float4 v =
+                *reinterpret_cast<const float4*>(xs + r * p.ldk + c);
+            store_g2(sf0, p.ldf, r, c, v.x, v.y);
+            store_g2(sf0, p.ldf, r, c + 2, v.z, v.w);
+          }
+        }
+    };
+    // F_m = Op_m In into dst per pair, every 16-node row tile of the pair,
+    // In's rows past N read as zero; by the compute warps
+    auto diffuse = [&](int m, FT* dst) {
+      const uint4* opm = sops + (m - 1) * p.fw + lane;
+      if constexpr (BF16) {
+        // a unit: one pair's 16 columns; B from F_0 by ldmatrix.trans (k
+        // tiles past the pair's rows masked to zero), A, the pair's
+        // operator tiles, kept while a warp's run of units stays on the
+        // pair
+        const int KT = (N + 15) / 16, ncp = (K + 15) / 16;
+        const int units = np * ncp;
+        const int u0 = warp * units / p.warps;
+        const int u1 = (warp + 1) * units / p.warps;
+        // a lane's k rows 2t, 2t+1 | 2t+8, 2t+9 of each k tile that lie
+        // in the pair (B masks), and its output rows g, g+8 of each row
+        // tile that do (their offsets in F, -1 past N)
+        uint32_t mlo[2], mhi[2];
+        int roff[2][2];
+#pragma unroll
+        for (int kt = 0; kt < 2; ++kt) {
+          const int r = 16 * kt + 2 * t;
+          mlo[kt] = (r < N ? 0xffffu : 0u) | (r + 1 < N ? 0xffff0000u : 0u);
+          mhi[kt] = (r + 8 < N ? 0xffffu : 0u) | (r + 9 < N ? 0xffff0000u : 0u);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int n = 16 * kt + g + 8 * h2;
+            roff[kt][h2] = kt < RT && n < N ? n * p.ldf : -1;
+          }
+        }
+        const unsigned bl =
+            smem_addr(sf0 + (lane & 15) * p.ldf + 8 * (lane >> 4));
+        int q = u0 / ncp, c0 = 16 * (u0 - q * ncp);
+        uint4 fa[2][2] = {};
+        for (int u = u0; u < u1; ++u) {
+          if (u == u0 || c0 == 0) {  // the pair's operator tiles
+            const uint4* fr = opm + (per_clip ? q * opw : 0);
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+              for (int kt = 0; kt < 2; ++kt)
+                if (rt < RT && kt < KT) fa[rt][kt] = fr[(rt * KT + kt) * 32];
+          }
+          float ga[2][2][4] = {};  // [row tile][n8 tile]
+          const unsigned b0 = bl + 2 * (q * N * p.ldf + c0);
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt)
+            if (kt < KT) {
+              uint32_t b[4];
+              ldsm_x4_t(b, b0 + 32 * kt * p.ldf);
+              b[0] &= mlo[kt];
+              b[1] &= mhi[kt];
+              b[2] &= mlo[kt];
+              b[3] &= mhi[kt];
+#pragma unroll
+              for (int rt = 0; rt < 2; ++rt)
+                if (rt < RT) {
+                  const uint32_t a[4] = {fa[rt][kt].x, fa[rt][kt].y,
+                                         fa[rt][kt].z, fa[rt][kt].w};
+                  mma_bf16_r(ga[rt][0], a, b[0], b[1]);
+                  mma_bf16_r(ga[rt][1], a, b[2], b[3]);
+                }
+            }
+          FT* d = dst + q * N * p.ldf + c0 + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            if (c0 + 8 * nt + 2 * t < K)
+#pragma unroll
+              for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+                for (int h2 = 0; h2 < 2; ++h2)
+                  if (roff[rt][h2] >= 0)
+                    *reinterpret_cast<uint32_t*>(d + roff[rt][h2] + 8 * nt) =
+                        pack_bf16(ga[rt][nt][2 * h2], ga[rt][nt][2 * h2 + 1]);
+          c0 += 16;
+          if (c0 >= K) {
+            c0 = 0;
+            ++q;
+          }
+        }
+      } else {
+        // a unit: one pair's 8 columns; B from In, split as it is read
+        for (int u = warp; u < np * NTk; u += p.warps) {
+          const int q = u / NTk, c0 = 8 * (u - q * NTk);
+          const uint4* fr = opm + (per_clip ? q * opw : 0);
+          const IT* src = xs + q * N * p.ldk + c0 + g;
+          const bool cok = c0 + g < K;
+          auto v = [&](int n) {
+            return n < N && cok ? to_f(src[n * p.ldk]) : 0.0f;
+          };
+          // the small terms (lo hi, hi lo) apart from hi hi, so the
+          // chains are half as long
+          float ga[2][4] = {}, gs[2][4] = {};
+          const int KT = (N + 7) / 8;
+          for (int kt = 0; kt < KT; ++kt) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(v(8 * kt + t), bh0, bl0);
+            split_tf32(v(8 * kt + t + 4), bh1, bl1);
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt)
+              if (rt < RT) {
+                const uint4 h = fr[(rt * KT + kt) * 64];
+                const uint4 l = fr[(rt * KT + kt) * 64 + 32];
+                const uint32_t hi[4] = {h.x, h.y, h.z, h.w};
+                const uint32_t lo[4] = {l.x, l.y, l.z, l.w};
+                mma_tf32_r(gs[rt], lo, bh0, bh1);
+                mma_tf32_r(gs[rt], hi, bl0, bl1);
+                mma_tf32_r(ga[rt], hi, bh0, bh1);
+              }
+          }
+          if (c0 + 2 * t < K)
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2) {
+                const int n = 16 * rt + g + 8 * h2;
+                if (rt < RT && n < N)
+                  store_g2(dst, p.ldf, q * N + n, c0 + 2 * t,
+                           ga[rt][2 * h2] + gs[rt][2 * h2],
+                           ga[rt][2 * h2 + 1] + gs[rt][2 * h2 + 1]);
+              }
+        }
+      }
+    };
+    // acc (16 rows x the warp's n8 tiles) += F_m V_m over its k tiles
+    auto product = [&](int m, const FT* src) {
+      if constexpr (BF16) {
+        const uint2* wt = reinterpret_cast<const uint2*>(dsm + L.w) +
+                          ((size_t)m * p.kt * ntc + wc * (wn / 8)) * 32 + lane;
+        const unsigned a0 = smem_addr(src + (16 * wr + (lane & 15)) * p.ldf +
+                                      8 * (lane >> 4));
+#pragma unroll 2
+        for (int kk = k0; kk < k1; ++kk) {
+          uint32_t fa[4];
+          ldsm_x4(fa, a0 + 32 * kk);
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+            if (j < nt_live) {
+              const uint2 b = wt[(kk * ntc + j) * 32];
+              mma_bf16_r(acc[j], fa, b.x, b.y);
+            }
+        }
+      } else {
+        const uint4* wt = reinterpret_cast<const uint4*>(dsm + L.w) +
+                          ((size_t)m * p.kt * ntc + wc * (wn / 8)) * 32 + lane;
+        const float2* fa = src + (16 * wr + g) * p.ldf + t;
+        for (int kk = k0; kk < k1; ++kk) {
+          const float2 x0 = fa[8 * kk], x1 = fa[8 * p.ldf + 8 * kk];
+          const float2 x2 = fa[8 * kk + 4], x3 = fa[8 * p.ldf + 8 * kk + 4];
+          const uint32_t hi[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                  __float_as_uint(x2.x), __float_as_uint(x3.x)};
+          const uint32_t lo[4] = {__float_as_uint(x0.y), __float_as_uint(x1.y),
+                                  __float_as_uint(x2.y), __float_as_uint(x3.y)};
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+            if (j < nt_live) {
+              // [hi(k), hi(k+4), lo(k), lo(k+4)] of column g
+              const uint4 b = wt[(kk * ntc + j) * 32];
+              mma_tf32_r(sml[j], lo, b.x, b.y);
+              mma_tf32_r(sml[j], hi, b.z, b.w);
+              mma_tf32_r(acc[j], hi, b.x, b.y);
+            }
+        }
+        // a long f32 sum: each m's partial into the register sum
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[j][e] += acc[j][e] + sml[j][e];
+            acc[j][e] = sml[j][e] = 0.0f;
+          }
+      }
+    };
+    // per m: build F_m (m=0: F_0, the copy), then multiply it
+    const bool next = producer && lane == 0 && it + 1 < mine;
+    for (int m = 0; m < M; ++m) {
+      DCGRU_PROBE_COUNT(11);
+      __syncthreads();  // the last product has read F_m's buffer
+      if (m == 1 && per_clip) mbar_wait(&bars[2], it & 1);
+      DCGRU_PROBE_MARK(2);
+      if (m == 0) {
+        copy_f0();
+        DCGRU_PROBE_MARK(3);
+      } else {
+        if (!producer) diffuse(m, sfm);
+        DCGRU_PROBE_MARK(4);
+      }
+      __syncthreads();  // F_m is complete; what it was built from is read
+      DCGRU_PROBE_MARK(5);
+      // bf16 reads In only into F_0; f32 diffuses from it
+      if (next && m == (BF16 ? 0 : M - 1)) issue_in(it + 1);
+      if (next && m == M - 1 && per_clip) issue_ops(it + 1);
+      if (nt_live > 0) product(m, m ? sfm : sf0);
+      DCGRU_PROBE_MARK(6);
+    }
+    float (&tot)[kNt][4] = BF16 ? acc : sum;
+    if (!BF16 && p.ks > 1) {
+      // the k slices' partials, added in slice order into slice 0's
+      float* red = reinterpret_cast<float*>(dsm + L.f);
+      __syncthreads();  // every product has read F
+      if (ksi > 0 && !producer)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[((((ksi - 1) * wtiles + warp % wtiles) * kNt + j) * 4 + e) *
+                    32 + lane] = tot[j][e];
+      __syncthreads();
+      if (ksi == 0 && !producer)
+        for (int s = 1; s < p.ks; ++s)
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              tot[j][e] += red[((((s - 1) * wtiles + warp) * kNt + j) * 4 + e) *
+                               32 + lane];
+      __syncthreads();
+      // F's pad columns meet every row's weights: zero again (a partial
+      // there could be a NaN)
+      const int pad = 8 * p.kt - K;
+      for (int i = threadIdx.x; i < p.RB * pad; i += blockDim.x)
+        sf0[(i / pad) * p.ldf + K + i % pad] = FT{};
+    }
+    // rows < np*N, columns < C of the tile, two columns a store
+    if (nt_live > 0 && ksi == 0) {
+      OT* o = static_cast<OT*>(p.out) + (size_t)pair0 * N * p.C;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = 16 * wr + g + 8 * h2, col = col0 + 8 * j + 2 * t;
+          if (j < nt_live && r < rows && col < p.C)
+            store_out2(o + (size_t)r * p.C + col, tot[j][2 * h2],
+                       tot[j][2 * h2 + 1]);
+        }
+    }
+    DCGRU_PROBE_MARK(7);
+  }
+  DCGRU_PROBE_MARK(8);
+  DCGRU_PROBE_STORE;
+}
+
+// ---------------------------------------------------------------------------
+// dW: (S, slab) f32 partials, one per split of the (t, b) pairs
+// ---------------------------------------------------------------------------
+//
+// Per clip, (A_m F)^T dpre = F^T (A_m^T dpre): dW_m = sum over the pairs of
+// [x | h_prev | r h_prev]^T G_m with G_m = A_m^T dpre (G_0 = dpre). A block
+// owns one m, one tile of up to 64 dpre columns (all gate or all
+// candidate columns) and a group of up to kDwTiles 16-feature tiles of
+// [x | h_prev] (gate) or [x | r h_prev] (candidate), one warp a tile.
+// Per chunk of whole pairs it diffuses its dpre tile once, on the tensor
+// cores, into G^T in the operand type; every feature tile's product reads
+// that G^T, and the raw features need no diffusion.
+
+constexpr int kDwCols = 64;         // dpre columns of a block: 8 n8 tiles
+constexpr int kDwTiles = 11;        // 16-feature tiles of a block, at most
+constexpr int kDwMaxPairs = 6;      // pairs of a chunk, at most
+// the split rule's constants (ops/cuda_recurrent.py, dw_splits, which
+// chooses the splits; dcgru_xin_dw takes their count)
+constexpr int kDwWaveBlocks = 132;  // blocks of a wave: the H100's SMs, a
+                                    // constant (the sums' order follows
+                                    // from the shape alone)
+constexpr int kDwSplitPairs = 192;  // (t, b) pairs of a split, at most
+
+struct DwParams {
+  const void* x;       // (T, B, N, D)
+  const void* h_prev;  // (T, B, N, H)
+  const void* ru;      // (T, B, N, 2H)
+  const float* dpre;   // (T, B, N, 3H) f32
+  const uint4* frags;  // (M-1, a_batch, fw) A_m^T as mma A fragments
+  float* part;         // (splits, slab)
+  int pairs, B, N, D, H, M, a_batch;
+  int pps;             // pairs a split
+  int P, RB;           // pairs a chunk; rows a chunk, padded to 16
+  int fw;              // 16-byte words of one operator's fragments
+  int ct_g, ct;        // column tiles of the 2H gate columns; of all 3H
+  int xt, ft, fg;      // feature tiles of x; of x and h; groups of them
+  int warps;           // a block's warps: one a feature tile, then the
+                       // producer
+};
+
+// the smallest row stride >= rb that is r modulo 16 (elements)
+__host__ __device__ inline int dw_ld(int rb, int r) {
+  return rb + (r - rb % 16 + 16) % 16;
+}
+
+// Byte offsets of a block's shared memory: x and h_prev double-buffered
+// (the product of chunk i reads them while chunk i+1 arrives); ru, dpre's
+// tile and the chunk's operator fragments single (the diffusion reads
+// them before the product starts, and the next chunk's are issued then;
+// double-buffering dpre too read no faster on the H100);
+// G^T and the h part of the features (h_prev, or r h_prev) in the
+// operand type, rows padded for conflict-free fragment reads; db's partial
+// sums; the copies' mbarriers (x and h_prev per buffer; the rest).
+struct DwSmem {
+  int x, h, r, dp, op, gt, rh, db, bar, total;
+  int xn, hn, rn;  // stream elements of one x / h_prev / ru buffer
+  int ldp, ldg;    // row strides of dpre's tile and of G^T
+  int ldo;         // row stride of the h part: 8 mod 32 elements
+  __host__ __device__ DwSmem(const DwParams& p, int sb) {
+    const bool bf = sb == 2;
+    // slack: a span's copy starts up to 12 bytes before its first row and
+    // ends padded to 16 bytes; a feature tile's fragment reads run up to
+    // 15 features past the last row's end (their output rows are dropped)
+    xn = p.RB * p.D + 32;
+    hn = p.RB * p.H + 32;
+    rn = p.RB * 2 * p.H + 32;
+    // conflict-free fragment reads: dpre's B pairs (bf16: rows 2t, 2t+1;
+    // f32: rows t), G^T's 32-bit B words (bf16) or 8-byte hi|lo pairs
+    // (f32), and the padded h part's A words (8 mod 32 elements)
+    ldp = kDwCols + (bf ? 4 : 8);
+    ldg = dw_ld(p.RB, bf ? 8 : 4);
+    ldo = p.H + (40 - p.H % 32) % 32;
+    x = 0;
+    h = x + align16(2 * xn * sb);
+    r = h + align16(2 * hn * sb);
+    dp = (r + rn * sb + 127) & ~127;  // a tensor copy's destination
+    op = dp + p.RB * ldp * 4;
+    gt = op + p.P * p.fw * 16;
+    rh = gt + align16(kDwCols * ldg * (bf ? 2 : 8));
+    db = rh + align16((p.RB * ldo + 16) * sb);
+    bar = db + kDwMaxPairs * kDwCols * 4;  // blockDim / kDwCols <= 6
+    total = bar + 32;
+  }
+};
 
 template <typename S, bool BF16>
 // dmap: dpre (T*B*N rows, 3H columns) f32 as a 2-D tensor map whose box
@@ -1078,30 +1257,11 @@ __global__ void __launch_bounds__(32 * (kDwTiles + 1)) xin_dw_kernel(
   DCGRU_PROBE_MARK(8);
   DCGRU_PROBE_STORE_ROLE(role, 12);
 }
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-bool valid(const Common& c, int H) {
-  return c.N >= 1 && c.N <= kMaxNodes && c.M >= 1 && c.pairs >= 1 &&
-         c.D >= 4 && c.D % 4 == 0 && H >= 4 && H % 4 == 0 && c.B >= 1;
-}
-
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// The largest chunk (at most 96 rows, and `max_tiles` row tiles of 16)
-// whose shared memory fits.
-template <typename F>
-int fit(Common& c, int max_tiles, F bytes) {
-  const int caps[] = {96, 80, 64, 48, 32, 16};
-  for (int cap : caps) {
-    if (cap > 16 * max_tiles) continue;
-    c.g = geom(c.N, cap);
-    if (c.g.RB <= cap && bytes(c) <= kMaxSmem) return bytes(c);
-  }
-  return -1;
-}
 
 template <typename K, typename... Args>
 int run(K kern, int smem, dim3 grid, int threads, cudaStream_t stream,
@@ -1114,29 +1274,148 @@ int run(K kern, int smem, dim3 grid, int threads, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <typename S>
-int proj(Common c, const void* x, float* xp, cudaStream_t stream) {
-  const int groups = ceil_div(c.H3, kGroup * kCT);
-  const int wc = min(kGroup, ceil_div(c.H3, kCT));
-  const int smem = fit(c, kMaxThreads / 32 / wc, [](const Common& k) {
-    return ProjSmem(k, sizeof(S)).total * 4;
-  });
-  const dim3 grid(ceil_div(c.pairs, c.g.P), groups);
-  return run(xin_proj_kernel<S, sizeof(S) == 2>, smem, grid,
-             32 * (c.g.RB / 16) * wc, stream, c, static_cast<const S*>(x),
-             xp);
+// A tiled tensor map (cuTensorMapEncodeTiled, from the driver through the
+// runtime): `rank` dims, innermost first, strides in bytes of dims 1.., a
+// box per copy, parts past the tensor read as zeros. A cudaError_t.
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+               const void* base, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, type, rank, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename S>
-int dx(Common c, const float* dpre, void* out, cudaStream_t stream) {
-  const int groups = ceil_div(c.D, kGroup * kCT);
-  const int wc = min(kGroup, ceil_div(c.D, kCT));
-  const int smem = fit(c, kMaxThreads / 32 / wc, [](const Common& k) {
-    return DxSmem(k).total * 4;
-  });
-  const dim3 grid(ceil_div(c.pairs, c.g.P), groups);
-  return run(xin_dx_kernel<S, sizeof(S) == 2>, smem, grid,
-             32 * (c.g.RB / 16) * wc, stream, c, dpre, static_cast<S*>(out));
+// The launch plan of a projection or dx shape: the column tile, chunk and
+// warps with the least estimated tensor-core work a compute warp (the
+// products' row tiles, and the diffusion, which every column tile of a
+// chunk repeats; f32's diffusion weighted 4x, its B split as read and
+// its chains short, the weight its plans measured fastest at on the
+// H100), counting two bf16 blocks an SM where their shared memory fits
+// and up to 16 warps an SM; f32 splits each m's k tiles over up to
+// kBulkWarps32 warps. Then one wave of blocks (kBulkWave a
+// block slot of an SM). Shared bytes a block, or -1 where none fits. The
+// plan, like every sum's order, follows from the shape alone.
+int bulk_plan(BulkParams& p, bool bf, int ib) {
+  const int kd = bf ? 16 : 8;
+  const int RT = ceil_div(p.N, 16), KTn = ceil_div(p.N, kd);
+  p.kt = ceil_div(p.K, kd);
+  p.fw = RT * KTn * (bf ? 32 : 64);
+  p.wb = bf ? 256 : 512;
+  // F: ldmatrix rows an odd number of 16-byte words apart (bf16); 8-byte
+  // hi|lo loads of 8 rows 4 mod 16 words apart (f32)
+  p.ldf = bf ? 16 * p.kt + 8 : 8 * p.kt + (8 * p.kt % 16 ? 12 : 4);
+  // f32 In, the diffusion's B reads: rows 2t, 2t+1 of a column 4 mod 16
+  // words apart (bf16 pairs), rows t, t+4 8 mod 32 (tf32)
+  const int ldk = bf ? p.K + (20 - p.K % 16) % 16 : p.K + (40 - p.K % 32) % 32;
+  double best = 0.0;
+  int smem = -1;
+  BulkParams pick = p;
+  for (int ct = 64; ct >= 8; ct /= 2) {
+    const int ctn = ceil_div(p.C, ct);
+    for (int P = 1; P * p.N <= kBulkRows; ++P) {
+      BulkParams q = p;
+      q.P = P;
+      q.RB = ceil_div(P * p.N, 16) * 16;
+      q.ct = ct;
+      q.ctn = ctn;
+      const int wtiles = q.RB / 16 * (ct / min(32, ct));
+      q.ks = bf ? 1 : max(1, min(q.kt, kBulkWarps32 / wtiles));
+      q.warps = wtiles * q.ks;
+      if (q.RB > kBulkRows || q.warps > (bf ? kBulkWarps : kBulkWarps32))
+        continue;
+      q.tmap = ib == 4 && ldk <= 256 && P * p.N <= 256;
+      q.ldk = q.tmap ? ldk : p.K;
+      const BulkSmem L(q, ib, bf);
+      if (L.total > kMaxSmem || bulk_red_bytes(q) > L.bar - L.f) continue;
+      const int per_sm = bf ? min(2, kSmemPerSm / (L.total + 1024)) : 1;
+      const double work =
+          (double)q.RB / 16 / P * p.M * q.kt * ctn * (ct / 8) +
+          (bf ? 1.0 : 4.0) * (p.M - 1) * RT * KTn * ceil_div(p.K, 8) * ctn;
+      const double cost = work / min(16, per_sm * q.warps);
+      if (smem < 0 || cost < best) {
+        best = cost;
+        smem = L.total;
+        pick = q;
+      }
+    }
+  }
+  if (smem < 0) return -1;
+  p = pick;
+  const int per_sm = bf ? min(2, kSmemPerSm / (smem + 1024)) : 1;
+  p.walkers = max(1, min(ceil_div(p.pairs, p.P), kBulkWave * per_sm / p.ctn));
+  return smem;
+}
+
+bool bulk_valid(const BulkParams& p, int D, int H, const void* w) {
+  return p.N >= 1 && p.N <= kMaxNodes && p.M >= 1 && p.pairs >= 1 &&
+         D >= 4 && D % 4 == 0 && H >= 4 && H % 4 == 0 && p.B >= 1 &&
+         p.a_batch >= 1 && w != nullptr && (p.M == 1 || p.ops != nullptr);
+}
+
+BulkParams bulk_params(bool proj, const void* in, const void* ops,
+                       int a_batch, void* out, int T, int B, int N, int D,
+                       int H, int M) {
+  BulkParams p{};
+  p.in = in;
+  p.ops = static_cast<const uint4*>(ops);
+  p.out = out;
+  p.pairs = T * B;
+  p.B = B;
+  p.N = N;
+  p.K = proj ? D : 3 * H;
+  p.C = proj ? 3 * H : D;
+  p.M = M;
+  p.a_batch = a_batch;
+  return p;
+}
+
+template <bool PROJ, typename S>
+int bulk(BulkParams p, const void* w, cudaStream_t stream) {
+  constexpr bool bf = sizeof(S) == 2;
+  using IT = typename std::conditional<PROJ, S, float>::type;
+  const int smem = bulk_plan(p, bf, sizeof(IT));
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  // the weights: (M*kt, C/8, words of an n8 tile) u32
+  alignas(64) CUtensorMap wmap;
+  alignas(64) CUtensorMap imap{};
+  const int words = p.wb / 4, ntg = ceil_div(p.C, 8);
+  const cuuint64_t wdims[3] = {(cuuint64_t)words, (cuuint64_t)ntg,
+                               (cuuint64_t)(p.M * p.kt)};
+  const cuuint64_t wstr[2] = {(cuuint64_t)p.wb, (cuuint64_t)ntg * p.wb};
+  const cuuint32_t wbox[3] = {(cuuint32_t)words, (cuuint32_t)(p.ct / 8),
+                              (cuuint32_t)(p.M * p.kt)};
+  int err = encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, w, wdims,
+                       wstr, wbox);
+  if (err) return err;
+  if (p.tmap) {
+    const cuuint64_t dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.pairs * p.N};
+    const cuuint64_t str[1] = {(cuuint64_t)p.K * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)p.ldk, (cuuint32_t)(p.P * p.N)};
+    err = encode_map(&imap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.in, dims,
+                     str, box);
+    if (err) return err;
+  }
+  return run(xin_bulk_kernel<PROJ, S, bf>, smem, dim3(p.walkers * p.ctn),
+             32 * (p.warps + 1), stream, p, wmap, imap);
 }
 
 // The dW launch plan of a shape: its tiles and warps, and the chunk (at
@@ -1167,36 +1446,14 @@ int dw_plan(DwParams& p, int sb) {
 }
 
 // The 2-D tensor map of dpre (rows x 3H f32) whose box is a chunk's P*N
-// rows by ldp columns; cuTensorMapEncodeTiled comes from the driver
-// through the runtime. A cudaError_t.
+// rows by ldp columns. A cudaError_t.
 int dw_dpre_map(CUtensorMap* map, const DwParams& p, int ldp) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
   const cuuint64_t dims[2] = {(cuuint64_t)(3 * p.H),
                               (cuuint64_t)p.pairs * p.N};
   const cuuint64_t strides[1] = {(cuuint64_t)(3 * p.H) * 4};
   const cuuint32_t box[2] = {(cuuint32_t)ldp, (cuuint32_t)(p.P * p.N)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p.dpre),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.dpre, dims,
+                    strides, box);
 }
 
 template <typename S>
@@ -1232,11 +1489,6 @@ bool dw_valid(const DwParams& p) {
          p.B >= 1 && p.a_batch >= 1;
 }
 
-Common common(const float* a_ops, int a_batch, const float* wx, int T, int B,
-              int N, int D, int H, int M) {
-  return Common{a_ops, wx, T * B, B, N, D, 3 * H, M, a_batch, Geom{1, 16}};
-}
-
 DwParams dw_params(const void* x, const void* h_prev, const void* ru,
                    const float* dpre, const void* frags, int a_batch,
                    float* part, int T, int B, int N, int D, int H, int M) {
@@ -1261,27 +1513,68 @@ DwParams dw_params(const void* x, const void* h_prev, const void* ru,
 extern "C" {
 
 // XP (T, B, N, 3H) f32 = sum_m (A_m x) Wx_m; x in the stream dtype (bf16
-// when bf16 != 0, else f32); wx (M*D, 3H) = [Wxg | Wxc].
+// when bf16 != 0, else f32); ops (a_batch, M-1) the operators A_m as mma
+// A fragments (the wrapper's dw_op_frags with transpose=False,
+// batch_major=True; unused at M=1); w Wx_m (D x 3H) as mma B fragments
+// (xin_weight_frags).
 // Returns a cudaError_t: 0 on a launch that was accepted.
-int dcgru_xin_proj(const void* x, const float* a_ops, int a_batch,
-                   const float* wx, float* xp, int T, int B, int N, int D,
+int dcgru_xin_proj(const void* x, const void* ops, int a_batch,
+                   const void* w, float* xp, int T, int B, int N, int D,
                    int H, int M, int bf16, void* stream) {
-  Common c = common(a_ops, a_batch, wx, T, B, N, D, H, M);
-  if (!valid(c, H)) return (int)cudaErrorInvalidValue;
+  const BulkParams p =
+      bulk_params(true, x, ops, a_batch, xp, T, B, N, D, H, M);
+  if (!bulk_valid(p, D, H, w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? proj<__nv_bfloat16>(c, x, xp, s) : proj<float>(c, x, xp, s);
+  return bf16 ? bulk<true, __nv_bfloat16>(p, w, s)
+              : bulk<true, float>(p, w, s);
 }
 
-// dx (T, B, N, D) in the stream dtype = sum_m A_m^T (dpre Wx_m^T); dpre
-// (T, B, N, 3H) f32.
-int dcgru_xin_dx(const float* dpre, const float* a_ops, int a_batch,
-                 const float* wx, void* dx_out, int T, int B, int N, int D,
+// dx (T, B, N, D) in the stream dtype = sum_m (A_m^T dpre) Wx_m^T; dpre
+// (T, B, N, 3H) f32; ops (a_batch, M-1) A_m^T (dw_op_frags with
+// batch_major=True); w Wx_m^T (3H x D) as mma B fragments.
+int dcgru_xin_dx(const float* dpre, const void* ops, int a_batch,
+                 const void* w, void* dx_out, int T, int B, int N, int D,
                  int H, int M, int bf16, void* stream) {
-  Common c = common(a_ops, a_batch, wx, T, B, N, D, H, M);
-  if (!valid(c, H)) return (int)cudaErrorInvalidValue;
+  const BulkParams p =
+      bulk_params(false, dpre, ops, a_batch, dx_out, T, B, N, D, H, M);
+  if (!bulk_valid(p, D, H, w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dx<__nv_bfloat16>(c, dpre, dx_out, s)
-              : dx<float>(c, dpre, dx_out, s);
+  return bf16 ? bulk<false, __nv_bfloat16>(p, w, s)
+              : bulk<false, float>(p, w, s);
+}
+
+// The launch plan of dcgru_xin_proj (proj != 0) or dcgru_xin_dx at a
+// shape, on the current device: pairs a chunk, rows a chunk, columns a
+// block, column tiles, threads a block, shared bytes a block, blocks a
+// column tile, blocks an SM, In by tensor map, In's and F's row strides.
+int dcgru_xin_bulk_plan(int proj, int T, int B, int N, int D, int H, int M,
+                        int a_batch, int bf16, int* out) {
+  BulkParams p = bulk_params(proj, nullptr, nullptr, a_batch, nullptr, T, B,
+                             N, D, H, M);
+  const int ib = proj && bf16 ? 2 : 4;
+  const int smem = bulk_plan(p, bf16, ib);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * (p.warps + 1);
+  int per_sm = 0;
+  // blocks an SM, after the launch's own shared-memory attribute
+  auto occupancy = [&](auto kern) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        threads, smem);
+    return e;
+  };
+  const cudaError_t err =
+      proj ? (bf16 ? occupancy(xin_bulk_kernel<true, __nv_bfloat16, true>)
+                   : occupancy(xin_bulk_kernel<true, float, false>))
+           : (bf16 ? occupancy(xin_bulk_kernel<false, __nv_bfloat16, true>)
+                   : occupancy(xin_bulk_kernel<false, float, false>));
+  if (err != cudaSuccess) return (int)err;
+  const int v[] = {p.P, p.RB, p.ct, p.ctn, threads, smem, p.walkers, per_sm,
+                   p.tmap, p.ldk, p.ldf};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return 0;
 }
 
 // part (splits, (M*D + M*H)*3H + 3H) f32: split s sums the pairs
@@ -1303,8 +1596,8 @@ int dcgru_xin_dw(const void* x, const void* h_prev, const void* ru,
 }
 
 #ifdef DCGRU_PROBE
-// probe builds: the dW blocks' phase clocks since the last read
-// (kProbeSlots: 12 a role)
+// probe builds: the probed blocks' phase clocks since the last read
+// (dW: 12 slots a role; projection and dx: block 0's)
 int dcgru_probe_read(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, dcgru::probe_cycles,
                                          sizeof(dcgru::probe_cycles));

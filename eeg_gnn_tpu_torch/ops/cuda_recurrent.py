@@ -130,6 +130,8 @@ def bind_xin(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.dcgru_xin_proj, lib.dcgru_xin_dx):
         fn.argtypes = [_P, _P, _I, _P, _P] + [_I] * 7 + [_P]
         fn.restype = _I
+    lib.dcgru_xin_bulk_plan.argtypes = [_I] * 9 + [_P]
+    lib.dcgru_xin_bulk_plan.restype = _I
     lib.dcgru_xin_dw.argtypes = [_P] * 5 + [_I, _P, _I] + [_I] * 7 + [_P]
     lib.dcgru_xin_dw.restype = _I
     lib.dcgru_error_string.argtypes = [_I]
@@ -203,18 +205,79 @@ def round_tf32(v):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def dw_op_frags(a_ops, bf16: bool):
-    """The operators A_1..A_{M-1} of every clip, transposed, as the bulk
-    dW kernel's tensor-core A fragments (:func:`_tile_layout` of each
-    A_m^T): bfloat16, rounded to nearest (bf16 streams: G_m = A_m^T dpre
-    in one bf16 pass, m16n8k16 tiles), or float32 split into TF32 hi and
-    lo (f32 streams: 3xTF32, m16n8k8 tiles). (M-1, a_batch, RT, KT, 32, 8)
-    bf16 or (M-1, a_batch, RT, KT, 2, 32, 4) f32 [hi | lo]."""
-    tiles = _tile_layout(a_ops[1:].transpose(-1, -2), bf16)
+def dw_op_frags(a_ops, bf16: bool, transpose: bool = True,
+                batch_major: bool = False):
+    """The operators A_1..A_{M-1} of every clip, transposed (the bulk dW
+    and dx kernels') or as they are (the bulk projection's), as the
+    kernels' tensor-core A fragments (:func:`_tile_layout` of each A_m^T
+    or A_m): bfloat16, rounded to nearest (bf16 streams: one bf16 pass,
+    m16n8k16 tiles), or float32 split into TF32 hi and lo (f32 streams:
+    3xTF32, m16n8k8 tiles). (M-1, a_batch, RT, KT, 32, 8) bf16 or (M-1,
+    a_batch, RT, KT, 2, 32, 4) f32 [hi | lo]; with ``batch_major`` the
+    first two axes swap (the projection's and dx's: a chunk's clips'
+    operators in one span)."""
+    ops = a_ops[1:]
+    if batch_major:
+        ops = ops.transpose(0, 1)
+    tiles = _tile_layout(ops.transpose(-1, -2) if transpose else ops, bf16)
     if bf16:
         return tiles.to(torch.bfloat16).contiguous()
     hi = round_tf32(tiles)
     return torch.stack([hi, tiles - hi], dim=-3).contiguous()
+
+
+def xin_weight_frags(wx_parts, m: int, transpose: bool, bf16: bool):
+    """The x-in layer's input weights as the bulk projection's (Wx_m, D x
+    3H) or dx's (``transpose``: Wx_m^T, 3H x D) tensor-core B fragments,
+    staged once a launch from the (M*D, w) column blocks ``wx_parts`` of
+    [Wxg | Wxc] (m-major rows) without joining them first. Each V_m is
+    zero-padded to KT k tiles (16 deep for bf16, m16n8k16; 8 for f32,
+    m16n8k8) by NT = ceil(C/8) n8 tiles, each tile 32 lanes x 8 bytes:
+    bf16, lane 4g + t holding rows 2t, 2t+1, 2t+8, 2t+9 of column g,
+    rounded to nearest; or 16 bytes: float32 [hi(t), hi(t+4), lo(t),
+    lo(t+4)] of column g, split into TF32 hi and lo. (M, KT, NT, 32, 4)."""
+    d = wx_parts[0].shape[0] // m
+    h3 = sum(w.shape[1] for w in wx_parts)
+    k, c = (h3, d) if transpose else (d, h3)
+    depth = 16 if bf16 else 8
+    kt, nt = -(-k // depth), -(-c // 8)
+    v = wx_parts[0].new_zeros((m, kt * depth, nt * 8))
+    col = 0
+    for part in wx_parts:
+        w = part.reshape(m, d, -1)
+        width = w.shape[-1]
+        if transpose:
+            v[:, col:col + width, :d] = w.transpose(1, 2)
+        else:
+            v[:, :d, col:col + width] = w
+        col += width
+    if bf16:
+        # row 16 kt + 8 hk + 2 t + e, column 8 n + g -> lane 4 g + t,
+        # element 2 hk + e
+        tiles = v.view(m, kt, 2, 4, 2, nt, 8).permute(0, 1, 5, 6, 3, 2, 4)
+        return tiles.reshape(m, kt, nt, 32, 4).to(torch.bfloat16).contiguous()
+    # row 8 kt + 4 hk + t, column 8 n + g -> lane 4 g + t, word hk
+    tiles = v.view(m, kt, 2, 4, nt, 8).permute(0, 1, 4, 5, 3, 2).reshape(
+        m, kt, nt, 32, 2)
+    hi = round_tf32(tiles)
+    return torch.cat([hi, tiles - hi], dim=-1).contiguous()
+
+
+def xin_bulk_plan(proj: bool, t: int, b: int, n: int, d: int, h_units: int,
+                  m: int, a_batch: int, bf16: bool) -> dict:
+    """The launch plan :func:`dcgru_xin_proj` (``proj``) or
+    :func:`dcgru_xin_dx` takes at a shape, on the current CUDA device: the
+    chunk, the column tile, threads, shared bytes, blocks and row
+    strides."""
+    out = (ctypes.c_int * 11)()
+    err = _lib_xin().dcgru_xin_bulk_plan(int(proj), t, b, n, d, h_units, m,
+                                         a_batch, int(bf16),
+                                         ctypes.addressof(out))
+    _raise_on(err, "dcgru_xin_bulk_plan", _lib_xin)
+    keys = ("pairs_per_chunk", "rows_per_chunk", "cols_per_block",
+            "col_tiles", "threads", "smem_bytes", "blocks_per_col_tile",
+            "blocks_per_sm", "in_tensor_map", "ld_in", "ld_f")
+    return dict(zip(keys, list(out)))
 
 
 def _chain_tiles(a, bf16: bool):
@@ -477,6 +540,14 @@ def _check_shapes(name, what, tensors, shapes):
                              f"{tuple(want)}")
 
 
+def _check_aligned(name, t):
+    """The bulk kernels copy their input's rows by TMA from a 16-byte
+    aligned start (a fresh allocation's)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes a 16-byte aligned "
+                         "input (a view at an offset is not)")
+
+
 def _raise_on(err: int, name: str, lib=_lib):
     if err != 0:
         msg = lib().dcgru_error_string(err).decode()
@@ -531,7 +602,7 @@ def dcgru_recurrence_xin_fwd(x, a_ops, wxg_f, wxc_f, wg_r, wc_r, gate_b,
         (m, h_units, h_units), (2 * h_units,), (h_units,)))
     if b == 0 or t == 0:
         return _outputs(x, t, b, n, h_units, x.dtype, residuals)
-    xp = dcgru_xin_proj(x, a_ops, torch.cat([wxg_f, wxc_f], dim=1))
+    xp = dcgru_xin_proj(x, a_ops, (wxg_f, wxc_f))
     return dcgru_xin_fwd_loop(xp, a_ops, wg_r, wc_r, gate_b, cand_b, h0,
                               activation, residuals, x.dtype)
 
@@ -713,8 +784,8 @@ def dcgru_recurrence_xin_bwd(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
     dpre, dh0 = dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq,
                                    d_seq, activation)
     part = dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre)
-    dx = (dcgru_xin_dx(a_ops, torch.cat([wxg_f, wxc_f], dim=1), dpre,
-                       x.dtype) if need_dx else None)
+    dx = (dcgru_xin_dx(a_ops, (wxg_f, wxc_f), dpre, x.dtype) if need_dx
+          else None)
     return (dx, *_split_dw(dcgru_dw_reduce(part), m, d, h_units), dh0)
 
 
@@ -793,6 +864,23 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
 dcgru_recurrence_bwd.launches = 0
 
 
+def _wx_parts(name, wx, m, h3=None):
+    """``wx`` as its column blocks: the (M*D, 3H) tensor, or a tuple of
+    its (M*D, w) blocks ([Wxg | Wxc] unjoined); checked as weights."""
+    parts = tuple(wx) if isinstance(wx, (tuple, list)) else (wx,)
+    rows = parts[0].shape[0]
+    width = sum(w.shape[-1] for w in parts)
+    for w in parts:
+        if w.ndim != 2 or w.shape[0] != rows:
+            shapes = [tuple(v.shape) for v in parts]
+            raise ValueError(f"{name}: weight blocks {shapes} are not "
+                             "(M*D, w) of one M*D")
+    if rows % max(m, 1) or (h3 is not None and width != h3):
+        raise ValueError(f"{name}: weight ({rows}, {width}) is not "
+                         f"(M*D, 3H) for M={m}")
+    return parts
+
+
 def dcgru_xin_proj(x, a_ops, wx):
     """The x-in layer's input projection for all T steps at once:
     ``XP = sum_m (A_m x) Wx_m``.
@@ -800,29 +888,44 @@ def dcgru_xin_proj(x, a_ops, wx):
     Args:
         x: (T, B, N, D) layer input, float32 or bfloat16.
         a_ops: (M, B or 1, N, N) operator stack, float32.
-        wx: (M*D, 3H) = [Wxg | Wxc], m-major rows, float32.
+        wx: (M*D, 3H) = [Wxg | Wxc], m-major rows, float32; or the tuple
+            (Wxg (M*D, 2H), Wxc (M*D, H)), staged without joining them.
 
     Returns:
-        XP (T, B, N, 3H) float32 (bf16 streams: bf16 products with f32
-        sums, the reference's one MXU pass; f32 streams: 3xTF32).
+        XP (T, B, N, 3H) float32. bf16 streams: A_m x in one bf16 pass of
+        bf16 A_m and x, rounded to bf16, times bf16 Wx_m, f32 sums (the
+        reference's one MXU pass a product); f32 streams: 3xTF32.
+
+    On a CUDA device the wrapper stages the operators (:func:`dw_op_frags`,
+    untransposed) and the weights (:func:`xin_weight_frags`) as the
+    kernel's tensor-core fragments, once a launch.
     """
     if x.device.type == "cpu":
-        return dcgru_xin_proj_plain(x, a_ops, wx)
+        parts = _wx_parts("dcgru_xin_proj", wx, a_ops.shape[0])
+        return dcgru_xin_proj_plain(x, a_ops, torch.cat(parts, dim=1))
     name = "dcgru_xin_proj"
     t, b, n, d = x.shape
-    m, h3 = a_ops.shape[0], wx.shape[-1]
-    _check(name, (x,), a_ops, (wx,), None, b, n, h3 // 3)
+    m = a_ops.shape[0]
+    parts = _wx_parts(name, wx, m)
+    h3 = sum(w.shape[-1] for w in parts)
+    _check(name, (x,), a_ops, parts, None, b, n, h3 // 3)
     if d % 4:
         raise ValueError(f"{name}: D={d} is not a multiple of 4")
-    _check_shapes(name, "weight", (wx,), ((m * d, 3 * (h3 // 3)),))
+    if parts[0].shape[0] != m * d or h3 % 3:
+        raise ValueError(f"{name}: weight ({parts[0].shape[0]}, {h3}) != "
+                         f"({m * d}, 3H)")
+    _check_aligned(name, x)
     xp = torch.empty((t, b, n, h3), dtype=torch.float32, device=x.device)
     if t * b == 0:
         return xp
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
+        ops = (dw_op_frags(a_ops, bf16, transpose=False, batch_major=True)
+               if m > 1 else None)
+        w = xin_weight_frags(parts, m, False, bf16)
         err = _lib_xin().dcgru_xin_proj(
-            x.data_ptr(), a_ops.data_ptr(), a_ops.shape[1], wx.data_ptr(),
-            xp.data_ptr(), t, b, n, d, h3 // 3, m,
-            int(x.dtype == torch.bfloat16), _stream(x))
+            x.data_ptr(), _ptr(ops), a_ops.shape[1], w.data_ptr(),
+            xp.data_ptr(), t, b, n, d, h3 // 3, m, int(bf16), _stream(x))
     _raise_on(err, name, _lib_xin)
     dcgru_xin_proj.launches += 1
     return xp
@@ -889,35 +992,44 @@ def dcgru_xin_dx(a_ops, wx, dpre, dtype):
     all T steps at once: ``dx = sum_m A_m^T (dpre Wx_m^T)``.
 
     Args:
-        a_ops: (M, B or 1, N, N) float32; wx: (M*D, 3H) float32.
+        a_ops: (M, B or 1, N, N) float32; wx: (M*D, 3H) float32, or the
+            tuple (Wxg, Wxc) as :func:`dcgru_xin_proj` takes it.
         dpre: (T, B, N, 3H) float32.
         dtype: the stream dtype of dx (float32 or bfloat16).
 
     Returns:
-        dx (T, B, N, D) in ``dtype``.
+        dx (T, B, N, D) in ``dtype``. The kernel computes
+        ``sum_m (A_m^T dpre) Wx_m^T``: bf16, G_m = A_m^T dpre in one bf16
+        pass of bf16 A_m^T and dpre, rounded to bf16, times bf16 Wx_m^T,
+        f32 sums; f32, 3xTF32.
     """
     if dpre.device.type == "cpu":
-        return dcgru_xin_dx_plain(a_ops, wx, dpre, dtype)
+        parts = _wx_parts("dcgru_xin_dx", wx, a_ops.shape[0])
+        return dcgru_xin_dx_plain(a_ops, torch.cat(parts, dim=1), dpre,
+                                  dtype)
     name = "dcgru_xin_dx"
     t, b, n, h3 = dpre.shape
     m = a_ops.shape[0]
-    d = wx.shape[0] // max(m, 1)
-    _check(name, (dpre,), a_ops, (wx,), None, b, n, h3 // 3)
+    parts = _wx_parts(name, wx, m, h3)
+    d = parts[0].shape[0] // max(m, 1)
+    _check(name, (dpre,), a_ops, parts, None, b, n, h3 // 3)
     if dtype not in _STREAM_DTYPES:
         raise TypeError(f"{name}: stream dtype {dtype} is not float32 or "
                         "bfloat16")
     if d % 4:
         raise ValueError(f"{name}: D={d} is not a multiple of 4")
-    _check_shapes(name, "weight", (wx, dpre),
-                  ((m * d, h3), (t, b, n, 3 * (h3 // 3))))
+    _check_shapes(name, "dpre", (dpre,), ((t, b, n, 3 * (h3 // 3)),))
+    _check_aligned(name, dpre)
     dx = torch.empty((t, b, n, d), dtype=dtype, device=dpre.device)
     if t * b == 0:
         return dx
+    bf16 = dtype == torch.bfloat16
     with torch.cuda.device(dpre.device):
+        ops = dw_op_frags(a_ops, bf16, batch_major=True) if m > 1 else None
+        w = xin_weight_frags(parts, m, True, bf16)
         err = _lib_xin().dcgru_xin_dx(
-            dpre.data_ptr(), a_ops.data_ptr(), a_ops.shape[1], wx.data_ptr(),
-            dx.data_ptr(), t, b, n, d, h3 // 3, m,
-            int(dtype == torch.bfloat16), _stream(dpre))
+            dpre.data_ptr(), _ptr(ops), a_ops.shape[1], w.data_ptr(),
+            dx.data_ptr(), t, b, n, d, h3 // 3, m, int(bf16), _stream(dpre))
     _raise_on(err, name, _lib_xin)
     dcgru_xin_dx.launches += 1
     return dx

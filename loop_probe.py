@@ -4,7 +4,7 @@ card (an NVIDIA H100): the encoder's two loops and the seq2seq decoder's.
 
 Run from the repository root:
 
-    python3 loop_probe.py [--only encoder|decoder|dw] [--sass DIR]
+    python3 loop_probe.py [--only encoder|decoder|dw|proj|dx] [--sass DIR]
 
 It builds ``csrc/dcgru_recurrence.cu``, ``csrc/dcgru_recurrence_bwd.cu``
 and ``csrc/dcgru_decoder.cu`` once more with ``-DDCGRU_PROBE`` (a variant
@@ -49,6 +49,19 @@ spill report of the dW kernels. A block owns one m and one 64-column
 tile of dpre; the three roles are m=0 on the first gate tile (which
 also sums db), and m=M-1 on the first gate and the first candidate
 tile.
+
+With ``--only proj`` or ``--only dx`` it probes the bulk projection or
+dx kernel (``xin_bulk_kernel`` of ``csrc/dcgru_xin_gemm.cu``, built with
+``-DDCGRU_PROBE``, through ``cuda_recurrent.dcgru_xin_proj`` /
+``dcgru_xin_dx``): thread 0 of block 0 (the first column tile's first
+walker) reads the SM clock at each phase of a chunk, and the probe prints
+the clocks per chunk: the wait for the chunk's In rows, the barrier
+before each m's F (with the wait on the operators' copies), the F_0
+copy, the diffusions F_m = Op_m In, the barrier after, the products and
+the output stores; beside the launch's time from CUDA events and the launch
+plan (``cuda_recurrent.xin_bulk_plan``), at the detector's two layers
+(T=60, B=128, D=100 and 64, M=3, per-clip operators), bf16 and f32, with
+ptxas' register and spill report of the probed kernels.
 
 It also prints each probed kernel's size in SASS instructions
 (``cuobjdump -sass``): most of a step's code runs once a step; with
@@ -321,6 +334,61 @@ def probe_dw(torch, cr, lib, read, results):
                       flush=True)
 
 
+# the bulk projection and dx probes (csrc/dcgru_xin_gemm.cu,
+# xin_bulk_kernel): block 0's thread 0, clocks per slot; BULK_CHUNKS
+# counts its chunks, BULK_PIECES its (chunk, m) pieces
+BULK_PHASES = ("prologue", "In wait", "barrier A", "F_0 copy",
+               "diffusion F_m", "barrier B", "mma", "stores", "epilogue")
+BULK_CHUNKS, BULK_PIECES = 10, 11
+BULK_CASES = (("detector layer 0", D), ("detector layer 1", H))
+
+
+def probe_bulk(torch, cr, kind, read, results):
+    """The bulk projection (``kind`` "proj") or dx kernel at the detector's
+    two layers (T=60, B=128, M=3, per-clip operators), bf16 and f32."""
+    from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
+
+    dev = torch.device("cuda")
+    m, b = K + 1, 128
+    for name, d in BULK_CASES:
+        for stream in (torch.bfloat16, torch.float32):
+            rng = np.random.RandomState(d)
+            f = lambda *s, scale=1.0: torch.from_numpy(
+                (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+            sup = torch.from_numpy((np.abs(rng.randn(1, b, N, N)) / N)
+                                   .astype(np.float32))
+            a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+            wx = f(m * d, 3 * H, scale=0.1)
+            if kind == "proj":
+                fn = cr.dcgru_xin_proj
+                args = (f(T, b, N, d).to(stream), a_ops, wx)
+            else:
+                fn = cr.dcgru_xin_dx
+                args = (a_ops, wx, f(T, b, N, 3 * H, scale=0.1), stream)
+            ms, slots = time_launches(torch, fn, args, {}, read)
+            plan = cr.xin_bulk_plan(kind == "proj", T, b, N, d, H, m, b,
+                                    stream == torch.bfloat16)
+            chunks = slots[BULK_CHUNKS] / REPS
+            per = {p: slots[i] / max(slots[BULK_CHUNKS], 1)
+                   for i, p in enumerate(BULK_PHASES)
+                   if p not in ("prologue", "epilogue")}
+            row = {"kernel": "dcgru_xin_" + kind, "case": name, "T": T,
+                   "B": b, "D": d, "M": m, "streams": str(stream)[6:],
+                   "ms": ms, "plan": plan, "chunks": chunks,
+                   "block_cycles": sum(slots[:len(BULK_PHASES)]) / REPS,
+                   "prologue": slots[0] / REPS,
+                   "epilogue": slots[len(BULK_PHASES) - 1] / REPS,
+                   "per_chunk": per}
+            results.append(row)
+            print(f"probe {kind} {name} D={d} M={m} {row['streams']}: "
+                  f"{ms:.4f} ms/launch; plan {plan}; block 0: "
+                  f"{chunks:.0f} chunks, {row['block_cycles']:.0f} cycles "
+                  f"(prologue {row['prologue']:.0f}, epilogue "
+                  f"{row['epilogue']:.0f}); per chunk " + ", ".join(
+                      f"{p} {c:.0f}" for p, c in per.items())
+                  + f"; total {sum(per.values()):.0f}", flush=True)
+
+
 def main():
     import torch
 
@@ -345,9 +413,9 @@ def main():
                ("bwd", "dcgru_recurrence_bwd", cr.bind_bwd),
                ("dec", "dcgru_decoder", cd.bind),
                ("dw", "dcgru_xin_gemm", cr.bind_xin))
-    part = {"fwd": "encoder", "bwd": "encoder", "dec": "decoder",
-            "dw": "dw"}
-    sources = [s for s in sources if part[s[0]] == only
+    part = {"fwd": ("encoder",), "bwd": ("encoder",), "dec": ("decoder",),
+            "dw": ("dw", "proj", "dx")}
+    sources = [s for s in sources if only in part[s[0]]
                or (only is None and s[0] != "dw")]
     libs = {}
     for kind, name, bind in sources:
@@ -357,13 +425,17 @@ def main():
         lib.dcgru_probe_read.restype = ctypes.c_int
         libs[kind] = lib
         print(f"build {name}.cu -DDCGRU_PROBE in {secs:.1f} s", flush=True)
-        keep = ("dw",) if kind == "dw" else ("loop", "fwd")
+        # the probed kernels' names: dW's, the projection's (PROJ=true)
+        # or dx's instances of xin_bulk_kernel
+        mark = {"dw": "xin_dw", "proj": "bulk_kernelILb1",
+                "dx": "bulk_kernelILb0"}.get(only, "")
+        keep = (mark,) if kind == "dw" else ("loop", "fwd")
         if kind == "dw":
             entry = ""
             for line in report.splitlines():
                 if "Compiling entry" in line:
                     entry = line
-                elif "dw" in entry and any(w in line for w in (
+                elif mark in entry and any(w in line for w in (
                         "registers", "spill")):
                     print(f"ptxas {entry.split()[-3]} {line.strip()}",
                           flush=True)
@@ -395,8 +467,10 @@ def main():
         probe_encoder(torch, cr, read, results)
     if "dec" in libs:
         probe_decoder(torch, cd, read, results)
-    if "dw" in libs:
+    if only == "dw":
         probe_dw(torch, cr, libs["dw"], lambda: read("dw"), results)
+    elif only in ("proj", "dx"):
+        probe_bulk(torch, cr, only, lambda: read("dw"), results)
     print(json.dumps({"loop_probe": results}), flush=True)
 
 

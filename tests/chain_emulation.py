@@ -190,3 +190,30 @@ def dw_chain(a, h_prev, ru_seq, x, dpre, bf16=True):
         prod(h, g[..., :2 * h_units]).reshape(-1),
         prod(rh, g[..., 2 * h_units:]).reshape(-1),
         dpre.float().sum(dim=(0, 1, 2))])
+
+
+def proj_chain(a, x, wx, bf16=True):
+    """The bulk projection kernel's arithmetic (``csrc/dcgru_xin_gemm.cu``,
+    ``xin_bulk_kernel``): F_m = A_m x per clip (F_0 = x), then
+    XP = sum_m F_m Wx_m in f32. With ``bf16`` the diffusion takes bf16 A_m
+    and x with f32 sums, F_m is rounded to bf16 and Wx_m is bf16; without,
+    everything is f32 (the kernel's 3xTF32). x (T, B, N, D), wx (M*D,
+    3H) -> XP (T, B, N, 3H) f32."""
+    rnd = bf16_operand if bf16 else (lambda v: v.float())
+    m = a.shape[0]
+    f = rnd(_apply_ops(rnd(a), rnd(x.float())))
+    w = rnd(wx).reshape(m, x.shape[-1], -1)
+    return torch.einsum("mtbnd,mdc->tbnc", f, w)
+
+
+def dx_chain(a, wx, dpre, dtype, bf16=True):
+    """The bulk dx kernel's arithmetic: G_m = A_m^T dpre per clip
+    (G_0 = dpre), then dx = sum_m G_m Wx_m^T in f32, cast to ``dtype``.
+    With ``bf16`` the diffusion takes bf16 A_m^T and dpre with f32 sums,
+    G_m is rounded to bf16 and Wx_m is bf16; without, f32. wx (M*D, 3H),
+    dpre (T, B, N, 3H) -> dx (T, B, N, D)."""
+    rnd = bf16_operand if bf16 else (lambda v: v.float())
+    m = a.shape[0]
+    g = rnd(_apply_ops(rnd(a.transpose(-1, -2)), rnd(dpre)))
+    w = rnd(wx).reshape(m, wx.shape[0] // m, -1)
+    return torch.einsum("mtbnj,mdj->tbnd", g, w).to(dtype)

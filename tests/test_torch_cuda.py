@@ -408,6 +408,173 @@ def test_bf16_dw_kernel_computes_its_operand_rounding(dev, num_supports,
     assert errs["kernel"] <= DW_ROUNDING_TOL, errs
 
 
+def _bulk_inputs(dev, *, t, b, n, d, h, num_supports, shared, stream,
+                 seed=0):
+    """The bulk projection's and dx's arguments at n nodes: (a_ops, x in
+    the stream dtype, Wxg, Wxc, dpre f32)."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(
+        num_supports, 1 if shared else b, n, n)) / n).astype(np.float32))
+    a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
+    m = a_ops.shape[0]
+    return (a_ops, f(t, b, n, d).to(stream), f(m * d, 2 * h, scale=0.1),
+            f(m * d, h, scale=0.1), f(t, b, n, 3 * h, scale=0.1))
+
+
+# (N, D, H, T, B) of the bulk projection and dx cases: ragged nodes and
+# widths (7, 12); the detector's layers at N=19 (T*B = 2,220 and 91: the
+# last chunk ends short, T*B is no multiple of a wave); N=32; H=12; 3H=288
+# (f32 dx's rows by 1-D copies: wider than a tensor copy's box)
+BULK_SHAPES = [(7, 12, 16, 5, 37), (19, 64, 64, 7, 13), (19, 100, 64, 60, 37),
+               (32, 100, 64, 3, 9), (32, 12, 12, 4, 5), (19, 12, 96, 3, 5)]
+# the bf16 kernels against their emulated rounding: the projection's f32
+# sums, dx's one bf16 rounding of the output (2^-8 of the largest entry)
+PROJ_ROUNDING_TOL, DX_ROUNDING_TOL = 1.5e-3, 4e-3
+
+
+@pytest.mark.parametrize("n,d,h,t,b", BULK_SHAPES)
+@pytest.mark.parametrize("num_supports,shared", [(1, False), (1, True),
+                                                 (2, False), (2, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bulk_proj_dx_match_plain_and_emulation(dev, n, d, h, t, b,
+                                                num_supports, shared, bf16,
+                                                record_property):
+    """The tensor-core projection and dx against their plain versions
+    (2e-2 bf16, 1e-4 f32) and against the emulation of their rounding
+    (chain_emulation.proj_chain / dx_chain): N=7, 19 and 32, D=12, 64 and
+    100, M=3 and 5, a_batch 1 and B, weights joined and as (Wxg, Wxc)."""
+    from chain_emulation import dx_chain, proj_chain
+
+    stream = torch.bfloat16 if bf16 else torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    a_ops, x, wxg, wxc, dpre = _bulk_inputs(
+        dev, t=t, b=b, n=n, d=d, h=h, num_supports=num_supports,
+        shared=shared, stream=stream, seed=n + d + t)
+    wx = torch.cat([wxg, wxc], dim=1)
+    errs = {}
+    for kern, plain, emu, args, rtol in (
+            (cr.dcgru_xin_proj, cr.dcgru_xin_proj_plain,
+             lambda: proj_chain(a_ops, x, wx, bf16), (x, a_ops),
+             PROJ_ROUNDING_TOL),
+            (cr.dcgru_xin_dx, cr.dcgru_xin_dx_plain,
+             lambda: dx_chain(a_ops, wx, dpre, torch.float32, bf16),
+             (a_ops,), DX_ROUNDING_TOL)):
+        name = kern.__name__
+        tail = (dpre, stream) if name == "dcgru_xin_dx" else ()
+        before = kern.launches
+        got = kern(*args, (wxg, wxc), *tail)
+        joined = kern(*args, wx, *tail)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(got, joined), name
+        want = plain(*args, wx, *tail)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.isfinite(got).all(), name
+        errs[name] = {"plain": _err(got, want), "emulation": _err(got, emu())}
+        assert errs[name]["plain"] <= tol, errs
+        assert errs[name]["emulation"] <= (rtol if bf16 else 1e-5), errs
+    record_property("kernel_vs_plain_and_emulation", errs)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bulk_proj_dx_take_one_operator(dev, bf16):
+    """M=1 (no diffusion step: the identity alone, no operator fragments)
+    against the plain versions."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    _, x, wxg, wxc, dpre = _bulk_inputs(dev, t=7, b=13, n=N, d=64, h=64,
+                                        num_supports=1, shared=True,
+                                        stream=stream)
+    a_ops = torch.eye(N, device=dev)[None, None].contiguous()
+    wxg, wxc = wxg[:64].contiguous(), wxc[:64].contiguous()
+    wx = torch.cat([wxg, wxc], dim=1)
+    tol = 2e-2 if bf16 else 1e-4
+    got = cr.dcgru_xin_proj(x, a_ops, (wxg, wxc))
+    assert _err(got, cr.dcgru_xin_proj_plain(x, a_ops, wx)) <= tol
+    got = cr.dcgru_xin_dx(a_ops, (wxg, wxc), dpre, stream)
+    assert _err(got, cr.dcgru_xin_dx_plain(a_ops, wx, dpre, stream)) <= tol
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bulk_proj_dx_are_bitwise_deterministic(dev, bf16):
+    """Two launches on the same inputs give the same bits (every output
+    element from one block's registers, no sums across blocks), per-clip
+    and shared graphs, at the detector's layer 0."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    for shared in (False, True):
+        a_ops, x, wxg, wxc, dpre = _bulk_inputs(
+            dev, t=60, b=128, n=N, d=100, h=64, num_supports=1,
+            shared=shared, stream=stream)
+        assert torch.equal(cr.dcgru_xin_proj(x, a_ops, (wxg, wxc)),
+                           cr.dcgru_xin_proj(x, a_ops, (wxg, wxc)))
+        assert torch.equal(cr.dcgru_xin_dx(a_ops, (wxg, wxc), dpre, stream),
+                           cr.dcgru_xin_dx(a_ops, (wxg, wxc), dpre, stream))
+
+
+@pytest.mark.parametrize("where", ["in", "operator", "wxg", "wxc"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bulk_proj_dx_keep_a_device_nan(dev, where, bf16):
+    """A NaN that a device op made, in one entry of the input (x for the
+    projection, dpre for dx), of an operator A_m or of Wx, reaches exactly
+    the output entries it reaches in the plain version."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    nan = (torch.zeros(1, device=dev) / 0)[0]
+    a_ops, x, wxg, wxc, dpre = _bulk_inputs(
+        dev, t=5, b=37, n=N, d=100, h=64, num_supports=2, shared=False,
+        stream=stream)
+    if where == "operator":
+        a_ops = a_ops.clone()
+        a_ops[3, 11, 7, 2] = nan
+    elif where in ("wxg", "wxc"):
+        w = (wxg if where == "wxg" else wxc).clone()
+        w[2 * 100 + 17, 9] = nan
+        wxg, wxc = (w, wxc) if where == "wxg" else (wxg, w)
+    wx = torch.cat([wxg, wxc], dim=1)
+    for kind in ("proj", "dx"):
+        xs, dp = x, dpre
+        if where == "in":
+            if kind == "proj":
+                xs = x.clone()
+                xs[3, 11, 5, 33] = nan
+            else:
+                dp = dpre.clone()
+                dp[3, 11, 5, 70] = nan
+        if kind == "proj":
+            got = cr.dcgru_xin_proj(xs, a_ops, (wxg, wxc))
+            want = cr.dcgru_xin_proj_plain(xs, a_ops, wx)
+        else:
+            got = cr.dcgru_xin_dx(a_ops, (wxg, wxc), dp, stream)
+            want = cr.dcgru_xin_dx_plain(a_ops, wx, dp, stream)
+        assert want.isnan().any() and not want.isnan().all(), (kind, where)
+        assert torch.equal(got.isnan(), want.isnan()), (kind, where)
+
+
+def test_bulk_plans_take_every_branch(dev, record_property):
+    """The plans the detector's launches take (two bf16 blocks an SM for
+    the projection, 11 warps for dx; f32's k-split warps), and an f32 dx
+    whose rows come by 1-D copies; every plan fits the card."""
+    plans = {}
+    for proj in (True, False):
+        for bf16 in (True, False):
+            for d in (100, 64):
+                key = (("proj" if proj else "dx"), d,
+                       "bf16" if bf16 else "f32")
+                plans[key] = cr.xin_bulk_plan(proj, 60, 128, N, d, 64, 3,
+                                              128, bf16)
+    plans[("dx", 12, "f32", "H=96")] = cr.xin_bulk_plan(False, 3, 5, N, 12,
+                                                        96, 3, 5, False)
+    record_property("plans", {str(k): v for k, v in plans.items()})
+    for key, v in plans.items():
+        assert v["blocks_per_sm"] >= 1, key
+        assert v["smem_bytes"] <= 232448, key
+    assert plans[("proj", 100, "bf16")]["blocks_per_sm"] == 2
+    assert plans[("dx", 64, "bf16")]["threads"] >= 32 * 9
+    assert plans[("dx", 12, "f32", "H=96")]["in_tensor_map"] == 0
+    assert plans[("dx", 64, "f32")]["threads"] > 32 * (
+        plans[("dx", 64, "f32")]["rows_per_chunk"] // 16 + 1)
+
+
 def _loop_inputs(dev, *, t, b, n, h, num_supports, shared, stream,
                  activation="tanh", seed=0, w_scale=0.1):
     """The state loops' arguments at n nodes: (forward loop fed an f32
