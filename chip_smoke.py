@@ -18,9 +18,11 @@ Phases (any failure exits non-zero and prints no result line):
    hoisted kernel; then the backward kernels on the forward's residuals
    and a random seeded h_seq cotangent (every output: dx or dx_proj, each
    dW, each db, dh0; at D=100 the x-in backward also without dx, as the
-   first layer runs it, and once more, bitwise equal), the x-in
-   backward's state loop, bulk dW split partials and bulk dx each on the
-   same inputs, and the dW reduction, by the normalized inf-norm error
+   first layer runs it, and both backwards once more, bitwise equal), the
+   x-in backward's state loop, bulk dW split partials and bulk dx each on
+   the same inputs, the hoisted backward as a whole (its loop, bulk dW at
+   D=0 and reduction) and its bulk dW at D=0 alone, and the dW reduction,
+   by the normalized inf-norm error
    max|k-p| / max|p|: float32 <= 1e-4
    (the same f32 arithmetic summed in another order), bfloat16 <= 2e-2
    (the bf16 bound of benchmarks/tpu_kernel_parity.json); then the
@@ -32,7 +34,8 @@ Phases (any failure exits non-zero and prints no result line):
    and dproj; the bulk dW of layer 0 and of the tied cell, each reduced;
    the dWp partials), under the same bounds; the fused diffusion conv at
    the use_pallas loop's shapes (D=H=64, O=128 and 64, M=3 and 5, B=128
-   and 37, once K=3; float32 <= 1e-4) and its autograd Function's dx, dW,
+   and 37, once K=3; float32 <= 1e-4; operands staged by the wrapper) and
+   its autograd Function's dx, dW,
    db against autograd of the plain version; the block-sparse SDDMM at the
    re-score study's montages (benchmarks/graph_build_bench.py:69-107:
    D=6000, N=19, 1024 and 4096 top-3, 4096 banded +-32; <= 1e-5, a bar
@@ -54,7 +57,8 @@ Phases (any failure exits non-zero and prints no result line):
    5e-4, clip 5.0, 100 epochs of 100 steps, as bench.py): 3 steps each,
    each launching exactly the kernels of ``TRAIN_STEP`` (per layer a
    forward and a backward; the x-in layer's projection, loops, dW and its
-   reduction, and dx on layer 1 only) and none of the other pair; finite
+   reduction, and dx on layer 1 only; the hoisted layer's loop, its
+   backward loop, dW at D=0 and reduction) and no other; finite
    losses; float32
    step-1 gradients against a ``recurrence="stacked"`` step from the same
    weights on the card (normalized per tensor, <= 1e-4) and, on a small
@@ -94,9 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
    with the all-f32 bound of the x-in wrappers beside;
    the wrappers, which launch no kernel of their own, on a ``wrappers``
    line of their own without a launch count; the Predictor's clips/s, the
-   detection and SSL train steps' ms and clips/s; trace one bfloat16
-   batch, one bfloat16 detection step and one SSL step in each dtype with
-   torch.profiler;
+   detection and SSL train steps' ms and clips/s (detection also with
+   input_fusion=False in bfloat16, the hoisted BPTT's path); trace one
+   bfloat16 batch, the bfloat16 detection steps and one SSL step in each
+   dtype with torch.profiler;
 7. the ``use_pallas`` paths: the detector served through ``Predictor`` and
    trained through ``TrainStep`` (3 steps) in the 4 configurations of
    both graph types and dtypes, per-clip adjacency: every forward launches
@@ -109,14 +114,16 @@ Phases (any failure exits non-zero and prints no result line):
 8. the correlation re-score of each montage's fixed graph through
    ``sddmm_edges_blocksparse`` (one launch each), against the plain edge
    list;
-9. time the two kernels beside their plain versions and bounds (the
-   SDDMM's at the 3xTF32 tensor-core rate), the SDDMM also beside
-   ``torch.sparse.sampled_addmm`` and the dense ``x @ x.T``; the
-   use_pallas Predictor's clips/s and train step's ms.
+9. time the two kernels beside their plain versions and bounds (both at
+   the 3xTF32 tensor-core rate; #7's FMA-rate figure beside it), #7 on
+   operands staged once and its staging of a layer's operands alone, the
+   SDDMM also beside ``torch.sparse.sampled_addmm`` and the dense
+   ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms.
 
 The second-to-last line is a JSON object describing the kernels (the
-x-in wrappers and the decoder's backward, which launch none of their
-own, are on the ``wrappers`` line before it); the last is
+x-in wrappers, the hoisted backward and the decoder's backward, which
+launch none of their own, are on the ``wrappers`` line before it); the
+last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,19 +165,23 @@ FDC = "fused_diffusion_conv_fwd"  # kernel #7, the use_pallas loop's
 SDDMM = "sddmm_blocksparse"       # kernel #8, the correlation re-score
 XIN_FWD = ("dcgru_xin_proj", "dcgru_xin_fwd_loop")  # the kernels of FWD[0]
 XIN_BWD = ("dcgru_xin_bwd_loop", "dcgru_xin_dw", "dcgru_xin_dx")  # of BWD[0]
-# FWD[0], BWD[0] and DEC[1] launch no kernel of their own: they are timed
-# and held against their plain versions as wrappers, and their kernels are
-# counted
-KERNELS = ((FWD[1], BWD[1], "dcgru_dw_reduce") + XIN_FWD + XIN_BWD
+# BWD[1]'s: the same loop, the bulk dW at D = 0 (no input x), a reduction
+HOISTED_BWD = XIN_BWD[:2] + ("dcgru_dw_reduce",)
+# FWD[0], BWD[0], BWD[1] and DEC[1] launch no kernel of their own: they are
+# timed and held against their plain versions as wrappers, and their
+# kernels are counted
+KERNELS = ((FWD[1], "dcgru_dw_reduce") + XIN_FWD + XIN_BWD
            + (DEC[0],) + DEC_BWD + (FDC, SDDMM))
 SSL_KERNELS = ("dcgru_dw_reduce",) + XIN_FWD + XIN_BWD + (DEC[0],) + DEC_BWD
 # launches per batch or step: the x-in layer's forward is a projection and
 # a loop, its backward a loop, a dW product (+ its reduction) and, on every
-# layer but the first (fed data), a dx product
+# layer but the first (fed data), a dx product; the hoisted layer's forward
+# is one loop, its backward a loop and a dW product at D = 0 (+ reduction)
 SERVE_BATCH = {True: {XIN_FWD[0]: 2, XIN_FWD[1]: 2}, False: {FWD[1]: 2}}
 TRAIN_STEP = {True: {"dcgru_dw_reduce": 2, XIN_FWD[0]: 2, XIN_FWD[1]: 2,
                      XIN_BWD[0]: 2, XIN_BWD[1]: 2, XIN_BWD[2]: 1},
-              False: {FWD[1]: 2, BWD[1]: 2, "dcgru_dw_reduce": 2}}
+              False: {FWD[1]: 2, XIN_BWD[0]: 2, XIN_BWD[1]: 2,
+                      "dcgru_dw_reduce": 2}}
 # the decoder's backward (L > 1): its loop, one bulk dW product per cell
 # (layer 0; the tied cell over layers 1..L-1), dWp, and a reduction each
 DEC_BWD_STEP = {DEC_BWD[0]: 1, XIN_BWD[1]: 2, DEC_BWD[1]: 1,
@@ -180,6 +191,7 @@ SSL_STEP = {"dcgru_dw_reduce": 3 + 3, DEC[0]: 1, DEC_BWD[0]: 1,
             XIN_BWD[1]: 3 + 2, XIN_BWD[2]: 2}  # at 3 layers
 XIN_GRADS = ("dx", "dwxg_f", "dwxc_f", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
 HOISTED_GRADS = ("dx_proj", "dwg_r", "dwc_r", "dbg", "dbc", "dh0")
+DW_D0 = f"{XIN_BWD[1]} (D=0)"  # the bulk dW as BWD[1] runs it
 DEC_GRADS = ("dx", "dh0", "dwx0g", "dwx0c", "dwh0g", "dwh0c", "db0g",
              "db0c", "dwxsg", "dwxsc", "dwhsg", "dwhsc", "dbsg", "dbsc",
              "dwp", "dbp")
@@ -688,11 +700,12 @@ def phase_bwd_parity(torch, dev):
     """Backward kernels and the dW reduction against their plain versions
     on the forward grid; every output of every case: the x-in layer's
     BPTT as a whole, and each of its kernels on the same inputs (the dW
-    and dx products fed the plain loop's dpre); twice on the same inputs,
-    bitwise-equal gradients."""
+    and dx products fed the plain loop's dpre); the hoisted layer's BPTT
+    as a whole and its bulk dW at D = 0 fed the plain loop's dpre; each
+    BPTT twice on the same inputs, bitwise-equal gradients."""
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
-    worst = {k: 0.0 for k in BWD + XIN_BWD + ("dcgru_dw_reduce",)}
+    worst = {k: 0.0 for k in BWD + XIN_BWD + ("dcgru_dw_reduce", DW_D0)}
     main_abs = dict(worst)
     seed = 500
     for dtype in (torch.float32, torch.bfloat16):
@@ -723,9 +736,16 @@ def phase_bwd_parity(torch, dev):
                              cr.dcgru_xin_dx_plain,
                              (a["a_ops"], wx, dpre, dtype), ("dx",))]
                     if d == 100:
-                        runs.append((BWD[1], cr.dcgru_recurrence_bwd,
-                                     cr.dcgru_recurrence_bwd_plain, hoisted,
-                                     HOISTED_GRADS))
+                        # the hoisted loop's arguments are ``loop``: its
+                        # dpre is the same
+                        x0 = hoisted[3].new_empty((T, b, N, 0))
+                        runs += [(BWD[1], cr.dcgru_recurrence_bwd,
+                                  cr.dcgru_recurrence_bwd_plain, hoisted,
+                                  HOISTED_GRADS),
+                                 (DW_D0, cr.dcgru_xin_dw,
+                                  cr.dcgru_xin_dw_plain,
+                                  (a["a_ops"], *hoisted[3:5], x0, dpre),
+                                  ("partials",))]
                     for name, kern, plain, args, outs in runs:
                         got = kern(*args)
                         torch.cuda.synchronize()
@@ -733,13 +753,14 @@ def phase_bwd_parity(torch, dev):
                         if len(outs) == 1:
                             got, want = (got,), (want,)
                         pairs = list(zip(outs, got, want))
-                        if name == BWD[0] and d == 100:
+                        if name in BWD and d == 100:
                             # the same inputs again: bitwise the same
                             again = kern(*args)
                             for out, g, w in zip(outs, got, again):
                                 if not torch.equal(g, w):
                                     fail(f"{name} {out} D={d} M={m} B={b} "
                                          f"{dtype}: two runs differ")
+                        if name == BWD[0] and d == 100:
                             # need_dx=False, as for the first layer: no dx,
                             # the rest as the plain version's
                             nodx = kern(*args, need_dx=False)
@@ -768,8 +789,9 @@ def phase_bwd_parity(torch, dev):
                             f"{'shared' if shared else 'per-clip'} B={b} "
                             f"{str(dtype)[6:]} (tol {tol:.0e}): "
                             + ", ".join(errs))
-    log("parity: dcgru_recurrence_xin_bwd twice on the same inputs gave "
-        "bitwise-equal dx, dW, db and dh0 at D=100 (every M, B, dtype)")
+    log("parity: dcgru_recurrence_xin_bwd and dcgru_recurrence_bwd twice on "
+        "the same inputs gave bitwise-equal dx (dx_proj), dW, db and dh0 "
+        "(every M, B, dtype)")
     gen = torch.Generator().manual_seed(1)
     part = torch.randn((BATCH, cr.dw_size(3, 100, H)), generator=gen).to(dev)
     err, max_abs = norm_err(cr.dcgru_dw_reduce(part),
@@ -1204,7 +1226,7 @@ def phase_serve(torch):
                         f"{diff:.3e}")
                     checked_cpu = True
     launched = counts()
-    if any(launched[k] for k in (BWD[1], "dcgru_dw_reduce") + XIN_BWD):
+    if any(launched[k] for k in ("dcgru_dw_reduce",) + XIN_BWD):
         fail(f"serving launched a backward kernel: {launched}")
     log(f"serve: launches {launched}")
     return launched
@@ -1489,9 +1511,19 @@ def phase_times(torch, dev):
                 f"{stage[1]:.4f} ms a launch; plans: " + "; ".join(
                     f"{k} {pl}" for k, pl in zip(("projection", "dx"),
                                                   plans)))
+            # the hoisted layer's BPTT: the same loop (3·l, above), its bulk
+            # dW at D = 0 alone, and the composite as a whole (its bound the
+            # function's, intermediates not counted)
+            x0 = hoisted_b[3].new_empty((T, BATCH, N, 0))
+            report((DW_D0, tag, d), DW_D0, cr.dcgru_xin_dw,
+                   cr.dcgru_xin_dw_plain,
+                   (a["a_ops"], *hoisted_b[3:5], x0, dpre),
+                   [dw_work(d=0, **kw)])
+            hw = bwd_work(xin=False, d=d, **kw)
             report((BWD[1], tag, d), BWD[1], cr.dcgru_recurrence_bwd,
-                   cr.dcgru_recurrence_bwd_plain, hoisted_b,
-                   [bwd_work(xin=False, d=d, **kw)], " (with its dW reduce)")
+                   cr.dcgru_recurrence_bwd_plain, hoisted_b, [hw],
+                   " (all its kernels)")
+            out[(BWD[1], tag, d, "f32 bound")] = (hw[0] + hw[2], hw[1])
         # the loops' wrappers stage the hidden weights at every launch
         # (inside the loop times above): the staging alone
         bf16 = dtype == torch.bfloat16
@@ -1538,28 +1570,32 @@ def phase_times(torch, dev):
                 profile_batch(torch, lambda: pred.predict_proba(
                     x, lens, adjacency=adj), f"Predictor {gt} {dtype}", ms)
 
-    # the train step as bench.py times it: supports built once, on device
+    # the train step as bench.py times it: supports built once, on device;
+    # each graph and dtype with input fusion, and the hoisted
+    # (input_fusion=False) step in bf16, the path of BWD[1]
     adj_batch = train_batch(torch, dev, BATCH, seed=5)
-    for gt in ("combined", "individual"):
-        for dtype in ("bfloat16", "float32"):
-            cfg = flagship_cfg(gt, dtype, True, **TRAIN_KW)
-            batch = dict(adj_batch, supports=compute_supports_torch(
-                adj_batch["adjacency"], cfg.filter_type))
-            step = TrainStep(cfg, build_model(
-                cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
-                device=dev)
-            ms, best, loss = time_steps(torch, lambda: step(batch))
-            if not np.isfinite(loss):
-                fail(f"train step {gt} {dtype}: loss {loss}")
-            out[("train", gt, dtype)] = (ms, best)
-            log(f"time train step {gt} {dtype} input_fusion=True "
-                f"B={BATCH}: {ms:.3f} ms/step (median of {REPS}, each "
-                f"synchronised), {BATCH / ms * 1e3:.1f} clips/s; "
-                f"{REPS} back to back: {best:.3f} ms/step, "
-                f"{BATCH / best * 1e3:.1f} clips/s (best of 3)")
-            if dtype == "bfloat16":
-                profile_batch(torch, lambda: step(batch),
-                              f"train step {gt} {dtype}", ms)
+    cases = [(gt, dtype, True) for gt in ("combined", "individual")
+             for dtype in ("bfloat16", "float32")]
+    for gt, dtype, fusion in cases + [("combined", "bfloat16", False)]:
+        cfg = flagship_cfg(gt, dtype, fusion, **TRAIN_KW)
+        batch = dict(adj_batch, supports=compute_supports_torch(
+            adj_batch["adjacency"], cfg.filter_type))
+        step = TrainStep(cfg, build_model(
+            cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
+            device=dev)
+        ms, best, loss = time_steps(torch, lambda: step(batch))
+        if not np.isfinite(loss):
+            fail(f"train step {gt} {dtype} fusion={fusion}: loss {loss}")
+        out[("train", gt, dtype, fusion)] = (ms, best)
+        log(f"time train step {gt} {dtype} input_fusion={fusion} "
+            f"B={BATCH}: {ms:.3f} ms/step (median of {REPS}, each "
+            f"synchronised), {BATCH / ms * 1e3:.1f} clips/s; "
+            f"{REPS} back to back: {best:.3f} ms/step, "
+            f"{BATCH / best * 1e3:.1f} clips/s (best of 3)")
+        if dtype == "bfloat16":
+            profile_batch(torch, lambda: step(batch),
+                          f"train step {gt} {dtype}"
+                          + ("" if fusion else " input_fusion=False"), ms)
     return out
 
 
@@ -1709,15 +1745,16 @@ def phase_ssl_times(torch, dev):
 
 
 def fdc_work(*, s: int, k: int, o: int, b: int, d: int = H):
-    """(FLOPs, bytes) of one fused diffusion conv: the Chebyshev terms (S*K
-    support products, the 2 A v - v of the later ones), the (M*D, O)
-    product and the bias; supports, x, W and bias read once, out written
-    once."""
+    """(FMA FLOPs, bytes, tensor-core FLOPs, their rate) of one fused
+    diffusion conv: the Chebyshev terms' S*K support products and the
+    (M*D, O) product at the 3xTF32 tensor-core rate (``_tc``), as the
+    kernel runs them; the 2 A v - v of the later terms and the bias on
+    FMA; supports, x, W and bias read once, out written once."""
     m = s * k + 1
-    per_clip = (s * k * 2 * N * N * d + s * (k - 1) * 2 * N * d
-                + 2 * N * m * d * o + N * o)
+    tc = s * k * 2 * N * N * d + 2 * N * m * d * o
+    fma = s * (k - 1) * 2 * N * d + N * o
     nbytes = (s * b * N * N + b * N * d + m * d * o + o + b * N * o) * 4
-    return float(per_clip * b), float(nbytes)
+    return (float(fma * b), float(nbytes), *_tc(tc * b, 4))
 
 
 def sddmm_work(n: int, d: int, block_rows, block_cols,
@@ -2174,19 +2211,39 @@ def phase_pallas_times(torch, dev, mts):
 
     out = {}
     for s in (1, 2):
+        layer = {}
         for o in (2 * H, H):
             args = fdc_inputs(torch, dev, s=s, k=K, o=o, b=BATCH,
                               seed=1500 + s * o)
-            ms = time_ms(torch, lambda: ck.fused_diffusion_conv_fwd(*args))
+            # the operands staged once, as the use_pallas loop hands them
+            # to a layer's launches
+            sup_f, (w_f,) = ck.stage_fdc_operands(args[0], args[2])
+            layer[o] = args
+            ms = time_ms(torch, lambda: ck.fused_diffusion_conv_fwd(
+                *args, (sup_f, w_f)))
             plain_ms = time_ms(
                 torch, lambda: ck.fused_diffusion_conv_plain(*args))
             work = fdc_work(s=s, k=K, o=o, b=BATCH)
             bms, by = bound_ms([work])
+            fma_ms = bound_ms([(work[0] + work[2], work[1])])[0]
             out[(FDC, s, o)] = (ms, plain_ms, work)
-            log(f"time {FDC} M={s * K + 1} D={H} O={o} B={BATCH} float32: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bms:.4f} ms ({by}; {work[0] / 1e9:.4f} GFLOP, "
-                f"{work[1] / 1e6:.2f} MB), {work[0] / ms / 1e9:.2f} TFLOP/s")
+            flops = work[0] + work[2]
+            log(f"time {FDC} M={s * K + 1} D={H} O={o} B={BATCH} float32 "
+                f"(staged operands): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}, products at "
+                f"the 3xTF32 tensor-core rate; {fma_ms:.4f} ms with every "
+                f"product on FMA; {flops / 1e9:.4f} GFLOP, "
+                f"{work[1] / 1e6:.2f} MB), {flops / ms / 1e9:.2f} TFLOP/s; "
+                f"plan {ck.fdc_plan(s, BATCH, N, H, o, K)}")
+        # a layer's staging, once a forward: its supports, gate and
+        # candidate weights (the loop's 2 T launches share it)
+        sup, w_gate, w_cand = layer[2 * H][0], layer[2 * H][2], layer[H][2]
+        stage_ms = time_ms(torch, lambda: ck.stage_fdc_operands(
+            sup, w_gate, w_cand))
+        out[(FDC, s, "staging")] = stage_ms
+        log(f"time operand staging of {FDC} M={s * K + 1} B={BATCH}: "
+            f"{stage_ms:.4f} ms a layer a forward (supports, gate and "
+            "candidate weights)")
     log("library_ms: none — no single PyTorch call computes a diffusion "
         "convolution (a Chebyshev recurrence over per-clip supports, each "
         "term times its weight block)")
@@ -2334,7 +2391,7 @@ def main():
              "ssl_pallas": phase_pallas_ssl(torch, dev),
              "rescore": phase_rescore(torch, mts)}
     for path, names in (("serve", (FWD[1],) + XIN_FWD),
-                        ("train", (FWD[1], BWD[1], "dcgru_dw_reduce")
+                        ("train", (FWD[1], "dcgru_dw_reduce")
                          + XIN_FWD + XIN_BWD),
                         ("ssl", SSL_KERNELS), ("serve_pallas", (FDC,)),
                         ("train_pallas", (FDC,)),
@@ -2361,7 +2418,7 @@ def main():
             (XIN_BWD[0], f"{pallas}:782", xin_src[2]),
             (XIN_BWD[1], f"{pallas}:782", xin_src[0]),
             (XIN_BWD[2], f"{pallas}:782", xin_src[0]),
-            (BWD[1], f"{pallas}:283", xin_src[2]),
+            (BWD[1], f"{pallas}:283", [xin_src[2], xin_src[0]]),
             # the cross-grid dW accumulation of _bwd_kernel_xin/_bwd_kernel
             ("dcgru_dw_reduce", f"{pallas}:794", xin_src[2])):
         # one batch or step: layer 0 (D=100) then layer 1 (D=64); layer 0
@@ -2387,16 +2444,19 @@ def main():
                          else "bf16 streams")
                       + ("; layer 0 without dx" if name == BWD[0] else "")
                       + ("; layer 1 only (layer 0 asks for no dx)"
-                         if name == XIN_BWD[2] else "")),
+                         if name == XIN_BWD[2] else "")
+                      + ("; the hoisted layers (no x), input_fusion=False"
+                         if name == BWD[1] else "")),
         }
-        if name in (FWD[0], BWD[0]):
+        if name in (FWD[0], BWD[0], BWD[1]):
             # a wrapper that launches no kernel of its own: its kernels'
             # time as a whole, and the bound of the same function with every
             # product at the non-tensor f32 rate; no launch count
             del entry["route"], entry["source"]
             entry["sources"] = source
-            entry["kernels"] = list(XIN_FWD if name == FWD[0] else
-                                    XIN_BWD + ("dcgru_dw_reduce",))
+            entry["kernels"] = list({FWD[0]: XIN_FWD,
+                                     BWD[0]: XIN_BWD + ("dcgru_dw_reduce",),
+                                     BWD[1]: HOISTED_BWD}[name])
             entry["bound_f32_ms"] = bound_ms([
                 times[(name, tag, d, "f32 bound")] for d in (100, 64)])[0]
             composites.append(entry)
@@ -2415,6 +2475,17 @@ def main():
                 "bound_by": dby, "library_ms": lib_ms,
                 "shape": f"{dec_shape}: layer 0, tied cell, dWp partials"}
         if name == XIN_BWD[1]:
+            # the hoisted layers' launches at D = 0 (no x), as BWD[1] runs
+            # them on the input_fusion=False train path
+            layers0 = [times[(DW_D0, tag, d)] for d in (100, 64)]
+            dbms, dby = bound_ms([v[2][0] for v in layers0])
+            kernels[-1]["hoisted"] = {
+                "ms": sum(v[0] for v in layers0),
+                "plain_ms": sum(v[1] for v in layers0), "bound_ms": dbms,
+                "bound_by": dby, "library_ms": None,
+                "max_abs_err": main_abs[DW_D0],
+                "shape": "2 hoisted layers at D=0, T=60, B=128, N=19, H=64, "
+                         "M=3, bf16 streams"}
             # the SSL decoder's two launches: layer 0 and the tied cell
             ms, plain_ms, work = times[(f"{name} (decoder)", "bfloat16")]
             dbms, dby = bound_ms(work)
@@ -2467,11 +2538,15 @@ def main():
         "max_abs_err": main_abs[FDC],
         "ms": gate[0] + cand[0], "plain_ms": gate[1] + cand[1],
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "staging_ms": times[(FDC, 1, "staging")],
         "shape": (f"one loop step of one layer: gate (O={2 * H}) + candidate "
-                  f"(O={H}), B={BATCH}, N=19, D=H={H}, M=3, float32"),
+                  f"(O={H}), B={BATCH}, N=19, D=H={H}, M=3, float32, "
+                  "operands staged once a layer a forward (staging_ms)"),
         "individual": {"ms": gate5[0] + cand5[0],
                        "plain_ms": gate5[1] + cand5[1], "bound_ms": bms5,
-                       "bound_by": by5, "shape": "the same at M=5"},
+                       "bound_by": by5,
+                       "staging_ms": times[(FDC, 2, "staging")],
+                       "shape": "the same at M=5"},
     })
     entry = {}
     for topo in ("banded", "topk"):

@@ -1,11 +1,10 @@
 // Device helpers shared by the kernels of this directory: stream
-// conversions, activations, the shared-memory layout rule, the small
-// per-thread products #4's recurrence step is built from (f32 FMA), the
+// conversions, activations, the shared-memory layout rule, the
 // warp-level tensor-core fragments and cp.async copies of the bulk
-// products (dcgru_xin_gemm.cu, sddmm.cu), and the tensor-core step
-// products and operator applies of the serial state loops: the
-// encoder's (dcgru_recurrence.cu, dcgru_recurrence_bwd.cu) and the
-// seq2seq decoder's (dcgru_decoder.cu).
+// products (dcgru_xin_gemm.cu, sddmm.cu, fused_diffusion_conv.cu), and
+// the tensor-core step products and operator applies of the serial state
+// loops: the encoder's (dcgru_recurrence.cu, dcgru_recurrence_bwd.cu)
+// and the seq2seq decoder's (dcgru_decoder.cu).
 //
 // Conventions: node rows are ragged (N <= kMaxNodes) and masked; features
 // and weights are m-major, row n of an (N, M*W) feature slab holding
@@ -19,11 +18,7 @@
 
 namespace dcgru {
 
-constexpr int kMaxNodes = 32;     // node count the register arrays admit
-constexpr int kRows = 10;         // node rows per output-column task
-constexpr int kTRows = 8;         // node rows per A^T-apply task
-constexpr int kWRows = 4;         // dW rows per accumulation task
-constexpr int kMaxThreads = 384;  // __launch_bounds__: <= 168 regs/thread
+constexpr int kMaxNodes = 32;  // node count the fragment tiles admit
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -56,128 +51,13 @@ __device__ __forceinline__ float act_grad(float c, int act) {
   return 1.0f;
 }
 
-// shared-memory arrays start 16-byte aligned: sizes are padded to 4 floats
-__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+// shared-memory arrays start 16-byte aligned
 __host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
 
 // Floats of one cell's dW slab at input width D:
 // [dWxg (MD,2H) | dWxc (MD,H) | dWg (MH,2H) | dWc (MH,H) | dbg (2H) | dbc (H)]
 __host__ __device__ inline size_t slab_size(int D, int H, int M) {
   return (size_t)(M * D + M * H) * 3 * H + 3 * H;
-}
-
-// acc[r] += sum_k f[row_r, k] * w[k * ldw] over k < K, rows r0.. (clamped
-// to N-1: surplus rows of a ragged chunk repeat the last row and are never
-// stored). f rows are K floats, K % 4 == 0, 16-byte aligned.
-__device__ __forceinline__ void gemm_col(float (&acc)[kRows],
-                                         const float* __restrict__ f, int K,
-                                         int r0, int N,
-                                         const float* __restrict__ w,
-                                         int ldw) {
-  const float4* f4 = reinterpret_cast<const float4*>(f);
-  const int K4 = K / 4;
-  int row[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) row[r] = min(r0 + r, N - 1) * K4;
-#pragma unroll 2
-  for (int k4 = 0; k4 < K4; ++k4) {
-    const float* wk = w + (size_t)(4 * k4) * ldw;
-    const float w0 = __ldg(wk), w1 = __ldg(wk + ldw),
-                w2 = __ldg(wk + 2 * ldw), w3 = __ldg(wk + 3 * ldw);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 v = f4[row[r] + k4];
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
-    }
-  }
-}
-
-// dst[n * ldd] = sum_k A_m[n, k] * v[k] for the column v already in
-// registers; m == 0 is the identity. sA holds A_1..A_{M-1}.
-__device__ __forceinline__ void diffuse_col(const float (&v)[kMaxNodes],
-                                            const float* __restrict__ sA,
-                                            int N, int m, float* dst,
-                                            int ldd) {
-  if (m == 0) {
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) dst[k * ldd] = v[k];
-    return;
-  }
-  const float* a = sA + (m - 1) * N * N;
-  for (int n = 0; n < N; ++n) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) acc = fmaf(a[n * N + k], v[k], acc);
-    dst[n * ldd] = acc;
-  }
-}
-
-// acc[i] = sum_m sum_k A_m[k, n0+i] * src[k * lds + m * W] for the rows
-// n0 + i < N: the adjoint of the diffusion, applied to one column of the
-// (N, M*W) m-major slab src.
-__device__ __forceinline__ void diffuse_t_col(float (&acc)[kTRows],
-                                              const float* __restrict__ sA,
-                                              int N, int M,
-                                              const float* src, int lds,
-                                              int W, int n0) {
-#pragma unroll
-  for (int i = 0; i < kTRows; ++i)
-    acc[i] = n0 + i < N ? src[(n0 + i) * lds] : 0.0f;
-  for (int m = 1; m < M; ++m) {
-    float v[kMaxNodes];
-#pragma unroll
-    for (int k = 0; k < kMaxNodes; ++k)
-      if (k < N) v[k] = src[k * lds + m * W];
-    const float* a = sA + (m - 1) * N * N;
-#pragma unroll
-    for (int i = 0; i < kTRows; ++i) {
-      const int n = n0 + i;
-      if (n < N) {
-        float s = acc[i];
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) s = fmaf(a[k * N + n], v[k], s);
-        acc[i] = s;
-      }
-    }
-  }
-}
-
-// One dW task: rows i0..i0+kWRows-1 of column j of a (rows, cols) block
-// of a slab: sum_n feat[n, i] * dpre[n, j]; written when `first`, added
-// otherwise.
-__device__ __forceinline__ void dw_quad(const float* __restrict__ feat,
-                                        int ldf, int i0,
-                                        const float* __restrict__ dpre,
-                                        int ldp, int j, int N, float* dst,
-                                        int cols, bool first) {
-  float acc[kWRows] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int n = 0; n < N; ++n) {
-    const float4 f = *reinterpret_cast<const float4*>(feat + n * ldf + i0);
-    const float d = dpre[n * ldp + j];
-    acc[0] = fmaf(f.x, d, acc[0]);
-    acc[1] = fmaf(f.y, d, acc[1]);
-    acc[2] = fmaf(f.z, d, acc[2]);
-    acc[3] = fmaf(f.w, d, acc[3]);
-  }
-  float* o = dst + (size_t)i0 * cols + j;
-#pragma unroll
-  for (int r = 0; r < kWRows; ++r)
-    o[r * cols] = first ? acc[r] : o[r * cols] + acc[r];
-}
-
-// dst[j] (=|+=) sum_n dpre[n, j]
-__device__ __forceinline__ void db_col(const float* __restrict__ dpre,
-                                       int ldp, int j, int N, float* dst,
-                                       bool first) {
-  float acc = 0.0f;
-  for (int n = 0; n < N; ++n) acc += dpre[n * ldp + j];
-  dst[j] = first ? acc : dst[j] + acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -228,6 +108,28 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_bf16 / mma_tf32 above without `volatile`: an mma is a pure function
+// of its registers, so the compiler may interleave independent products
+// and move operand loads above them. (The volatile
+// forms issue in program order: a 3xTF32 tile's three dependent products
+// back to back, each waiting out the last one's latency.)
+__device__ __forceinline__ void mma_bf16_r(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32_r(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,24 +1,25 @@
-// Whole-sequence DCGRU layer recurrence, backward (BPTT), for NVIDIA
-// Hopper (sm_90a).
+// Whole-sequence DCGRU layer recurrence, backward (BPTT): its state loop and
+// the dW reduction, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the serial part of two Pallas TPU kernels of
 // eeg_gnn_tpu/ops/pallas_recurrent.py:
-//   dcgru_recurrence_bwd  <- _bwd_kernel (:283, launched from _backward
-//                            :462/:482): BPTT of the hoisted forward;
-//                            dx_proj = [dru_pre | dc_pre], dWh, db, dh0.
 //   dcgru_xin_bwd_loop    <- the state chain of _bwd_kernel_xin (:782,
-//                            launched from _backward_xin :964/:986): the same
-//                            loop without any dW, writing dpre = [dru_pre |
-//                            dc_pre] in f32 for the bulk dW and dx products
-//                            of dcgru_xin_gemm.cu; a kernel of its own,
-//                            redesigned for tensor cores (below).
+//                            launched from _backward_xin :964/:986) and of
+//                            _bwd_kernel (:283, launched from _backward
+//                            :462/:482): the reverse loop without any dW,
+//                            writing dpre = [dru_pre | dc_pre] in f32 for
+//                            the bulk dW (and, x-in, dx) products of
+//                            dcgru_xin_gemm.cu. The hoisted layer's BPTT
+//                            (ops/cuda_recurrent.py dcgru_recurrence_bwd) is
+//                            this loop, the bulk dW at D = 0 and the
+//                            reduction; its dx_proj is dpre in the stream
+//                            dtype.
 //   dcgru_dw_reduce       <- the cross-grid dW accumulation of both
 //                            (:294-297, :794-801): the TPU grid runs in
 //                            order and sums into one resident block; on
-//                            the GPU the partial slabs (one per clip here,
-//                            one per split of the clip-steps in
-//                            dcgru_xin_gemm.cu) are summed in a fixed order
-//                            (no atomics).
+//                            the GPU the partial slabs (one per split of
+//                            the clip-steps, dcgru_xin_gemm.cu) are summed
+//                            in a fixed order (no atomics).
 //
 // One step, walking t from T-1 down to 0 (A_0 = I; math of
 // eeg_gnn_tpu/ops/recurrent.py:36-46):
@@ -27,41 +28,9 @@
 //   drh     = sum_m A_m^T (dc_pre Wc_m^T)
 //   dru_pre = [drh h_prev | du] ru (1-ru)
 //   dh_prev = g u + drh r + sum_m A_m^T (dru_pre Wg_m^T)
-//   with the slab: feats = A_m [h_prev | r h_prev] (recomputed),
-//   dWc += (A r h_prev)^T dc_pre, dWg += (A h_prev)^T dru_pre, db += dpre
 // and at the end dh0 = dh.
 //
-// dcgru_recurrence_bwd's kernel (#4, below first). What bounds it on an
-// H100. Per step and clip at M=3, H=64 the chain does
-// ~1.4 MFLOP of weight-transpose products and ~0.2 MFLOP of A^T applies
-// (~12 GFLOP over T=60 x B=128, ~0.18 ms at the 67 TFLOP/s non-tensor
-// f32 rate this kernel uses: f32 FMA, no TF32); the slab adds ~0.3 MFLOP
-// of recomputed diffusions and ~1.4 MFLOP of dW products, and traffic the
-// bound does not count: each clip reads and writes its f32 dW slab every
-// step.
-//
-// Design.
-// - One thread block per clip with the reverse T loop inside the block,
-//   as in the forward kernel: the TPU's sequential (batch-tile, time)
-//   grid becomes an in-block loop and the clips run in parallel.
-// - The state cotangent dh (f32), the clip's M-1 non-identity operators,
-//   the step's streams, recomputed features and weight-transpose products
-//   stay in shared memory. The TPU's 19 -> 24 node padding and J-clip
-//   block diagonals are dropped: ragged rows are masked.
-// - Weights are read from global memory (L2-resident across the batch),
-//   transposed by the wrapper so one output column per thread reads them
-//   coalesced; every weight value is used for up to kRows node rows held
-//   in registers.
-// - dW: every block owns an f32 partial slab in global memory, which it
-//   writes at its first step (t = T-1) and adds into after (no zero
-//   fill); one (row-quad, column) task per thread, the same task every
-//   step.
-// - Streams (h_prev, ru, c, d_seq in) are f32 or bf16, converted on load;
-//   dx_proj is written in the stream dtype; weights, state, dW and every
-//   accumulation are f32 (pallas_recurrent.py:807-813).
-//
-// dcgru_xin_bwd_loop's kernel (3.l, below second). What bounds it on an
-// H100: the same chain without the slab, ~12 GFLOP of weight-transpose
+// What bounds the loop on an H100: ~12 GFLOP of weight-transpose
 // products (12 us at the bf16 tensor-core rate) and ~0.7 GFLOP of A^T
 // applies, serial over T. As in the forward loop, a step (five phases
 // between barriers) is bound by the instructions its warps dispatch, not
@@ -90,229 +59,8 @@ namespace {
 
 using namespace dcgru;
 
-struct Params {
-  const float* a_ops;  // (M, a_batch, N, N), a_batch in {1, B}
-  const float* wgT;    // (2H, M*H) transposed m-major hidden rows
-  const float* wcT;    // (H, M*H)
-  const void* h_prev;  // (T, B, N, H)
-  const void* ru;      // (T, B, N, 2H)
-  const void* c;       // (T, B, N, H)
-  const void* d_seq;   // (T, B, N, H) cotangent of h_seq
-  void* dpre;          // (T, B, N, 3H) [dru_pre | dc_pre]
-  float* dh0;          // (B, N, H)
-  float* part;         // (B, slab) per-clip dW partials
-  int T, B, N, H, M, a_batch, act;
-};
-
-// Shared-memory layout, in floats; every array starts 16-byte aligned.
-struct Smem {
-  int a, dh, hp, ru, c, hf, rf, dyh, dru, drh, total;
-  __host__ __device__ Smem(int N, int H, int M) {
-    const int feats = pad4(N * M * H);
-    a = 0;                               // (M-1, N, N) operators
-    dh = a + pad4((M - 1) * N * N);      // (N, H) dh, then g, then dh_prev
-    hp = dh + pad4(N * H);               // (N, H) h_prev
-    ru = hp + pad4(N * H);               // (N, 2H) r | u
-    c = ru + pad4(N * 2 * H);            // (N, H) dc_pre
-    hf = c + pad4(N * H);                // (N, M*H) A h_prev
-    rf = hf + feats;                     // (N, M*H) A (r h_prev)
-    dyh = rf + feats;                    // (N, M*H) dpre W_h^T
-    dru = dyh + pad4(N * M * H);         // (N, 2H) dru_pre
-    drh = dru + pad4(N * 2 * H);         // (N, H) drh
-    total = drh + pad4(N * H);
-  }
-};
-
-// S: the dtype of the streams, dx_proj included.
-template <typename S>
-__global__ void __launch_bounds__(kMaxThreads)
-    dcgru_bwd_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int N = p.N, H = p.H, M = p.M;
-  const Smem L(N, H, M);
-  float* sA = smem + L.a;
-  float* sdh = smem + L.dh;
-  float* shp = smem + L.hp;
-  float* sru = smem + L.ru;
-  float* sdc = smem + L.c;
-  float* shf = smem + L.hf;
-  float* srf = smem + L.rf;
-  float* sdyh = smem + L.dyh;
-  float* sdru = smem + L.dru;
-  float* sdrh = smem + L.drh;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int NN = N * N, MH = M * H, H2 = 2 * H, H3 = 3 * H;
-  const int chunks = (N + kRows - 1) / kRows;
-  const int tchunks = (N + kTRows - 1) / kTRows;
-
-  // this clip's dW slab and its blocks
-  float* dwg = p.part + (size_t)b * slab_size(0, H, M);
-  float* dwc = dwg + (size_t)MH * H2;
-  float* dbg = dwc + (size_t)MH * H;
-  float* dbc = dbg + H2;
-
-  // the clip's operators A_1..A_{M-1} (a shared graph has a_batch == 1)
-  const float* a_clip = p.a_ops + (size_t)(p.a_batch == 1 ? 0 : b) * NN;
-  for (int i = tid; i < (M - 1) * NN; i += nthr) {
-    int m = i / NN + 1, e = i - (m - 1) * NN;
-    sA[i] = a_clip[(size_t)m * p.a_batch * NN + e];
-  }
-  for (int i = tid; i < N * H; i += nthr) sdh[i] = 0.0f;
-
-  const S* hps = static_cast<const S*>(p.h_prev);
-  const S* rus = static_cast<const S*>(p.ru);
-  const S* cs = static_cast<const S*>(p.c);
-  const S* ds = static_cast<const S*>(p.d_seq);
-  S* dps = static_cast<S*>(p.dpre);
-
-  // task counts of the merged dW / gate phase (fixed across steps, so each
-  // slab entry has one owner thread)
-  const int n_wt = MH * chunks;              // weight-transpose columns
-  const int q_h = MH / kWRows;
-  const int n_dw[4] = {q_h * H2, q_h * H, H2, H};
-  const int n_phase5 = n_wt + n_dw[0] + n_dw[1] + n_dw[2] + n_dw[3];
-  __syncthreads();
-
-  for (int t = p.T - 1; t >= 0; --t) {
-    const bool first = t == p.T - 1;
-    const size_t slab = (size_t)t * p.B + b;  // (t, b) row of every stream
-
-    // P0: streams in; g, du, dc_pre
-    for (int i = tid; i < N * H; i += nthr) {
-      const int n = i / H, j = i - n * H;
-      const size_t o = slab * N * H + i;
-      const size_t oru = (slab * N + n) * H2 + j;
-      const float hp = to_f(hps[o]);
-      const float r = to_f(rus[oru]);
-      const float u = to_f(rus[oru + H]);
-      const float c = to_f(cs[o]);
-      const float g = sdh[i] + to_f(ds[o]);
-      shp[i] = hp;
-      sru[n * H2 + j] = r;
-      sru[n * H2 + H + j] = u;
-      sdh[i] = g;
-      sdc[i] = g * (1.0f - u) * act_grad(c, p.act);
-      sdru[n * H2 + H + j] = g * (hp - c) * u * (1.0f - u);
-    }
-    __syncthreads();
-
-    // P1: recompute the diffusions [h_prev | r h_prev], one (m, column)
-    // per task
-    for (int task = tid; task < M * H2; task += nthr) {
-      const int m = task / H2, cc = task - m * H2;
-      float v[kMaxNodes];
-      if (cc < H) {
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = shp[k * H + cc];
-        diffuse_col(v, sA, N, m, shf + m * H + cc, MH);
-      } else {
-        const int j = cc - H;
-#pragma unroll
-        for (int k = 0; k < kMaxNodes; ++k)
-          if (k < N) v[k] = sru[k * H2 + j] * shp[k * H + j];
-        diffuse_col(v, sA, N, m, srf + m * H + j, MH);
-      }
-    }
-
-    // P2: candidate weight-transpose products dc_pre Wc^T
-    for (int task = tid; task < n_wt; task += nthr) {
-      const int chunk = task / MH, j = task - chunk * MH;
-      const int r0 = chunk * kRows;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      gemm_col(acc, sdc, H, r0, N, p.wcT + j, MH);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r0 + r < N) sdyh[(r0 + r) * MH + j] = acc[r];
-    }
-    __syncthreads();
-
-    // P3: A^T applies: drh, and the gate half of dru_pre
-    for (int task = tid; task < H * tchunks; task += nthr) {
-      const int chunk = task / H, cc = task - chunk * H;
-      const int n0 = chunk * kTRows;
-      float acc[kTRows];
-      diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
-#pragma unroll
-      for (int i = 0; i < kTRows; ++i) {
-        const int n = n0 + i;
-        if (n < N) {
-          const float r = sru[n * H2 + cc];
-          sdrh[n * H + cc] = acc[i];
-          sdru[n * H2 + cc] = acc[i] * shp[n * H + cc] * r * (1.0f - r);
-        }
-      }
-    }
-    __syncthreads();
-
-    // P4: gate weight-transpose products dru_pre Wg^T, and every dW / db
-    // accumulation of the step (independent of each other)
-    for (int task = tid; task < n_phase5; task += nthr) {
-      int k = task;
-      if (k < n_wt) {
-        const int chunk = k / MH, j = k - chunk * MH;
-        const int r0 = chunk * kRows;
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        gemm_col(acc, sdru, H2, r0, N, p.wgT + j, MH);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (r0 + r < N) sdyh[(r0 + r) * MH + j] = acc[r];
-        continue;
-      }
-      k -= n_wt;
-      if (k < n_dw[0]) {  // dWg += (A h_prev)^T dru_pre
-        dw_quad(shf, MH, (k / H2) * kWRows, sdru, H2, k % H2, N, dwg, H2,
-                first);
-        continue;
-      }
-      k -= n_dw[0];
-      if (k < n_dw[1]) {  // dWc += (A r h_prev)^T dc_pre
-        dw_quad(srf, MH, (k / H) * kWRows, sdc, H, k % H, N, dwc, H, first);
-        continue;
-      }
-      k -= n_dw[1];
-      if (k < n_dw[2]) {
-        db_col(sdru, H2, k, N, dbg, first);
-        continue;
-      }
-      db_col(sdc, H, k - n_dw[2], N, dbc, first);
-    }
-    __syncthreads();
-
-    // P5: the gate A^T applies: dh_prev; and dpre[t] = [dru_pre | dc_pre]
-    for (int task = tid; task < H * tchunks; task += nthr) {
-      const int chunk = task / H, cc = task - chunk * H;
-      const int n0 = chunk * kTRows;
-      float acc[kTRows];
-      diffuse_t_col(acc, sA, N, M, sdyh + cc, MH, H, n0);
-#pragma unroll
-      for (int i = 0; i < kTRows; ++i) {
-        const int n = n0 + i;
-        if (n < N) {
-          const float g = sdh[n * H + cc];
-          const float r = sru[n * H2 + cc], u = sru[n * H2 + H + cc];
-          sdh[n * H + cc] = g * u + sdrh[n * H + cc] * r + acc[i];
-        }
-      }
-    }
-    for (int i = tid; i < N * H3; i += nthr) {
-      const int n = i / H3, j = i - n * H3;
-      const float v = j < H2 ? sdru[n * H2 + j] : sdc[n * H + j - H2];
-      dps[slab * N * H3 + i] = from_f<S>(v);
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < N * H; i += nthr) p.dh0[(size_t)b * N * H + i] = sdh[i];
-}
-
 // ---------------------------------------------------------------------------
-// the x-in state loop (3.l): tensor-core products, staged weights
+// the state loop (3.l; #4's too): tensor-core products, staged weights
 // ---------------------------------------------------------------------------
 
 // threads of a block: 16 warps where the registers allow (bf16 operands),
@@ -520,38 +268,9 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-template <typename S>
-int launch(const Params& p, cudaStream_t stream) {
-  if (p.N > kMaxNodes || p.N < 1 || p.H % 4 || p.H < 4 || p.M < 1 ||
-      p.B < 1 || p.T < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)Smem(p.N, p.H, p.M).total * sizeof(float);
-  auto kern = dcgru_bwd_kernel<S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<p.B, kMaxThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
-
-// act: 0 tanh, 1 relu, 2 linear. bf16: streams are bf16 (else f32).
-// part: B * slab_size(0, H, M) floats of scratch, written before read.
-// dx_proj (T, B, N, 3H) in the stream dtype.
-// Returns a cudaError_t: 0 on a launch that was accepted.
-int dcgru_recurrence_bwd(const float* a_ops, int a_batch, const float* wgT,
-                         const float* wcT, const void* h_prev, const void* ru,
-                         const void* c, const void* d_seq, void* dx_proj,
-                         float* dh0, float* part, int T, int B, int N, int H,
-                         int M, int act, int bf16, void* stream) {
-  Params p{a_ops, wgT, wcT, h_prev, ru, c, d_seq, dx_proj, dh0, part,
-           T,     B,   N,   H,      M,  a_batch, act};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
-}
 
 // The state chain alone: dpre (T, B, N, 3H) f32 and dh0; no dW. w: the
 // staged hidden weights [Wc | Wg] (ops/cuda_recurrent.py,

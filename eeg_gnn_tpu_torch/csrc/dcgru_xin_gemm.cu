@@ -12,6 +12,8 @@
 //                      (:820-838), summed in grid-resident blocks (:794-801):
 //                      dWx = sum (A x)^T dpre, dWg = sum (A h_prev)^T dru_pre,
 //                      dWc = sum (A (r h_prev))^T dc_pre, db = sum dpre.
+//                   <- _bwd_kernel (:283) too, at D = 0: the hoisted
+//                      layer's dWg, dWc and db (no x, no dWx).
 //   dcgru_xin_dx    <- _bwd_kernel_xin (:782): the x cotangent (:875-892):
 //                      dx = sum_m A_m^T (dpre Wx_m^T) = sum_m (A_m^T dpre) Wx_m^T.
 // dpre = [dru_pre | dc_pre] (T, B, N, 3H) f32 comes from the state-only BPTT
@@ -247,28 +249,6 @@ __device__ __forceinline__ void copy_span(void* dst, const Span& s,
           *reinterpret_cast<const uint32_t*>(s.start + s.bytes + k);
     fence_proxy_async();
   }
-}
-
-// mma_bf16 / mma_tf32 of dcgru_common.cuh without `volatile`: an mma
-// is a pure function of its registers, so the compiler may interleave
-// independent products and move operand loads above them. (The volatile
-// forms issue in program order: a 3xTF32 tile's three dependent products
-// back to back, each waiting out the last one's latency.)
-__device__ __forceinline__ void mma_bf16_r(float (&d)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32_r(float (&d)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // G^T (column j, chunk row k) = v: bf16 rounded to nearest, or f32 as
@@ -1437,8 +1417,11 @@ int dw_plan(DwParams& p, int sb) {
     p.P = g.P;
     p.RB = g.RB;
     // at least P warps: db's (pair, column) tasks, two a thread; and
-    // the producer
-    p.warps = max(min(p.ft, kDwTiles), p.P) + 1;
+    // the producer; at D = 0 in f32 (few feature tiles, a diffusion in
+    // 3xTF32) every warp a tile could have, for the diffusion (faster on
+    // an H100; in bf16 the extra warps gained nothing)
+    p.warps = max(max(min(p.ft, kDwTiles), p.P),
+                  p.D == 0 && sb == 4 ? kDwTiles : 0) + 1;
     const int bytes = DwSmem(p, sb).total;
     if (bytes <= kMaxSmem) return bytes;
   }
@@ -1483,9 +1466,11 @@ int dw_split_count(const DwParams& p) {
 }
 #endif
 
+// D = 0 is the hoisted layer's: no x rows (their spans are empty, no
+// copy is issued), no x feature tiles, slabs without dWx
 bool dw_valid(const DwParams& p) {
   return p.N >= 1 && p.N <= kMaxNodes && p.M >= 1 && p.pairs >= 1 &&
-         p.D >= 4 && p.D % 4 == 0 && p.H >= 4 && p.H % 4 == 0 &&
+         p.D >= 0 && p.D % 4 == 0 && p.H >= 4 && p.H % 4 == 0 &&
          p.B >= 1 && p.a_batch >= 1;
 }
 
@@ -1579,7 +1564,8 @@ int dcgru_xin_bulk_plan(int proj, int T, int B, int N, int D, int H, int M,
 
 // part (splits, (M*D + M*H)*3H + 3H) f32: split s sums the pairs
 // [s*pps, min((s+1)*pps, T*B)), pps = ceil(T*B / splits); every entry is
-// written. x, h_prev, ru in the stream dtype; dpre f32; frags (M-1,
+// written. x, h_prev, ru in the stream dtype (x unused at D = 0, the
+// hoisted layer's); dpre f32; frags (M-1,
 // a_batch) operators A_m^T as the mma's A fragments (bf16: m16n8k16
 // tiles; f32: m16n8k8 tiles split into TF32 hi and lo; the wrapper's
 // dw_op_frags), unused at M=1.

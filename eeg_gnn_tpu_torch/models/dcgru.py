@@ -66,6 +66,7 @@ from eeg_gnn_tpu_torch.ops.cuda_kernels import (
     fused_diffusion_conv,
     fused_diffusion_conv_fwd,
     rearrange_weight,
+    stage_fdc_operands,
 )
 from eeg_gnn_tpu_torch.ops.diffusion import chebyshev_diffusion
 from eeg_gnn_tpu_torch.ops.recurrent import (
@@ -262,7 +263,9 @@ def _step_scan(cfg: DCGRUConfig, params, supports, x_proj, wh_gate, wh_cand,
 
     With ``use_pallas`` and per-clip (S, B, N, N) supports they are the
     fused diffusion-conv kernel (two launches per step: its autograd
-    Function when ``train``, the bare forward wrapper otherwise); with a
+    Function when ``train``, the bare forward wrapper otherwise), its
+    operands (the supports, the gate and candidate weights) staged once
+    here for all T steps; with a
     shared (S, N, N) graph, or ``use_pallas`` off, ``chebyshev_diffusion``
     + matmul. The gate and candidate inputs and the state are float32
     whatever the stream dtype, so h_seq (T, B, N, H) is float32.
@@ -276,9 +279,12 @@ def _step_scan(cfg: DCGRUConfig, params, supports, x_proj, wh_gate, wh_cand,
         w_gate = rearrange_weight(wh_gate, h_units, cfg.num_matrices)
         w_cand = rearrange_weight(wh_cand, h_units, cfg.num_matrices)
         w_gate, w_cand = w_gate.contiguous(), w_cand.contiguous()
+        sup_f, (w_gate_f, w_cand_f) = stage_fdc_operands(sup, w_gate, w_cand)
         conv = fused_diffusion_conv if train else fused_diffusion_conv_fwd
-        hidden_gate = lambda h: conv(sup, h, w_gate, gate_b, k)
-        hidden_cand = lambda rh: conv(sup, rh, w_cand, cand_b, k)
+        hidden_gate = lambda h: conv(sup, h, w_gate, gate_b, k,
+                                     (sup_f, w_gate_f))
+        hidden_cand = lambda rh: conv(sup, rh, w_cand, cand_b, k,
+                                      (sup_f, w_cand_f))
     else:
         hidden_gate = lambda h: torch.matmul(
             _flat(chebyshev_diffusion(supports, h, k)), wh_gate) + gate_b

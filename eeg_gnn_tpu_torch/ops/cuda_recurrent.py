@@ -7,10 +7,13 @@ They replace the JAX package's Pallas kernels
 - :func:`dcgru_recurrence_fwd` <- ``_fwd_kernel``
   (``csrc/dcgru_recurrence.cu``): the recurrence fed a precomputed fused
   ``x_proj = [gate | cand]`` (T, B, N, 3H) stream (``--no_input_fusion``);
-- :func:`dcgru_recurrence_bwd` <- ``_bwd_kernel``
-  (``csrc/dcgru_recurrence_bwd.cu``): its BPTT; one f32 partial dW slab
-  per clip, which :func:`dcgru_dw_reduce` sums in a fixed order (the TPU
-  kernels summed into one resident block across their sequential grid);
+- :func:`dcgru_recurrence_bwd` <- ``_bwd_kernel``: its BPTT, as three
+  kernels: the state loop :func:`dcgru_xin_bwd_loop`
+  (``csrc/dcgru_recurrence_bwd.cu``), the bulk :func:`dcgru_xin_dw` at
+  D = 0 (the layer has no x; one f32 partial slab per fixed split of the
+  (t, b) pairs) and :func:`dcgru_dw_reduce`, which sums the partials in a
+  fixed order (the TPU kernels summed into one resident block across
+  their sequential grid); dx_proj is the loop's dpre in the stream dtype;
 - :func:`dcgru_recurrence_xin_fwd` <- ``_fwd_kernel_xin``: the default
   ``input_fusion`` path, fed the raw (T, B, N, D) layer input. Two
   kernels: the bulk input projection :func:`dcgru_xin_proj`
@@ -39,8 +42,9 @@ f32 streams (split into 3xTF32 in the kernel).
 Each wrapper computes the kernel's function with its plain version when
 its input lies on the CPU, launches the kernel when it lies on a CUDA
 device, and raises otherwise or on what the kernel does not take. Each
-counts its launches in ``<wrapper>.launches``. The two xin wrappers launch
-no kernel of their own and have no counter: their kernels count.
+counts its launches in ``<wrapper>.launches``. The two xin wrappers and
+:func:`dcgru_recurrence_bwd` launch no kernel of their own and have no
+counter: their kernels count.
 
 Streams (x / x_proj, h_seq, ru_seq, c_seq, the h_seq cotangent and the
 x / x_proj cotangent) are float32 or bfloat16; operators, weights,
@@ -107,9 +111,6 @@ def _lib_bwd() -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a ``csrc/dcgru_recurrence_bwd.cu``
     library."""
-    lib.dcgru_recurrence_bwd.argtypes = (
-        [_P, _I] + [_P] * 2 + [_P] * 4 + [_P] * 3 + [_I] * 7 + [_P])
-    lib.dcgru_recurrence_bwd.restype = _I
     lib.dcgru_xin_bwd_loop.argtypes = (
         [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 7 + [_P])
     lib.dcgru_xin_bwd_loop.restype = _I
@@ -320,7 +321,7 @@ def _outputs(like, t, b, n, h_units, dtype, residuals):
 def dw_size(m: int, d: int, h_units: int) -> int:
     """Floats of one dW partial slab: [dWxg (M*D, 2H) | dWxc (M*D, H) |
     dWg (M*H, 2H) | dWc (M*H, H) | dbg (2H) | dbc (H)]; d=0 for the
-    hoisted kernel's per-clip slabs, which have no dWx."""
+    hoisted layer's, which have no dWx."""
     return (m * d + m * h_units) * 3 * h_units + 3 * h_units
 
 
@@ -461,14 +462,14 @@ def dcgru_xin_dx_plain(a_ops, wx, dpre, dtype):
 def dcgru_xin_dw_plain(a_ops, h_prev, ru_seq, x, dpre, splits=None):
     """Plain version of :func:`dcgru_xin_dw`: the same split partials
     (``splits`` of them; by default :func:`dw_splits`, the kernel's
-    count)."""
+    count); a zero-width x (D = 0, the hoisted layer's) adds no dWx."""
     t, b, n, _ = x.shape
     h_units = h_prev.shape[-1]
     pairs = t * b
     if splits is None:
         splits = dw_splits(pairs, a_ops.shape[0], x.shape[-1], h_units)
     per = max(1, -(-pairs // splits))
-    flat = lambda s: s.reshape(pairs, n, -1).float()
+    flat = lambda s: s.reshape(pairs, n, s.shape[-1]).float()
     xs, hs, gs = flat(x), flat(h_prev), flat(dpre)
     rhs = flat(ru_seq)[..., :h_units] * hs
     out = []
@@ -722,10 +723,6 @@ def _split_dw(flat, m, d, h_units):
             dbc)
 
 
-def _transposed(w2d):
-    return w2d.t().contiguous()
-
-
 def _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation):
     """The checks of the backward loops' arguments (``streams`` = h_prev,
     ru_seq, c_seq, d_seq)."""
@@ -791,8 +788,9 @@ def dcgru_recurrence_xin_bwd(a_ops, wxg_f, wxc_f, wg_r, wc_r, h_prev,
 
 def dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
                        activation="tanh"):
-    """The state loop of :func:`dcgru_recurrence_xin_bwd`: the reverse loop
-    of :func:`dcgru_recurrence_bwd` without any dW. Arguments as it;
+    """The state loop of :func:`dcgru_recurrence_xin_bwd` and of
+    :func:`dcgru_recurrence_bwd`: the reverse loop without any dW.
+    Arguments as the latter's;
     returns (dpre (T, B, N, 3H) = [dru_pre | dc_pre] float32, dh0
     (B, N, H) float32)."""
     if h_prev.device.type == "cpu":
@@ -827,6 +825,12 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
                          activation="tanh"):
     """BPTT of :func:`dcgru_recurrence_fwd` over all T steps.
 
+    On a CUDA device: the state loop (:func:`dcgru_xin_bwd_loop`, dpre in
+    float32), the bulk dW kernel at D = 0 (:func:`dcgru_xin_dw`: the layer
+    has no input x) and :func:`dcgru_dw_reduce` over its split partials;
+    dxp is dpre cast to the stream dtype, as the TPU kernel writes
+    dx_proj. dW is taken from the float32 dpre.
+
     Arguments as :func:`dcgru_recurrence_xin_bwd` without the input and
     its weights. Returns (dxp, dwg_r, dwc_r, dbg, dbc, dh0): dxp
     (T, B, N, 3H) = [dru_pre | dc_pre] in the stream dtype, the rest
@@ -835,33 +839,16 @@ def dcgru_recurrence_bwd(a_ops, wg_r, wc_r, h_prev, ru_seq, c_seq, d_seq,
     if h_prev.device.type == "cpu":
         return dcgru_recurrence_bwd_plain(a_ops, wg_r, wc_r, h_prev, ru_seq,
                                           c_seq, d_seq, activation)
-    name = "dcgru_recurrence_bwd"
     streams = (h_prev, ru_seq, c_seq, d_seq)
-    _bwd_loop_checks(name, a_ops, wg_r, wc_r, streams, activation)
+    _bwd_loop_checks("dcgru_recurrence_bwd", a_ops, wg_r, wc_r, streams,
+                     activation)
     t, b, n, h_units = h_prev.shape
-    m = a_ops.shape[0]
-    w_t = (_transposed(wg_r.reshape(m * h_units, -1)),
-           _transposed(wc_r.reshape(m * h_units, -1)))
-    dev = h_prev.device
-    dxp = torch.empty((t, b, n, 3 * h_units), dtype=h_prev.dtype, device=dev)
-    dh0 = torch.empty((b, n, h_units), dtype=torch.float32, device=dev)
-    part = torch.empty((b, dw_size(m, 0, h_units)), dtype=torch.float32,
-                       device=dev)
-    with torch.cuda.device(h_prev.device):
-        err = _lib_bwd().dcgru_recurrence_bwd(
-            a_ops.data_ptr(), a_ops.shape[1], *(w.data_ptr() for w in w_t),
-            *(s.data_ptr() for s in streams),
-            dxp.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-            t, b, n, h_units, m, _ACT_CODES[activation],
-            int(h_prev.dtype == torch.bfloat16), _stream(h_prev))
-    _raise_on(err, name, _lib_bwd)
-    dcgru_recurrence_bwd.launches += 1
-    _, _, dwg, dwc, dbg, dbc = _split_dw(dcgru_dw_reduce(part), m, 0,
-                                         h_units)
-    return dxp, dwg, dwc, dbg, dbc, dh0
-
-
-dcgru_recurrence_bwd.launches = 0
+    dpre, dh0 = dcgru_xin_bwd_loop(a_ops, wg_r, wc_r, *streams, activation)
+    part = dcgru_xin_dw(a_ops, h_prev, ru_seq, h_prev.new_empty((t, b, n, 0)),
+                        dpre)
+    _, _, dwg, dwc, dbg, dbc = _split_dw(dcgru_dw_reduce(part),
+                                         a_ops.shape[0], 0, h_units)
+    return dpre.to(h_prev.dtype), dwg, dwc, dbg, dbc, dh0
 
 
 def _wx_parts(name, wx, m, h3=None):
@@ -941,7 +928,8 @@ def dcgru_xin_dw(a_ops, h_prev, ru_seq, x, dpre):
     Args:
         a_ops: (M, B or 1, N, N) float32.
         h_prev (T,B,N,H), ru_seq (T,B,N,2H), x (T,B,N,D): the streams, in
-            one dtype.
+            one dtype; D = 0 (the hoisted layer's) gives slabs without
+            dWx.
         dpre: (T, B, N, 3H) [dru_pre | dc_pre] float32.
 
     Returns:

@@ -4,7 +4,7 @@ card (an NVIDIA H100): the encoder's two loops and the seq2seq decoder's.
 
 Run from the repository root:
 
-    python3 loop_probe.py [--only encoder|decoder|dw|proj|dx] [--sass DIR]
+    python3 loop_probe.py [--only encoder|decoder|dw|proj|dx|fdc] [--sass DIR]
 
 It builds ``csrc/dcgru_recurrence.cu``, ``csrc/dcgru_recurrence_bwd.cu``
 and ``csrc/dcgru_decoder.cu`` once more with ``-DDCGRU_PROBE`` (a variant
@@ -62,6 +62,19 @@ the output stores; beside the launch's time from CUDA events and the launch
 plan (``cuda_recurrent.xin_bulk_plan``), at the detector's two layers
 (T=60, B=128, D=100 and 64, M=3, per-clip operators), bf16 and f32, with
 ptxas' register and spill report of the probed kernels.
+
+With ``--only fdc`` it probes the fused diffusion conv of the
+``use_pallas`` loop (``csrc/fused_diffusion_conv.cu`` built with
+``-DDCGRU_PROBE``, through ``cuda_kernels.fused_diffusion_conv_fwd`` with
+operands staged once, as the loop hands them over): thread 0 of block 0
+reads the SM clock at each phase of its clip, and the probe prints the
+clocks a launch spent in each: the operand copy (the clip's x and
+supports, and the weight fragments' wait), the Chebyshev terms, the
+products (with the partials' stores and the barrier after them) and the
+output store; beside the launch's time from CUDA events and the launch
+plan (``cuda_kernels.fdc_plan``), at the loop's shapes (B=128, N=19,
+D=H=64; the gate, O=128, and the candidate, O=64; M=3 and 5) and at one
+clip (B=1), with ptxas' register and spill report.
 
 It also prints each probed kernel's size in SASS instructions
 (``cuobjdump -sass``): most of a step's code runs once a step; with
@@ -341,6 +354,9 @@ BULK_PHASES = ("prologue", "In wait", "barrier A", "F_0 copy",
                "diffusion F_m", "barrier B", "mma", "stores", "epilogue")
 BULK_CHUNKS, BULK_PIECES = 10, 11
 BULK_CASES = (("detector layer 0", D), ("detector layer 1", H))
+# the fused diffusion conv's probe (csrc/fused_diffusion_conv.cu,
+# fdc_kernel): block 0's thread 0, clocks per slot summed over launches
+FDC_PHASES = ("operand copy", "Chebyshev terms", "products", "store")
 
 
 def probe_bulk(torch, cr, kind, read, results):
@@ -389,6 +405,40 @@ def probe_bulk(torch, cr, kind, read, results):
                   + f"; total {sum(per.values()):.0f}", flush=True)
 
 
+def probe_fdc(torch, ck, read, results):
+    """The fused diffusion conv at the use_pallas loop's shapes: the gate
+    (O=2H) and candidate (O=H) launches of one step, M=3 (S=1) and M=5
+    (S=2), B=128 and a single clip, operands staged once."""
+    dev = torch.device("cuda")
+    for s in (1, 2):
+        m = s * K + 1
+        for b in (128, 1):
+            for name, o in (("gate", 2 * H), ("candidate", H)):
+                rng = np.random.RandomState(s * o + b)
+                sup = torch.from_numpy((np.abs(rng.randn(s, b, N, N)) / N)
+                                       .astype(np.float32)).to(dev)
+                f = lambda *sh, scale: torch.from_numpy(
+                    (rng.randn(*sh) * scale).astype(np.float32)).to(dev)
+                w = f(m, H, o, scale=0.1)
+                sup_f, (w_f,) = ck.stage_fdc_operands(sup, w)
+                args = (sup, torch.tanh(f(b, N, H, scale=1.0)), w,
+                        f(o, scale=0.1), K, (sup_f, w_f))
+                ms, slots = time_launches(torch, ck.fused_diffusion_conv_fwd,
+                                          args, {}, read)
+                plan = ck.fdc_plan(s, b, N, H, o, K)
+                phases = {p: slots[i] / REPS for i, p in enumerate(FDC_PHASES)}
+                total = sum(phases.values())
+                row = {"kernel": "fused_diffusion_conv_fwd", "case": name,
+                       "M": m, "B": b, "O": o, "ms": ms, "plan": plan,
+                       "block_cycles": total, "phases": phases}
+                results.append(row)
+                print(f"probe fdc {name} O={o} M={m} B={b}: {ms:.4f} "
+                      f"ms/launch; plan {plan}; block 0: {total:.0f} "
+                      "cycles (" + ", ".join(
+                          f"{p} {c:.0f}, {100 * c / total:.0f}%"
+                          for p, c in phases.items()) + ")", flush=True)
+
+
 def main():
     import torch
 
@@ -402,6 +452,7 @@ def main():
         os.makedirs(sass_dir, exist_ok=True)
     from eeg_gnn_tpu_torch.ops import _build
     from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
     from eeg_gnn_tpu_torch.ops import cuda_recurrent as cr
 
     smi = subprocess.run(
@@ -412,11 +463,12 @@ def main():
     sources = (("fwd", "dcgru_recurrence", cr.bind_fwd),
                ("bwd", "dcgru_recurrence_bwd", cr.bind_bwd),
                ("dec", "dcgru_decoder", cd.bind),
-               ("dw", "dcgru_xin_gemm", cr.bind_xin))
+               ("dw", "dcgru_xin_gemm", cr.bind_xin),
+               ("fdc", "fused_diffusion_conv", ck.bind))
     part = {"fwd": ("encoder",), "bwd": ("encoder",), "dec": ("decoder",),
-            "dw": ("dw", "proj", "dx")}
+            "dw": ("dw", "proj", "dx"), "fdc": ("fdc",)}
     sources = [s for s in sources if only in part[s[0]]
-               or (only is None and s[0] != "dw")]
+               or (only is None and s[0] not in ("dw", "fdc"))]
     libs = {}
     for kind, name, bind in sources:
         path, secs, report = _build.build(name, ("-DDCGRU_PROBE",))
@@ -428,9 +480,9 @@ def main():
         # the probed kernels' names: dW's, the projection's (PROJ=true)
         # or dx's instances of xin_bulk_kernel
         mark = {"dw": "xin_dw", "proj": "bulk_kernelILb1",
-                "dx": "bulk_kernelILb0"}.get(only, "")
-        keep = (mark,) if kind == "dw" else ("loop", "fwd")
-        if kind == "dw":
+                "dx": "bulk_kernelILb0", "fdc": "fdc_kernel"}.get(only, "")
+        keep = (mark,) if kind in ("dw", "fdc") else ("loop", "fwd")
+        if kind in ("dw", "fdc"):
             entry = ""
             for line in report.splitlines():
                 if "Compiling entry" in line:
@@ -449,6 +501,8 @@ def main():
         cr._lib_bwd = lambda: libs["bwd"]
     if "dec" in libs:
         cd._lib = lambda: libs["dec"]
+    if "fdc" in libs:
+        ck._lib = lambda: libs["fdc"]
     if "dw" in libs:
         cr._lib_xin = lambda: libs["dw"]
         libs["dw"].dcgru_xin_dw_plan.argtypes = [ctypes.c_int] * 7 + [
@@ -471,6 +525,8 @@ def main():
         probe_dw(torch, cr, libs["dw"], lambda: read("dw"), results)
     elif only in ("proj", "dx"):
         probe_bulk(torch, cr, only, lambda: read("dw"), results)
+    elif only == "fdc":
+        probe_fdc(torch, ck, lambda: read("fdc"), results)
     print(json.dumps({"loop_probe": results}), flush=True)
 
 

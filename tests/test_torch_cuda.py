@@ -119,6 +119,12 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
                                     xin[3][:30].contiguous(), *xin[4:])
 
 
+# the kernels dcgru_recurrence_bwd launches, once each: the state loop, the
+# bulk dW at D = 0 and the reduction
+HOISTED_BWD_KERNELS = (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw,
+                       cr.dcgru_dw_reduce)
+
+
 def _bwd_inputs(dev, *, t, b, d, h, num_supports, shared, stream,
                 activation="tanh", seed=0):
     """Backward-kernel arguments from a forward run (realistic residuals)
@@ -149,13 +155,13 @@ def test_bwd_kernels_match_plain(dev, t, b, d, h, num_supports, shared,
                                num_supports=num_supports, shared=shared,
                                stream=stream)
     tol = 2e-2 if bf16 else 1e-4
-    # the x-in wrapper launches no kernel of its own: its four kernels count
+    # the two wrappers launch no kernel of their own: their kernels count
     for kern, plain, args, counters in (
             (cr.dcgru_recurrence_xin_bwd, cr.dcgru_recurrence_xin_bwd_plain,
              xin, (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
                    cr.dcgru_dw_reduce)),
             (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain,
-             hoisted, (cr.dcgru_recurrence_bwd, cr.dcgru_dw_reduce))):
+             hoisted, HOISTED_BWD_KERNELS)):
         before = [k.launches for k in counters]
         got = kern(*args)
         torch.cuda.synchronize()
@@ -382,6 +388,70 @@ def test_dw_kernel_keeps_a_device_nan(dev, where, bf16):
     assert not want.isnan().all()
     assert want.isnan().any() == (where != "u")
     assert torch.equal(got.isnan(), want.isnan())
+
+
+# (N, H, T, B) of the bulk dW at D = 0 (the hoisted layer's: no x)
+DW0_SHAPES = [(7, 16, 5, 37), (19, 64, 60, 37), (19, 64, 60, 128),
+              (32, 12, 4, 5)]
+
+
+@pytest.mark.parametrize("n,h,t,b", DW0_SHAPES)
+@pytest.mark.parametrize("num_supports,shared", [(1, False), (1, True),
+                                                 (2, False), (0, False)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dw_kernel_at_d0_matches_plain(dev, n, h, t, b, num_supports, shared,
+                                       bf16):
+    """The bulk dW kernel fed a zero-width x (D = 0): slabs [dWg | dWc |
+    dbg | dbc] only, each split against the plain version, and their
+    sum; M=1, 3 and 5."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    s_ = max(num_supports, 1)
+    a_ops, h_prev, ru, _, dpre = _dw_inputs(
+        dev, t=t, b=b, n=n, d=4, h=h, num_supports=s_, shared=shared,
+        stream=stream, seed=n + t + h)
+    if num_supports == 0:
+        a_ops = a_ops[:1].contiguous()  # M = 1: the identity alone
+    x0 = h_prev.new_empty((t, b, n, 0))
+    m = a_ops.shape[0]
+    got = cr.dcgru_xin_dw(a_ops, h_prev, ru, x0, dpre)
+    want = cr.dcgru_xin_dw_plain(a_ops, h_prev, ru, x0, dpre)
+    assert got.shape == want.shape == (cr.dw_splits(t * b, m, 0, h),
+                                       cr.dw_size(m, 0, h))
+    assert torch.isfinite(got).all()
+    tol = 2e-2 if bf16 else 1e-4
+    assert _err(got, want) <= tol, _err(got, want)
+    assert _err(cr.dcgru_dw_reduce(got), want.sum(0)) <= tol
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hoisted_bwd_is_bitwise_deterministic(dev, bf16):
+    """Two runs of the hoisted layer's BPTT (loop, dW at D = 0, reduction)
+    on the same inputs give the same bits, every output."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    _, hoisted = _bwd_inputs(dev, t=60, b=128, d=100, h=64, num_supports=1,
+                             shared=False, stream=stream)
+    runs = [cr.dcgru_recurrence_bwd(*hoisted) for _ in range(2)]
+    for g, w in zip(*runs):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_hoisted_bwd_keeps_a_device_nan(dev, bf16):
+    """A NaN that a device op made, in one entry of h_prev[0] of otherwise
+    finite residuals, reaches exactly the entries of dx_proj, dW, db and
+    dh0 that it reaches in the plain version."""
+    stream = torch.bfloat16 if bf16 else torch.float32
+    _, hoisted = _bwd_inputs(dev, t=5, b=4, d=12, h=16, num_supports=1,
+                             shared=False, stream=stream)
+    args = list(hoisted)
+    h_prev = args[3].clone()
+    h_prev[0, 2, 4, 5] = (torch.zeros(1, device=dev) / 0)[0]
+    args[3] = h_prev
+    got = cr.dcgru_recurrence_bwd(*args)
+    want = cr.dcgru_recurrence_bwd_plain(*args)
+    assert any(w.isnan().any() for w in want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
 
 
 # the bf16 dW kernel against its emulated rounding (chain_emulation.dw_chain)
@@ -621,19 +691,22 @@ def test_tensor_core_loops_match_plain(dev, t, n, h, num_supports, shared,
     kw = dict(residuals=True)
     cases = [
         (cr.dcgru_xin_fwd_loop, cr.dcgru_xin_fwd_loop_plain, fwd,
-         dict(kw, activation=activation, stream_dtype=stream)),
+         dict(kw, activation=activation, stream_dtype=stream), None),
         (cr.dcgru_recurrence_fwd, cr.dcgru_recurrence_fwd_plain, hoisted,
-         dict(kw, activation=activation)),
+         dict(kw, activation=activation), None),
         (cr.dcgru_xin_bwd_loop, cr.dcgru_xin_bwd_loop_plain, bwd,
-         dict(activation=activation)),
+         dict(activation=activation), None),
+        # a composite: its kernels count
         (cr.dcgru_recurrence_bwd, cr.dcgru_recurrence_bwd_plain, bwd,
-         dict(activation=activation)),
+         dict(activation=activation), HOISTED_BWD_KERNELS),
     ]
-    for kern, plain, args, kw in cases:
-        before = kern.launches
+    for kern, plain, args, kw, counters in cases:
+        counters = counters or (kern,)
+        before = [k.launches for k in counters]
         got = kern(*args, **kw)
         torch.cuda.synchronize()
-        assert kern.launches == before + 1, kern.__name__
+        assert [k.launches - b_ for k, b_ in zip(counters, before)] == \
+            [1] * len(counters), kern.__name__
         want = plain(*args, **kw)
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.dtype == w.dtype and g.shape == w.shape, \
@@ -1319,6 +1392,92 @@ def test_fused_diffusion_conv_wrapper_raises(dev):
         big = torch.zeros(1, 3, 40, 40, device=dev)
         ck.fused_diffusion_conv_fwd(big, torch.zeros(3, 40, 12, device=dev),
                                     w, bias, k)
+
+
+def _tc_conv_args(dev, s, k, n, o, b, seed=0, d=64):
+    """Kernel #7's arguments at n nodes as the use_pallas loop hands them
+    over (D = H = 64): per-clip supports, a state in (-1, 1), a weight
+    re-laid (M, D, O), a bias."""
+    rng = np.random.RandomState(seed)
+    m = s * k + 1
+    f = lambda *shape, scale: torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+    sup = torch.from_numpy((np.abs(rng.randn(s, b, n, n)) / n).astype(
+        np.float32)).to(dev)
+    return (sup, torch.tanh(f(b, n, d, scale=1.0)),
+            f(m, d, o, scale=(2.0 / (d * m)) ** 0.5), f(o, scale=0.1), k)
+
+
+@pytest.mark.parametrize("n", [7, 19, 32])
+@pytest.mark.parametrize("s,k", [(1, 1), (1, 2), (1, 3), (2, 2), (2, 3)])
+@pytest.mark.parametrize("o", [64, 128])
+@pytest.mark.parametrize("b", [1, 37, 128])
+def test_tensor_core_conv_matches_plain(dev, n, s, k, o, b):
+    """Kernel #7 on tensor cores against its plain version, its operands
+    staged once (as the loop passes them) and staged by the wrapper: N=7,
+    19 and 32, S=1 and 2, K=1..3 (the carry-over), the gate's and the
+    candidate's O, B=1, 37 and 128."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    args = _tc_conv_args(dev, s, k, n, o, b, seed=n * s + k + o + b)
+    sup_f, (w_f,) = ck.stage_fdc_operands(args[0], args[2])
+    before = ck.fused_diffusion_conv_fwd.launches
+    got = ck.fused_diffusion_conv_fwd(*args, (sup_f, w_f))
+    bare = ck.fused_diffusion_conv_fwd(*args)
+    torch.cuda.synchronize()
+    assert ck.fused_diffusion_conv_fwd.launches == before + 2
+    want = ck.fused_diffusion_conv_plain(*args)
+    assert got.shape == want.shape == (b, n, o)
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= 1e-4, _err(got, want)
+    assert torch.equal(got, bare)
+
+
+@pytest.mark.parametrize("where", ["x", "w", "bias", "support"])
+def test_tensor_core_conv_keeps_a_device_nan(dev, where):
+    """A NaN that a device op made, in one entry of x, the weight, the bias
+    or a support, reaches exactly the output entries it reaches in the
+    plain version."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    args = list(_tc_conv_args(dev, 2, 2, N, 128, 5))
+    nan = (torch.zeros(1, device=dev) / 0)[0]
+    i, at = {"x": (1, (2, 4, 7)), "w": (2, (3, 9, 70)), "bias": (3, (33,)),
+             "support": (0, (1, 3, 4, 6))}[where]
+    v = args[i].clone()
+    v[at] = nan
+    args[i] = v
+    got = ck.fused_diffusion_conv_fwd(*args)
+    want = ck.fused_diffusion_conv_plain(*args)
+    assert want.isnan().any() and not want.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+
+
+def test_tensor_core_conv_is_bitwise_deterministic(dev):
+    """Runs on the same inputs give the same bits: twenty launches on
+    operands staged once, and launches that stage them anew each time
+    (fixed tiles, partials added in a fixed order, no atomics)."""
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    for s, o in ((1, 128), (2, 64)):
+        args = _tc_conv_args(dev, s, 2, N, o, 128)
+        sup_f, (w_f,) = ck.stage_fdc_operands(args[0], args[2])
+        runs = [ck.fused_diffusion_conv_fwd(*args, (sup_f, w_f))
+                for _ in range(20)]
+        runs += [ck.fused_diffusion_conv_fwd(*args) for _ in range(3)]
+        for r in runs[1:]:
+            assert torch.equal(r, runs[0])
+
+
+def test_tensor_core_conv_rejects_mismatched_staging(dev):
+    from eeg_gnn_tpu_torch.ops import cuda_kernels as ck
+
+    args = _tc_conv_args(dev, 1, 2, N, 128, 4)
+    sup_f, (w_f,) = ck.stage_fdc_operands(args[0], args[2])
+    with pytest.raises(ValueError, match="staged operands"):
+        ck.fused_diffusion_conv_fwd(*args, (sup_f[:2].contiguous(), w_f))
+    with pytest.raises(ValueError, match="staged operands"):
+        ck.fused_diffusion_conv_fwd(*args, (sup_f, w_f[:4].contiguous()))
 
 
 def _banded(n, half=32):
