@@ -118,7 +118,18 @@ Phases (any failure exits non-zero and prints no result line):
    the 3xTF32 tensor-core rate; #7's FMA-rate figure beside it), #7 on
    operands staged once and its staging of a layer's operands alone, the
    SDDMM also beside ``torch.sparse.sampled_addmm`` and the dense
-   ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms.
+   ``x @ x.T``; the use_pallas Predictor's clips/s and train step's ms;
+10. the training CLI (``phase_cli``, run after 8, before the timings of 6
+   and 9): a synthetic corpus of 64 files x 180 s held in memory (the card's
+   machine has no h5py), then ``eeg_gnn_tpu_torch.cli.train.main`` three
+   times at full width, 2 epochs, bf16: detection, SSL pre-training
+   (curriculum on) and detection fine-tuned from the SSL run's best.npz,
+   each with every count at 0 before it and its kernels launched; run
+   files, finite losses, one train/Loss line per step, the transplanted
+   encoder, and Predictor on run 1's best.npz reproducing its test AUROC
+   within 1e-6; each epoch's wall time, train-loop clips/s beside the
+   step's at B=40 (timed in 6), the loaders' share, and device busy over
+   the traced fine-tune run.
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -131,6 +142,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -201,6 +214,11 @@ OPS_CASES = ((3, False), (3, True), (5, False), (5, True))
 PALLAS_FWD = 2 * T * 2           # fused convs per 2-layer detector forward
 PALLAS_SSL = 2 * T * SSL_LAYERS  # per SSL step
 D_SIG, TOP_K, BAND = 6000, 3, 32  # benchmarks/graph_build_bench.py:70-100
+# the training CLI's corpus (synthetic, held in memory: the card's machine
+# has no h5py) and runs: the detector at full width, 2 epochs
+CLI_CORPUS = dict(num_files=64, file_seconds=180, clip_len=T, seed=0)
+CLI_BATCH, CLI_EPOCHS = 40, 2   # --train_batch_size (the JAX default)
+CLI_DETECT = XIN_FWD + XIN_BWD + ("dcgru_dw_reduce",)  # kernels #1, #3
 MONTAGES = ((19, "topk"), (1024, "topk"), (4096, "topk"), (4096, "banded"))
 
 
@@ -1596,6 +1614,21 @@ def phase_times(torch, dev):
             profile_batch(torch, lambda: step(batch),
                           f"train step {gt} {dtype}"
                           + ("" if fusion else " input_fusion=False"), ms)
+    # the training CLI's batch: the same step at B=40 (log_cli_rates)
+    cfg = flagship_cfg("combined", "bfloat16", True, **TRAIN_KW)
+    small = train_batch(torch, dev, CLI_BATCH, seed=6)
+    small["supports"] = compute_supports_torch(small["adjacency"],
+                                               cfg.filter_type)
+    step = TrainStep(cfg, build_model(cfg, torch.Generator().manual_seed(11)),
+                     STEPS_PER_EPOCH, device=dev)
+    ms, best, loss = time_steps(torch, lambda: step(small))
+    if not np.isfinite(loss):
+        fail(f"train step B={CLI_BATCH}: loss {loss}")
+    out[("train", CLI_BATCH)] = (ms, best)
+    log(f"time train step combined bfloat16 input_fusion=True "
+        f"B={CLI_BATCH}: {ms:.3f} ms/step, {CLI_BATCH / ms * 1e3:.1f} "
+        f"clips/s; {REPS} back to back: {best:.3f} ms/step, "
+        f"{CLI_BATCH / best * 1e3:.1f} clips/s (best of 3)")
     return out
 
 
@@ -2330,6 +2363,214 @@ def phase_pallas_times(torch, dev, mts):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training CLI
+# ---------------------------------------------------------------------------
+
+
+def _cli_run(torch, argv, signals, root, kernels, tag):
+    """One ``cli.train.main`` run on the card with every count at 0 before
+    it; returns (results, run dir, counts, wall s)."""
+    from eeg_gnn_tpu_torch.cli import train as cli
+
+    before = set(os.listdir(os.path.join(root, "save", "train"))) \
+        if os.path.isdir(os.path.join(root, "save", "train")) else set()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.main(argv + ["--save_dir", os.path.join(root, "save")],
+                   signals=signals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    made = sorted(set(os.listdir(os.path.join(root, "save", "train")))
+                  - before)
+    if len(made) != 1:
+        fail(f"cli {tag}: run directories {made}")
+    run_dir = os.path.join(root, "save", "train", made[0])
+    n = counts()
+    for name in kernels:
+        if n[name] < 1:
+            fail(f"cli {tag}: {name} was never launched")
+    for name in ("args.json", "metrics.jsonl", "best.npz", "last.npz",
+                 "results.json"):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            fail(f"cli {tag}: no {name} in {run_dir}")
+    with open(os.path.join(run_dir, "results.json")) as f:
+        if json.load(f).keys() != res.keys():
+            fail(f"cli {tag}: results.json differs from the returned dict")
+    return res, run_dir, n, wall
+
+
+def phase_cli(torch, card):
+    """The training CLI end to end on the card through
+    ``eeg_gnn_tpu_torch.cli.train.main``: a synthetic corpus (64 files of
+    180 s, 60 s clips) held in memory, then detection (combined graph), SSL
+    pre-training (3 layers, curriculum on) and detection fine-tuned from
+    the SSL run's best.npz, each 2 epochs at full width in bf16. Checks the
+    run files, finite losses, one train/Loss line per optimizer step, each
+    run's kernels launched, the transplanted encoder, and Predictor on run
+    1's best.npz reproducing its test AUROC. Returns the three paths'
+    counts and each run's figures (the fine-tune run traced)."""
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_detection,
+        load_dataset_ssl,
+    )
+    from eeg_gnn_tpu_torch.data.synthetic import make_synthetic_corpus
+    from eeg_gnn_tpu_torch.serve import Predictor
+    from eeg_gnn_tpu_torch.train import trainer as tr
+    from eeg_gnn_tpu_torch.train.metrics import eval_dict
+
+    root = os.path.join("chiprun_out", "cli_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    signals = {}
+    t0 = time.perf_counter()
+    p = make_synthetic_corpus(root, signals=signals, **CLI_CORPUS)
+    log(f"cli: corpus of {len(signals)} recordings x "
+        f"{CLI_CORPUS['file_seconds']} s in "
+        f"{time.perf_counter() - t0:.1f} s (in memory; markers on disk)")
+    data = ["--input_dir", p["input_dir"], "--raw_data_dir",
+            p["raw_data_dir"], "--marker_dir", p["marker_dir"],
+            "--adj_mat_dir", p["adj_mat_dir"]]
+    model = ["--do_train", "--graph_type", "combined", "--use_fft",
+             "--max_seq_len", str(T), "--rnn_units", str(H),
+             "--max_diffusion_step", str(K), "--train_batch_size",
+             str(CLI_BATCH), "--test_batch_size", str(BATCH),
+             "--num_epochs", str(CLI_EPOCHS), "--dtype", "bfloat16"]
+    detect = data + model + ["--task", "detection", "--num_rnn_layers", "2"]
+    ssl = data + model + ["--task", "SS pre-training", "--num_rnn_layers",
+                          str(SSL_LAYERS), "--output_seq_len", str(T_OUT),
+                          "--metric_name", "loss",
+                          "--use_curriculum_learning"]
+    loader_kw = dict(input_dir=p["input_dir"],
+                     raw_data_dir=p["raw_data_dir"],
+                     train_batch_size=CLI_BATCH, test_batch_size=BATCH,
+                     adj_mat_dir=p["adj_mat_dir"], graph_type="combined",
+                     use_fft=True, marker_dir=p["marker_dir"],
+                     signals=signals, num_workers=1)
+    det_sets = load_dataset_detection(max_seq_len=T, build_loaders=False,
+                                      **loader_kw)[1]
+    ssl_sets = load_dataset_ssl(input_len=T, output_len=T_OUT,
+                                build_loaders=False, **loader_kw)[1]
+
+    runs, paths = {}, {}
+    res1, dir1, paths["cli_detect"], wall1 = _cli_run(
+        torch, detect, signals, root, CLI_DETECT, "detection")
+    runs["detection"] = (res1, dir1, wall1, len(det_sets["train"]))
+    res2, dir2, paths["cli_ssl"], wall2 = _cli_run(
+        torch, ssl, signals, root, SSL_KERNELS, "SSL")
+    runs["SSL"] = (res2, dir2, wall2, len(ssl_sets["train"]))
+
+    # run 3, traced: the encoder the trainer starts from, and device busy
+    start = {}
+    train = tr.Trainer.train
+
+    def recording_train(self, save_dir):
+        start.update({k: v.detach().float().cpu().numpy().copy()
+                      for k, v in self.model.state_dict().items()})
+        return train(self, save_dir)
+
+    tr.Trainer.train = recording_train
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res3, dir3, paths["cli_finetune"], wall3 = _cli_run(
+                torch, detect + ["--fine_tune", "--load_model_path",
+                                 os.path.join(dir2, "best.npz"),
+                                 "--pretrained_num_rnn_layers",
+                                 str(SSL_LAYERS)],
+                signals, root, CLI_DETECT, "fine-tune")
+    finally:
+        tr.Trainer.train = train
+    runs["fine-tune"] = (res3, dir3, wall3, len(det_sets["train"]))
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")) / 1e6
+    with np.load(os.path.join(dir2, "best.npz")) as pre:
+        for i in range(2):
+            for k in ("gate_w", "gate_b", "cand_w", "cand_b"):
+                if not np.array_equal(start[f"encoder.{i}.{k}"],
+                                      pre[f"encoder/{i}/{k}"]):
+                    fail(f"cli fine-tune: encoder.{i}.{k} did not start "
+                         "from the SSL run's best.npz")
+    log("cli fine-tune: encoder layers 0-1 start equal to the SSL run's "
+        "best.npz")
+
+    stats = {}
+    for tag, (res, run_dir, wall, n_train) in runs.items():
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["value"] for r in rows if r["tag"] == "train/Loss"]
+        steps = CLI_EPOCHS * -(-n_train // CLI_BATCH)
+        if len(losses) != steps:
+            fail(f"cli {tag}: {len(losses)} train/Loss lines, not {steps}")
+        if not (np.all(np.isfinite(losses)) and np.isfinite(res["loss"])):
+            fail(f"cli {tag}: losses {losses}, test loss {res['loss']}")
+        if tag != "SSL" and not 0.0 <= res.get("auroc", -1.0) <= 1.0:
+            fail(f"cli {tag}: test auroc {res.get('auroc')}")
+        by = {k: [r["value"] for r in rows if r["tag"] == f"time/{k}"]
+              for k in ("epoch_s", "train_s", "train_loader_wait_s",
+                        "loader_wait_s", "train_clips")}
+        stats[tag] = by | {"wall_s": wall, "n_train": n_train}
+        log(f"cli {tag}: {run_dir}; test "
+            + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
+            + f"; {len(losses)} steps, train losses "
+            + " ".join(f"{v:.4f}" for v in losses))
+        for e, (ep, tr_s, tr_wait, wait, clips) in enumerate(zip(
+                by["epoch_s"], by["train_s"], by["train_loader_wait_s"],
+                by["loader_wait_s"], by["train_clips"]), 1):
+            log(f"cli {tag} epoch {e}: {ep:.3f} s wall ({card}), train loop "
+                f"{tr_s:.3f} s for {clips:.0f} clips = "
+                f"{clips / tr_s:.1f} clips/s ({tr_wait:.3f} s of it waiting "
+                f"on the loader); waiting on the loaders (train and dev) "
+                f"{wait:.3f} s = {100 * wait / ep:.1f}% of the epoch")
+        log(f"cli {tag}: whole run {wall:.3f} s"
+            + (" (traced)" if tag == "fine-tune" else ""))
+    log(f"cli fine-tune, traced: device busy {busy * 1e3:.3f} ms of the "
+        f"run's {wall3 * 1e3:.3f} ms wall ({100 * busy / wall3:.1f}%; "
+        f"{card})")
+    stats["fine-tune"]["busy_s"] = busy
+
+    # Predictor on run 1's best.npz: the test split's probabilities again
+    with open(os.path.join(dir1, "args.json")) as f:
+        cfg = ExperimentConfig(**json.load(f)).finalize()
+    test_loader = load_dataset_detection(max_seq_len=T,
+                                         **loader_kw)[0]["test"]
+    batches = list(test_loader)
+    pred = Predictor.from_checkpoint(os.path.join(dir1, "best.npz"), cfg)
+    probs = pred.predict_proba(
+        np.concatenate([b.x for b in batches]),
+        np.concatenate([b.seq_lengths for b in batches]),
+        supports=np.concatenate([b.supports for b in batches], axis=1))
+    y = np.concatenate([b.y for b in batches]).astype(int)
+    scores, _, _ = eval_dict((probs > res1["best_thresh"]).astype(int), y,
+                             probs, average="binary")
+    err = abs(scores["auroc"] - res1["auroc"])
+    log(f"cli detection: Predictor on best.npz, {len(y)} test clips: auroc "
+        f"{scores['auroc']:.6f} against the run's {res1['auroc']:.6f} "
+        f"(|diff| {err:.2e}, bar 1e-6)")
+    if not err <= 1e-6:
+        fail(f"cli detection: Predictor's test auroc {scores['auroc']} != "
+             f"the run's {res1['auroc']}")
+    return paths, stats
+
+
+def log_cli_rates(stats, step_ms, card):
+    """The CLI runs' train-loop clips/s beside the bare TrainStep's at the
+    same batch (``phase_times``), and the loader's share of each epoch."""
+    step_rate = CLI_BATCH / step_ms * 1e3
+    for tag, st in stats.items():
+        clips, secs = sum(st["train_clips"]), sum(st["train_s"])
+        wait, wall = sum(st["loader_wait_s"]), sum(st["epoch_s"])
+        log(f"cli {tag}: train loop {clips / secs:.1f} clips/s over "
+            f"{CLI_EPOCHS} epochs beside TrainStep's {step_rate:.1f} "
+            f"clips/s at B={CLI_BATCH} (detection, bf16, combined); "
+            f"loader wait {100 * wait / wall:.1f}% of the epochs' "
+            f"{wall:.3f} s; {card}")
+
+
+
 def profile_batch(torch, fn, tag, wall_ms):
     """Device time by kernel for one traced call (a Predictor batch or a
     train step; torch.profiler), and the device's busy share of that
@@ -2390,17 +2631,22 @@ def main():
              "train_pallas": phase_pallas_train(torch, dev),
              "ssl_pallas": phase_pallas_ssl(torch, dev),
              "rescore": phase_rescore(torch, mts)}
+    cli_paths, cli_stats = phase_cli(torch, card)
+    paths.update(cli_paths)
     for path, names in (("serve", (FWD[1],) + XIN_FWD),
                         ("train", (FWD[1], "dcgru_dw_reduce")
                          + XIN_FWD + XIN_BWD),
                         ("ssl", SSL_KERNELS), ("serve_pallas", (FDC,)),
                         ("train_pallas", (FDC,)),
                         ("ssl_pallas", (FDC, DEC[0]) + DEC_BWD),
-                        ("rescore", (SDDMM,))):
+                        ("rescore", (SDDMM,)),
+                        ("cli_detect", CLI_DETECT), ("cli_ssl", SSL_KERNELS),
+                        ("cli_finetune", CLI_DETECT)):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
     times = phase_times(torch, dev)
+    log_cli_rates(cli_stats, times[("train", CLI_BATCH)][0], card)
     times.update(phase_ssl_times(torch, dev))
     times.update(phase_pallas_times(torch, dev, mts))
 

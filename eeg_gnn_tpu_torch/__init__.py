@@ -6,14 +6,18 @@ anything of ``eeg_gnn_tpu``. Parameter names and layouts stay the
 reference's, so a JAX ``.npz`` checkpoint maps onto a port ``state_dict``
 key for key (``io/jax_params.py``).
 
-Slices 1-3 (this package today) serve and train DCRNN seizure
-detection and classification, and run SSL next-window pre-training:
+It serves and trains DCRNN seizure detection and classification, runs
+SSL next-window pre-training, and runs the training CLI end to end
+(``python -m eeg_gnn_tpu_torch.cli.train``):
 
-- ``constants`` / ``config``  — the fields the model, ``Predictor`` and
-                  the train step read.
-- ``graphs``    — spectral supports (host numpy oracles + batched torch).
-- ``ops``       — Chebyshev diffusion, the operator-stacked recurrence with
-                  its hand-written BPTT, and the CUDA kernels (``csrc/``)
+- ``constants`` / ``config``  — the JAX package's config fields and CLI
+                  flags.
+- ``data``      — synthetic corpus, markers, clips, augmentation, scaler,
+                  the detection and SSL datasets and the threaded loader.
+- ``graphs``    — spectral supports (host numpy oracles + batched torch),
+                  the distance and correlation graphs.
+- ``ops``       — the numpy FFT features, Chebyshev diffusion, the
+                  operator-stacked recurrence with its hand-written BPTT, and the CUDA kernels (``csrc/``)
                   of the DCGRU encoder recurrence and of the seq2seq
                   decoder, forward and backward, with their plain PyTorch
                   versions and autograd Functions.
@@ -22,7 +26,11 @@ detection and classification, and run SSL next-window pre-training:
 - ``io``        — JAX parameter trees and ``.npz`` checkpoints.
 - ``serve``     — the fixed-shape batched ``Predictor``.
 - ``train``     — losses (BCE, CE, masked regression), clip + Adam +
-                  cosine LR, and ``TrainStep`` (supervised and SSL).
+                  cosine LR, ``TrainStep`` (supervised and SSL) and its
+                  eval step, numpy metrics, checkpoints, and the
+                  ``Trainer`` / ``run_experiment`` driver.
+- ``cli``       — the training entry point; ``utils`` — logging and the
+                  metrics sink.
 
 What is still to port is listed in ROADMAP.md.
 """

@@ -1,0 +1,127 @@
+"""Clip slicing from resampled signal h5 files (``eeg_gnn_tpu/data/clips.py``,
+the detection and SSL paths).
+
+Parity: the per-task ``computeSliceMatrix`` variants of the reference's
+detection and SSL dataloaders: a fixed-position clip ``clip_idx`` of
+``clip_len`` seconds, windowed into ``time_step_size``-second steps with
+optional FFT features (``data/dataloader_detection.py:25-85``,
+``data/dataloader_ssl.py:24-82``). Annotation parsing (``.tse_bi`` /
+``.tse``) follows ``data/data_utils.py:82-136``.
+
+``detection_clip`` / ``ssl_clip`` slice a signal already in memory; the
+``slice_*`` functions read it from its h5 file first (h5py is imported
+only there). The classification clip is still to port (ROADMAP.md,
+Queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from eeg_gnn_tpu_torch.constants import ALL_LABEL_DICT, FREQUENCY
+from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip_np
+
+
+def read_resampled_h5(h5_path: str):
+    """Read {resampled_signal, resample_freq} written by the ingest tool."""
+    import h5py
+
+    with h5py.File(h5_path, "r") as f:
+        signal = f["resampled_signal"][()]
+        freq = f["resample_freq"][()]
+    if int(freq) != FREQUENCY:
+        raise ValueError(f"{h5_path}: resample_freq {freq} != {FREQUENCY}")
+    return signal
+
+
+def get_seizure_times(file_stem: str):
+    """Seizure [start, end] times (s) from a ``.tse_bi`` annotation file.
+
+    Parity: reference ``getSeizureTimes`` (data/data_utils.py:82-102);
+    ``file_stem`` is the edf path without extension.
+    """
+    tse_file = file_stem + ".tse_bi"
+    times = []
+    with open(tse_file) as f:
+        for line in f.readlines():
+            if "seiz" in line:
+                parts = line.strip().split(" ")
+                times.append([float(parts[0]), float(parts[1])])
+    return times
+
+
+def get_seizure_classes(file_stem: str, label_dict=None):
+    """Seizure class ids from a ``.tse`` annotation file.
+
+    Parity: reference ``getSeizureClass`` (data/data_utils.py:105-136).
+    """
+    label_dict = ALL_LABEL_DICT if label_dict is None else label_dict
+    targets = list(label_dict.keys())
+    classes = []
+    with open(file_stem + ".tse") as f:
+        for line in f.readlines():
+            hits = [s for s in targets if s in line]
+            if hits:
+                classes.append(label_dict[hits[0]])
+    return classes
+
+
+def detection_clip(signal: np.ndarray, seizure_times, clip_idx: int,
+                   time_step_size: int = 1, clip_len: int = 60,
+                   use_fft: bool = False):
+    """(eeg_clip, is_seizure) of a (channels, samples) signal: fixed window
+    ``clip_idx``, labeled seizure if its sample window overlaps any
+    annotated seizure interval (inclusive bounds)."""
+    physical_clip_len = int(FREQUENCY * clip_len)
+    start = clip_idx * physical_clip_len
+    end = start + physical_clip_len
+    clip = signal[:, start:end]
+    eeg_clip = featurize_clip_np(clip, time_step_size, FREQUENCY, use_fft)
+
+    is_seizure = 0
+    for t0, t1 in seizure_times:
+        if not (end < int(t0 * FREQUENCY) or start > int(t1 * FREQUENCY)):
+            is_seizure = 1
+            break
+    return eeg_clip, is_seizure
+
+
+def slice_detection_clip(h5_path: str, edf_path: str, clip_idx: int,
+                         time_step_size: int = 1, clip_len: int = 60,
+                         use_fft: bool = False):
+    """Parity: detection ``computeSliceMatrix``
+    (dataloader_detection.py:25-85); see :func:`detection_clip`."""
+    return detection_clip(read_resampled_h5(h5_path),
+                          get_seizure_times(edf_path.split(".edf")[0]),
+                          clip_idx, time_step_size, clip_len, use_fft)
+
+
+def ssl_clip(signal: np.ndarray, clip_idx: int, time_step_size: int = 1,
+             clip_len: int = 60, use_fft: bool = False):
+    """Fixed window ``clip_idx`` of a (channels, samples) signal, without a
+    label."""
+    physical_clip_len = int(FREQUENCY * clip_len)
+    start = clip_idx * physical_clip_len
+    clip = signal[:, start:start + physical_clip_len]
+    return featurize_clip_np(clip, time_step_size, FREQUENCY, use_fft)
+
+
+def slice_ssl_clip(h5_path: str, clip_idx: int, time_step_size: int = 1,
+                   clip_len: int = 60, use_fft: bool = False):
+    """Parity: SSL ``computeSliceMatrix`` (dataloader_ssl.py:24-82); see
+    :func:`ssl_clip`."""
+    return ssl_clip(read_resampled_h5(h5_path), clip_idx, time_step_size,
+                    clip_len, use_fft)
+
+
+def pad_clip(clip: np.ndarray, max_seq_len: int, padding_val: float = 0.0):
+    """Zero-pad a (T, N, D) clip to max_seq_len; returns (padded, seq_len).
+
+    Parity: reference dataloader_classification.py:334-352.
+    """
+    curr_len = clip.shape[0]
+    seq_len = int(min(curr_len, max_seq_len))
+    if curr_len < max_seq_len:
+        pad = np.ones((max_seq_len - curr_len,) + clip.shape[1:]) * padding_val
+        clip = np.concatenate([clip, pad], axis=0)
+    return clip[:max_seq_len], seq_len

@@ -6,3 +6,8 @@ from eeg_gnn_tpu_torch.graphs.supports import (  # noqa: F401
     random_walk,
     scaled_laplacian,
 )
+from eeg_gnn_tpu_torch.graphs.distance import (  # noqa: F401
+    build_distance_adjacency,
+    load_distance_adjacency,
+    swap_adjacency_nodes,
+)

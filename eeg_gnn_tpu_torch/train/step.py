@@ -7,6 +7,9 @@ the backward CUDA kernels), gradient clip, L2 + Adam and the cosine
 learning rate. ``TrainStep(device=None)`` runs on the CUDA card and raises
 without one, as ``Predictor`` does; the CPU only when asked for.
 
+The eval step (``TrainStep.evaluate``) runs the same loss in eval mode
+without autograd: the SSL loss is then the MAE.
+
 Not ported yet (ROADMAP.md, Queue 1): the multi-step, cached and mesh
 step variants and the on-device input pipeline; they raise.
 """
@@ -189,6 +192,20 @@ class TrainStep:
         loss = self.loss_and_grads(batch, batches_seen)
         self.update()
         return loss
+
+    def evaluate(self, batch: Mapping[str, Any]):
+        """The eval step (JAX ``make_eval_step``, train/step.py:400): (loss,
+        outputs) on ``batch`` (keys as for a call) as device tensors,
+        logits (B, C) or SSL predictions (B, T_out, N, D), with the model
+        in eval mode (no dropout, no scheduled sampling; the SSL loss is
+        the MAE) and no autograd; the model returns to training mode."""
+        batch = self.device_batch(batch)
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                return self.loss_fn(batch)
+        finally:
+            self.model.train()
 
 
 def _not_ported(what: str):

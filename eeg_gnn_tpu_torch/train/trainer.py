@@ -1,0 +1,262 @@
+"""Training/evaluation driver (``eeg_gnn_tpu/train/trainer.py``, its
+streaming path): the equivalent of the reference's ``train.py`` /
+``train_ssl.py`` flows for DCRNN detection and SSL pre-training.
+
+Orchestration parity (train.py:30-194, train_ssl.py:24-284): model build,
+warm-start / fine-tune transplant, epoch loop with per-epoch dev eval,
+best/last checkpointing, dev-loss early stopping, cosine LR per epoch,
+final dev+test eval with the dev-tuned decision threshold for detection.
+
+The train step is ``train.TrainStep`` (on the card the DCGRU CUDA
+kernels). Batches run at their natural size: the JAX trainer pads a
+partial batch to the fixed size by repeating row 0 and masks the loss by
+the valid count (one XLA program); the kernels take any batch, and the
+masked loss equals the unpadded one, so the port feeds the loader's
+batch as it is. A step's loss stays on the device; the epoch's losses
+reach the host in one copy at its end and go to ``metrics.jsonl`` with
+the JAX trainer's values and ``step`` numbers (samples seen after the
+step). Each epoch also writes its wall time, the train loop's time and
+clips, and the time spent waiting on the loaders: the train loop's, and
+the train and dev evaluation loops' together (``time/*`` scalars).
+
+Still to port (ROADMAP.md, Queue 1): the device-resident dataset caches,
+the fused multi-step and mesh paths, classification and the baselines;
+``ExperimentConfig.check_runnable`` rejects them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from eeg_gnn_tpu_torch.config import ExperimentConfig
+from eeg_gnn_tpu_torch.device import resolve_device
+from eeg_gnn_tpu_torch.models.registry import build_model
+from eeg_gnn_tpu_torch.train.checkpoint import (
+    CheckpointSaver,
+    build_finetune_params,
+    load_params_like,
+)
+from eeg_gnn_tpu_torch.train.metrics import (
+    AverageMeter,
+    eval_dict,
+    thresh_max_f1,
+)
+from eeg_gnn_tpu_torch.train.step import SSL_TASK, TrainStep
+
+_TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
+
+
+def _step_batch(batch) -> Dict[str, np.ndarray]:
+    """A loader ``Batch`` as the train step's dict of host arrays."""
+    return {"x": batch.x, "y": batch.y, "seq_lengths": batch.seq_lengths,
+            "supports": batch.supports}
+
+
+class Trainer:
+    """Drives training + evaluation of one task on ``model`` (a DCRNN
+    ``nn.Module``, trained in place on ``device``)."""
+
+    def __init__(self, cfg: ExperimentConfig, loaders, scaler, log,
+                 metrics_writer, model: torch.nn.Module, device=None):
+        self.cfg = cfg
+        self.loaders = loaders
+        self.log = log
+        self.tbx = metrics_writer
+        self.is_ssl = cfg.task == SSL_TASK
+        self.device = resolve_device(device, "Trainer")
+        stats = {}
+        if self.is_ssl and scaler is not None:
+            stats = {"mean": scaler.mean, "std": scaler.std}
+        self.step = TrainStep(
+            cfg, model, steps_per_epoch=max(1, len(loaders["train"])),
+            device=self.device,
+            generator=torch.Generator(device=self.device).manual_seed(
+                cfg.rand_seed),
+            **stats)
+        self.model = self.step.model
+        self.loader_wait_s = 0.0  # the current epoch's, train and eval
+
+    # -- training ----------------------------------------------------------
+
+    def _batches(self, split: str):
+        """The split's loader batches, adding the time spent waiting for
+        each to ``self.loader_wait_s``."""
+        batches = iter(self.loaders[split])
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.loader_wait_s += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+    def _train_epoch(self, step: int):
+        """One pass over the train loader; returns (samples seen after it,
+        train-loop seconds, clips)."""
+        t0 = time.perf_counter()
+        clips, losses, steps = 0, [], []
+        for batch in self._batches("train"):
+            # SSL's curriculum reads the samples seen BEFORE this batch
+            losses.append(self.step(_step_batch(batch), batches_seen=step))
+            step += len(batch)
+            clips += len(batch)
+            steps.append(step)
+        if losses:  # the epoch's one device-to-host copy of the losses
+            host = torch.stack(losses).float().cpu().numpy()
+            for s, loss in zip(steps, host):
+                self.tbx.add_scalar("train/Loss", float(loss), s)
+        return step, time.perf_counter() - t0, clips
+
+    def train(self, save_dir: str) -> CheckpointSaver:
+        cfg = self.cfg
+        saver = CheckpointSaver(save_dir, cfg.metric_name,
+                                cfg.maximize_metric, log=self.log)
+        step = 0
+        prev_val_loss = 1e10
+        patience_count = 0
+        early_stop = False
+        epoch = 0
+        while epoch != cfg.num_epochs and not early_stop:
+            epoch += 1
+            self.log.info(f"Starting epoch {epoch}...")
+            t0 = time.perf_counter()
+            self.loader_wait_s = 0.0
+            step, train_s, clips = self._train_epoch(step)
+            train_wait_s = self.loader_wait_s
+
+            if epoch % cfg.eval_every == 0:
+                eval_results = self.evaluate("dev")
+                metric_val = eval_results.get(cfg.metric_name)
+                saver.save(epoch, self.model.state_dict(),
+                           self.step.optimizer, metric_val)
+
+                if eval_results["loss"] < prev_val_loss:
+                    patience_count = 0
+                else:
+                    patience_count += 1
+                prev_val_loss = eval_results["loss"]
+                if patience_count == cfg.patience:
+                    early_stop = True
+
+                self.log.info(
+                    "Dev " + ", ".join(f"{k}: {v:.3f}" for k, v in
+                                       eval_results.items()))
+                for k, v in eval_results.items():
+                    self.tbx.add_scalar(f"eval/{k}", v, step)
+            epoch_s = time.perf_counter() - t0
+            self.log.info(
+                f"Epoch {epoch}: {clips} train clips in {train_s:.3f} s "
+                f"({clips / max(train_s, 1e-9):.1f} clips/s, "
+                f"{train_wait_s:.3f} s of it waiting on the loader); epoch "
+                f"{epoch_s:.3f} s, {self.loader_wait_s:.3f} s of it waiting "
+                "on the loaders")
+            for tag, v in (("time/epoch_s", epoch_s),
+                           ("time/train_s", train_s),
+                           ("time/train_loader_wait_s", train_wait_s),
+                           ("time/loader_wait_s", self.loader_wait_s),
+                           ("time/train_clips", clips)):
+                self.tbx.add_scalar(tag, v, step)
+        return saver
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(self, split: str, is_test: bool = False,
+                 best_thresh: float = 0.5) -> Dict[str, float]:
+        cfg = self.cfg
+        losses, outputs, sizes, y_true, names_all = [], [], [], [], []
+        for batch in self._batches(split):
+            loss, out = self.step.evaluate(_step_batch(batch))
+            losses.append(loss)
+            sizes.append(len(batch))
+            if not self.is_ssl:
+                outputs.append(out)
+                y_true.append(np.asarray(batch.y).reshape(-1).astype(int))
+                names_all.extend(batch.names)
+        nll = AverageMeter()
+        for loss, n in zip(torch.stack(losses).float().cpu().numpy(), sizes):
+            nll.update(float(loss), n)
+        if self.is_ssl:
+            return {"loss": nll.avg}
+
+        logits = torch.cat(outputs).float().cpu().numpy().reshape(-1)
+        y_prob = 1.0 / (1.0 + np.exp(-logits))
+        y_true = np.concatenate(y_true)
+        if cfg.task == "detection" and split == "dev" and is_test:
+            best_thresh = thresh_max_f1(y_true, y_prob)
+        y_pred = (y_prob > best_thresh).astype(int)
+
+        scores, _, _ = eval_dict(
+            y_pred=y_pred, y=y_true, y_prob=y_prob, file_names=names_all,
+            average="binary" if cfg.task == "detection" else "weighted")
+        results = {"loss": nll.avg, "acc": scores["acc"], "F1": scores["F1"],
+                   "recall": scores["recall"], "precision": scores["precision"],
+                   "best_thresh": best_thresh}
+        if "auroc" in scores:
+            results["auroc"] = scores["auroc"]
+        return results
+
+
+def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
+                   log, metrics_writer,
+                   init_params: Optional[Mapping[str, torch.Tensor]] = None,
+                   device=None) -> Dict[str, float]:
+    """Full main() flow of detection and SSL pre-training; returns the final
+    test results.
+
+    ``init_params``: the model's starting state_dict (else drawn from a
+    generator seeded by ``cfg.rand_seed``). ``device``: ``None`` (the CUDA
+    card, raising without one) or e.g. ``"cpu"``.
+    """
+    cfg.check_runnable()
+    device = resolve_device(device, "run_experiment")
+    if init_params is None:
+        model = build_model(cfg, torch.Generator().manual_seed(cfg.rand_seed))
+    else:
+        model = build_model(cfg)
+        model.load_state_dict(init_params)
+
+    # Warm start / fine-tune transplant (train.py:128-151)
+    if cfg.load_model_path:
+        params = model.state_dict()
+        if cfg.fine_tune:
+            if cfg.load_model_path.endswith(_TORCH_SUFFIXES):
+                raise NotImplementedError(
+                    "fine-tuning from a reference .pth.tar is not ported yet "
+                    "(ROADMAP.md, Queue 1)")
+            pre_cfg = dataclasses.replace(
+                cfg, task=SSL_TASK, num_rnn_layers=cfg.pretrained_num_rnn_layers)
+            pre = load_params_like(cfg.load_model_path,
+                                   build_model(pre_cfg).state_dict())
+            params = build_finetune_params(params, pre, cfg.num_rnn_layers)
+        else:
+            params = load_params_like(cfg.load_model_path, params)
+        model.load_state_dict(params)
+
+    trainer = Trainer(cfg, loaders, scaler, log, metrics_writer, model,
+                      device=device)
+
+    if cfg.do_train:
+        saver = trainer.train(save_dir)
+        if os.path.exists(saver.best_path):
+            trainer.model.load_state_dict(
+                load_params_like(saver.best_path, trainer.model.state_dict()))
+
+    if cfg.task == SSL_TASK:
+        test = trainer.evaluate("test")
+        log.info(f"Test set prediction MAE loss: {test['loss']:.3f}")
+        return test
+
+    dev = trainer.evaluate("dev", is_test=True)
+    log.info("DEV set prediction results: "
+             + ", ".join(f"{k}: {v:.3f}" for k, v in dev.items()))
+    test = trainer.evaluate("test", is_test=True,
+                            best_thresh=dev["best_thresh"])
+    log.info("TEST set prediction results: "
+             + ", ".join(f"{k}: {v:.3f}" for k, v in test.items()))
+    return test

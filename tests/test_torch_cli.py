@@ -1,0 +1,284 @@
+"""The port's training CLI slice against the JAX package on the CPU.
+
+``run_experiment`` in both packages on a synthetic corpus (4 files x 96 s,
+12 s clips; 1 DCGRU layer x 16 units, K=1, batches of 4 and 8, 2 epochs,
+float32), the port starting from the JAX initial parameters through
+``params_from_jax``: detection on both graph types, SSL pre-training
+(curriculum off: the two packages draw the force vectors from different
+generators) and fine-tuning from an SSL checkpoint.
+
+Tolerances: the ``train/Loss`` sequence (same steps), the dev/test loss
+and dev-tuned threshold at rtol 1e-4; accuracy, F1, precision, recall
+and AUROC exactly, unless a test probability lies within 1e-5 of the
+threshold; ``best.npz`` at rtol 1e-4, atol 1e-6 (parameters near 0).
+Then ``cli.train.main(argv, device="cpu")`` once end to end, the flag
+surface against the JAX CLI's, and the flags whose features are not
+ported.
+"""
+
+import json
+import logging
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from eeg_gnn_tpu.config import ExperimentConfig as JaxConfig
+from eeg_gnn_tpu.config import build_parser as jax_build_parser
+from eeg_gnn_tpu.data import datasets as jds
+from eeg_gnn_tpu.data.synthetic import make_synthetic_corpus
+from eeg_gnn_tpu.models.dcrnn import init_next_time_pred_model
+from eeg_gnn_tpu.models.registry import build_model as jax_build_model
+from eeg_gnn_tpu.train import checkpoint as jck
+from eeg_gnn_tpu.train.trainer import run_experiment as jax_run
+from eeg_gnn_tpu.utils.logging import MetricsWriter as JaxWriter
+from eeg_gnn_tpu_torch.cli import train as cli
+from eeg_gnn_tpu_torch.config import ExperimentConfig, build_parser
+from eeg_gnn_tpu_torch.data import datasets as tds
+from eeg_gnn_tpu_torch.io import params_from_jax
+from eeg_gnn_tpu_torch.serve import Predictor
+from eeg_gnn_tpu_torch.train import trainer as ttrainer
+from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
+
+SSL = "SS pre-training"
+CLIP = 12
+RTOL = 1e-4
+NEAR = 1e-5  # a test probability this close to the threshold may flip
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("corpus"))
+    return make_synthetic_corpus(root, num_files=4, file_seconds=96,
+                                 clip_len=CLIP, seed=0)
+
+
+def _kw(p, task, graph_type, **extra):
+    kw = dict(task=task, graph_type=graph_type, max_seq_len=CLIP,
+              use_fft=True, num_rnn_layers=1, rnn_units=16,
+              max_diffusion_step=1, train_batch_size=4, test_batch_size=8,
+              num_epochs=2, do_train=True, num_workers=1,
+              input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"])
+    if task == SSL:
+        kw.update(metric_name="loss", output_seq_len=CLIP)
+    kw.update(extra)
+    return kw
+
+
+def _loaders(ds_module, p, cfg):
+    common = dict(
+        input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+        train_batch_size=cfg.train_batch_size,
+        test_batch_size=cfg.test_batch_size, time_step_size=1,
+        standardize=True, num_workers=1, augmentation=False,
+        adj_mat_dir=p["adj_mat_dir"], graph_type=cfg.graph_type, top_k=3,
+        filter_type=cfg.filter_type, use_fft=True,
+        marker_dir=p["marker_dir"])
+    if cfg.task == SSL:
+        return ds_module.load_dataset_ssl(input_len=CLIP,
+                                          output_len=cfg.output_seq_len,
+                                          **common)
+    return ds_module.load_dataset_detection(max_seq_len=CLIP, seed=123,
+                                            **common)
+
+
+def _log():
+    log = logging.getLogger("test_torch_cli")
+    log.addHandler(logging.NullHandler())
+    return log
+
+
+def _metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if not r["tag"].startswith("time/")]
+
+
+def _run_both(p, tmp_path, kw):
+    """run_experiment in each package from the JAX initial parameters."""
+    jcfg, tcfg = JaxConfig(**kw).finalize(), ExperimentConfig(**kw).finalize()
+    key = jax.random.PRNGKey(jcfg.rand_seed)
+    if jcfg.task == SSL:
+        init = init_next_time_pred_model(key, jcfg.dcrnn_config())
+    else:
+        init, _ = jax_build_model(jcfg).init(key)
+    init_np = jax.tree_util.tree_map(np.asarray, init)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    os.makedirs(jdir)
+    os.makedirs(tdir)
+    loaders, _, scaler = _loaders(jds, p, jcfg)
+    jres = jax_run(jcfg, loaders, scaler, jdir, _log(), JaxWriter(jdir),
+                   init_params=init)
+    loaders, _, scaler = _loaders(tds, p, tcfg)
+    tres = ttrainer.run_experiment(tcfg, loaders, scaler, tdir, _log(),
+                                   MetricsWriter(tdir),
+                                   init_params=params_from_jax(init_np),
+                                   device="cpu")
+    return jres, tres, jdir, tdir, tcfg
+
+
+def _test_probs(p, cfg, run_dir):
+    """The port's test-split probabilities from its best.npz."""
+    loaders, _, _ = _loaders(tds, p, cfg)
+    pred = Predictor.from_checkpoint(os.path.join(run_dir, "best.npz"), cfg,
+                                     batch_size=cfg.test_batch_size,
+                                     device="cpu")
+    return np.concatenate([pred.predict_proba(b.x, b.seq_lengths,
+                                              supports=b.supports)
+                           for b in loaders["test"]])
+
+
+def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg):
+    jm, tm = _metrics(jdir), _metrics(tdir)
+    assert [(r["tag"], r["step"]) for r in tm] == \
+        [(r["tag"], r["step"]) for r in jm]
+    steps = [r for r in tm if r["tag"] == "train/Loss"]
+    assert len(steps) == 2 * -(-len(_loaders(tds, p, cfg)[1]["train"])
+                                // cfg.train_batch_size)
+    for a, b in zip(tm, jm):
+        if a["tag"] in ("train/Loss", "eval/loss", "eval/best_thresh"):
+            np.testing.assert_allclose(a["value"], b["value"], rtol=RTOL)
+    assert sorted(tres) == sorted(jres)
+    np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=RTOL)
+    if cfg.task != SSL:
+        np.testing.assert_allclose(tres["best_thresh"], jres["best_thresh"],
+                                   rtol=RTOL)
+        probs = _test_probs(p, cfg, tdir)
+        if not np.any(np.abs(probs - tres["best_thresh"]) < NEAR):
+            for k in ("acc", "F1", "precision", "recall", "auroc"):
+                assert tres[k] == jres[k], (k, tres[k], jres[k])
+    with np.load(os.path.join(jdir, "best.npz")) as a, \
+            np.load(os.path.join(tdir, "best.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, atol=1e-6)
+    # the same files, but the JAX package's optional TensorBoard events
+    assert sorted(os.listdir(tdir)) == sorted(
+        f for f in os.listdir(jdir) if not f.startswith("events.out."))
+
+
+@pytest.mark.parametrize("task,graph_type", [("detection", "combined"),
+                                             ("detection", "individual"),
+                                             (SSL, "combined")])
+def test_run_experiment_matches_jax(corpus, tmp_path, task, graph_type):
+    jres, tres, jdir, tdir, cfg = _run_both(
+        corpus, tmp_path, _kw(corpus, task, graph_type))
+    _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg)
+
+
+def test_fine_tune_matches_jax(corpus, tmp_path):
+    """Detection fine-tuned from an SSL checkpoint with more layers."""
+    pre_cfg = JaxConfig(**_kw(corpus, SSL, "combined",
+                              num_rnn_layers=2)).finalize()
+    pre = init_next_time_pred_model(jax.random.PRNGKey(9),
+                                    pre_cfg.dcrnn_config())
+    jck.save_params(str(tmp_path / "ssl_best"), pre)
+    kw = _kw(corpus, "detection", "combined", fine_tune=True,
+             pretrained_num_rnn_layers=2,
+             load_model_path=str(tmp_path / "ssl_best.npz"))
+    jres, tres, jdir, tdir, cfg = _run_both(corpus, tmp_path, kw)
+    _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg)
+
+
+def test_cli_main_runs_end_to_end_on_the_cpu(corpus, tmp_path):
+    argv = ["--task", "detection", "--do_train", "--graph_type", "combined",
+            "--max_seq_len", str(CLIP), "--use_fft", "--num_rnn_layers", "1",
+            "--rnn_units", "16", "--max_diffusion_step", "1",
+            "--train_batch_size", "4", "--test_batch_size", "8",
+            "--num_epochs", "2", "--num_workers", "2",
+            "--input_dir", corpus["input_dir"],
+            "--raw_data_dir", corpus["raw_data_dir"],
+            "--marker_dir", corpus["marker_dir"],
+            "--adj_mat_dir", corpus["adj_mat_dir"],
+            "--save_dir", str(tmp_path / "save")]
+    res = cli.main(argv, device="cpu")
+    run_dir = tmp_path / "save" / "train" / "train-01"
+    for name in ("args.json", "metrics.jsonl", "best.npz", "last.npz",
+                 "results.json", "info.log"):
+        assert (run_dir / name).exists(), name
+    with open(run_dir / "results.json") as f:
+        assert json.load(f) == pytest.approx(
+            {k: float(v) for k, v in res.items()})
+    assert np.isfinite(res["loss"]) and 0.0 <= res["auroc"] <= 1.0
+    rows = _metrics(str(run_dir))
+    n_train = len(tds.load_dataset_detection(
+        input_dir=corpus["input_dir"], raw_data_dir=corpus["raw_data_dir"],
+        train_batch_size=4, max_seq_len=CLIP, use_fft=True,
+        marker_dir=corpus["marker_dir"], build_loaders=False)[1]["train"])
+    assert sum(r["tag"] == "train/Loss" for r in rows) == 2 * -(-n_train // 4)
+    with open(run_dir / "args.json") as f:
+        args = json.load(f)
+    assert args["save_dir"] == str(run_dir) and args["filter_type"] == \
+        "laplacian"
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--task", "SS pre-training", "--graph_type", "combined",
+     "--use_curriculum_learning", "--metric_name", "loss", "--dtype",
+     "bfloat16", "--no_input_fusion", "--scan_unroll", "4"],
+    ["--fine_tune", "--load_model_path", "x.npz",
+     "--pretrained_num_rnn_layers", "2", "--use_pallas", "--recurrence",
+     "stacked", "--batch_tile", "12", "--data_augment", "--top_k", "5"],
+])
+def test_cli_flags_match_jax(argv):
+    argv = argv + ["--do_train"]
+    got = vars(build_parser().parse_args(argv))
+    want = vars(jax_build_parser().parse_args(argv))
+    assert got == want
+    assert ExperimentConfig(**got).finalize().to_json() == \
+        JaxConfig(**want).finalize().to_json()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--task", "classification"], ["--model_name", "lstm"],
+    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2"],
+    ["--device_pipeline"], ["--hbm_cache"], ["--reflect_invariant"],
+    ["--fused_steps", "4"]])
+def test_unported_flags_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,
+                 device="cpu")
+    assert not os.listdir(tmp_path)  # raised before the run dir existed
+
+
+def test_eval_only_run_needs_a_checkpoint(tmp_path):
+    with pytest.raises(ValueError, match="load_model_path"):
+        cli.main(["--save_dir", str(tmp_path)], device="cpu")
+
+
+def test_entry_points_mean_the_card(monkeypatch, corpus, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--do_train", "--save_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    cfg = ExperimentConfig(**_kw(corpus, "detection", "combined")).finalize()
+    loaders, _, scaler = _loaders(tds, corpus, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrainer.run_experiment(cfg, loaders, scaler, str(tmp_path), _log(),
+                                None)
+
+
+def test_ssl_curriculum_reads_the_samples_seen_before_each_batch(
+        corpus, tmp_path, monkeypatch):
+    """As the JAX trainer (trainer.py:327-334): step i gets the number of
+    samples of steps 0..i-1; the losses stay finite with the curriculum."""
+    seen = []
+    call = ttrainer.TrainStep.__call__
+
+    def recording(self, batch, batches_seen=None):
+        seen.append((batches_seen, len(batch["x"])))
+        return call(self, batch, batches_seen)
+
+    monkeypatch.setattr(ttrainer.TrainStep, "__call__", recording)
+    cfg = ExperimentConfig(**_kw(corpus, SSL, "individual",
+                                 use_curriculum_learning=True,
+                                 cl_decay_steps=2)).finalize()
+    loaders, _, scaler = _loaders(tds, corpus, cfg)
+    res = ttrainer.run_experiment(cfg, loaders, scaler, str(tmp_path), _log(),
+                                  MetricsWriter(str(tmp_path)), device="cpu")
+    assert [s for s, _ in seen] == list(np.cumsum([0] + [n for _, n in
+                                                         seen[:-1]]))
+    assert len(seen) == 2 * len(loaders["train"]) and np.isfinite(res["loss"])

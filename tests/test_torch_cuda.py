@@ -15,6 +15,7 @@ at 1e-4.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1619,3 +1620,70 @@ def test_use_pallas_predictor_launches_the_conv_kernel(dev):
                                           recurrence="naive"),
                       params, device=dev).predict_proba(x, adjacency=adj)
     assert np.abs(probs - naive).max() <= 1e-4
+
+
+@pytest.mark.parametrize("task", ["detection", "SS pre-training"])
+def test_run_experiment_on_the_card_matches_the_cpu(dev, tmp_path, task):
+    """The training CLI's driver on a small in-memory synthetic corpus
+    (4 files x 96 s, 12 s clips; 1 layer x 16 units, K=1, batches of 4 and
+    8, 2 epochs, float32, TF32 off) on the card and on the CPU from the
+    same weights: the train/Loss sequences and the test loss at rtol
+    1e-4; the card run launches the encoder's kernels (and, for SSL, the
+    decoder's)."""
+    import json
+    import logging
+
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_detection,
+        load_dataset_ssl,
+    )
+    from eeg_gnn_tpu_torch.data.synthetic import make_synthetic_corpus
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.train.trainer import run_experiment
+    from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
+
+    signals = {}
+    p = make_synthetic_corpus(str(tmp_path / "corpus"), num_files=4,
+                              file_seconds=96, clip_len=12, seed=0,
+                              signals=signals)
+    ssl = task == "SS pre-training"
+    cfg = ExperimentConfig(
+        task=task, graph_type="combined", max_seq_len=12, use_fft=True,
+        num_rnn_layers=1, rnn_units=16, max_diffusion_step=1,
+        train_batch_size=4, test_batch_size=8, num_epochs=2, do_train=True,
+        metric_name="loss" if ssl else "auroc").finalize()
+    common = dict(
+        input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+        train_batch_size=4, test_batch_size=8, num_workers=1,
+        adj_mat_dir=p["adj_mat_dir"], graph_type="combined",
+        filter_type=cfg.filter_type, use_fft=True,
+        marker_dir=p["marker_dir"], signals=signals)
+    init = build_model(cfg, torch.Generator().manual_seed(3)).state_dict()
+    kernels = [cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+               cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw]
+    if ssl:
+        kernels += [cd.dcgru_decoder_fwd, cd.dcgru_dec_bwd_loop]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        for k in kernels:
+            k.launches = 0
+        loaders, _, scaler = (
+            load_dataset_ssl(input_len=12, output_len=12, **common) if ssl
+            else load_dataset_detection(max_seq_len=12, **common))
+        out = str(tmp_path / where)
+        os.makedirs(out)
+        log = logging.getLogger("test_run_experiment_on_the_card")
+        res = run_experiment(cfg, loaders, scaler, out, log,
+                             MetricsWriter(out), init_params=init,
+                             device=where)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [r["value"] for r in map(json.loads, f)
+                      if r["tag"] == "train/Loss"]
+        runs[where] = (res, losses, [k.launches for k in kernels])
+    (res_c, loss_c, n_c), (res_g, loss_g, n_g) = runs["cpu"], runs["cuda"]
+    assert n_c == [0] * len(kernels) and min(n_g) > 0, n_g
+    assert len(loss_g) == len(loss_c) > 0
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    np.testing.assert_allclose(res_g["loss"], res_c["loss"], rtol=1e-4)

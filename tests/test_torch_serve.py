@@ -228,7 +228,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, eeg_gnn_tpu_torch.serve, "
             "eeg_gnn_tpu_torch.models.registry, eeg_gnn_tpu_torch.io, "
             "eeg_gnn_tpu_torch.train, eeg_gnn_tpu_torch.ops.cuda_kernels, "
-            "eeg_gnn_tpu_torch.ops.sddmm, eeg_gnn_tpu_torch.graphs.xcorr; "
+            "eeg_gnn_tpu_torch.ops.sddmm, eeg_gnn_tpu_torch.graphs.xcorr, "
+            "eeg_gnn_tpu_torch.cli.train, eeg_gnn_tpu_torch.train.trainer, "
+            "eeg_gnn_tpu_torch.data, eeg_gnn_tpu_torch.data.synthetic; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
