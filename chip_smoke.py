@@ -129,7 +129,29 @@ Phases (any failure exits non-zero and prints no result line):
    encoder, and Predictor on run 1's best.npz reproducing its test AUROC
    within 1e-6; each epoch's wall time, train-loop clips/s beside the
    step's at B=40 (timed in 6), the loaders' share, and device busy over
-   the traced fine-tune run.
+   the traced fine-tune run;
+11. the on-device input path (``phase_input``, run after 10, before the
+   timings of 6): ``Predictor(pipeline=...).predict_proba_raw`` at B=128 on
+   raw (128, 19, 12000) clips from a seed, both graphs and dtypes, against
+   ``predict_proba`` on the numpy oracle's features with host supports
+   (float32 <= 1e-4, bfloat16 <= 2e-2, normalized), its launches, the
+   median of 20 batches and one traced batch (device busy, H2D ms); the
+   pipeline's pieces (``featurize_clip``, ``features``, ``ssl_features``,
+   the raw call; augmentation off and on, the same draws) on the card
+   against the CPU (<= 1e-4); a resident bf16 cache of 4096 seeded
+   detection clips (0.93 GB): an epoch of the cached train step at B=128
+   with fused_steps 1 and 4 (accepted and ignored: the same losses), the
+   same split rotating under a 0.5 GiB budget in 6 shards (each clip once
+   an epoch, at most two slabs live, one x and one y copy a shard in the
+   traced epoch, their overlap with the kernels from the trace),
+   and an SSL cache (x and y, 72 windows): clips/s (beside the bare
+   TrainStep's at B=128, logged after 6), device busy over a traced
+   epoch, ``max_memory_allocated`` and the launches; the combined graph
+   without augmentation, so the supports are one shared (S, N, N) slab;
+   then ``cli.train.main`` on phase 10's corpus with --hbm_cache
+   (detection, SSL), --device_pipeline --graph_type individual and
+   --hbm_cache --fused_steps 4, each untraced (epoch s, clips/s, loader
+   wait) and traced (device busy).
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -220,6 +242,13 @@ CLI_CORPUS = dict(num_files=64, file_seconds=180, clip_len=T, seed=0)
 CLI_BATCH, CLI_EPOCHS = 40, 2   # --train_batch_size (the JAX default)
 CLI_DETECT = XIN_FWD + XIN_BWD + ("dcgru_dw_reduce",)  # kernels #1, #3
 MONTAGES = ((19, "topk"), (1024, "topk"), (4096, "topk"), (4096, "banded"))
+# the on-device input path (phase_input): a resident split at a size a user
+# holds (4096 clips x (60, 19, 100) in bf16 = 0.93 GB), the budget that
+# rotates it in 6 shards, and the seeded data's scale
+INPUT_CLIPS = 4096
+ROTATING_BUDGET = 2 ** 29        # 0.5 GiB
+FEAT_MEAN, FEAT_STD = 5.0, 1.0   # the scaler of the log-amplitude features
+RAW_SCALE = 20.0                 # amplitude of the seeded raw clips
 
 
 def fail(msg: str):
@@ -2497,36 +2526,8 @@ def phase_cli(torch, card):
     log("cli fine-tune: encoder layers 0-1 start equal to the SSL run's "
         "best.npz")
 
-    stats = {}
-    for tag, (res, run_dir, wall, n_train) in runs.items():
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        losses = [r["value"] for r in rows if r["tag"] == "train/Loss"]
-        steps = CLI_EPOCHS * -(-n_train // CLI_BATCH)
-        if len(losses) != steps:
-            fail(f"cli {tag}: {len(losses)} train/Loss lines, not {steps}")
-        if not (np.all(np.isfinite(losses)) and np.isfinite(res["loss"])):
-            fail(f"cli {tag}: losses {losses}, test loss {res['loss']}")
-        if tag != "SSL" and not 0.0 <= res.get("auroc", -1.0) <= 1.0:
-            fail(f"cli {tag}: test auroc {res.get('auroc')}")
-        by = {k: [r["value"] for r in rows if r["tag"] == f"time/{k}"]
-              for k in ("epoch_s", "train_s", "train_loader_wait_s",
-                        "loader_wait_s", "train_clips")}
-        stats[tag] = by | {"wall_s": wall, "n_train": n_train}
-        log(f"cli {tag}: {run_dir}; test "
-            + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
-            + f"; {len(losses)} steps, train losses "
-            + " ".join(f"{v:.4f}" for v in losses))
-        for e, (ep, tr_s, tr_wait, wait, clips) in enumerate(zip(
-                by["epoch_s"], by["train_s"], by["train_loader_wait_s"],
-                by["loader_wait_s"], by["train_clips"]), 1):
-            log(f"cli {tag} epoch {e}: {ep:.3f} s wall ({card}), train loop "
-                f"{tr_s:.3f} s for {clips:.0f} clips = "
-                f"{clips / tr_s:.1f} clips/s ({tr_wait:.3f} s of it waiting "
-                f"on the loader); waiting on the loaders (train and dev) "
-                f"{wait:.3f} s = {100 * wait / ep:.1f}% of the epoch")
-        log(f"cli {tag}: whole run {wall:.3f} s"
-            + (" (traced)" if tag == "fine-tune" else ""))
+    stats = {tag: cli_run_stats(tag, *run, card, traced=tag == "fine-tune")
+             for tag, run in runs.items()}
     log(f"cli fine-tune, traced: device busy {busy * 1e3:.3f} ms of the "
         f"run's {wall3 * 1e3:.3f} ms wall ({100 * busy / wall3:.1f}%; "
         f"{card})")
@@ -2553,7 +2554,633 @@ def phase_cli(torch, card):
     if not err <= 1e-6:
         fail(f"cli detection: Predictor's test auroc {scores['auroc']} != "
              f"the run's {res1['auroc']}")
+    corpus = {"root": root, "signals": signals, "detect": detect,
+              "ssl": ssl, "n_train": {"detection": len(det_sets["train"]),
+                                      "SSL": len(ssl_sets["train"])}}
+    return paths, stats, corpus
+
+
+def cli_run_stats(tag, res, run_dir, wall, n_train, card, traced=False):
+    """One CLI run's checks (one train/Loss line per step, finite losses,
+    an AUROC in [0, 1]) and figures from its ``metrics.jsonl``: per epoch
+    the wall s, the train loop's s and clips, and the loader waits."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["value"] for r in rows if r["tag"] == "train/Loss"]
+    steps = CLI_EPOCHS * -(-n_train // CLI_BATCH)
+    if len(losses) != steps:
+        fail(f"cli {tag}: {len(losses)} train/Loss lines, not {steps}")
+    if not (np.all(np.isfinite(losses)) and np.isfinite(res["loss"])):
+        fail(f"cli {tag}: losses {losses}, test loss {res['loss']}")
+    if "SSL" not in tag and not 0.0 <= res.get("auroc", -1.0) <= 1.0:
+        fail(f"cli {tag}: test auroc {res.get('auroc')}")
+    by = {k: [r["value"] for r in rows if r["tag"] == f"time/{k}"]
+          for k in ("epoch_s", "train_s", "train_loader_wait_s",
+                    "loader_wait_s", "train_clips")}
+    log(f"cli {tag}: {run_dir}; test "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
+        + f"; {len(losses)} steps, train losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    for e, (ep, tr_s, tr_wait, wait, clips) in enumerate(zip(
+            by["epoch_s"], by["train_s"], by["train_loader_wait_s"],
+            by["loader_wait_s"], by["train_clips"]), 1):
+        log(f"cli {tag} epoch {e}: {ep:.3f} s wall ({card}), train loop "
+            f"{tr_s:.3f} s for {clips:.0f} clips = "
+            f"{clips / tr_s:.1f} clips/s ({tr_wait:.3f} s of it waiting "
+            f"on the loader); waiting on the loaders (train and dev) "
+            f"{wait:.3f} s = {100 * wait / ep:.1f}% of the epoch")
+    log(f"cli {tag}: whole run {wall:.3f} s" + (" (traced)" if traced
+                                                 else ""))
+    return by | {"wall_s": wall, "n_train": n_train, "losses": losses}
+
+
+# ---------------------------------------------------------------------------
+# the on-device input path: the raw front door, the pipeline, the dataset
+# caches (resident and rotating) and the CLI's flags for them
+# ---------------------------------------------------------------------------
+
+
+class _Scalars:
+    """A metrics sink that keeps the ``train/Loss`` scalars."""
+
+    def __init__(self):
+        self.losses = []
+
+    def add_scalar(self, tag, value, step):
+        if tag == "train/Loss":
+            self.losses.append(float(value))
+
+
+def _quiet_log():
+    import logging
+
+    logger = logging.getLogger("chip_smoke.input")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
+def trace(torch, fn):
+    """``fn`` under torch.profiler: (device busy ms, wall ms of the traced
+    call and a final synchronise, {kernel or copy: device ms}, profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")
+            and e.self_device_time_total > 0}
+    return sum(rows.values()), wall, rows, prof
+
+
+def host_waits(prof) -> dict:
+    """The calls in a trace that make the host wait on the device (the
+    runtime's synchronizations, blocking copies) and the device-to-host
+    copies, by name and count."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                         "cudaEventSynchronize", "cudaMemcpy")
+            or e.key.startswith("Memcpy DtoH")}
+
+
+def h2d_ms(rows) -> float:
+    return sum(v for k, v in rows.items() if k.startswith("Memcpy HtoD"))
+
+
+def _union(spans) -> list:
+    """Sorted (start, end) spans merged where they overlap."""
+    merged = []
+    for lo, hi in sorted(spans):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def timeline(prof, path) -> dict:
+    """From the trace's timeline: the device's busy ms (the union of the
+    kernel, copy and memset spans over all streams, so a side-stream copy
+    under a kernel counts once), the streams that ran kernels, and every
+    host-to-device copy as (start us, end us, bytes, stream, us of it
+    during which a kernel ran). The profiler can drop copy records (a
+    rotating epoch's six slab copies, each timed by CUDA events, showed
+    as 4-6 in its traces), so the copies are those it recorded."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    span = lambda e: (e["ts"], e["ts"] + e["dur"])
+    kernels = _union(span(e) for e in events if e.get("cat") == "kernel")
+    busy = _union(span(e) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    copies = []
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            lo, hi = span(e)
+            args = e.get("args", {})
+            copies.append((lo, hi, args.get("bytes"), args.get("stream"),
+                           sum(max(0.0, min(hi, k_hi) - max(lo, k_lo))
+                               for k_lo, k_hi in kernels)))
+    return {"busy_ms": sum(hi - lo for lo, hi in busy) / 1e3,
+            "kernel_streams": {e.get("args", {}).get("stream")
+                               for e in events if e.get("cat") == "kernel"},
+            "copies": sorted(copies)}
+
+
+def eeg_like(rng: np.random.RandomState, b: int, points: int) -> np.ndarray:
+    """(b, N, points) float32 raw clips with structure across channels, as
+    scalp EEG has: each channel a seeded mixture of six sources whose
+    spectra differ (white noise smoothed over 1..32 samples), plus a
+    little noise of its own, scaled to RAW_SCALE. White noise would leave
+    the top-3 correlation graph at near ties that float32 rounding
+    reorders."""
+    out = np.empty((b, N, points), np.float32)
+    for i in range(b):
+        src = rng.randn(6, points)
+        for k in range(6):
+            w = 2 ** k
+            src[k] = np.convolve(src[k], np.ones(w) / np.sqrt(w), "same")
+        mix = rng.gamma(0.5, 1.0, size=(N, 6))
+        out[i] = (mix @ src + 0.1 * rng.randn(N, points)) * RAW_SCALE
+    return out
+
+
+def graph_flips(adj_a, adj_b) -> np.ndarray:
+    """Clips whose top-3 correlation graphs (B, N, N) differ in their edges
+    (near ties that two sides' rounding orders differently)."""
+    a, b = np.asarray(adj_a) > 0, np.asarray(adj_b) > 0
+    return np.flatnonzero((a != b).reshape(len(a), -1).any(axis=1))
+
+
+def top3(torch, feats):
+    """The pipeline's top-3 correlation graphs of (B, T, N, D) features,
+    on the host."""
+    from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
+
+    return correlation_adjacency_torch(feats.float(), 3).cpu().numpy()
+
+
+def phase_raw_serve(torch, dev, card, adj_path, scaler):
+    """``Predictor(pipeline=...).predict_proba_raw`` at B=128 on raw (128,
+    19, 12000) EEG-like clips from a seed (``eeg_like``), both graphs and
+    dtypes, against
+    ``predict_proba`` on the same clips featurized by the numpy oracle
+    with host supports (float32 <= 1e-4, bfloat16 <= 2e-2, normalized; an
+    individual-graph clip whose top-3 graph differs between the oracle and
+    the card is counted and left out, at most 2); each batch launches the
+    encoder's forward kernels. Then the median of 20 batches and one traced
+    batch (device busy, H2D ms) each. Returns (the path's counts, rows)."""
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.graphs.distance import load_distance_adjacency
+    from eeg_gnn_tpu_torch.graphs.supports import compute_supports
+    from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops.fft_features import (
+        featurize_clip,
+        featurize_clip_np,
+    )
+    from eeg_gnn_tpu_torch.serve import Predictor
+
+    raw = eeg_like(np.random.RandomState(21), BATCH, T * 200)
+    feats64 = np.stack([featurize_clip_np(c.astype(np.float64), 1, 200, True)
+                        for c in raw])
+    x_host = ((feats64 - FEAT_MEAN) / FEAT_STD).astype(np.float32)
+    dist = np.stack(compute_supports(load_distance_adjacency(adj_path),
+                                     "laplacian"))
+    host_adj = np.stack([correlation_adjacency(f, top_k=3)
+                         for f in feats64])
+    host_sup = {
+        "combined": np.ascontiguousarray(np.broadcast_to(
+            dist[:, None], (1, BATCH, N, N))),
+        "individual": np.stack([np.stack(compute_supports(
+            a, "dual_random_walk")) for a in host_adj], axis=1).astype(
+                np.float32)}
+    flips = graph_flips(host_adj, top3(torch, featurize_clip(
+        torch.from_numpy(raw).to(dev), 1)))
+    if len(flips) > 2:
+        fail(f"raw serve: {len(flips)} clips' top-3 graphs differ between "
+             "the numpy oracle and the card")
+    keep = np.setdiff1d(np.arange(BATCH), flips)
+    reset_counts()
+    preds, rows = [], []
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = flagship_cfg(gt, dtype, True, use_fft=True)
+            pipe = make_device_pipeline(
+                graph_type=gt, filter_type=cfg.filter_type, top_k=3,
+                use_fft=True, time_step_size=1, scaler=scaler,
+                augment=False, adj_mat_dir=adj_path, device=dev)
+            pred = Predictor(cfg, build_model(cfg, torch.Generator()
+                                              .manual_seed(11)).state_dict(),
+                             pipeline=pipe)
+            before = counts()
+            got = pred.predict_proba_raw(raw)
+            rose = {k: v - before[k] for k, v in counts().items() if v -
+                    before[k]}
+            if rose != SERVE_BATCH[True]:
+                fail(f"raw serve {gt} {dtype}: launches {rose}, want "
+                     f"{SERVE_BATCH[True]}")
+            ref = pred.predict_proba(x_host, supports=host_sup[gt])
+            if got.shape != (BATCH,) or not np.all(np.isfinite(got)):
+                fail(f"raw serve {gt} {dtype}: probabilities {got.shape}")
+            sel = keep if gt == "individual" else np.arange(BATCH)
+            err = float(np.abs(got[sel] - ref[sel]).max()
+                        / max(np.abs(ref[sel]).max(), 1e-12))
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            if not err <= tol:
+                fail(f"raw serve {gt} {dtype}: predict_proba_raw against "
+                     f"the host-featurized predict_proba {err:.3e} > {tol}")
+            log(f"raw serve {gt} {dtype} B={BATCH}: predict_proba_raw "
+                f"against predict_proba on numpy-oracle features and host "
+                f"supports {err:.3e} (bar {tol:.0e}, {len(sel)} clips"
+                + (f"; {len(flips)} left out: top-3 graph differs"
+                   if gt == "individual" else "") + f"), launches {rose}")
+            preds.append((gt, dtype, pred))
+    launched = counts()
+    for gt, dtype, pred in preds:
+        ms = time_ms(torch, lambda: pred.predict_proba_raw(raw), lead=False)
+        busy, wall, trows, _ = trace(torch,
+                                     lambda: pred.predict_proba_raw(raw))
+        h2d = h2d_ms(trows)
+        rows.append((gt, dtype, ms, busy, wall, h2d))
+        log(f"time predict_proba_raw {gt} {dtype} B={BATCH} raw ({BATCH}, "
+            f"{N}, {T * 200}) f32 ({raw.nbytes / 1e6:.1f} MB, pageable): "
+            f"{ms:.3f} ms/batch (median of {REPS}), "
+            f"{BATCH / ms * 1e3:.1f} clips/s; traced: device busy "
+            f"{busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%), H2D "
+            f"{h2d:.3f} ms; {card}")
+        for key, v in sorted(trows.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"profile   {v:8.3f} ms  {key[:90]}")
+    return launched, rows
+
+
+def phase_pipeline_parity(torch, dev, adj_path, scaler):
+    """The pipeline's pieces on the card against the same functions on the
+    CPU, B=128 at full width: ``featurize_clip`` on raw clips; on the same
+    (CPU-made) features ``features`` and ``ssl_features``, both graphs,
+    augmentation off and on with the card generator's draws fed to both;
+    the raw call. float32 <= 1e-4 normalized; individual-graph supports on
+    the clips whose top-3 graphs agree (at most 2 differ). Features made
+    from raw clips on each side are held as amplitudes, exp(log|FFT|):
+    the log of a bin whose amplitude is tiny against its window's samples
+    (a zero-mean window's DC) carries the float32 FFT's absolute error
+    divided by that amplitude, on both sides alike; the log error is
+    printed beside."""
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip
+
+    rng = np.random.RandomState(22)
+    raw = torch.from_numpy(eeg_like(rng, BATCH, T * 200))
+    raw_y = torch.from_numpy(eeg_like(rng, BATCH, T_OUT * 200))
+    fx, fy = featurize_clip(raw, 1), featurize_clip(raw_y, 1)
+    card_fx = featurize_clip(raw.to(dev), 1).cpu()
+    worst = norm_err(card_fx.exp(), fx.exp())[0]
+    log_abs = float((card_fx - fx).abs().max())
+    at = int((card_fx - fx).abs().argmax())
+    if not worst <= F32_TOL:
+        fail(f"featurize_clip card vs CPU, amplitudes {worst:.3e}")
+    log(f"pipeline featurize_clip B={BATCH} ({BATCH}, {N}, {T * 200}): card "
+        f"vs CPU amplitudes {worst:.3e} (bar {F32_TOL:.0e}); log features "
+        f"max |diff| {log_abs:.3e}, at a bin of log amplitude "
+        f"{float(fx.flatten()[at]):.3f} (bin {at % 100})")
+    amp = lambda x: (x.float() * FEAT_STD + FEAT_MEAN).exp()
+    for gt in ("combined", "individual"):
+        for augment in (False, True):
+            kw = dict(graph_type=gt, top_k=3, use_fft=True, time_step_size=1,
+                      filter_type=("laplacian" if gt == "combined"
+                                   else "dual_random_walk"),
+                      scaler=scaler, augment=augment, adj_mat_dir=adj_path)
+            card = make_device_pipeline(device=dev, **kw)
+            cpu = make_device_pipeline(device="cpu", **kw)
+            draws = card.draw(BATCH, torch.Generator(dev).manual_seed(5))
+            host_draws = tuple(d.cpu() for d in draws)
+            cases = (
+                ("features", card.features(fx.to(dev), None, True, draws),
+                 cpu.features(fx, None, True, host_draws), fx.to(dev), fx),
+                ("ssl_features", card.ssl_features(
+                    fx.to(dev), fy.to(dev), None, True, draws),
+                 cpu.ssl_features(fx, fy, None, True, host_draws),
+                 fx.to(dev), fx),
+                ("raw call", card(raw.to(dev)), cpu(raw),
+                 featurize_clip(raw.to(dev), 1), fx))
+            errs = []
+            for name, got, want, g_feats, w_feats in cases:
+                flips = (graph_flips(top3(torch, g_feats),
+                                     top3(torch, w_feats))
+                         if gt == "individual" else np.array([], int))
+                if len(flips) > 2:
+                    fail(f"pipeline {name} {gt}: {len(flips)} graphs differ")
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if g.device.type != dev.type or g.shape != w.shape:
+                        fail(f"pipeline {name} {gt}: {g.device} {g.shape}")
+                    g = g.cpu()
+                    if name == "raw call" and i == 0:
+                        g, w = amp(g), amp(w)
+                    if g.dim() == 4 and g.shape[0] != BATCH and len(flips):
+                        keep = np.setdiff1d(np.arange(BATCH), flips)
+                        g, w = g[:, keep], w[:, keep]
+                    errs.append(norm_err(g, w)[0])
+                    if not errs[-1] <= F32_TOL:
+                        fail(f"pipeline {name} {gt} augment={augment}: card "
+                             f"vs CPU {errs[-1]:.3e}")
+            log(f"pipeline {gt} augment={augment} B={BATCH}: features, "
+                f"ssl_features, raw call (x as amplitudes): card vs CPU "
+                f"worst {max(errs):.3e} "
+                f"(bar {F32_TOL:.0e}); reflected {int(draws[0].sum())} of "
+                f"{BATCH}")
+
+
+def run_cached_epochs(torch, tag, cfg, caches, pipe, scaler, init, n_clips,
+                      card, trace_path):
+    """Three epochs of ``Trainer``'s cached loop over ``caches['train']``
+    (the CLI's ``--hbm_cache`` path): a warm one, a timed one (every count
+    at 0 before it), a traced one (device busy as the union of the
+    kernel and copy spans, ``timeline``). Returns the figures."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train.trainer import Trainer
+
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    bsz, train = cfg.train_batch_size, caches["train"]
+    steps = (sum(-(-train.shard_real_rows(s) // bsz)
+                 for s in range(train.num_shards))
+             if hasattr(train, "num_shards") else -(-n_clips // bsz))
+    sink = _Scalars()
+    trainer = Trainer(cfg, {"train": range(steps)}, scaler, _quiet_log(),
+                      sink, model, input_pipeline=pipe, device_caches=caches)
+    rng = np.random.RandomState(cfg.rand_seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, warm_s, _ = trainer._train_epoch(0, rng)
+    reset_counts()
+    seen, epoch_s, clips = trainer._train_epoch(seen, rng)
+    launched = counts()
+    _, wall, rows, prof = trace(
+        torch, lambda: trainer._train_epoch(seen, rng))
+    peak = torch.cuda.max_memory_allocated()
+    if clips != n_clips or len(sink.losses) != 3 * steps \
+            or not np.all(np.isfinite(sink.losses)):
+        fail(f"cached {tag}: {clips} clips, {len(sink.losses)} losses "
+             f"(want {3 * steps}), finite {np.all(np.isfinite(sink.losses))}")
+    waits = host_waits(prof)
+    tl = timeline(prof, trace_path)
+    busy = tl["busy_ms"]
+    log(f"cached {tag}: epoch of {clips} clips, {steps} steps at "
+        f"B={bsz}: {epoch_s:.3f} s = "
+        f"{clips / epoch_s:.1f} clips/s (warm-up epoch {warm_s:.3f} s); "
+        f"traced epoch: device busy (kernel and copy spans, their union) "
+        f"{busy:.3f} of {wall:.3f} ms "
+        f"({100 * busy / wall:.1f}%), host waits and D2H copies {waits} "
+        f"(a step makes none: expected only the epoch's one loss copy "
+        f"and the trace's final synchronise); "
+        f"max_memory_allocated "
+        f"{peak / 2 ** 30:.3f} GiB; launches "
+        f"{ {k: v for k, v in launched.items() if v} }; {card}")
+    for key, v in sorted(rows.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile   {v:8.3f} ms  {key[:90]}")
+    return launched, {"epoch_s": epoch_s, "clips": clips, "busy": busy,
+                      "wall": wall, "peak": peak, "timeline": tl,
+                      "losses": sink.losses[:2 * steps]}
+
+
+def phase_cached(torch, dev, card, adj_path, scaler, out_dir):
+    """The device-resident caches at a size a user holds: INPUT_CLIPS
+    seeded detection clips stored bf16 (0.93 GB), one epoch of the cached
+    train step at B=128 with fused_steps 1 and 4 (accepted and ignored:
+    the same losses); the
+    SSL cache (x and y, T_in + T_out = 72 windows); the detection split
+    rotating under a 0.5 GiB budget (at least 4 shards; each clip once an
+    epoch, at most two slabs live, one copy a shard each epoch, timed by
+    CUDA events on the copy stream; from the trace, the copies' stream and
+    their overlap with the kernels). All bf16, combined graph, no augmentation: supports are
+    the shared (S, N, N) slab. Returns (counts by path, figures)."""
+    from eeg_gnn_tpu_torch.data.device_cache import DeviceDatasetCache
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.data.rotating_cache import RotatingDeviceCache
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    gen = np.random.default_rng(23)
+    feats = gen.standard_normal((INPUT_CLIPS, T, N, 100), dtype=np.float32)
+    feats += FEAT_MEAN
+    labels = (gen.random(INPUT_CLIPS) < 0.5).astype(np.float32)
+    pipe = make_device_pipeline(
+        graph_type="combined", filter_type="laplacian", top_k=3,
+        use_fft=True, time_step_size=1, scaler=scaler, augment=False,
+        adj_mat_dir=adj_path, device=dev)
+    paths, stats = {}, {}
+    t0 = time.perf_counter()
+    cache = DeviceDatasetCache(feats, labels, T, storage_dtype="bfloat16",
+                               device=dev)
+    torch.cuda.synchronize()
+    log(f"cached detection: {INPUT_CLIPS} clips of ({T}, {N}, 100), bf16 "
+        f"{cache.nbytes() / 1e9:.3f} GB on the card, built in "
+        f"{time.perf_counter() - t0:.3f} s (host f32 in row blocks)")
+    kw = dict(use_fft=True, do_train=True, train_batch_size=BATCH,
+              **TRAIN_KW)
+    init = build_model(flagship_cfg("combined", "bfloat16", True, **kw),
+                       torch.Generator().manual_seed(11)).state_dict()
+    for fused, path in ((1, "cached_train"), (4, "cached_train_fused")):
+        cfg = flagship_cfg("combined", "bfloat16", True, fused_steps=fused,
+                           **kw)
+        paths[path], stats[path] = run_cached_epochs(
+            torch, f"detection fused_steps={fused}", cfg, {"train": cache},
+            pipe, scaler, init, INPUT_CLIPS, card,
+            os.path.join(out_dir, "cached.json"))
+    a, b = (np.asarray(stats[p]["losses"]) for p in ("cached_train",
+                                                     "cached_train_fused"))
+    diff = float(np.abs(a - b).max() / np.abs(a).max())
+    if not diff <= F32_TOL:
+        fail(f"cached detection: fused_steps 4 losses differ from 1 by "
+             f"{diff:.3e}")
+    log(f"cached detection: fused_steps 4 (accepted and ignored) against 1, "
+        f"two epochs' losses: {diff:.3e} (bar {F32_TOL:.0e})")
+
+    rot = RotatingDeviceCache(feats, labels, T, storage_dtype="bfloat16",
+                              budget_bytes=ROTATING_BUDGET, device=dev)
+    del cache
+    if rot.num_shards < 4:
+        fail(f"rotating: {rot.num_shards} shards under the budget")
+    plans, live, copies = [], [], []
+    shard_plan, prefetch = rot.shard_plan, rot.prefetch
+
+    def recording_plan(shard, *args):
+        perm, valid = shard_plan(shard, *args)
+        plans.append((shard, perm, valid))
+        return perm, valid
+
+    def counting_prefetch(shard):
+        # CUDA events on the copy stream around the prefetch: its copies
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record(rot._stream)
+        slab = prefetch(shard)
+        end.record(rot._stream)
+        live.append(rot.resident())
+        copies.append((int(shard), start, end))
+        return slab
+
+    rot.shard_plan, rot.prefetch = recording_plan, counting_prefetch
+    cfg = flagship_cfg("combined", "bfloat16", True, **kw)
+    paths["rotating"], stats["rotating"] = run_cached_epochs(
+        torch, f"rotating detection ({rot.num_shards} shards of "
+        f"{rot.shard_rows})", cfg, {"train": rot}, pipe, scaler, init,
+        INPUT_CLIPS, card, trace_path=os.path.join(out_dir, "rot.json"))
+    for e in range(3):
+        rows = np.concatenate([
+            sid * rot.shard_rows + perm[k * BATCH:k * BATCH + v]
+            for sid, perm, valid in plans[e * rot.num_shards:
+                                          (e + 1) * rot.num_shards]
+            for k, v in enumerate(valid)])
+        if not np.array_equal(np.sort(rows), np.arange(INPUT_CLIPS)):
+            fail(f"rotating epoch {e + 1}: not every clip once")
+    if max(live) > 2:
+        fail(f"rotating: {max(live)} slabs live at a prefetch")
+    n_sh = rot.num_shards
+    torch.cuda.synchronize()
+    if len(copies) != 3 * n_sh or any(
+            sorted(c[0] for c in copies[e * n_sh:(e + 1) * n_sh])
+            != list(range(n_sh)) for e in range(3)):
+        fail(f"rotating: prefetches {[c[0] for c in copies]}, want each of "
+             f"{n_sh} shards once in each of 3 epochs")
+    copy_ms = [s_.elapsed_time(e_) for _, s_, e_ in copies[2 * n_sh:]]
+    tl = stats["rotating"].pop("timeline")
+    row = int(np.prod(rot._x.shape[1:])) * rot._x.element_size()
+    sizes = {rot.shard_real_rows(sid) * row for sid in range(n_sh)}
+    seen = [c for c in tl["copies"] if c[2] in sizes]
+    if len(seen) > n_sh or any(c[3] in tl["kernel_streams"] for c in seen):
+        fail(f"rotating: the trace's slab copies {[c[2:4] for c in seen]}: "
+             f"more than {n_sh}, or on a stream that runs kernels "
+             f"{tl['kernel_streams']}")
+    seen_ms = sum(c[1] - c[0] for c in seen) / 1e3
+    over_ms = sum(c[4] for c in seen) / 1e3
+    stats["rotating"].update(copy_ms=sum(copy_ms), seen=len(seen),
+                             seen_ms=seen_ms, over_ms=over_ms)
+    log(f"rotating: {rot.num_shards} shards of {rot.shard_rows} clips "
+        f"({rot.shard_rows * rot.clip_bytes / 1e6:.1f} MB each, pinned "
+        f"host), each clip once in each of 3 epochs, at most {max(live)} "
+        f"slabs live; traced epoch: {n_sh} prefetches, their copies "
+        f"{sum(copy_ms):.3f} ms by CUDA events on the copy stream ("
+        + ", ".join(f"{v:.3f}" for v in copy_ms) + " ms); the trace "
+        f"recorded {len(seen)} of the {n_sh} x copies, on stream(s) "
+        f"{sorted({c[3] for c in seen}, key=str)} (kernels on "
+        f"{sorted(tl['kernel_streams'], key=str)}), {seen_ms:.3f} ms, "
+        f"{over_ms:.3f} ms of it under a kernel "
+        f"({100 * over_ms / max(seen_ms, 1e-9):.1f}%); epoch "
+        f"{stats['rotating']['epoch_s']:.3f} s against the resident "
+        f"{stats['cached_train']['epoch_s']:.3f} s; {card}")
+    del rot, feats
+
+    fx = gen.standard_normal((INPUT_CLIPS, T, N, 100), dtype=np.float32)
+    fy = gen.standard_normal((INPUT_CLIPS, T_OUT, N, 100), dtype=np.float32)
+    fx += FEAT_MEAN
+    fy += FEAT_MEAN
+    t0 = time.perf_counter()
+    cache = DeviceDatasetCache(fx, fy, T, storage_dtype="bfloat16",
+                               device=dev)
+    torch.cuda.synchronize()
+    log(f"cached SSL: {INPUT_CLIPS} pairs of ({T} + {T_OUT}, {N}, 100), "
+        f"bf16 {cache.nbytes() / 1e9:.3f} GB on the card, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    cfg = ssl_cfg("combined", "bfloat16", use_curriculum_learning=True,
+                  use_fft=True, do_train=True, train_batch_size=BATCH)
+    init = build_model(cfg, torch.Generator().manual_seed(11)).state_dict()
+    paths["cached_ssl"], stats["cached_ssl"] = run_cached_epochs(
+        torch, f"SSL L={SSL_LAYERS}", cfg, {"train": cache}, pipe, scaler,
+        init, INPUT_CLIPS, card, os.path.join(out_dir, "ssl.json"))
     return paths, stats
+
+
+def phase_cli_input(torch, card, corpus):
+    """``cli.train.main`` with the input path's flags on phase_cli's
+    corpus, at its widths, 2 epochs, bf16: detection with --hbm_cache, SSL
+    with --hbm_cache, detection with --device_pipeline on the individual
+    graph, detection with --hbm_cache --fused_steps 4; each once untraced
+    (its counts and figures) and once traced (device busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = (("cli_hbm_detect", "detection hbm_cache", ["--hbm_cache"],
+             CLI_DETECT, "detection"),
+            ("cli_hbm_ssl", "SSL hbm_cache", ["--hbm_cache"], SSL_KERNELS,
+             "SSL"),
+            ("cli_pipeline_detect", "detection device_pipeline individual",
+             ["--device_pipeline", "--graph_type", "individual"],
+             CLI_DETECT, "detection"),
+            ("cli_hbm_fused", "detection hbm_cache fused_steps 4",
+             ["--hbm_cache", "--fused_steps", "4"], CLI_DETECT,
+             "detection"))
+    paths, stats = {}, {}
+    for path, tag, flags, kernels, task in runs:
+        argv = corpus["detect" if task == "detection" else "ssl"] + flags
+        res, run_dir, paths[path], wall = _cli_run(
+            torch, argv, corpus["signals"], corpus["root"], kernels, tag)
+        stats[tag] = cli_run_stats(tag, res, run_dir, wall,
+                                   corpus["n_train"][task], card)
+        shutil.rmtree(run_dir)  # its checkpoints: the figures are read
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, run_dir, _, traced = _cli_run(
+                torch, argv, corpus["signals"], corpus["root"], kernels,
+                tag + " traced")
+        shutil.rmtree(run_dir)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("Activity Buffer")) / 1e6
+        stats[tag]["busy_s"] = busy
+        log(f"cli {tag}, traced run: device busy {busy * 1e3:.3f} ms of "
+            f"its {traced * 1e3:.3f} ms wall ({100 * busy / traced:.1f}%; "
+            f"{card})")
+    return paths, stats
+
+
+def phase_input(torch, dev, card, corpus):
+    """The on-device input path (``data/device_pipeline.py``,
+    ``data/device_cache.py``, ``data/rotating_cache.py``): the raw front
+    door, the pipeline's pieces, the caches, the CLI's flags. Returns
+    (counts by path, figures)."""
+    import pickle
+
+    from eeg_gnn_tpu_torch.data.scaler import StandardScaler
+
+    out_dir = os.path.join("chiprun_out", "input_path")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    adj_path = os.path.join(out_dir, "adj_mx.pkl")
+    with open(adj_path, "wb") as f:
+        pickle.dump([["c"] * N, {}, adjacency(np.random.RandomState(17),
+                                              1)[0]], f)
+    scaler = StandardScaler(FEAT_MEAN, FEAT_STD)
+    paths, stats = {}, {}
+    paths["serve_raw"], stats["serve_raw"] = phase_raw_serve(
+        torch, dev, card, adj_path, scaler)
+    phase_pipeline_parity(torch, dev, adj_path, scaler)
+    cached_paths, stats["cached"] = phase_cached(torch, dev, card, adj_path,
+                                                 scaler, out_dir)
+    paths.update(cached_paths)
+    cli_paths, stats["cli"] = phase_cli_input(torch, card, corpus)
+    paths.update(cli_paths)
+    return paths, stats
+
+
+def log_input_rates(stats, times, card):
+    """The cached loops' clips/s beside the bare TrainStep's at B=128 in
+    the same run (phase_times, phase_ssl_times; per-clip supports there,
+    the shared slab here)."""
+    step_ms, best = times[("train", "combined", "bfloat16", True)]
+    ssl_ms, ssl_best = times[("ssl", "bfloat16")]
+    for path, st in stats["cached"].items():
+        ms, b = (ssl_ms, ssl_best) if path == "cached_ssl" else (step_ms,
+                                                                 best)
+        log(f"input {path}: {st['clips'] / st['epoch_s']:.1f} clips/s over "
+            f"an epoch beside the bare TrainStep's {BATCH / ms * 1e3:.1f} "
+            f"(median, synchronised) / {BATCH / b * 1e3:.1f} (back to back) "
+            f"at B={BATCH}, bf16; device busy "
+            f"{100 * st['busy'] / st['wall']:.1f}% of a traced epoch; {card}")
 
 
 def log_cli_rates(stats, step_ms, card):
@@ -2631,8 +3258,10 @@ def main():
              "train_pallas": phase_pallas_train(torch, dev),
              "ssl_pallas": phase_pallas_ssl(torch, dev),
              "rescore": phase_rescore(torch, mts)}
-    cli_paths, cli_stats = phase_cli(torch, card)
+    cli_paths, cli_stats, corpus = phase_cli(torch, card)
     paths.update(cli_paths)
+    input_paths, input_stats = phase_input(torch, dev, card, corpus)
+    paths.update(input_paths)
     for path, names in (("serve", (FWD[1],) + XIN_FWD),
                         ("train", (FWD[1], "dcgru_dw_reduce")
                          + XIN_FWD + XIN_BWD),
@@ -2641,13 +3270,22 @@ def main():
                         ("ssl_pallas", (FDC, DEC[0]) + DEC_BWD),
                         ("rescore", (SDDMM,)),
                         ("cli_detect", CLI_DETECT), ("cli_ssl", SSL_KERNELS),
-                        ("cli_finetune", CLI_DETECT)):
+                        ("cli_finetune", CLI_DETECT),
+                        ("serve_raw", XIN_FWD), ("cached_train", CLI_DETECT),
+                        ("cached_train_fused", CLI_DETECT),
+                        ("rotating", CLI_DETECT), ("cached_ssl", SSL_KERNELS),
+                        ("cli_hbm_detect", CLI_DETECT),
+                        ("cli_hbm_ssl", SSL_KERNELS),
+                        ("cli_pipeline_detect", CLI_DETECT),
+                        ("cli_hbm_fused", CLI_DETECT)):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
     times = phase_times(torch, dev)
-    log_cli_rates(cli_stats, times[("train", CLI_BATCH)][0], card)
+    log_cli_rates(cli_stats | input_stats["cli"],
+                  times[("train", CLI_BATCH)][0], card)
     times.update(phase_ssl_times(torch, dev))
+    log_input_rates(input_stats, times, card)
     times.update(phase_pallas_times(torch, dev, mts))
 
     kernels, composites = [], []

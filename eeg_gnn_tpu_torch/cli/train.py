@@ -10,6 +10,16 @@ corpus markers -> clips -> FFT features -> per-clip graphs and supports
 early stopping -> the final dev and test results, written to
 ``results.json`` in a numbered run directory under ``--save_dir``.
 
+``--device_pipeline`` makes the loaders yield raw clips, featurized,
+augmented, standardized and graphed on the device
+(``data/device_pipeline.py``). ``--hbm_cache`` featurizes every split
+once on the host and keeps it on the device (``data/device_cache.py``),
+or, past ``--hbm_budget_gb``, rotates it through the device in shards
+(``data/rotating_cache.py``). ``--reflect_invariant`` is the JAX CLI's;
+``--fused_steps`` is accepted and ignored (``config.py``). The mesh and
+classification branches of the JAX CLI wait for their slices (ROADMAP.md,
+Queue 1).
+
 ``main(argv, device=None)`` runs on the card and raises without one;
 ``device="cpu"`` (a keyword, not a flag, as the JAX CLI picks its
 platform from the environment) runs on the CPU.
@@ -20,6 +30,81 @@ from __future__ import annotations
 import json
 import os
 import sys
+
+
+def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
+               signals=None, device=None):
+    """The on-device input path of ``cfg`` (the JAX CLI's, train.py:
+    91-240, without the mesh and classification branches): (the
+    ``DevicePipeline`` or None, {split: cache} or None).
+
+    ``--hbm_cache``: every split is featurized once from plain datasets
+    (no augmentation, no standardization: both run on the device per
+    step) and uploaded if the whole fits ``--hbm_budget_gb``
+    (``fits_in_hbm``); otherwise each split becomes a rotating cache, as
+    the JAX CLI does, and a line on stderr says so.
+    """
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_detection,
+        load_dataset_ssl,
+    )
+    from eeg_gnn_tpu_torch.data.device_cache import (
+        build_detection_cache,
+        build_ssl_cache,
+        fits_in_hbm,
+    )
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.data.rotating_cache import build_rotating_cache
+
+    if not (cfg.device_pipeline or cfg.hbm_cache):
+        return None, None
+    pipeline = make_device_pipeline(
+        graph_type=cfg.graph_type, filter_type=cfg.filter_type,
+        top_k=cfg.top_k, use_fft=cfg.use_fft,
+        time_step_size=cfg.time_step_size, scaler=scaler,
+        augment=cfg.data_augment, adj_mat_dir=adj_mat_dir,
+        num_nodes=cfg.num_nodes, reflect_invariant=cfg.reflect_invariant,
+        device=device)
+    if not cfg.hbm_cache:
+        return pipeline, None
+
+    plain_common = dict(
+        input_dir=cfg.input_dir, raw_data_dir=cfg.raw_data_dir,
+        train_batch_size=cfg.train_batch_size,
+        test_batch_size=cfg.test_batch_size,
+        time_step_size=cfg.time_step_size, standardize=False,
+        num_workers=cfg.num_workers, augmentation=False,
+        adj_mat_dir=None, graph_type=None, use_fft=cfg.use_fft,
+        preproc_dir=cfg.preproc_dir, marker_dir=marker_dir,
+        build_loaders=False, signals=signals)
+    storage = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
+    kw = dict(storage_dtype=storage, num_workers=cfg.num_workers,
+              device=device)
+    if cfg.task == "detection":
+        t_out, kind = 0, "detection"
+        _, plain, _ = load_dataset_detection(
+            max_seq_len=cfg.max_seq_len, sampling_ratio=cfg.sampling_ratio,
+            seed=123, **plain_common)
+        build = lambda ds: build_detection_cache(ds, cfg.max_seq_len, **kw)
+    else:  # SS pre-training
+        t_out, kind = cfg.output_seq_len, "ssl"
+        _, plain, _ = load_dataset_ssl(
+            input_len=cfg.max_seq_len, output_len=cfg.output_seq_len,
+            **plain_common)
+        build = lambda ds: build_ssl_cache(ds, cfg.max_seq_len, **kw)
+
+    budget = int(cfg.hbm_budget_gb * 2 ** 30)
+    n_total = sum(len(ds) for ds in plain.values())
+    if fits_in_hbm(n_total, cfg.max_seq_len, cfg.num_nodes, cfg.input_dim,
+                   storage, t_out=t_out, budget_bytes=budget):
+        return pipeline, {s: build(ds) for s, ds in plain.items()}
+    caches = {s: build_rotating_cache(ds, cfg.max_seq_len, kind,
+                                      budget_bytes=budget, **kw)
+              for s, ds in plain.items()}
+    print("hbm_cache: split exceeds the HBM budget; using the chunked "
+          f"rotating cache ({caches['train'].num_shards} shards, "
+          "double-buffered H2D)", file=sys.stderr)
+    return pipeline, caches
 
 
 def main(argv=None, *, device=None, signals=None):
@@ -73,13 +158,18 @@ def main(argv=None, *, device=None, signals=None):
         if cfg.task == "detection":
             loaders, _, scaler = load_dataset_detection(
                 max_seq_len=cfg.max_seq_len,
-                sampling_ratio=cfg.sampling_ratio, seed=123, **common)
+                sampling_ratio=cfg.sampling_ratio, seed=123,
+                raw_mode=cfg.device_pipeline, **common)
         else:  # SS pre-training
             loaders, _, scaler = load_dataset_ssl(
                 input_len=cfg.max_seq_len, output_len=cfg.output_seq_len,
-                **common)
+                raw_mode=cfg.device_pipeline, **common)
+        pipeline, caches = input_path(
+            cfg, scaler, adj_mat_dir=adj_mat_dir, marker_dir=marker_dir,
+            signals=signals, device=device)
         results = run_experiment(cfg, loaders, scaler, save_dir, log, tbx,
-                                 device=device)
+                                 device=device, input_pipeline=pipeline,
+                                 device_caches=caches)
     finally:
         tbx.close()
     with open(os.path.join(save_dir, "results.json"), "w") as f:

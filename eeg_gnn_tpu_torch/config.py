@@ -7,9 +7,12 @@ Derived-field rules reproduced (reference ``args.py:196-221``):
 ``graph_type`` (``finalize``); an eval-only run requires a checkpoint
 (``check_runnable``, which the CLI and ``run_experiment`` call).
 
-The TPU tuning knobs ``batch_tile`` and ``scan_unroll`` are accepted and
-ignored. Features still to port raise ``NotImplementedError`` from
-``check_runnable`` when set away from their defaults (``_NOT_PORTED``).
+The TPU tuning knobs ``batch_tile``, ``scan_unroll`` and ``fused_steps``
+are accepted and ignored. The on-device input pipeline, the dataset
+caches (resident and rotating) and ``--reflect_invariant`` are ported.
+Features still to port (classification, the baselines, ``preproc_dir``,
+meshes) raise ``NotImplementedError`` from ``check_runnable`` when set
+away from their defaults (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -78,18 +81,18 @@ class ExperimentConfig:
     # Extensions of the JAX package (no reference counterpart)
     dtype: str = "float32"  # stream dtype: float32 | bfloat16
     mesh_shape: str = "data:-1"  # data-parallel mesh: still to port
-    device_pipeline: bool = False  # on-device input pipeline: still to port
-    hbm_cache: bool = False  # device-resident dataset caches: still to port
-    hbm_budget_gb: float = 12.0  # the caches' budget (read with hbm_cache)
-    reflect_invariant: bool = False  # shared-support reflection: still to
-    # port
+    device_pipeline: bool = False  # on-device input pipeline (raw clips)
+    hbm_cache: bool = False  # device-resident dataset caches
+    hbm_budget_gb: float = 12.0  # the caches' device budget: rotating past it
+    reflect_invariant: bool = False  # shared-support reflection (combined
+    # graph; a documented divergence, see data/device_pipeline.py)
     recurrence: str = "pallas"  # pallas (the CUDA kernels) | stacked | naive
     use_pallas: bool = False  # per-step loop whose hidden diffusion convs
     # run the fused diffusion-conv kernel (per-clip supports); overrides
     # recurrence and input_fusion in the encoder, as in the JAX package
     input_fusion: bool = True  # input diffusion + projection in-kernel
     scan_unroll: int = 1  # the JAX time loop's unroll factor: ignored
-    fused_steps: int = 1  # optimizer steps per program: > 1 still to port
+    fused_steps: int = 1  # the JAX package's steps per program: ignored
     batch_tile: int = 36  # the JAX package's TPU clip tile: ignored (the
     # CUDA kernels pick their plans by shape)
 
@@ -165,10 +168,6 @@ _NOT_PORTED = {
     "model_name": lambda c: c.model_name != "dcrnn",
     "preproc_dir": lambda c: c.preproc_dir is not None,
     "mesh_shape": lambda c: c.mesh_shape != "data:-1",
-    "device_pipeline": lambda c: c.device_pipeline,
-    "hbm_cache": lambda c: c.hbm_cache,
-    "reflect_invariant": lambda c: c.reflect_invariant,
-    "fused_steps": lambda c: c.fused_steps > 1,
 }
 
 
@@ -242,20 +241,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
                    help="Data-parallel mesh: still to port.")
     _add_bool_flag(p, "device_pipeline",
-                   "On-device input pipeline: still to port.")
+                   "On-device input pipeline: raw clips are featurized, "
+                   "augmented, standardized and graphed on the card.")
     _add_bool_flag(p, "hbm_cache",
-                   "Device-resident dataset caches: still to port.")
+                   "Device-resident dataset caches (rotating past "
+                   "--hbm_budget_gb).")
     p.add_argument("--hbm_budget_gb", type=float, default=d.hbm_budget_gb,
-                   help="The dataset caches' budget (with --hbm_cache).")
+                   help="The dataset caches' device budget in GiB (with "
+                        "--hbm_cache).")
     _add_bool_flag(p, "reflect_invariant",
-                   "Shared-support reflection augmentation: still to port.")
+                   "Combined graph: reflection as a node relabeling "
+                   "(shared supports; a documented divergence).")
     _add_bool_flag(p, "use_pallas",
                    "The per-step encoder loop through the fused "
                    "diffusion-conv kernel.")
     p.add_argument("--scan_unroll", type=int, default=d.scan_unroll,
                    help="The JAX package's time-loop unroll: ignored.")
     p.add_argument("--fused_steps", type=int, default=d.fused_steps,
-                   help="Optimizer steps per program: > 1 still to port.")
+                   help="The JAX package's optimizer steps per program: "
+                        "ignored (the same numerics).")
     p.add_argument("--recurrence", type=str, default=d.recurrence,
                    choices=("stacked", "naive", "pallas"),
                    help="DCGRU scan backend: the CUDA kernels (pallas), "

@@ -8,9 +8,10 @@ optional FFT features (``data/dataloader_detection.py:25-85``,
 ``data/dataloader_ssl.py:24-82``). Annotation parsing (``.tse_bi`` /
 ``.tse``) follows ``data/data_utils.py:82-136``.
 
-``detection_clip`` / ``ssl_clip`` slice a signal already in memory; the
-``slice_*`` functions read it from its h5 file first (h5py is imported
-only there). The classification clip is still to port (ROADMAP.md,
+``detection_clip`` / ``ssl_clip`` / ``raw_clip`` slice a signal already
+in memory; the ``slice_*`` functions read it from its h5 file first
+(h5py is imported only there). ``raw_clip`` is the raw window of the
+on-device pipeline. The classification clip is still to port (ROADMAP.md,
 Queue 1).
 """
 
@@ -112,6 +113,20 @@ def slice_ssl_clip(h5_path: str, clip_idx: int, time_step_size: int = 1,
     :func:`ssl_clip`."""
     return ssl_clip(read_resampled_h5(h5_path), clip_idx, time_step_size,
                     clip_len, use_fft)
+
+
+def raw_clip(signal: np.ndarray, clip_idx: int, clip_len: int = 60):
+    """Raw (num_channels, clip_len*FREQUENCY) window ``clip_idx`` of a
+    (channels, samples) signal, for the on-device featurization pipeline
+    (``data/device_pipeline.py``): the host only slices."""
+    step = int(FREQUENCY * clip_len)
+    start = clip_idx * step
+    return np.ascontiguousarray(signal[:, start:start + step])
+
+
+def slice_raw_clip(h5_path: str, clip_idx: int, clip_len: int = 60):
+    """Parity: JAX ``data/clips.py:slice_raw_clip``; see :func:`raw_clip`."""
+    return raw_clip(read_resampled_h5(h5_path), clip_idx, clip_len)
 
 
 def pad_clip(clip: np.ndarray, max_seq_len: int, padding_val: float = 0.0):

@@ -12,9 +12,13 @@ Batches are assembled by the threaded prefetcher of ``data/loader.py``.
 by ``data/synthetic.make_synthetic_corpus(signals=...)``) stands in for
 the h5 files on hosts without h5py.
 
+``raw_mode`` builds the raw-clip datasets of the on-device pipeline
+(``RawDetectionDataset``, ``RawSSLDataset``): the host only reads and
+slices; FFT, augmentation, standardization and graphs run on the device
+(``data/device_pipeline.py``).
+
 Still to port (ROADMAP.md, Queue 1): classification (its dataset and
-the Dense-CNN baseline's), the raw-clip datasets of the on-device
-pipeline (``raw_mode``), and precomputed clip directories
+the Dense-CNN baseline's) and precomputed clip directories
 (``preproc_dir``); they raise ``NotImplementedError``.
 """
 
@@ -25,6 +29,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 
+from eeg_gnn_tpu_torch.constants import FREQUENCY
 from eeg_gnn_tpu_torch.data import clips as clip_ops
 from eeg_gnn_tpu_torch.data.augment import random_reflect, random_scale
 from eeg_gnn_tpu_torch.data.loader import DataLoader
@@ -248,17 +253,46 @@ class SSLDataset(_BaseEEGDataset):
 
 
 class RawDetectionDataset(DetectionDataset):
-    """Raw detection clips of the on-device pipeline: still to port."""
+    """Detection clips in RAW form for the on-device pipeline: the host
+    only reads and slices the signal; FFT, augmentation, standardization
+    and graphs run on the device (``data/device_pipeline.py``)."""
 
-    def __init__(self, **kw):
-        _not_ported("the raw-clip datasets of the on-device pipeline")
+    def __getitem__(self, idx):
+        h5_fn, seizure_label = self.file_tuples[idx]
+        clip_idx = int(h5_fn.split("_")[-1].split(".h5")[0])
+        h5_path = os.path.join(self.input_dir, h5_fn.split(".edf")[0] + ".h5")
+        raw = clip_ops.raw_clip(self._signal(h5_path), clip_idx,
+                                self.max_seq_len)
+        return (
+            raw.astype(np.float32),  # (C, clip_len*FREQUENCY)
+            np.float32(seizure_label),
+            np.int32(self.max_seq_len),
+            [],
+            [],
+            h5_fn.split(".h5")[0],
+        )
 
 
 class RawSSLDataset(SSLDataset):
-    """Raw SSL clip pairs of the on-device pipeline: still to port."""
+    """SSL clip pairs in RAW form for the on-device pipeline: x the whole
+    input clip, y the first ``output_len`` seconds of the next clip."""
 
-    def __init__(self, **kw):
-        _not_ported("the raw-clip datasets of the on-device pipeline")
+    def __getitem__(self, idx):
+        h5_fn_x, h5_fn_y = self.file_tuples[idx]
+        clip_idx_x = int(h5_fn_x.split("_")[-1].split(".h5")[0])
+        clip_idx_y = int(h5_fn_y.split("_")[-1].split(".h5")[0])
+        h5_path = os.path.join(self.input_dir, h5_fn_x.split(".edf")[0] + ".h5")
+        signal = self._signal(h5_path)
+        raw_x = clip_ops.raw_clip(signal, clip_idx_x, self.input_len)
+        raw_y = clip_ops.raw_clip(signal, clip_idx_y, self.input_len)
+        return (
+            raw_x.astype(np.float32),
+            raw_y[:, : self.output_len * FREQUENCY].astype(np.float32),
+            np.int32(self.input_len),
+            [],
+            [],
+            h5_fn_x.split(".h5")[0],
+        )
 
 
 class ClassificationDataset(_BaseEEGDataset):
@@ -316,18 +350,19 @@ def load_dataset_detection(input_dir, raw_data_dir, train_batch_size,
                            signals=None):
     """Parity: ``load_dataset_detection`` (dataloader_detection.py:419-525).
     ``marker_dir`` points at the file-marker directory (the reference
-    hard-codes its repo-relative path)."""
+    hard-codes its repo-relative path). ``raw_mode`` emits raw clips for
+    the on-device pipeline."""
     if graph_type is not None and graph_type not in ["individual", "combined"]:
         raise NotImplementedError
-    if raw_mode:
-        _not_ported("the on-device input pipeline (raw_mode)")
     scaler = (
         _load_scaler(marker_dir, "seq2seq_fft_", max_seq_len, "_szdetect_single")
         if standardize else None
     )
 
+    cls = RawDetectionDataset if raw_mode else DetectionDataset
+
     def make(split):
-        return DetectionDataset(
+        return cls(
             marker_dir=marker_dir, sampling_ratio=sampling_ratio, seed=seed,
             input_dir=input_dir, raw_data_dir=raw_data_dir,
             time_step_size=time_step_size, max_seq_len=max_seq_len,
@@ -350,18 +385,19 @@ def load_dataset_ssl(input_dir, raw_data_dir, train_batch_size,
                      top_k=None, filter_type="laplacian", use_fft=False,
                      preproc_dir=None, marker_dir=None, raw_mode=False,
                      build_loaders=True, signals=None):
-    """Parity: ``load_dataset_ssl`` (dataloader_ssl.py:364-461)."""
+    """Parity: ``load_dataset_ssl`` (dataloader_ssl.py:364-461);
+    ``raw_mode`` as in :func:`load_dataset_detection`."""
     if graph_type is not None and graph_type not in ["individual", "combined"]:
         raise NotImplementedError
-    if raw_mode:
-        _not_ported("the on-device input pipeline (raw_mode)")
     scaler = (
         _load_scaler(marker_dir, "seq2seq_fft_", input_len, "_single")
         if standardize else None
     )
 
+    cls = RawSSLDataset if raw_mode else SSLDataset
+
     def make(split):
-        return SSLDataset(
+        return cls(
             marker_dir=marker_dir, input_len=input_len, output_len=output_len,
             input_dir=input_dir, raw_data_dir=raw_data_dir,
             time_step_size=time_step_size, max_seq_len=input_len,

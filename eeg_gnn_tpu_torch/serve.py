@@ -4,10 +4,13 @@ Semantics of ``eeg_gnn_tpu/serve.py``: inputs of any length are chunked
 to one fixed batch shape, the last chunk zero-padded and its padding
 dropped on the host; probabilities (sigmoid for detection, softmax for
 classification) and, from an ``adjacency``, the supports are computed on
-the device.
+the device. With a ``DevicePipeline`` (``data/device_pipeline.py``),
+``predict_proba_raw`` serves raw EEG: featurization, standardization and
+the graph run on the device before the model, and ``predict_proba``
+needs no supports for the combined graph.
 
-Still to port (ROADMAP.md): the raw-EEG front door (``DevicePipeline``),
-data-parallel meshes and reference ``.pth.tar`` checkpoints.
+Still to port (ROADMAP.md): data-parallel meshes and reference
+``.pth.tar`` checkpoints.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from eeg_gnn_tpu_torch.config import ExperimentConfig
+from eeg_gnn_tpu_torch.constants import FREQUENCY
 from eeg_gnn_tpu_torch.device import resolve_device
 
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
@@ -48,7 +52,10 @@ class Predictor:
             ``cfg.test_batch_size``.
         threshold: decision threshold for detection.
         device: ``None`` (the CUDA card), or e.g. ``"cpu"``.
-        pipeline / mesh: not ported yet; must be None.
+        pipeline: optional ``DevicePipeline`` on the same device, enabling
+            :meth:`predict_proba_raw` and, for the combined graph,
+            supports-free :meth:`predict_proba`.
+        mesh: not ported yet; must be None.
     """
 
     def __init__(self, cfg: ExperimentConfig,
@@ -57,10 +64,6 @@ class Predictor:
                  device=None, pipeline=None, mesh=None):
         from eeg_gnn_tpu_torch.models.registry import build_model
 
-        if pipeline is not None:
-            raise NotImplementedError(
-                "the raw-EEG front door (DevicePipeline) is not ported yet "
-                "(ROADMAP.md, Queue 1)")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel meshes are not ported yet (ROADMAP.md, "
@@ -75,6 +78,11 @@ class Predictor:
         self.model.to(self.device).eval()
         self.batch_size = int(batch_size or cfg.test_batch_size)
         self.threshold = float(threshold)
+        if pipeline is not None and \
+                pipeline.device.type != self.device.type:
+            raise ValueError(f"the pipeline lives on {pipeline.device}, the "
+                             f"Predictor on {self.device}")
+        self.pipeline = pipeline
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str,
@@ -89,6 +97,18 @@ class Predictor:
 
         cfg = cfg or ExperimentConfig().finalize()
         return cls(cfg, load_jax_npz(checkpoint_path, cfg), **kwargs)
+
+    def _default_supports(self, batch: int) -> torch.Tensor:
+        """The combined graph's distance supports broadcast over ``batch``
+        clips (S, B, N, N), from the pipeline."""
+        if self.pipeline is not None and \
+                self.pipeline.dist_supports is not None:
+            sup = self.pipeline.dist_supports  # (S, N, N)
+            return sup[:, None].expand(sup.shape[0], batch, *sup.shape[1:])
+        raise ValueError(
+            "supports required: pass `supports`/`adjacency`, or construct "
+            "the Predictor with a DevicePipeline (combined graph) so the "
+            "distance-graph supports are available.")
 
     def _chunks(self, n: int) -> Iterator[Tuple[int, int]]:
         for lo in range(0, n, self.batch_size):
@@ -112,7 +132,8 @@ class Predictor:
             seq_lengths: (n,) true lengths; defaults to full T.
             supports: (S, n, N, N) precomputed supports; or
             adjacency: (n, N, N) per-clip adjacency — the supports are then
-                built on the device (``graphs.compute_supports_torch``).
+                built on the device (``graphs.compute_supports_torch``);
+                with neither, the pipeline's distance-graph supports.
 
         Returns:
             (n,) seizure probabilities (detection) or (n, C) class
@@ -120,9 +141,6 @@ class Predictor:
         """
         from eeg_gnn_tpu_torch.graphs.supports import compute_supports_torch
 
-        if supports is None and adjacency is None:
-            raise ValueError("supports required: pass `supports` or "
-                             "`adjacency`")
         dev = self.device
         x = np.asarray(x, np.float32)
         n, t = x.shape[0], x.shape[1]
@@ -137,18 +155,44 @@ class Predictor:
             if supports is not None:
                 sb = _tensor(_pad_to(np.asarray(supports[:, lo:hi]), bs,
                                      axis=1), np.float32, dev)
-            else:
+            elif adjacency is not None:
                 ab = _tensor(_pad_to(np.asarray(adjacency[lo:hi]), bs),
                              np.float32, dev)
                 sb = compute_supports_torch(ab, self.cfg.filter_type)
+            else:
+                sb = self._default_supports(bs)
             probs = self._probs(xb, lb, sb)
             out.append(probs[:hi - lo].float().cpu().numpy())
         return np.concatenate(out) if out else np.empty((0,), np.float32)
 
-    def predict_proba_raw(self, raw, seq_lengths=None):
-        raise NotImplementedError(
-            "the raw-EEG front door (DevicePipeline) is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    def predict_proba_raw(self, raw: np.ndarray,
+                          seq_lengths: Optional[np.ndarray] = None
+                          ) -> np.ndarray:
+        """Probabilities straight from raw (n, C, L) signal windows, chunked
+        and padded as :meth:`predict_proba`: each chunk's raw clips go to
+        the device in one copy, then the pipeline's FFT featurization,
+        standardization and graph/supports run there (no augmentation),
+        then the model."""
+        if self.pipeline is None:
+            raise ValueError("predict_proba_raw needs a DevicePipeline — "
+                             "construct the Predictor with `pipeline=`.")
+        dev = self.device
+        raw = np.asarray(raw, np.float32)
+        n = raw.shape[0]
+        t = raw.shape[-1] // (self.pipeline.time_step_size * FREQUENCY)
+        if seq_lengths is None:
+            seq_lengths = np.full((n,), t, np.int64)
+        out = []
+        for lo, hi in self._chunks(n):
+            bs = self.batch_size
+            rb = _tensor(_pad_to(raw[lo:hi], bs), np.float32, dev)
+            lb = _tensor(_pad_to(np.asarray(seq_lengths[lo:hi]), bs),
+                         np.int64, dev)
+            with torch.inference_mode():
+                xb, sb = self.pipeline(rb)
+            probs = self._probs(xb, lb, sb)
+            out.append(probs[:hi - lo].float().cpu().numpy())
+        return np.concatenate(out) if out else np.empty((0,), np.float32)
 
     def predict(self, *args, **kwargs) -> Tuple[np.ndarray, np.ndarray]:
         """(predictions, probabilities); threshold applies to detection."""

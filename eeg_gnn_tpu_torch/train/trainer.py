@@ -8,7 +8,17 @@ best/last checkpointing, dev-loss early stopping, cosine LR per epoch,
 final dev+test eval with the dev-tuned decision threshold for detection.
 
 The train step is ``train.TrainStep`` (on the card the DCGRU CUDA
-kernels). Batches run at their natural size: the JAX trainer pads a
+kernels). Batches come from the host loaders (featurized clips, or raw
+ones for the on-device pipeline with ``--device_pipeline``), or are
+gathered on the device from a dataset cache (``--hbm_cache``: resident,
+or rotating past the budget), whose epoch plans come from
+``np.random.RandomState(cfg.rand_seed)`` as the JAX trainer's do; both
+cache kinds hand the trainer an epoch as plans (``epoch_plans``: one
+for a resident split, one a shard for a rotating one). ``--fused_steps``
+is accepted and ignored: the JAX trainer fuses steps into one
+``lax.scan`` program to amortize a TPU dispatch, which has no
+counterpart here, and its numerics are those of single steps. Batches
+run at their natural size: the JAX trainer pads a
 partial batch to the fixed size by repeating row 0 and masks the loss by
 the valid count (one XLA program); the kernels take any batch, and the
 masked loss equals the unpadded one, so the port feeds the loader's
@@ -17,11 +27,11 @@ reach the host in one copy at its end and go to ``metrics.jsonl`` with
 the JAX trainer's values and ``step`` numbers (samples seen after the
 step). Each epoch also writes its wall time, the train loop's time and
 clips, and the time spent waiting on the loaders: the train loop's, and
-the train and dev evaluation loops' together (``time/*`` scalars).
+the train and dev evaluation loops' together (``time/*`` scalars; a
+cached split waits on no loader).
 
-Still to port (ROADMAP.md, Queue 1): the device-resident dataset caches,
-the fused multi-step and mesh paths, classification and the baselines;
-``ExperimentConfig.check_runnable`` rejects them.
+Still to port (ROADMAP.md, Queue 1): the mesh paths, classification and
+the baselines; ``ExperimentConfig.check_runnable`` rejects them.
 """
 
 from __future__ import annotations
@@ -47,29 +57,45 @@ from eeg_gnn_tpu_torch.train.metrics import (
     eval_dict,
     thresh_max_f1,
 )
-from eeg_gnn_tpu_torch.train.step import SSL_TASK, TrainStep
+from eeg_gnn_tpu_torch.train.step import (
+    SSL_TASK,
+    TrainStep,
+    cached_batch,
+    make_cached_epoch_step,
+)
 
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
 
 
-def _step_batch(batch) -> Dict[str, np.ndarray]:
-    """A loader ``Batch`` as the train step's dict of host arrays."""
-    return {"x": batch.x, "y": batch.y, "seq_lengths": batch.seq_lengths,
-            "supports": batch.supports}
-
-
 class Trainer:
     """Drives training + evaluation of one task on ``model`` (a DCRNN
-    ``nn.Module``, trained in place on ``device``)."""
+    ``nn.Module``, trained in place on ``device``).
+
+    ``input_pipeline`` (a ``DevicePipeline`` on ``device``): with
+    ``cfg.device_pipeline`` the loaders yield raw clips, featurized in the
+    step. ``device_caches``: {split: ``DeviceDatasetCache`` or
+    ``RotatingDeviceCache``}; a cached split's batches are gathered on the
+    device and its loader is not read.
+    """
 
     def __init__(self, cfg: ExperimentConfig, loaders, scaler, log,
-                 metrics_writer, model: torch.nn.Module, device=None):
+                 metrics_writer, model: torch.nn.Module, device=None,
+                 input_pipeline=None, device_caches=None):
         self.cfg = cfg
         self.loaders = loaders
         self.log = log
         self.tbx = metrics_writer
         self.is_ssl = cfg.task == SSL_TASK
         self.device = resolve_device(device, "Trainer")
+        if input_pipeline is not None and \
+                input_pipeline.device.type != self.device.type:
+            raise ValueError(f"the pipeline lives on {input_pipeline.device}"
+                             f", the Trainer on {self.device}")
+        self.device_caches = device_caches or {}
+        # loader batches carry RAW clips only with --device_pipeline; with
+        # --hbm_cache alone the pipeline serves the cached features
+        self.raw_batches = (input_pipeline is not None
+                            and cfg.device_pipeline)
         stats = {}
         if self.is_ssl and scaler is not None:
             stats = {"mean": scaler.mean, "std": scaler.std}
@@ -78,11 +104,24 @@ class Trainer:
             device=self.device,
             generator=torch.Generator(device=self.device).manual_seed(
                 cfg.rand_seed),
-            **stats)
+            input_pipeline=input_pipeline, **stats)
         self.model = self.step.model
+        train_cache = self.device_caches.get("train")
+        if train_cache is not None:
+            self.cached_epoch_step = make_cached_epoch_step(
+                self.step, train_cache.seq_len, cfg.train_batch_size)
         self.loader_wait_s = 0.0  # the current epoch's, train and eval
 
-    # -- training ----------------------------------------------------------
+    # -- batches -----------------------------------------------------------
+
+    def _step_batch(self, batch) -> Dict[str, np.ndarray]:
+        """A loader ``Batch`` as the train step's dict of host arrays."""
+        if self.raw_batches:
+            d = {"raw": batch.x, "seq_lengths": batch.seq_lengths}
+            d["raw_y" if self.is_ssl else "y"] = batch.y
+            return d
+        return {"x": batch.x, "y": batch.y, "seq_lengths": batch.seq_lengths,
+                "supports": batch.supports}
 
     def _batches(self, split: str):
         """The split's loader batches, adding the time spent waiting for
@@ -96,27 +135,64 @@ class Trainer:
                 return
             yield batch
 
-    def _train_epoch(self, step: int):
-        """One pass over the train loader; returns (samples seen after it,
-        train-loop seconds, clips)."""
-        t0 = time.perf_counter()
-        clips, losses, steps = 0, [], []
+    def _plan_to_device(self, perm: np.ndarray) -> torch.Tensor:
+        """An epoch's (or shard's) row plan on the device, in one copy that
+        does not make the host wait (pinned source on the card)."""
+        t = torch.from_numpy(np.ascontiguousarray(perm, np.int64))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    # -- training ----------------------------------------------------------
+
+    def _train_cached(self, cache, step: int, rng: np.random.RandomState):
+        """One epoch over the device-resident train split, plan by plan (a
+        rotating split's next shard copies while the current one trains):
+        (valid counts, losses on the device)."""
+        valid_parts, loss_parts = [], []
+        for plan in cache.epoch_plans(self.cfg.train_batch_size, True, rng):
+            loss_parts.append(self.cached_epoch_step(
+                plan.x, plan.y, self._plan_to_device(plan.perm), plan.valid,
+                step))
+            step += int(plan.valid.sum())
+            valid_parts.append(plan.valid)
+        return np.concatenate(valid_parts), torch.cat(loss_parts)
+
+    def _train_streaming(self, step: int):
+        """One pass over the train loader: (sizes, losses on the
+        device)."""
+        sizes, losses = [], []
         for batch in self._batches("train"):
             # SSL's curriculum reads the samples seen BEFORE this batch
-            losses.append(self.step(_step_batch(batch), batches_seen=step))
+            losses.append(self.step(self._step_batch(batch),
+                                    batches_seen=step).reshape(1))
             step += len(batch)
-            clips += len(batch)
-            steps.append(step)
+            sizes.append(len(batch))
+        return np.asarray(sizes, np.int64), losses
+
+    def _train_epoch(self, step: int, cache_rng: np.random.RandomState):
+        """One pass over the train split; returns (samples seen after it,
+        train-loop seconds, clips)."""
+        t0 = time.perf_counter()
+        cache = self.device_caches.get("train")
+        if cache is not None:
+            sizes, losses = self._train_cached(cache, step, cache_rng)
+            losses = [losses]
+        else:
+            sizes, losses = self._train_streaming(step)
         if losses:  # the epoch's one device-to-host copy of the losses
-            host = torch.stack(losses).float().cpu().numpy()
-            for s, loss in zip(steps, host):
-                self.tbx.add_scalar("train/Loss", float(loss), s)
-        return step, time.perf_counter() - t0, clips
+            host = torch.cat(losses).float().cpu().numpy()
+            for s, loss in zip(step + np.cumsum(sizes), host):
+                self.tbx.add_scalar("train/Loss", float(loss), int(s))
+        step += int(np.sum(sizes))
+        return step, time.perf_counter() - t0, int(np.sum(sizes))
 
     def train(self, save_dir: str) -> CheckpointSaver:
         cfg = self.cfg
         saver = CheckpointSaver(save_dir, cfg.metric_name,
                                 cfg.maximize_metric, log=self.log)
+        # the cached epochs' plans: the JAX trainer's RandomState
+        cache_rng = np.random.RandomState(cfg.rand_seed)
         step = 0
         prev_val_loss = 1e10
         patience_count = 0
@@ -127,7 +203,7 @@ class Trainer:
             self.log.info(f"Starting epoch {epoch}...")
             t0 = time.perf_counter()
             self.loader_wait_s = 0.0
-            step, train_s, clips = self._train_epoch(step)
+            step, train_s, clips = self._train_epoch(step, cache_rng)
             train_wait_s = self.loader_wait_s
 
             if epoch % cfg.eval_every == 0:
@@ -166,18 +242,38 @@ class Trainer:
 
     # -- evaluation --------------------------------------------------------
 
+    def _eval_batches(self, split: str):
+        """Yield (step batch, host labels or None, names) from the split's
+        cache when there is one (resident or rotating: its unshuffled
+        plans), else from its loader."""
+        cache = self.device_caches.get(split)
+        if cache is None:
+            for batch in self._batches(split):
+                yield self._step_batch(batch), batch.y, batch.names
+            return
+        bsz = self.cfg.test_batch_size
+        for plan in cache.epoch_plans(bsz, False, np.random.RandomState(0)):
+            perm_d = self._plan_to_device(plan.perm)
+            for k, valid in enumerate(int(v) for v in plan.valid):
+                idx = plan.perm[k * bsz:k * bsz + valid]
+                yield (cached_batch(plan.x, plan.y,
+                                    perm_d[k * bsz:k * bsz + valid],
+                                    cache.seq_len),
+                       None if plan.labels is None else plan.labels[idx],
+                       [plan.names[i] for i in idx])
+
     def evaluate(self, split: str, is_test: bool = False,
                  best_thresh: float = 0.5) -> Dict[str, float]:
         cfg = self.cfg
         losses, outputs, sizes, y_true, names_all = [], [], [], [], []
-        for batch in self._batches(split):
-            loss, out = self.step.evaluate(_step_batch(batch))
+        for batch, y_host, names in self._eval_batches(split):
+            loss, out = self.step.evaluate(batch)
             losses.append(loss)
-            sizes.append(len(batch))
+            sizes.append(len(names))
             if not self.is_ssl:
                 outputs.append(out)
-                y_true.append(np.asarray(batch.y).reshape(-1).astype(int))
-                names_all.extend(batch.names)
+                y_true.append(np.asarray(y_host).reshape(-1).astype(int))
+                names_all.extend(names)
         nll = AverageMeter()
         for loss, n in zip(torch.stack(losses).float().cpu().numpy(), sizes):
             nll.update(float(loss), n)
@@ -205,13 +301,16 @@ class Trainer:
 def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
                    log, metrics_writer,
                    init_params: Optional[Mapping[str, torch.Tensor]] = None,
-                   device=None) -> Dict[str, float]:
+                   device=None, input_pipeline=None,
+                   device_caches=None) -> Dict[str, float]:
     """Full main() flow of detection and SSL pre-training; returns the final
     test results.
 
     ``init_params``: the model's starting state_dict (else drawn from a
     generator seeded by ``cfg.rand_seed``). ``device``: ``None`` (the CUDA
-    card, raising without one) or e.g. ``"cpu"``.
+    card, raising without one) or e.g. ``"cpu"``. ``input_pipeline`` and
+    ``device_caches``: see :class:`Trainer` (``cli/train.py`` builds
+    them).
     """
     cfg.check_runnable()
     device = resolve_device(device, "run_experiment")
@@ -239,7 +338,8 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
         model.load_state_dict(params)
 
     trainer = Trainer(cfg, loaders, scaler, log, metrics_writer, model,
-                      device=device)
+                      device=device, input_pipeline=input_pipeline,
+                      device_caches=device_caches)
 
     if cfg.do_train:
         saver = trainer.train(save_dir)

@@ -5,7 +5,13 @@
 float32), the port starting from the JAX initial parameters through
 ``params_from_jax``: detection on both graph types, SSL pre-training
 (curriculum off: the two packages draw the force vectors from different
-generators) and fine-tuning from an SSL checkpoint.
+generators) and fine-tuning from an SSL checkpoint; then the on-device input path
+(augmentation off): the dataset caches (``--hbm_cache``, resident and,
+past a tiny ``--hbm_budget_gb``, rotating), the raw-clip pipeline
+(``--device_pipeline``) and ``--fused_steps 4`` (which the port accepts
+and ignores: JAX's fused program has the numerics of single steps),
+detection and SSL, each
+package building its pipeline and caches as its CLI does.
 
 Tolerances: the ``train/Loss`` sequence (same steps), the dev/test loss
 and dev-tuned threshold at rtol 1e-4; accuracy, F1, precision, recall
@@ -37,6 +43,7 @@ from eeg_gnn_tpu.utils.logging import MetricsWriter as JaxWriter
 from eeg_gnn_tpu_torch.cli import train as cli
 from eeg_gnn_tpu_torch.config import ExperimentConfig, build_parser
 from eeg_gnn_tpu_torch.data import datasets as tds
+from eeg_gnn_tpu_torch.data.rotating_cache import RotatingDeviceCache
 from eeg_gnn_tpu_torch.io import params_from_jax
 from eeg_gnn_tpu_torch.serve import Predictor
 from eeg_gnn_tpu_torch.train import trainer as ttrainer
@@ -67,8 +74,8 @@ def _kw(p, task, graph_type, **extra):
     return kw
 
 
-def _loaders(ds_module, p, cfg):
-    common = dict(
+def _loaders(ds_module, p, cfg, raw_mode=False):
+    common = dict(raw_mode=raw_mode,
         input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
         train_batch_size=cfg.train_batch_size,
         test_batch_size=cfg.test_batch_size, time_step_size=1,
@@ -96,6 +103,50 @@ def _metrics(run_dir):
     return [r for r in rows if not r["tag"].startswith("time/")]
 
 
+def _jax_input_path(cfg, p, scaler):
+    """The JAX CLI's pipeline and caches (cli/train.py:91-240, one
+    device)."""
+    from eeg_gnn_tpu.data import device_cache as jdc
+    from eeg_gnn_tpu.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu.data.rotating_cache import build_rotating_cache
+
+    if not (cfg.device_pipeline or cfg.hbm_cache):
+        return None, None
+    pipe = make_device_pipeline(
+        graph_type=cfg.graph_type, filter_type=cfg.filter_type,
+        top_k=cfg.top_k, use_fft=cfg.use_fft,
+        time_step_size=cfg.time_step_size, scaler=scaler,
+        augment=cfg.data_augment, adj_mat_dir=p["adj_mat_dir"],
+        num_nodes=cfg.num_nodes, reflect_invariant=cfg.reflect_invariant)
+    if not cfg.hbm_cache:
+        return pipe, None
+    plain_kw = dict(input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+                    train_batch_size=cfg.train_batch_size,
+                    test_batch_size=cfg.test_batch_size, time_step_size=1,
+                    standardize=False, num_workers=1, augmentation=False,
+                    adj_mat_dir=None, graph_type=None, use_fft=True,
+                    marker_dir=p["marker_dir"], build_loaders=False)
+    if cfg.task == SSL:
+        _, plain, _ = jds.load_dataset_ssl(input_len=CLIP,
+                                           output_len=cfg.output_seq_len,
+                                           **plain_kw)
+        build = lambda ds: jdc.build_ssl_cache(ds, CLIP)
+        t_out, kind = cfg.output_seq_len, "ssl"
+    else:
+        _, plain, _ = jds.load_dataset_detection(max_seq_len=CLIP, seed=123,
+                                                 **plain_kw)
+        build = lambda ds: jdc.build_detection_cache(ds, CLIP)
+        t_out, kind = 0, "detection"
+    budget = int(cfg.hbm_budget_gb * 2 ** 30)
+    if jdc.fits_in_hbm(sum(len(ds) for ds in plain.values()), CLIP, 19,
+                       cfg.input_dim, "float32", t_out=t_out,
+                       budget_bytes=budget):
+        return pipe, {s: build(ds) for s, ds in plain.items()}
+    return pipe, {s: build_rotating_cache(ds, CLIP, kind,
+                                          budget_bytes=budget)
+                  for s, ds in plain.items()}
+
+
 def _run_both(p, tmp_path, kw):
     """run_experiment in each package from the JAX initial parameters."""
     jcfg, tcfg = JaxConfig(**kw).finalize(), ExperimentConfig(**kw).finalize()
@@ -108,15 +159,26 @@ def _run_both(p, tmp_path, kw):
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
     os.makedirs(jdir)
     os.makedirs(tdir)
-    loaders, _, scaler = _loaders(jds, p, jcfg)
+    loaders, _, scaler = _loaders(jds, p, jcfg, jcfg.device_pipeline)
+    pipe, caches = _jax_input_path(jcfg, p, scaler)
     jres = jax_run(jcfg, loaders, scaler, jdir, _log(), JaxWriter(jdir),
-                   init_params=init)
-    loaders, _, scaler = _loaders(tds, p, tcfg)
+                   init_params=init, input_pipeline=pipe,
+                   device_caches=caches)
+    loaders, _, scaler = _loaders(tds, p, tcfg, tcfg.device_pipeline)
+    pipe, caches = cli.input_path(
+        tcfg, scaler, adj_mat_dir=p["adj_mat_dir"],
+        marker_dir=p["marker_dir"], device="cpu")
+    if tcfg.hbm_cache:
+        rotating = tcfg.hbm_budget_gb < 0.01
+        assert all(isinstance(c, RotatingDeviceCache) == rotating
+                   for c in caches.values())
+        assert not rotating or caches["train"].num_shards > 2
     tres = ttrainer.run_experiment(tcfg, loaders, scaler, tdir, _log(),
                                    MetricsWriter(tdir),
                                    init_params=params_from_jax(init_np),
-                                   device="cpu")
-    return jres, tres, jdir, tdir, tcfg
+                                   device="cpu", input_pipeline=pipe,
+                                   device_caches=caches)
+    return jres, tres, jdir, tdir, tcfg, caches
 
 
 def _test_probs(p, cfg, run_dir):
@@ -130,13 +192,22 @@ def _test_probs(p, cfg, run_dir):
                            for b in loaders["test"]])
 
 
-def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg):
+def _steps_per_epoch(p, cfg, caches):
+    """A rotating train split steps shard by shard."""
+    bsz = cfg.train_batch_size
+    train = (caches or {}).get("train")
+    if isinstance(train, RotatingDeviceCache):
+        return sum(-(-train.shard_real_rows(s) // bsz)
+                   for s in range(train.num_shards))
+    return -(-len(_loaders(tds, p, cfg)[1]["train"]) // bsz)
+
+
+def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None):
     jm, tm = _metrics(jdir), _metrics(tdir)
     assert [(r["tag"], r["step"]) for r in tm] == \
         [(r["tag"], r["step"]) for r in jm]
     steps = [r for r in tm if r["tag"] == "train/Loss"]
-    assert len(steps) == 2 * -(-len(_loaders(tds, p, cfg)[1]["train"])
-                                // cfg.train_batch_size)
+    assert len(steps) == 2 * _steps_per_epoch(p, cfg, caches)
     for a, b in zip(tm, jm):
         if a["tag"] in ("train/Loss", "eval/loss", "eval/best_thresh"):
             np.testing.assert_allclose(a["value"], b["value"], rtol=RTOL)
@@ -159,13 +230,32 @@ def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg):
         f for f in os.listdir(jdir) if not f.startswith("events.out."))
 
 
-@pytest.mark.parametrize("task,graph_type", [("detection", "combined"),
-                                             ("detection", "individual"),
-                                             (SSL, "combined")])
-def test_run_experiment_matches_jax(corpus, tmp_path, task, graph_type):
-    jres, tres, jdir, tdir, cfg = _run_both(
-        corpus, tmp_path, _kw(corpus, task, graph_type))
-    _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg)
+@pytest.mark.parametrize("task,graph_type,flags", [
+    pytest.param("detection", "combined", {}, id="detection-combined"),
+    pytest.param("detection", "individual", {}, id="detection-individual"),
+    pytest.param(SSL, "combined", {}, id="SS pre-training-combined"),
+    pytest.param("detection", "combined", {"hbm_cache": True},
+                 id="detection-combined-hbm_cache"),
+    pytest.param("detection", "combined",
+                 {"hbm_cache": True, "hbm_budget_gb": 0.001},
+                 id="detection-combined-hbm_cache-rotating"),
+    pytest.param("detection", "combined",
+                 {"hbm_cache": True, "fused_steps": 4},
+                 id="detection-combined-hbm_cache-fused_steps"),
+    pytest.param("detection", "individual", {"device_pipeline": True},
+                 id="detection-individual-device_pipeline"),
+    pytest.param(SSL, "combined", {"hbm_cache": True},
+                 id="SS pre-training-combined-hbm_cache"),
+    pytest.param(SSL, "individual", {"device_pipeline": True},
+                 id="SS pre-training-individual-device_pipeline"),
+    pytest.param(SSL, "combined", {"fused_steps": 4},
+                 id="SS pre-training-combined-fused_steps"),
+])
+def test_run_experiment_matches_jax(corpus, tmp_path, task, graph_type,
+                                    flags):
+    jres, tres, jdir, tdir, cfg, caches = _run_both(
+        corpus, tmp_path, _kw(corpus, task, graph_type, **flags))
+    _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg, caches)
 
 
 def test_fine_tune_matches_jax(corpus, tmp_path):
@@ -178,7 +268,7 @@ def test_fine_tune_matches_jax(corpus, tmp_path):
     kw = _kw(corpus, "detection", "combined", fine_tune=True,
              pretrained_num_rnn_layers=2,
              load_model_path=str(tmp_path / "ssl_best.npz"))
-    jres, tres, jdir, tdir, cfg = _run_both(corpus, tmp_path, kw)
+    jres, tres, jdir, tdir, cfg, _ = _run_both(corpus, tmp_path, kw)
     _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg)
 
 
@@ -222,6 +312,8 @@ def test_cli_main_runs_end_to_end_on_the_cpu(corpus, tmp_path):
     ["--fine_tune", "--load_model_path", "x.npz",
      "--pretrained_num_rnn_layers", "2", "--use_pallas", "--recurrence",
      "stacked", "--batch_tile", "12", "--data_augment", "--top_k", "5"],
+    ["--device_pipeline", "--hbm_cache", "--reflect_invariant",
+     "--fused_steps", "4", "--hbm_budget_gb", "2"],
 ])
 def test_cli_flags_match_jax(argv):
     argv = argv + ["--do_train"]
@@ -234,9 +326,7 @@ def test_cli_flags_match_jax(argv):
 
 @pytest.mark.parametrize("flag", [
     ["--task", "classification"], ["--model_name", "lstm"],
-    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2"],
-    ["--device_pipeline"], ["--hbm_cache"], ["--reflect_invariant"],
-    ["--fused_steps", "4"]])
+    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,

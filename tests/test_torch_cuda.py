@@ -1687,3 +1687,269 @@ def test_run_experiment_on_the_card_matches_the_cpu(dev, tmp_path, task):
     assert len(loss_g) == len(loss_c) > 0
     np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
     np.testing.assert_allclose(res_g["loss"], res_c["loss"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the on-device input path: pipeline, caches, rotating prefetch
+# ---------------------------------------------------------------------------
+
+
+def _dist_pkl(tmp_path):
+    import pickle
+
+    rng = np.random.RandomState(3)
+    adj = np.abs(rng.rand(N, N)).astype(np.float32)
+    adj = (adj + adj.T) / 2
+    np.fill_diagonal(adj, 1.0)
+    path = str(tmp_path / "adj.pkl")
+    with open(path, "wb") as f:
+        pickle.dump([["c"] * N, {}, adj], f)
+    return path
+
+
+def _eeg_like(rng, b, points):
+    """Raw clips with structure across channels (mixtures of six sources
+    of different spectra, as chip_smoke.eeg_like): white noise leaves the
+    top-3 correlation graph at near ties that rounding reorders."""
+    out = np.empty((b, N, points), np.float32)
+    for i in range(b):
+        src = rng.randn(6, points)
+        for k in range(6):
+            src[k] = np.convolve(src[k], np.ones(2 ** k) / 2 ** (k / 2),
+                                 "same")
+        out[i] = (rng.gamma(0.5, 1.0, size=(N, 6)) @ src
+                  + 0.1 * rng.randn(N, points)) * 20
+    return out
+
+
+@pytest.mark.parametrize("graph_type", ["individual", "combined"])
+def test_device_pipeline_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                     graph_type):
+    """featurize_clip, DevicePipeline.features and ssl_features (augment
+    off and on, the same draws fed to both) and the raw call, on the card
+    against the CPU: float32 <= 1e-4 normalized; bf16 storage: x <= 2e-2,
+    and its supports (features and ssl_features) <= 1e-4 against the CPU's
+    float32 pipeline on the same features rounded to bf16 (the graph is
+    built from their float32 upcast; the combined graph's shared supports
+    exactly). Features each side
+    makes from raw clips are held as amplitudes exp(log|FFT|): the log of
+    a tiny bin (a zero-mean window's DC) carries the float32 FFT's
+    absolute error over that amplitude on both sides."""
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.data.scaler import StandardScaler
+    from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip
+
+    rng = np.random.RandomState(0)
+    b, t = 16, 30
+    raw = torch.from_numpy(_eeg_like(rng, b, t * 200))
+    raw_y = torch.from_numpy(_eeg_like(rng, b, 2 * 200))
+    kw = dict(graph_type=graph_type, top_k=3, use_fft=True,
+              time_step_size=1, adj_mat_dir=_dist_pkl(tmp_path),
+              filter_type=("laplacian" if graph_type == "combined"
+                           else "dual_random_walk"),
+              scaler=StandardScaler(0.3, 2.0))
+    draws = (torch.arange(b) % 3 == 0,
+             torch.from_numpy(rng.uniform(0.8, 1.2, b).astype(np.float32)))
+    card_draws = tuple(d.to(dev) for d in draws)
+    assert _err(featurize_clip(raw.to(dev), 1).cpu().exp(),
+                featurize_clip(raw, 1).exp()) <= 1e-4
+    amp = lambda x: (x.float() * 2.0 + 0.3).exp()  # undo the scaler
+    # the raw call's supports on the clips whose top-3 graphs agree: the
+    # two sides' FFT roundings may reorder a near tie (at most one clip)
+    keep = torch.arange(b)
+    if graph_type == "individual":
+        from eeg_gnn_tpu_torch.graphs.xcorr import (
+            correlation_adjacency_torch,
+        )
+
+        same = [(correlation_adjacency_torch(f, 3).cpu() > 0)
+                for f in (featurize_clip(raw.to(dev), 1),
+                          featurize_clip(raw, 1))]
+        keep = torch.nonzero((same[0] == same[1]).flatten(1).all(dim=1))[:, 0]
+        assert len(keep) >= b - 1
+    for augment in (False, True):
+        cpu = make_device_pipeline(augment=augment, device="cpu", **kw)
+        card = make_device_pipeline(augment=augment, device=dev, **kw)
+        feats = featurize_clip(raw, 1)
+        fy = featurize_clip(raw_y, 1)
+        rounded = feats.bfloat16().float()
+        pairs = [
+            (card.features(feats.to(dev), training=True, draws=card_draws),
+             cpu.features(feats, training=True, draws=draws), 1e-4),
+            (card.ssl_features(feats.to(dev), fy.to(dev), training=True,
+                               draws=card_draws),
+             cpu.ssl_features(feats, fy, training=True, draws=draws), 1e-4),
+            (card.features(feats.to(dev).bfloat16(), training=True,
+                           draws=card_draws)[:1],
+             cpu.features(feats, training=True, draws=draws)[:1], 2e-2),
+            ((card.features(feats.to(dev).bfloat16(), training=True,
+                            draws=card_draws)[1],
+              card.ssl_features(feats.to(dev).bfloat16(),
+                                fy.to(dev).bfloat16(), training=True,
+                                draws=card_draws)[2]),
+             (cpu.features(rounded, training=True, draws=draws)[1],
+              cpu.ssl_features(rounded, fy.bfloat16().float(),
+                               training=True, draws=draws)[2]),
+             1e-4 if graph_type == "individual" else 0.0),
+            ((amp(card(raw.to(dev))[0]), card(raw.to(dev))[1][:, keep]),
+             (amp(cpu(raw)[0]), cpu(raw)[1][:, keep]), 1e-4)]
+        for got, want, tol in pairs:
+            for g, w in zip(got, want):
+                assert g.is_cuda and g.shape == w.shape
+                assert _err(g.cpu(), w) <= tol, (augment, tol)
+        reflect, scale = card.draw(b, torch.Generator(dev).manual_seed(0))
+        assert reflect.is_cuda and reflect.dtype == torch.bool
+        assert 0.8 <= float(scale.min()) and float(scale.max()) < 1.2
+
+
+def _cache_setup(tmp_path, task, **flags):
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_detection,
+        load_dataset_ssl,
+    )
+    from eeg_gnn_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    signals = {}
+    p = make_synthetic_corpus(str(tmp_path / "corpus"), num_files=4,
+                              file_seconds=96, clip_len=12, seed=0,
+                              signals=signals)
+    ssl = task == "SS pre-training"
+    cfg = ExperimentConfig(
+        task=task, graph_type="combined", max_seq_len=12, use_fft=True,
+        num_rnn_layers=1, rnn_units=16, max_diffusion_step=1,
+        output_seq_len=12, train_batch_size=4, test_batch_size=8,
+        num_epochs=2, do_train=True, num_workers=1,
+        metric_name="loss" if ssl else "auroc", input_dir=p["input_dir"],
+        raw_data_dir=p["raw_data_dir"], **flags).finalize()
+    common = dict(
+        input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+        train_batch_size=4, test_batch_size=8, num_workers=1,
+        adj_mat_dir=p["adj_mat_dir"], graph_type="combined",
+        filter_type=cfg.filter_type, use_fft=True,
+        marker_dir=p["marker_dir"], signals=signals)
+    load = (lambda: load_dataset_ssl(input_len=12, output_len=12, **common)
+            ) if ssl else (lambda: load_dataset_detection(max_seq_len=12,
+                                                         **common))
+    return cfg, p, signals, load
+
+
+@pytest.mark.parametrize("task", ["detection", "SS pre-training"])
+def test_cached_epochs_launch_the_kernels(dev, tmp_path, task):
+    """``--hbm_cache`` through the CLI's input path and ``run_experiment``
+    on the card and on the CPU from the same weights: the cached epochs
+    (resident; ``fused_steps=2`` accepted and ignored) launch the
+    encoder's kernels (and the
+    decoder's for SSL); losses and the test loss agree at rtol 1e-4."""
+    import json
+    import logging
+
+    from eeg_gnn_tpu_torch.cli.train import input_path
+    from eeg_gnn_tpu_torch.data.device_cache import DeviceDatasetCache
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.ops import cuda_decoder as cd
+    from eeg_gnn_tpu_torch.train.trainer import run_experiment
+    from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
+
+    cfg, p, signals, load = _cache_setup(tmp_path, task, hbm_cache=True,
+                                         fused_steps=2)
+    init = build_model(cfg, torch.Generator().manual_seed(3)).state_dict()
+    kernels = [cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+               cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw]
+    if task == "SS pre-training":
+        kernels += [cd.dcgru_decoder_fwd, cd.dcgru_dec_bwd_loop]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        loaders, _, scaler = load()
+        pipe, caches = input_path(cfg, scaler, adj_mat_dir=p["adj_mat_dir"],
+                                  marker_dir=p["marker_dir"],
+                                  signals=signals, device=where)
+        assert all(isinstance(c, DeviceDatasetCache)
+                   and c.x.device.type == where for c in caches.values())
+        for k in kernels:
+            k.launches = 0
+        out = str(tmp_path / where)
+        os.makedirs(out)
+        res = run_experiment(cfg, loaders, scaler, out,
+                             logging.getLogger("cached_epochs"),
+                             MetricsWriter(out), init_params=init,
+                             device=where, input_pipeline=pipe,
+                             device_caches=caches)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [r["value"] for r in map(json.loads, f)
+                      if r["tag"] == "train/Loss"]
+        runs[where] = (res, losses, [k.launches for k in kernels])
+    (res_c, loss_c, n_c), (res_g, loss_g, n_g) = runs["cpu"], runs["cuda"]
+    assert n_c == [0] * len(kernels) and min(n_g) > 0, n_g
+    assert len(loss_g) == len(loss_c) > 0
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    np.testing.assert_allclose(res_g["loss"], res_c["loss"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("task", ["detection", "SS pre-training"])
+def test_rotating_prefetch_matches_resident_eval(dev, tmp_path, task):
+    """A rotating dev split (at least 3 shards) on the card: its slabs are
+    copied from pinned host memory on a side stream (an event to wait on
+    until first use), at most two live at a prefetch, and its evaluation
+    equals the resident cache's (rtol 1e-5)."""
+    import logging
+
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_detection,
+        load_dataset_ssl,
+    )
+    from eeg_gnn_tpu_torch.data.device_cache import (
+        build_detection_cache,
+        build_ssl_cache,
+    )
+    from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
+    from eeg_gnn_tpu_torch.data.rotating_cache import build_rotating_cache
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train.trainer import Trainer
+
+    cfg, p, signals, load = _cache_setup(tmp_path, task)
+    ssl = task == "SS pre-training"
+    loaders, _, scaler = load()
+    plain_kw = dict(input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+                    train_batch_size=4, test_batch_size=8,
+                    standardize=False, use_fft=True,
+                    marker_dir=p["marker_dir"], signals=signals,
+                    build_loaders=False)
+    plain = (load_dataset_ssl(input_len=12, output_len=12, **plain_kw)
+             if ssl else load_dataset_detection(max_seq_len=12,
+                                                **plain_kw))[1]["dev"]
+    resident = (build_ssl_cache if ssl else build_detection_cache)(
+        plain, 12, device=dev)
+    rot = build_rotating_cache(plain, 12, "ssl" if ssl else "detection",
+                               budget_bytes=0, min_shards=3, device=dev)
+    assert rot.num_shards >= 3 and rot._x.is_pinned()
+    slab = rot.prefetch(1)
+    assert slab._event is not None and slab.x.is_cuda
+    slab.ready()
+    lo = rot.shard_rows
+    assert torch.equal(slab.x[:rot.shard_real_rows(1)].cpu(),
+                       rot._x[lo:lo + rot.shard_real_rows(1)])
+    del slab
+    live = []
+    prefetch = rot.prefetch
+
+    def counting(shard):
+        s = prefetch(shard)
+        live.append(rot.resident())
+        return s
+
+    rot.prefetch = counting
+    pipe = make_device_pipeline(
+        graph_type="combined", filter_type=cfg.filter_type, top_k=3,
+        use_fft=True, time_step_size=1, scaler=scaler, augment=False,
+        adj_mat_dir=p["adj_mat_dir"], device=dev)
+    model = build_model(cfg, torch.Generator().manual_seed(3))
+    results = []
+    for cache in (resident, rot):
+        trainer = Trainer(cfg, loaders, scaler, logging.getLogger("rot"),
+                          None, model, device=dev, input_pipeline=pipe,
+                          device_caches={"dev": cache})
+        results.append(trainer.evaluate("dev"))
+    assert len(live) == rot.num_shards and max(live) <= 2
+    for k in results[0]:
+        np.testing.assert_allclose(results[1][k], results[0][k], rtol=1e-5)

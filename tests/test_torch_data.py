@@ -364,15 +364,44 @@ def test_slicing_matches_jax(corpus):
         assert got[1] == want[1]
 
 
+@pytest.mark.parametrize("task", ["detection", "ssl"])
+def test_raw_datasets_match_jax(corpus, task):
+    """``raw_mode``: the raw clips of the on-device pipeline, exactly; the
+    loader batches them with no supports."""
+    kw = _loader_kw(corpus, "combined")
+    if task == "detection":
+        got = tds.load_dataset_detection(max_seq_len=CLIP, raw_mode=True,
+                                         **kw)
+        want = jdet(max_seq_len=CLIP, raw_mode=True, **kw)
+    else:
+        got = tds.load_dataset_ssl(input_len=CLIP, output_len=4,
+                                   raw_mode=True, **kw)
+        want = jssl(input_len=CLIP, output_len=4, raw_mode=True, **kw)
+    for split in ("train", "dev", "test"):
+        a, b = got[1][split], want[1][split]
+        assert type(a).__name__ == type(b).__name__
+        assert len(a) == len(b)
+        for i in range(len(a)):
+            ga, gb = a[i], b[i]
+            np.testing.assert_array_equal(ga[0], gb[0])
+            np.testing.assert_array_equal(ga[1], gb[1])
+            assert ga[0].dtype == np.float32 and ga[2] == gb[2]
+            assert ga[3] == [] and ga[4] == [] and ga[5] == gb[5]
+    batch = next(iter(got[0]["train"]))
+    assert batch.x.shape == (4, 19, CLIP * 200) and batch.supports is None
+    from eeg_gnn_tpu.data import clips as jclips
+
+    h5 = os.path.join(corpus["input_dir"], sorted(
+        f for f in os.listdir(corpus["input_dir"]) if f.endswith(".h5"))[0])
+    for idx in range(3):
+        np.testing.assert_array_equal(tclips.slice_raw_clip(h5, idx, CLIP),
+                                      jclips.slice_raw_clip(h5, idx, CLIP))
+
+
 def test_unported_data_paths_raise(corpus):
     kw = _loader_kw(corpus, "combined")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset_detection(max_seq_len=CLIP, raw_mode=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset_ssl(input_len=CLIP, raw_mode=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tds.load_dataset_detection(max_seq_len=CLIP, preproc_dir="/x", **kw)
-    for cls in (tds.ClassificationDataset, tds.DenseCNNClassificationDataset,
-                tds.RawDetectionDataset, tds.RawSSLDataset):
+    for cls in (tds.ClassificationDataset, tds.DenseCNNClassificationDataset):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(marker_dir=corpus["marker_dir"])

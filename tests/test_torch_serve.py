@@ -180,13 +180,10 @@ def test_predictor_without_device_needs_cuda(monkeypatch):
 def test_unported_paths_raise():
     cfg = ExperimentConfig(**_kw()).finalize()
     params = build_model(cfg).state_dict()
-    for kw in ({"pipeline": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Predictor(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Predictor(cfg, params, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor.from_checkpoint("weights.pth.tar", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(cfg, params, device="cpu").predict_proba_raw(None)
     for name in ("lstm", "cnnlstm", "densecnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(ExperimentConfig(model_name=name))
@@ -230,7 +227,10 @@ def test_import_pulls_in_no_jax():
             "eeg_gnn_tpu_torch.train, eeg_gnn_tpu_torch.ops.cuda_kernels, "
             "eeg_gnn_tpu_torch.ops.sddmm, eeg_gnn_tpu_torch.graphs.xcorr, "
             "eeg_gnn_tpu_torch.cli.train, eeg_gnn_tpu_torch.train.trainer, "
-            "eeg_gnn_tpu_torch.data, eeg_gnn_tpu_torch.data.synthetic; "
+            "eeg_gnn_tpu_torch.data, eeg_gnn_tpu_torch.data.synthetic, "
+            "eeg_gnn_tpu_torch.data.device_pipeline, "
+            "eeg_gnn_tpu_torch.data.device_cache, "
+            "eeg_gnn_tpu_torch.data.rotating_cache; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
