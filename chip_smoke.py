@@ -134,7 +134,9 @@ Phases (any failure exits non-zero and prints no result line):
    timings of 6): ``Predictor(pipeline=...).predict_proba_raw`` at B=128 on
    raw (128, 19, 12000) clips from a seed, both graphs and dtypes, against
    ``predict_proba`` on the numpy oracle's features with host supports
-   (float32 <= 1e-4, bfloat16 <= 2e-2, normalized), its launches, the
+   (float32 <= 1e-4, bfloat16 <= 2e-2, normalized, all 128 clips; the at
+   most 2 whose top-3 graph the card's rounding reorders take host
+   supports built from the card's adjacency), its launches, the
    median of 20 batches and one traced batch (device busy, H2D ms); the
    pipeline's pieces (``featurize_clip``, ``features``, ``ssl_features``,
    the raw call; augmentation off and on, the same draws) on the card
@@ -151,7 +153,28 @@ Phases (any failure exits non-zero and prints no result line):
    then ``cli.train.main`` on phase 10's corpus with --hbm_cache
    (detection, SSL), --device_pipeline --graph_type individual and
    --hbm_cache --fused_steps 4, each untraced (epoch s, clips/s, loader
-   wait) and traced (device busy).
+   wait) and traced (device busy);
+12. seizure-type classification (``phase_classification``, run last;
+   configs/run_dcrnn_classification.sh: 2 layers x 64, K=2, D=100, T=60,
+   4 classes, dropout 0.5): the train step through ``TrainStep`` at
+   B=128, combined (M=3) and individual (M=5), float32 and bfloat16, on
+   zero-padded clips of seeded lengths over 1..60 that include 1 and 60,
+   each step launching exactly ``TRAIN_STEP[True]``; step 1 twice on the
+   same inputs and dropout draws, bitwise equal gradients; logits against
+   the stacked path (float32 <= 1e-4, bfloat16 <= 2e-2) and float32
+   step-1 gradients (<= 1e-4); in bfloat16 the encoder's gradients under
+   the classifier's scattered cotangent (one (B, N, H) slab at each
+   clip's last step) against the float32 stacked encoder (<= 2e-2);
+   ``Predictor`` class probabilities with per-clip ``seq_lengths``
+   against the stacked path; a ``.pth.tar`` export served through
+   ``from_checkpoint`` bitwise equal to the ``.npz``'s; the step's ms
+   and clips/s (synchronised, back to back) and one traced step; then
+   ``cli.train.main --task classification --num_classes 4 --dropout 0.5
+   --data_augment`` on phase 10's corpus: streaming, --hbm_cache
+   (combined, individual), rotating past --hbm_budget_gb, and
+   --fine_tune from a ``.pth.tar`` of phase 10's SSL run, each
+   launching the detector's kernels and no other (epoch s, clips/s,
+   loader wait).
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -249,6 +272,10 @@ INPUT_CLIPS = 4096
 ROTATING_BUDGET = 2 ** 29        # 0.5 GiB
 FEAT_MEAN, FEAT_STD = 5.0, 1.0   # the scaler of the log-amplitude features
 RAW_SCALE = 20.0                 # amplitude of the seeded raw clips
+# seizure-type classification (configs/run_dcrnn_classification.sh): 4
+# classes, dropout 0.5; the CLI's rotating run's budget (4 train shards)
+CLS_CLASSES, CLS_DROPOUT = 4, 0.5
+CLS_ROTATING_GB = 0.01
 
 
 def fail(msg: str):
@@ -2555,25 +2582,30 @@ def phase_cli(torch, card):
         fail(f"cli detection: Predictor's test auroc {scores['auroc']} != "
              f"the run's {res1['auroc']}")
     corpus = {"root": root, "signals": signals, "detect": detect,
-              "ssl": ssl, "n_train": {"detection": len(det_sets["train"]),
-                                      "SSL": len(ssl_sets["train"])}}
+              "ssl": ssl, "ssl_dir": dir2,
+              "n_train": {"detection": len(det_sets["train"]),
+                          "SSL": len(ssl_sets["train"])}}
     return paths, stats, corpus
 
 
-def cli_run_stats(tag, res, run_dir, wall, n_train, card, traced=False):
-    """One CLI run's checks (one train/Loss line per step, finite losses,
-    an AUROC in [0, 1]) and figures from its ``metrics.jsonl``: per epoch
-    the wall s, the train loop's s and clips, and the loader waits."""
+def cli_run_stats(tag, res, run_dir, wall, n_train, card, traced=False,
+                  steps=None):
+    """One CLI run's checks (one train/Loss line per step, ``steps`` or
+    one a batch, finite losses, a test AUROC in [0, 1], for
+    classification the weighted F1) and figures from its
+    ``metrics.jsonl``: per epoch the wall s, the train loop's s and
+    clips, and the loader waits."""
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["value"] for r in rows if r["tag"] == "train/Loss"]
-    steps = CLI_EPOCHS * -(-n_train // CLI_BATCH)
+    steps = steps or CLI_EPOCHS * -(-n_train // CLI_BATCH)
     if len(losses) != steps:
         fail(f"cli {tag}: {len(losses)} train/Loss lines, not {steps}")
     if not (np.all(np.isfinite(losses)) and np.isfinite(res["loss"])):
         fail(f"cli {tag}: losses {losses}, test loss {res['loss']}")
-    if "SSL" not in tag and not 0.0 <= res.get("auroc", -1.0) <= 1.0:
-        fail(f"cli {tag}: test auroc {res.get('auroc')}")
+    metric = "F1" if "classification" in tag else "auroc"
+    if "SSL" not in tag and not 0.0 <= res.get(metric, -1.0) <= 1.0:
+        fail(f"cli {tag}: test {metric} {res.get(metric)}")
     by = {k: [r["value"] for r in rows if r["tag"] == f"time/{k}"]
           for k in ("epoch_s", "train_s", "train_loader_wait_s",
                     "loader_wait_s", "train_clips")}
@@ -2732,10 +2764,12 @@ def phase_raw_serve(torch, dev, card, adj_path, scaler):
     19, 12000) EEG-like clips from a seed (``eeg_like``), both graphs and
     dtypes, against
     ``predict_proba`` on the same clips featurized by the numpy oracle
-    with host supports (float32 <= 1e-4, bfloat16 <= 2e-2, normalized; an
-    individual-graph clip whose top-3 graph differs between the oracle and
-    the card is counted and left out, at most 2); each batch launches the
-    encoder's forward kernels. Then the median of 20 batches and one traced
+    with host supports (float32 <= 1e-4, bfloat16 <= 2e-2, normalized,
+    all 128 clips; an individual-graph clip whose top-3 graph differs
+    between the oracle and the card, at most 2, is held against
+    ``predict_proba`` fed the supports that the numpy ``compute_supports``
+    builds from the card's own adjacency, so only the graph's tie-break
+    is left out); each batch launches the encoder's forward kernels. Then the median of 20 batches and one traced
     batch (device busy, H2D ms) each. Returns (the path's counts, rows)."""
     from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
     from eeg_gnn_tpu_torch.graphs.distance import load_distance_adjacency
@@ -2762,12 +2796,14 @@ def phase_raw_serve(torch, dev, card, adj_path, scaler):
         "individual": np.stack([np.stack(compute_supports(
             a, "dual_random_walk")) for a in host_adj], axis=1).astype(
                 np.float32)}
-    flips = graph_flips(host_adj, top3(torch, featurize_clip(
-        torch.from_numpy(raw).to(dev), 1)))
+    card_adj = top3(torch, featurize_clip(torch.from_numpy(raw).to(dev), 1))
+    flips = graph_flips(host_adj, card_adj)
     if len(flips) > 2:
         fail(f"raw serve: {len(flips)} clips' top-3 graphs differ between "
              "the numpy oracle and the card")
-    keep = np.setdiff1d(np.arange(BATCH), flips)
+    for i in flips:  # these clips take the card's graph, built on the host
+        host_sup["individual"][:, i] = np.stack(compute_supports(
+            card_adj[i].astype(np.float64), "dual_random_walk"))
     reset_counts()
     preds, rows = [], []
     for gt in ("combined", "individual"):
@@ -2790,17 +2826,17 @@ def phase_raw_serve(torch, dev, card, adj_path, scaler):
             ref = pred.predict_proba(x_host, supports=host_sup[gt])
             if got.shape != (BATCH,) or not np.all(np.isfinite(got)):
                 fail(f"raw serve {gt} {dtype}: probabilities {got.shape}")
-            sel = keep if gt == "individual" else np.arange(BATCH)
-            err = float(np.abs(got[sel] - ref[sel]).max()
-                        / max(np.abs(ref[sel]).max(), 1e-12))
+            err = float(np.abs(got - ref).max()
+                        / max(np.abs(ref).max(), 1e-12))
             tol = F32_TOL if dtype == "float32" else BF16_TOL
             if not err <= tol:
                 fail(f"raw serve {gt} {dtype}: predict_proba_raw against "
                      f"the host-featurized predict_proba {err:.3e} > {tol}")
             log(f"raw serve {gt} {dtype} B={BATCH}: predict_proba_raw "
                 f"against predict_proba on numpy-oracle features and host "
-                f"supports {err:.3e} (bar {tol:.0e}, {len(sel)} clips"
-                + (f"; {len(flips)} left out: top-3 graph differs"
+                f"supports {err:.3e} (bar {tol:.0e}, all {BATCH} clips"
+                + (f"; {len(flips)} of them on the card's top-3 graph, "
+                   "which differs from the oracle's"
                    if gt == "individual" else "") + f"), launches {rose}")
             preds.append((gt, dtype, pred))
     launched = counts()
@@ -3167,6 +3203,371 @@ def phase_input(torch, dev, card, corpus):
     return paths, stats
 
 
+# ---------------------------------------------------------------------------
+# seizure-type classification: the train step, Predictor, .pth.tar and the
+# CLI (configs/run_dcrnn_classification.sh)
+# ---------------------------------------------------------------------------
+
+
+def cls_cfg(graph_type, dtype, **kw):
+    """The 4-class seizure-type DCRNN at the recipe's widths (2 layers x
+    64, K=2, D=100, T=60, dropout 0.5)."""
+    return flagship_cfg(graph_type, dtype, True, task="classification",
+                        num_classes=CLS_CLASSES, dropout=CLS_DROPOUT,
+                        use_fft=True, **kw)
+
+
+def cls_batch(torch, dev, b, seed):
+    """A classification batch on the device: seeded lengths over 1..T that
+    include 1 and T, the padded tail exactly zero (the host loader pads
+    after standardizing), random classes, per-clip adjacency."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, T + 1, size=b)
+    lens[:2] = (1, T)
+    x = rng.randn(b, T, N, 100).astype(np.float32)
+    for i, n in enumerate(lens):
+        x[i, n:] = 0.0
+    y = rng.randint(0, CLS_CLASSES, size=b)
+    return {"x": torch.from_numpy(x).to(dev),
+            "y": torch.from_numpy(y).to(dev),
+            "seq_lengths": torch.from_numpy(lens.astype(np.int64)).to(dev),
+            "adjacency": torch.from_numpy(adjacency(rng, b)).to(dev)}
+
+
+def cls_encoder_grads(torch, cfg, init, batch, seed=41):
+    """Gradients of the encoder's weights under the classifier's own
+    cotangent: a seeded (B, N, H) slab at each clip's last valid step
+    (``last_relevant``), zeros elsewhere in h_seq; the two layers' BPTT
+    with no head."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.dcgru import encoder_apply
+    from eeg_gnn_tpu_torch.models.dcrnn import last_relevant
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    dev = batch["x"].device
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    model.to(dev).train()
+    sup = compute_supports_torch(batch["adjacency"], cfg.filter_type)
+    _, top = encoder_apply(model.cell_cfgs, [c.params() for c in
+                                             model.encoder],
+                           sup, batch["x"].transpose(0, 1))
+    last = last_relevant(top.transpose(0, 1), batch["seq_lengths"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn(tuple(last.shape), generator=gen, device=dev)
+    named = list(model.encoder.named_parameters())
+    grads = torch.autograd.grad((last.float() * cot).sum(),
+                                [p for _, p in named])
+    return {f"encoder.{n}": g for (n, _), g in zip(named, grads)}
+
+
+def cls_logits(torch, cfg, init, batch):
+    """The classifier's logits in eval mode (no dropout)."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    model.to(batch["x"].device).eval()
+    with torch.no_grad():
+        return model(batch["x"], batch["seq_lengths"],
+                     compute_supports_torch(batch["adjacency"],
+                                            cfg.filter_type)).float()
+
+
+def phase_cls_train(torch, dev):
+    """The classification train step at B=128, T=60, 4 classes, dropout
+    0.5, combined (M=3) and individual (M=5), float32 and bfloat16: each
+    step launches exactly ``TRAIN_STEP[True]``; step 1 twice on the same
+    inputs and dropout draws gives bitwise equal gradients; logits and
+    step-1 gradients against the stacked (plain) path from the same
+    weights and draws (float32 <= 1e-4), in bfloat16 the logits (<= 2e-2)
+    and the encoder's gradients under the classifier's scattered
+    cotangent against the float32 stacked encoder (<= 2e-2). Returns the
+    path's counts: the steps' launches, not the comparisons'."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    batch = cls_batch(torch, dev, BATCH, seed=51)
+    reset_counts()
+    launched = {k: 0 for k in counts()}
+    want = {k: TRAIN_STEP[True].get(k, 0) for k in KERNELS}
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = cls_cfg(gt, dtype, **TRAIN_KW)
+            tag = f"classification {gt} {dtype}"
+            model = build_model(cfg, torch.Generator().manual_seed(11))
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev)
+            grads, losses = [], []
+            for i in range(4):
+                if i < 2:  # step 1 twice: the same draws, the same weights
+                    step.generator.manual_seed(5)
+                before = counts()
+                losses.append(float(step.loss_and_grads(batch)))
+                if i < 2:
+                    grads.append({n: p.grad.clone() for n, p in
+                                  step.model.named_parameters()})
+                if i > 0:
+                    step.update()
+                rose = {k: v - before[k] for k, v in counts().items()}
+                for k, v in rose.items():
+                    launched[k] += v
+                if {k: rose[k] for k in KERNELS} != want:
+                    fail(f"{tag} step {i}: launches rose by {rose}, want "
+                         f"{want}")
+            if not np.all(np.isfinite(losses)):
+                fail(f"{tag}: losses {losses}")
+            for n, g in grads[0].items():
+                if not torch.equal(g, grads[1][n]):
+                    fail(f"{tag}: step 1 run twice, {n} differs")
+            ref_cfg = dataclasses.replace(cfg, recurrence="stacked")
+            ref_model = build_model(ref_cfg)
+            ref_model.load_state_dict(init)
+            ref = TrainStep(ref_cfg, ref_model, STEPS_PER_EPOCH, device=dev)
+            ref.generator.manual_seed(5)
+            before = counts()
+            ref_loss = float(ref.loss_and_grads(batch))
+            if counts() != before:
+                fail("the stacked classification step launched a kernel")
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            l_err = norm_err(cls_logits(torch, cfg, init, batch),
+                             cls_logits(torch, ref_cfg, init, batch))[0]
+            if not l_err <= tol:
+                fail(f"{tag}: logits vs stacked {l_err:.3e} > {tol:.0e}")
+            errs = {n: norm_err(grads[0][n], p.grad)[0]
+                    for n, p in ref.model.named_parameters()}
+            name, err = max(errs.items(), key=lambda kv: kv[1])
+            line = (f"train {tag}: losses "
+                    f"{', '.join(f'{v:.6f}' for v in losses[1:])} "
+                    f"(stacked {ref_loss:.6f}); logits vs stacked "
+                    f"{l_err:.3e} (tol {tol:.0e}); step 1 twice: bitwise "
+                    f"equal; step-1 grads vs stacked: worst {name} "
+                    f"{err:.3e}")
+            if dtype == "float32":
+                if not err <= tol or abs(losses[0] - ref_loss) > \
+                        tol * abs(ref_loss):
+                    fail(f"{tag}: step-1 loss {losses[0]} vs {ref_loss}, "
+                         f"gradient {name} {err:.3e} > {tol:.0e}")
+                log(line + f" (tol {tol:.0e})")
+                continue
+            # bfloat16: the encoder's VJP under the scattered cotangent
+            got = cls_encoder_grads(torch, cfg, init, batch)
+            exact = cls_encoder_grads(torch, dataclasses.replace(
+                cfg, recurrence="stacked", dtype="float32"), init, batch)
+            v_errs = {n: norm_err(got[n], exact[n])[0] for n in exact}
+            v_name, v_err = max(v_errs.items(), key=lambda kv: kv[1])
+            if not np.isfinite(v_err) or v_err > BF16_TOL:
+                fail(f"{tag}: encoder VJP {v_name} vs float32 stacked "
+                     f"{v_err:.3e} > {BF16_TOL:.0e}")
+            log(line + f" (not gated); encoder VJP under the last-step "
+                f"cotangent vs float32 stacked: worst {v_name} {v_err:.3e} "
+                f"(tol {BF16_TOL:.0e})")
+    log(f"train classification: launches {launched}")
+    return launched
+
+
+def phase_cls_serve(torch, dev, out_dir):
+    """``Predictor`` class probabilities with per-clip ``seq_lengths``
+    (B=128 and a padded 37), both graphs and dtypes, against the stacked
+    path (float32 atol 1e-4, bfloat16 2e-2); then the classifier exported
+    as a reference ``.pth.tar`` and as a ``.npz``: ``from_checkpoint`` of
+    each, bitwise equal probabilities. Returns the path's counts."""
+    from eeg_gnn_tpu_torch.io import (
+        export_classification_state,
+        save_torch_checkpoint,
+    )
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.serve import Predictor
+    from eeg_gnn_tpu_torch.train.checkpoint import save_params
+
+    requests = []
+    for n in (BATCH, 37):
+        b = cls_batch(torch, "cpu", n, seed=54 + n)
+        requests.append((b["x"].numpy(), b["seq_lengths"].numpy(),
+                         b["adjacency"].numpy()))
+    batches = sum(-(-len(r[0]) // BATCH) for r in requests)
+    want = {k: SERVE_BATCH[True].get(k, 0) * batches for k in KERNELS}
+    reset_counts()
+    for gt in ("combined", "individual"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = cls_cfg(gt, dtype)
+            params = build_model(
+                cfg, torch.Generator().manual_seed(12)).state_dict()
+            pred = Predictor(cfg, params)
+            before = counts()
+            probs = [pred.predict_proba(x, lens, adjacency=adj)
+                     for x, lens, adj in requests]
+            rose = {k: counts()[k] - before[k] for k in KERNELS}
+            if rose != want:
+                fail(f"serve classification {gt} {dtype}: launches {rose}, "
+                     f"want {want}")
+            plain = Predictor(dataclasses.replace(cfg, recurrence="stacked"),
+                              params)
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            diff = 0.0
+            for (x, lens, adj), p in zip(requests, probs):
+                if p.shape != (len(x), CLS_CLASSES) or \
+                        not np.all(np.isfinite(p)) or \
+                        np.abs(p.sum(axis=1) - 1).max() > 1e-5:
+                    fail(f"serve classification {gt} {dtype}: "
+                         f"probabilities {p.shape}")
+                ref = plain.predict_proba(x, lens, adjacency=adj)
+                diff = max(diff, float(np.abs(p - ref).max()))
+            if not diff <= tol:
+                fail(f"serve classification {gt} {dtype}: |kernel - plain| "
+                     f"{diff:.3e} > {tol:.0e}")
+            log(f"serve classification {gt} {dtype}: "
+                f"{sum(len(r[0]) for r in requests)} clips, lengths "
+                f"{requests[0][1].min()}..{requests[0][1].max()}, launches "
+                f"+{ {k: v for k, v in rose.items() if v} }, max |kernel - "
+                f"plain| {diff:.3e} (tol {tol:.0e})")
+            if (gt, dtype) == ("combined", "bfloat16"):
+                pth = os.path.join(out_dir, "classifier.pth.tar")
+                save_torch_checkpoint(pth, export_classification_state(
+                    params))
+                save_params(os.path.join(out_dir, "classifier"), params)
+                x, lens, adj = requests[0]
+                got = [Predictor.from_checkpoint(path, cfg).predict_proba(
+                    x, lens, adjacency=adj) for path in
+                    (pth, os.path.join(out_dir, "classifier.npz"))]
+                if not np.array_equal(got[0], got[1]):
+                    fail("serve classification: the .pth.tar's "
+                         "probabilities differ from the .npz's")
+                log(f"serve classification {gt} {dtype}: from_checkpoint "
+                    f"of a .pth.tar and of a .npz of the same weights, "
+                    f"{len(x)} clips: bitwise equal probabilities")
+    launched = counts()
+    log(f"serve classification: launches {launched}")
+    return launched
+
+
+def phase_cls_times(torch, dev, card):
+    """The classification step's ms and clips/s (median of REPS
+    synchronised steps; REPS back to back, best of 3) at B=128, bf16 and
+    float32, combined, supports on the device; one traced bf16 step
+    (device busy)."""
+    from eeg_gnn_tpu_torch.graphs import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    batch = cls_batch(torch, dev, BATCH, seed=52)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = cls_cfg("combined", dtype, **TRAIN_KW)
+        b = dict(batch, supports=compute_supports_torch(batch["adjacency"],
+                                                        cfg.filter_type))
+        del b["adjacency"]
+        step = TrainStep(cfg, build_model(
+            cfg, torch.Generator().manual_seed(11)), STEPS_PER_EPOCH,
+            device=dev)
+        ms, best, loss = time_steps(torch, lambda: step(b))
+        if not np.isfinite(loss):
+            fail(f"classification step {dtype}: loss {loss}")
+        out[dtype] = (ms, best)
+        line = (f"time classification train step combined {dtype} "
+                f"B={BATCH}: {ms:.3f} ms/step (median of {REPS}, each "
+                f"synchronised), {BATCH / ms * 1e3:.1f} clips/s; {REPS} "
+                f"back to back: {best:.3f} ms/step, "
+                f"{BATCH / best * 1e3:.1f} clips/s (best of 3)")
+        if dtype == "bfloat16":
+            busy, wall, rows, _ = trace(torch, lambda: step(b))
+            line += (f"; traced: device busy {busy:.3f} of {wall:.3f} ms "
+                     f"({100 * busy / wall:.1f}%)")
+            out["busy"] = (busy, wall)
+        log(line + f"; {card}")
+    return out
+
+
+def phase_cls_cli(torch, card, corpus):
+    """``cli.train.main --task classification`` on phase_cli's corpus (its
+    seizures: one clip each, 60 s at most, padded), at the recipe's widths,
+    2 epochs, bf16, with --num_classes 4 --dropout 0.5 --data_augment
+    --use_fft: streaming (combined), --hbm_cache (combined and
+    individual), --hbm_cache rotating past --hbm_budget_gb, and
+    --fine_tune from a reference .pth.tar of phase_cli's SSL run (its
+    best.npz exported through ``save_torch_checkpoint``). Each run
+    launches CLI_DETECT's kernels and no other. Returns (counts by path,
+    figures)."""
+    from eeg_gnn_tpu_torch.data.datasets import load_dataset_classification
+    from eeg_gnn_tpu_torch.data.rotating_cache import rotating_geometry
+    from eeg_gnn_tpu_torch.io import (
+        export_next_time_pred_state,
+        load_jax_npz,
+        save_torch_checkpoint,
+    )
+
+    root, signals = corpus["root"], corpus["signals"]
+    argv = [a if a != "detection" else "classification"
+            for a in corpus["detect"]] + [
+        "--num_classes", str(CLS_CLASSES), "--dropout", str(CLS_DROPOUT),
+        "--data_augment", "--metric_name", "F1"]
+    i = argv.index("--input_dir")
+    sets = load_dataset_classification(
+        input_dir=argv[i + 1], raw_data_dir=argv[argv.index(
+            "--raw_data_dir") + 1], train_batch_size=CLI_BATCH,
+        max_seq_len=T, use_fft=True, marker_dir=argv[argv.index(
+            "--marker_dir") + 1], build_loaders=False, signals=signals,
+        standardize=False)[1]
+    n_train = len(sets["train"])
+    lens = [int(sets["train"][j][2]) for j in range(n_train)]
+    log(f"cli classification: {n_train} train / {len(sets['dev'])} dev / "
+        f"{len(sets['test'])} test seizures, train lengths "
+        f"{min(lens)}..{max(lens)} of {T}")
+    clip_bytes = T * N * 100 * 2
+    shards, rows = rotating_geometry(n_train, clip_bytes,
+                                     int(CLS_ROTATING_GB * 2 ** 30))
+    rot_steps = sum(-(-min(rows, n_train - s * rows) // CLI_BATCH)
+                    for s in range(shards))
+    ssl_cfg_path = os.path.join(corpus["ssl_dir"], "args.json")
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+
+    with open(ssl_cfg_path) as f:
+        pre_cfg = ExperimentConfig(**json.load(f)).finalize()
+    pth = os.path.join(root, "ssl_best.pth.tar")
+    save_torch_checkpoint(pth, export_next_time_pred_state(
+        load_jax_npz(os.path.join(corpus["ssl_dir"], "best.npz"), pre_cfg),
+        SSL_LAYERS))
+    runs = (("cli_cls", "classification", []),
+            ("cli_cls_hbm", "classification hbm_cache", ["--hbm_cache"]),
+            ("cli_cls_hbm_individual", "classification hbm_cache individual",
+             ["--hbm_cache", "--graph_type", "individual"]),
+            ("cli_cls_rotating", "classification hbm_cache rotating",
+             ["--hbm_cache", "--hbm_budget_gb", str(CLS_ROTATING_GB)]),
+            ("cli_cls_finetune", "classification fine-tune .pth.tar",
+             ["--fine_tune", "--load_model_path", pth,
+              "--pretrained_num_rnn_layers", str(SSL_LAYERS)]))
+    paths, stats = {}, {}
+    for path, tag, flags in runs:
+        res, run_dir, paths[path], wall = _cli_run(
+            torch, argv + flags, signals, root, CLI_DETECT, tag)
+        stray = {k: v for k, v in paths[path].items()
+                 if v and k not in CLI_DETECT}
+        if stray:
+            fail(f"cli {tag}: launched {stray} beside CLI_DETECT")
+        steps = CLI_EPOCHS * (rot_steps if "rotating" in tag
+                              else -(-n_train // CLI_BATCH))
+        stats[tag] = cli_run_stats(tag, res, run_dir, wall, n_train, card,
+                                   steps=steps)
+        shutil.rmtree(run_dir)
+    return paths, stats
+
+
+def phase_classification(torch, dev, card, corpus):
+    """Seizure-type classification on the card: the train step, Predictor
+    and its .pth.tar checkpoints, the step's times, the CLI. Returns
+    (counts by path, CLI figures)."""
+    out_dir = os.path.join("chiprun_out", "classification")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    paths = {"train_cls": phase_cls_train(torch, dev),
+             "serve_cls": phase_cls_serve(torch, dev, out_dir)}
+    phase_cls_times(torch, dev, card)
+    cli_paths, stats = phase_cls_cli(torch, card, corpus)
+    paths.update(cli_paths)
+    return paths, stats
+
+
 def log_input_rates(stats, times, card):
     """The cached loops' clips/s beside the bare TrainStep's at B=128 in
     the same run (phase_times, phase_ssl_times; per-clip supports there,
@@ -3287,6 +3688,13 @@ def main():
     times.update(phase_ssl_times(torch, dev))
     log_input_rates(input_stats, times, card)
     times.update(phase_pallas_times(torch, dev, mts))
+    cls_paths, cls_stats = phase_classification(torch, dev, card, corpus)
+    paths.update(cls_paths)
+    for path in cls_paths:
+        for name in XIN_FWD if path == "serve_cls" else CLI_DETECT:
+            if paths[path][name] < 1:
+                fail(f"{name} was never launched on the {path} path")
+    log_cli_rates(cls_stats, times[("train", CLI_BATCH)][0], card)
 
     kernels, composites = [], []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"

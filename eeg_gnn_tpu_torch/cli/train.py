@@ -3,8 +3,9 @@
 The flags of ``python -m eeg_gnn_tpu.cli.train`` (the reference's
 ``train.py``/``train_ssl.py`` surface plus ``--marker_dir``,
 ``--adj_mat_dir``, ``--dtype`` and the JAX package's extensions), so one
-command line serves both packages. It runs DCRNN detection and SSL
-pre-training (and fine-tuning from an SSL checkpoint) on one CUDA card:
+command line serves both packages. It runs DCRNN detection,
+seizure-type classification and SSL pre-training (and fine-tuning from an
+SSL checkpoint, ``.npz`` or reference ``.pth.tar``) on one CUDA card:
 corpus markers -> clips -> FFT features -> per-clip graphs and supports
 -> the train steps -> dev evaluation each epoch, best/last checkpoints,
 early stopping -> the final dev and test results, written to
@@ -12,13 +13,15 @@ early stopping -> the final dev and test results, written to
 
 ``--device_pipeline`` makes the loaders yield raw clips, featurized,
 augmented, standardized and graphed on the device
-(``data/device_pipeline.py``). ``--hbm_cache`` featurizes every split
-once on the host and keeps it on the device (``data/device_cache.py``),
-or, past ``--hbm_budget_gb``, rotates it through the device in shards
-(``data/rotating_cache.py``). ``--reflect_invariant`` is the JAX CLI's;
-``--fused_steps`` is accepted and ignored (``config.py``). The mesh and
-classification branches of the JAX CLI wait for their slices (ROADMAP.md,
-Queue 1).
+(``data/device_pipeline.py``); as in the JAX CLI, it serves detection
+and SSL only, and classification reads featurized clips.
+``--hbm_cache`` featurizes every split once on the host and keeps it on
+the device (``data/device_cache.py``), or, past ``--hbm_budget_gb``,
+rotates it through the device in shards (``data/rotating_cache.py``):
+all three tasks, both graph types. ``--reflect_invariant`` is the JAX
+CLI's; ``--fused_steps`` is accepted and ignored (``config.py``). The
+mesh and Dense-CNN branches of the JAX CLI wait for their slices
+(ROADMAP.md, Queue 1).
 
 ``main(argv, device=None)`` runs on the card and raises without one;
 ``device="cpu"`` (a keyword, not a flag, as the JAX CLI picks its
@@ -35,8 +38,8 @@ import sys
 def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
                signals=None, device=None):
     """The on-device input path of ``cfg`` (the JAX CLI's, train.py:
-    91-240, without the mesh and classification branches): (the
-    ``DevicePipeline`` or None, {split: cache} or None).
+    91-240, without the mesh): (the ``DevicePipeline`` or None, {split:
+    cache} or None).
 
     ``--hbm_cache``: every split is featurized once from plain datasets
     (no augmentation, no standardization: both run on the device per
@@ -45,10 +48,12 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
     the JAX CLI does, and a line on stderr says so.
     """
     from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_classification,
         load_dataset_detection,
         load_dataset_ssl,
     )
     from eeg_gnn_tpu_torch.data.device_cache import (
+        build_classification_cache,
         build_detection_cache,
         build_ssl_cache,
         fits_in_hbm,
@@ -56,7 +61,7 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
     from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
     from eeg_gnn_tpu_torch.data.rotating_cache import build_rotating_cache
 
-    if not (cfg.device_pipeline or cfg.hbm_cache):
+    if not (cfg.raw_clips or cfg.hbm_cache):
         return None, None
     pipeline = make_device_pipeline(
         graph_type=cfg.graph_type, filter_type=cfg.filter_type,
@@ -86,6 +91,12 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
             max_seq_len=cfg.max_seq_len, sampling_ratio=cfg.sampling_ratio,
             seed=123, **plain_common)
         build = lambda ds: build_detection_cache(ds, cfg.max_seq_len, **kw)
+    elif cfg.task == "classification":
+        t_out, kind = 0, "classification"
+        _, plain, _ = load_dataset_classification(
+            max_seq_len=cfg.max_seq_len, padding_val=0.0, **plain_common)
+        build = lambda ds: build_classification_cache(ds, cfg.max_seq_len,
+                                                      **kw)
     else:  # SS pre-training
         t_out, kind = cfg.output_seq_len, "ssl"
         _, plain, _ = load_dataset_ssl(
@@ -117,6 +128,7 @@ def main(argv=None, *, device=None, signals=None):
     """
     from eeg_gnn_tpu_torch.config import ExperimentConfig, build_parser
     from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_classification,
         load_dataset_detection,
         load_dataset_ssl,
     )
@@ -159,11 +171,14 @@ def main(argv=None, *, device=None, signals=None):
             loaders, _, scaler = load_dataset_detection(
                 max_seq_len=cfg.max_seq_len,
                 sampling_ratio=cfg.sampling_ratio, seed=123,
-                raw_mode=cfg.device_pipeline, **common)
+                raw_mode=cfg.raw_clips, **common)
+        elif cfg.task == "classification":
+            loaders, _, scaler = load_dataset_classification(
+                max_seq_len=cfg.max_seq_len, padding_val=0.0, **common)
         else:  # SS pre-training
             loaders, _, scaler = load_dataset_ssl(
                 input_len=cfg.max_seq_len, output_len=cfg.output_seq_len,
-                raw_mode=cfg.device_pipeline, **common)
+                raw_mode=cfg.raw_clips, **common)
         pipeline, caches = input_path(
             cfg, scaler, adj_mat_dir=adj_mat_dir, marker_dir=marker_dir,
             signals=signals, device=device)

@@ -10,9 +10,9 @@ Derived-field rules reproduced (reference ``args.py:196-221``):
 The TPU tuning knobs ``batch_tile``, ``scan_unroll`` and ``fused_steps``
 are accepted and ignored. The on-device input pipeline, the dataset
 caches (resident and rotating) and ``--reflect_invariant`` are ported.
-Features still to port (classification, the baselines, ``preproc_dir``,
-meshes) raise ``NotImplementedError`` from ``check_runnable`` when set
-away from their defaults (``_NOT_PORTED``).
+Features still to port (the baselines, ``preproc_dir``, meshes) raise
+``NotImplementedError`` from ``check_runnable`` when set away from their
+defaults (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -131,6 +131,13 @@ class ExperimentConfig:
         return self
 
     @property
+    def raw_clips(self) -> bool:
+        """Whether the loaders yield raw clips: ``--device_pipeline``
+        serves detection and SSL pre-training only (JAX cli/train.py:
+        91-95); classification reads featurized clips."""
+        return self.device_pipeline and self.task != "classification"
+
+    @property
     def num_supports(self) -> int:
         from eeg_gnn_tpu_torch.graphs.supports import num_supports_for
 
@@ -164,7 +171,6 @@ class ExperimentConfig:
 
 # flag -> whether this config asks for that feature, still to port
 _NOT_PORTED = {
-    "task": lambda c: c.task == "classification",
     "model_name": lambda c: c.model_name != "dcrnn",
     "preproc_dir": lambda c: c.preproc_dir is not None,
     "mesh_shape": lambda c: c.mesh_shape != "data:-1",

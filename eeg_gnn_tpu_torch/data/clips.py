@@ -1,18 +1,18 @@
-"""Clip slicing from resampled signal h5 files (``eeg_gnn_tpu/data/clips.py``,
-the detection and SSL paths).
+"""Clip slicing from resampled signal h5 files (``eeg_gnn_tpu/data/clips.py``).
 
 Parity: the per-task ``computeSliceMatrix`` variants of the reference's
-detection and SSL dataloaders: a fixed-position clip ``clip_idx`` of
-``clip_len`` seconds, windowed into ``time_step_size``-second steps with
-optional FFT features (``data/dataloader_detection.py:25-85``,
-``data/dataloader_ssl.py:24-82``). Annotation parsing (``.tse_bi`` /
-``.tse``) follows ``data/data_utils.py:82-136``.
+dataloaders: for detection and SSL a fixed-position clip ``clip_idx`` of
+``clip_len`` seconds (``data/dataloader_detection.py:25-85``,
+``data/dataloader_ssl.py:24-82``), for classification a variable-length
+clip around one seizure (``data/dataloader_classification.py:25-87``),
+each windowed into ``time_step_size``-second steps with optional FFT
+features. Annotation parsing (``.tse_bi`` / ``.tse``) follows
+``data/data_utils.py:82-136``.
 
-``detection_clip`` / ``ssl_clip`` / ``raw_clip`` slice a signal already
-in memory; the ``slice_*`` functions read it from its h5 file first
-(h5py is imported only there). ``raw_clip`` is the raw window of the
-on-device pipeline. The classification clip is still to port (ROADMAP.md,
-Queue 1).
+``detection_clip`` / ``ssl_clip`` / ``classification_clip`` /
+``raw_clip`` slice a signal already in memory; the ``slice_*`` functions
+read it from its h5 file first (h5py is imported only there).
+``raw_clip`` is the raw window of the on-device pipeline.
 """
 
 from __future__ import annotations
@@ -113,6 +113,35 @@ def slice_ssl_clip(h5_path: str, clip_idx: int, time_step_size: int = 1,
     :func:`ssl_clip`."""
     return ssl_clip(read_resampled_h5(h5_path), clip_idx, time_step_size,
                     clip_len, use_fft)
+
+
+def classification_clip(signal: np.ndarray, seizure_times, seizure_idx: int,
+                        time_step_size: int = 1, clip_len: int = 60,
+                        use_fft: bool = False):
+    """The variable-length clip of seizure ``seizure_idx`` of a (channels,
+    samples) signal: from max(the previous seizure's end sample + 1, onset
+    - 2 s) to min(that + ``clip_len`` s, the seizure's end), windowed
+    (a trailing partial window dropped)."""
+    offset = 2  # the reference's hard-coded pre-onset context (:44)
+    cur = seizure_times[seizure_idx]
+    pre_end = (int(FREQUENCY * seizure_times[seizure_idx - 1][1])
+               if seizure_idx > 0 else 0)
+    start_t = max(pre_end + 1, int(FREQUENCY * (cur[0] - offset)))
+    end_t = min(start_t + int(FREQUENCY * clip_len), int(FREQUENCY * cur[1]))
+    return featurize_clip_np(signal[:, start_t:end_t], time_step_size,
+                             FREQUENCY, use_fft)
+
+
+def slice_classification_clip(h5_path: str, edf_path: str, seizure_idx: int,
+                              time_step_size: int = 1, clip_len: int = 60,
+                              use_fft: bool = False):
+    """Parity: classification ``computeSliceMatrix``
+    (dataloader_classification.py:25-87); see
+    :func:`classification_clip`."""
+    return classification_clip(read_resampled_h5(h5_path),
+                               get_seizure_times(edf_path.split(".edf")[0]),
+                               seizure_idx, time_step_size, clip_len,
+                               use_fft)
 
 
 def raw_clip(signal: np.ndarray, clip_idx: int, clip_len: int = 60):

@@ -1,8 +1,9 @@
-"""Map-style datasets of the detection and SSL tasks, and their loader
-factories (``eeg_gnn_tpu/data/datasets.py``).
+"""Map-style datasets of the detection, classification and SSL tasks, and
+their loader factories (``eeg_gnn_tpu/data/datasets.py``).
 
 Parity targets: ``data/dataloader_detection.py`` (SeizureDataset +
-load_dataset_detection) and ``data/dataloader_ssl.py``. Same sample tuple
+load_dataset_detection), ``data/dataloader_classification.py`` and
+``data/dataloader_ssl.py``. Same sample tuple
 layout ``(x, y, seq_len, supports, adj, writeout_fn)``, same marker
 parsing, augmentation, standardization, and per-sample support
 computation on the host (numpy; λmax by ``eigvalsh`` for ``combined``).
@@ -17,9 +18,9 @@ the h5 files on hosts without h5py.
 slices; FFT, augmentation, standardization and graphs run on the device
 (``data/device_pipeline.py``).
 
-Still to port (ROADMAP.md, Queue 1): classification (its dataset and
-the Dense-CNN baseline's) and precomputed clip directories
-(``preproc_dir``); they raise ``NotImplementedError``.
+Still to port (ROADMAP.md, Queue 1): the Dense-CNN baseline's dataset
+(item 6) and precomputed clip directories (``preproc_dir``, item 2); they
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from eeg_gnn_tpu_torch.data import clips as clip_ops
 from eeg_gnn_tpu_torch.data.augment import random_reflect, random_scale
 from eeg_gnn_tpu_torch.data.loader import DataLoader
 from eeg_gnn_tpu_torch.data.markers import (
+    parse_classification_markers,
     parse_detection_markers,
     parse_ssl_markers,
 )
@@ -296,17 +298,57 @@ class RawSSLDataset(SSLDataset):
 
 
 class ClassificationDataset(_BaseEEGDataset):
-    """4-class seizure-type clips: still to port."""
+    """4-class seizure-type clips, variable length, padded to
+    ``max_seq_len`` with ``padding_val``.
 
-    def __init__(self, **kw):
-        _not_ported("the classification dataset")
+    Parity: ``data/dataloader_classification.py:90-368``: augment, then
+    standardize, then pad; the per-clip graph comes from the unpadded,
+    un-augmented clip.
+    """
+
+    def __init__(self, *, marker_dir, padding_val=0.0, **kw):
+        super().__init__(**kw)
+        self.padding_val = padding_val
+        self.file_tuples = parse_classification_markers(
+            os.path.join(marker_dir, f"{self.split}Set_seizure_files.txt"))
+
+    def __len__(self):
+        return len(self.file_tuples)
+
+    def __getitem__(self, idx):
+        edf_fn, seizure_class, seizure_idx = self.file_tuples[idx]
+        edf_file = self._lookup_edf(edf_fn)
+        h5_path = os.path.join(self.input_dir,
+                               edf_fn.split(".edf")[0] + ".h5")
+        eeg_clip = clip_ops.classification_clip(
+            self._signal(h5_path),
+            clip_ops.get_seizure_times(edf_file.split(".edf")[0]),
+            seizure_idx, self.time_step_size, self.max_seq_len, self.use_fft)
+
+        feat, swap_nodes = self._augment(eeg_clip)
+        feat = self._standardize(feat)
+        padded, seq_len = clip_ops.pad_clip(feat, self.max_seq_len,
+                                            self.padding_val)
+        if np.any(np.isnan(padded)):
+            raise ValueError("Nan found in x!")
+        sups, adj = self._graph_and_supports(eeg_clip, swap_nodes)
+        return (
+            padded.astype(np.float32),
+            np.int32(seizure_class),
+            np.int32(seq_len),
+            sups,
+            adj,
+            f"{edf_fn}_{seizure_idx}",
+        )
 
 
 class DenseCNNClassificationDataset(_BaseEEGDataset):
     """Flat clips of the Dense-CNN baseline: still to port."""
 
     def __init__(self, **kw):
-        _not_ported("the Dense-CNN classification dataset")
+        raise NotImplementedError(
+            "the Dense-CNN classification dataset is not ported yet "
+            "(ROADMAP.md, Queue 1, item 6: baselines)")
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +413,42 @@ def load_dataset_detection(input_dir, raw_data_dir, train_batch_size,
             adj_mat_dir=adj_mat_dir, graph_type=graph_type, top_k=top_k,
             filter_type=filter_type, use_fft=use_fft, preproc_dir=preproc_dir,
             rng_seed=seed, signals=signals,
+        )
+
+    loaders, datasets = _make_loaders(make, train_batch_size, test_batch_size,
+                                      num_workers, build_loaders)
+    return loaders, datasets, scaler
+
+
+def load_dataset_classification(input_dir, raw_data_dir, train_batch_size,
+                                test_batch_size=None, time_step_size=1,
+                                max_seq_len=60, standardize=True,
+                                num_workers=8, padding_val=0.0,
+                                augmentation=False, adj_mat_dir=None,
+                                graph_type="combined", top_k=None,
+                                filter_type="laplacian", use_fft=False,
+                                preproc_dir=None, marker_dir=None,
+                                build_loaders=True, signals=None):
+    """Parity: ``load_dataset_classification``
+    (dataloader_classification.py:372-469); the scaler is
+    ``fft_{max_seq_len}s_single``."""
+    if graph_type is not None and graph_type not in ["individual", "combined"]:
+        raise NotImplementedError
+    scaler = (
+        _load_scaler(marker_dir, "fft_", max_seq_len, "_single")
+        if standardize else None
+    )
+
+    def make(split):
+        return ClassificationDataset(
+            marker_dir=marker_dir, padding_val=padding_val,
+            input_dir=input_dir, raw_data_dir=raw_data_dir,
+            time_step_size=time_step_size, max_seq_len=max_seq_len,
+            standardize=standardize, scaler=scaler, split=split,
+            data_augment=augmentation if split == "train" else False,
+            adj_mat_dir=adj_mat_dir, graph_type=graph_type, top_k=top_k,
+            filter_type=filter_type, use_fft=use_fft, preproc_dir=preproc_dir,
+            signals=signals,
         )
 
     loaders, datasets = _make_loaders(make, train_batch_size, test_batch_size,

@@ -21,11 +21,12 @@ Batches run at their natural size: the JAX plan pads a short last batch
 by repeating its first index and masks the loss by the valid count; the
 port gathers only the valid rows, which gives the same loss.
 
-Detection (features + float labels) and SSL (x features + next-window
-target features in the label slot) cache here. Classification
-(``build_classification_cache``) waits for ROADMAP.md Queue 1 item 5;
-the row-sharded mesh caches (``mesh_epoch_plan``, ``mesh_plan``,
-``shard_cache``, ``_process_rows``) for item 10.
+Detection (features + float labels), SSL (x features + next-window
+target features in the label slot) and classification (padded features,
+class labels and the clips' true lengths, which live on the device and
+are gathered per batch) cache here. The row-sharded mesh caches
+(``mesh_epoch_plan``, ``mesh_plan``, ``shard_cache``, ``_process_rows``)
+wait for ROADMAP.md Queue 1 item 10.
 
 :func:`fits_in_hbm` sizes a split against the user's budget; past it the
 CLI switches to the rotating cache (``data/rotating_cache.py``).
@@ -69,15 +70,18 @@ def upload(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 class Plan(NamedTuple):
     """One plan over rows held on the device (a resident split, or one
-    rotating shard): the steps gather ``x`` / ``y`` rows ``perm[k*B :
-    k*B + valid[k]]`` for batch k. ``labels`` (detection, else None) and
-    ``names`` are the host's, indexed like ``x``."""
+    rotating shard): the steps gather ``x`` / ``y`` (and ``seq``) rows
+    ``perm[k*B : k*B + valid[k]]`` for batch k. ``labels`` (detection and
+    classification, else None) and ``names`` are the host's, indexed like
+    ``x``; ``seq`` the clips' lengths on the device (classification, else
+    None)."""
     x: torch.Tensor
     y: torch.Tensor
     perm: np.ndarray     # (K*B,) int32 row indices into x, y
     valid: np.ndarray    # (K,) int32 real rows of each batch
     labels: Optional[np.ndarray]
     names: List[str]
+    seq: Optional[torch.Tensor] = None
 
 
 class DeviceDatasetCache:
@@ -86,12 +90,15 @@ class DeviceDatasetCache:
     Args:
         feats: (num_clips, T, N, D) UN-augmented, UN-standardized features
             (augment and standardize run on the device per step).
-        labels: (num_clips,) float labels (detection) or (num_clips,
-            T_out, N, D) target features (SSL, in the storage dtype).
-        seq_len: the clips' constant ``seq_lengths`` value.
+        labels: (num_clips,) float labels (detection; classification's
+            class ids as floats) or (num_clips, T_out, N, D) target
+            features (SSL, in the storage dtype).
+        seq_len: the clips' ``seq_lengths`` value when ``seq_lengths`` is
+            None; else their padded length.
         storage_dtype: 'bfloat16' halves the device memory and the upload;
             'float32' for exact host-path parity.
-        seq_lengths: per-clip lengths (classification): not ported yet.
+        seq_lengths: (num_clips,) true lengths of padded clips
+            (classification), held on the device as int64.
         device: ``None`` (the CUDA card, raising without one), or e.g.
             ``"cpu"``.
     """
@@ -102,10 +109,6 @@ class DeviceDatasetCache:
                  global_num_clips: Optional[int] = None, device=None):
         if mesh is not None or global_num_clips is not None:
             _mesh_not_ported("the row-sharded dataset cache")
-        if seq_lengths is not None:
-            raise NotImplementedError(
-                "per-clip lengths (the classification cache) are not "
-                "ported yet (ROADMAP.md, Queue 1, item 5: classification)")
         self.device = resolve_device(device, "DeviceDatasetCache")
         dt = storage_dtype_of(storage_dtype)
         feats = np.asarray(feats)
@@ -115,6 +118,8 @@ class DeviceDatasetCache:
         # SSL target features share the label slot and the storage dtype
         self.y = upload(labels, dt if labels.ndim > 1 else torch.float32,
                         self.device)
+        self.seq = (None if seq_lengths is None else torch.from_numpy(
+            np.asarray(seq_lengths, np.int64)).to(self.device))
         self.seq_len = int(seq_len)
         self.names = (list(names) if names is not None
                       else [str(i) for i in range(self.num_clips)])
@@ -166,7 +171,7 @@ class DeviceDatasetCache:
         iteration that ``RotatingDeviceCache.epoch_plans`` shares."""
         perm, valid = self.epoch_plan(batch_size, shuffle, rng)
         yield Plan(self.x, self.y, perm, valid, self._labels_host,
-                   self.names)
+                   self.names, self.seq)
 
     def mesh_epoch_plan(self, *args, **kwargs):
         """Per-device plans of a row-sharded cache (JAX ``:193``)."""
@@ -178,7 +183,7 @@ class DeviceDatasetCache:
         rows = torch.from_numpy(np.ascontiguousarray(idx[:valid],
                                                      np.int64))
         return cached_batch(self.x, self.y, rows.to(self.device),
-                            self.seq_len)
+                            self.seq_len, self.seq)
 
 
 def mesh_plan(*args, **kwargs):
@@ -241,6 +246,18 @@ def ssl_rows(dataset, num_workers: int = 0):
     return np.stack(xs), np.stack(ys), names
 
 
+def classification_rows(dataset, num_workers: int = 0):
+    """(padded feats, class ids as floats, true lengths, names) of a plain
+    classification dataset."""
+    rows = _materialize(
+        dataset,
+        lambda item: (np.asarray(item[0], np.float32),
+                      np.float32(item[1]), np.int32(item[2]), item[5]),
+        num_workers)
+    xs, ys, lens, names = zip(*rows)
+    return np.stack(xs), np.asarray(ys), np.asarray(lens, np.int32), names
+
+
 def build_detection_cache(dataset, seq_len: int,
                           storage_dtype: str = "float32",
                           scaler=None, num_workers: int = 0, mesh=None,
@@ -275,12 +292,22 @@ def build_ssl_cache(dataset, input_len: int,
                               device=device)
 
 
-def build_classification_cache(*args, **kwargs):
-    """Classification cache: padded features, int labels, true lengths
-    (JAX ``:358``)."""
-    raise NotImplementedError(
-        "the classification cache is not ported yet (ROADMAP.md, Queue 1, "
-        "item 5: classification)")
+def build_classification_cache(dataset, seq_len: int,
+                               storage_dtype: str = "float32",
+                               num_workers: int = 0, mesh=None,
+                               device=None) -> DeviceDatasetCache:
+    """Classification cache: padded features, class labels and true
+    lengths. The dataset must be built with ``augmentation=False``,
+    ``standardize=False`` and ``padding_val=0``; the device tail re-pins
+    the padding after augment and standardize
+    (``DevicePipeline.classification_features``), which reproduces the
+    host's pad(standardize(augment(clip)))."""
+    if mesh is not None:
+        _mesh_not_ported("the row-sharded dataset cache")
+    feats, labels, lens, names = classification_rows(dataset, num_workers)
+    return DeviceDatasetCache(feats, labels, seq_len,
+                              storage_dtype=storage_dtype, names=names,
+                              seq_lengths=lens, device=device)
 
 
 def shard_cache(*args, **kwargs):

@@ -27,8 +27,11 @@ JAX pipeline):
   not bit for bit. The math that applies given draws is separate, so a
   caller (the tests) can feed the JAX key's draws and compare exactly.
 
-The classification tail (``classification_features``) waits for the
-classification slice (ROADMAP.md, Queue 1, item 5).
+- classification's padded clips (``classification_features``): the host
+  pads after augment and standardize (dataloader_classification.py:
+  334-352), so the tail re-pins rows t >= seq_len to the padding value
+  afterwards, and the correlation graph is built from the length-masked
+  clip, which equals the host's unpadded whole-clip correlation.
 """
 
 from __future__ import annotations
@@ -179,11 +182,29 @@ class DevicePipeline:
         gfeats = feats if graph_feats is None else graph_feats
         return x, self._supports(gfeats, reflect, do_reflect)
 
-    def classification_features(self, *args, **kwargs):
-        """The classification tail (JAX ``:157-184``)."""
-        raise NotImplementedError(
-            "the classification tail of the device pipeline is not ported "
-            "yet (ROADMAP.md, Queue 1, item 5: classification)")
+    def classification_features(self, feats: torch.Tensor,
+                                seq_lengths: torch.Tensor,
+                                generator: Optional[torch.Generator] = None,
+                                training: bool = False,
+                                draws: Optional[Draws] = None,
+                                padding_val: float = 0.0):
+        """The classification tail for padded (B, T, C, D) clips of true
+        lengths ``seq_lengths`` (B,) (what the classification caches hold):
+        :meth:`features`, then rows t >= seq_len re-pinned to
+        ``padding_val``, so the padding takes neither the augmentation's
+        scale nor the z-score. The individual graph is built from the clip
+        with those rows zeroed: zero rows add nothing to the Gram's dot
+        products or the channels' energies, so it equals the host's
+        correlation of the unpadded clip for every length, whatever the
+        cache padded with."""
+        rows = (torch.arange(feats.shape[1], device=feats.device)[None, :]
+                < seq_lengths[:, None])[:, :, None, None]  # (B, T, 1, 1)
+        graph_feats = None
+        if self.graph_type == "individual":
+            graph_feats = torch.where(rows, feats, feats.new_zeros(()))
+        x, supports = self.features(feats, generator, training, draws,
+                                    graph_feats=graph_feats)
+        return torch.where(rows, x, x.new_full((), padding_val)), supports
 
     def ssl(self, raw_x: torch.Tensor, raw_y: torch.Tensor,
             generator: Optional[torch.Generator] = None,

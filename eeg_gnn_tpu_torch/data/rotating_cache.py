@@ -24,8 +24,9 @@ shard when ``min_shards`` binds and the rows round up (its ADVICE.md
 flags ``rotating_cache.py:48``). The port clamps the shard count after
 rounding, so every shard has real rows.
 
-The mesh (row-sharded slabs) and multi-host stripe modes wait for
-ROADMAP.md Queue 1 item 10; the classification kind for item 5.
+Classification's per-clip lengths ride in the slabs beside ``x`` and
+``y``. The mesh (row-sharded slabs) and multi-host stripe modes wait for
+ROADMAP.md Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 from eeg_gnn_tpu_torch.data.device_cache import (
     Plan,
     _mesh_not_ported,
+    classification_rows,
     detection_rows,
     ssl_rows,
     storage_dtype_of,
@@ -61,12 +63,13 @@ def rotating_geometry(num_clips: int, clip_bytes: int, budget_bytes: int,
 
 
 class Slab:
-    """One shard resident on the device: ``x``, ``y``, and the event its
-    copy recorded on the side stream."""
+    """One shard resident on the device: ``x``, ``y``, the clips' lengths
+    ``seq`` (classification, else None), and the event its copy recorded
+    on the side stream."""
 
-    def __init__(self, shard: int, x, y, event=None):
+    def __init__(self, shard: int, x, y, seq=None, event=None):
         self.shard = shard
-        self.x, self.y = x, y
+        self.x, self.y, self.seq = x, y, seq
         self._event = event
 
     def ready(self) -> "Slab":
@@ -76,8 +79,9 @@ class Slab:
         if self._event is not None:
             stream = torch.cuda.current_stream(self.x.device)
             stream.wait_event(self._event)
-            for t in (self.x, self.y):
-                t.record_stream(stream)
+            for t in (self.x, self.y, self.seq):
+                if t is not None:
+                    t.record_stream(stream)
             self._event = None
         return self
 
@@ -90,9 +94,12 @@ class RotatingDeviceCache:
         feats: (num_clips, T, N, D) un-augmented, un-standardized features.
         labels: (num_clips,) labels or (num_clips, T_out, N, D) SSL target
             features.
-        seq_len: the clips' constant ``seq_lengths`` value.
+        seq_len: the clips' constant ``seq_lengths`` value, or their
+            padded length with ``seq_lengths``.
         storage_dtype: host and device storage dtype ('bfloat16' halves
             both the footprint and each rotation's copy).
+        seq_lengths: (num_clips,) true lengths of padded clips
+            (classification), copied with each shard.
         budget_bytes: device memory for the slabs: shards are sized so
             THREE fit (see :func:`rotating_geometry`).
         min_shards: lower bound on the shard count (to rotate a split that
@@ -109,10 +116,6 @@ class RotatingDeviceCache:
                  global_num_clips: Optional[int] = None, device=None):
         if mesh is not None or global_num_clips is not None:
             _mesh_not_ported("the row-sharded rotating cache")
-        if seq_lengths is not None:
-            raise NotImplementedError(
-                "per-clip lengths (the classification cache) are not "
-                "ported yet (ROADMAP.md, Queue 1, item 5: classification)")
         self.device = resolve_device(device, "RotatingDeviceCache")
         self.storage_dtype = storage_dtype
         dt = storage_dtype_of(storage_dtype)
@@ -125,6 +128,9 @@ class RotatingDeviceCache:
 
         self._x = host(np.asarray(feats, np.float32), dt)
         self._y = host(labels, dt if labels.ndim > 1 else torch.float32)
+        self._seq = (None if seq_lengths is None
+                     else host(np.asarray(seq_lengths, np.int64),
+                               torch.int64))
         self.num_clips = int(self._x.shape[0])
         self.seq_len = int(seq_len)
         self.names = (list(names) if names is not None
@@ -183,7 +189,7 @@ class RotatingDeviceCache:
                          if i + 1 < len(order) else None)
             perm, valid = self.shard_plan(sid, batch_size, shuffle, rng)
             yield Plan(slab.x, slab.y, perm, valid, self.shard_labels(sid),
-                       self.shard_names(sid))
+                       self.shard_names(sid), slab.seq)
 
     def mesh_shard_plan(self, *args, **kwargs):
         """Per-device plans of a row-sharded slab (JAX ``:252``)."""
@@ -202,20 +208,21 @@ class RotatingDeviceCache:
         them."""
         lo = shard * self.shard_rows
         hi = lo + self.shard_real_rows(shard)
+        host = [self._x, self._y] + ([self._seq] if self._seq is not None
+                                     else [])
         if self._stream is None:
-            slab = Slab(shard, self._x[lo:hi].clone(),
-                        self._y[lo:hi].clone())
+            slab = Slab(shard, *(t[lo:hi].clone() for t in host))
         else:
             with torch.cuda.stream(self._stream):
-                x = torch.empty((self.shard_rows,) + self._x.shape[1:],
-                                dtype=self._x.dtype, device=self.device)
-                y = torch.empty((self.shard_rows,) + self._y.shape[1:],
-                                dtype=self._y.dtype, device=self.device)
-                x[: hi - lo].copy_(self._x[lo:hi], non_blocking=True)
-                y[: hi - lo].copy_(self._y[lo:hi], non_blocking=True)
+                dev = []
+                for t in host:
+                    d = torch.empty((self.shard_rows,) + t.shape[1:],
+                                    dtype=t.dtype, device=self.device)
+                    d[: hi - lo].copy_(t[lo:hi], non_blocking=True)
+                    dev.append(d)
                 event = torch.cuda.Event()
                 event.record(self._stream)
-            slab = Slab(shard, x, y, event)
+            slab = Slab(shard, *dev, event=event)
         self._live.add(slab)
         return slab
 
@@ -247,8 +254,8 @@ def build_rotating_cache(dataset, seq_len: int, kind: str,
                          min_shards: int = 2,
                          mesh=None, device=None) -> RotatingDeviceCache:
     """A rotating cache of a plain (un-augmented, un-standardized)
-    dataset. ``kind``: 'detection' | 'ssl' (the item layouts of the
-    ``device_cache`` builders); 'classification' waits for item 5."""
+    dataset. ``kind``: 'detection' | 'ssl' | 'classification' (the item
+    layouts of the ``device_cache`` builders)."""
     if mesh is not None:
         _mesh_not_ported("the row-sharded rotating cache")
     common = dict(storage_dtype=storage_dtype, budget_bytes=budget_bytes,
@@ -261,7 +268,8 @@ def build_rotating_cache(dataset, seq_len: int, kind: str,
         xs, ys, names = ssl_rows(dataset, num_workers)
         return RotatingDeviceCache(xs, ys, seq_len, names=names, **common)
     if kind == "classification":
-        raise NotImplementedError(
-            "the classification rotating cache is not ported yet "
-            "(ROADMAP.md, Queue 1, item 5: classification)")
+        feats, labels, lens, names = classification_rows(dataset,
+                                                         num_workers)
+        return RotatingDeviceCache(feats, labels, seq_len, names=names,
+                                   seq_lengths=lens, **common)
     raise ValueError(f"unknown rotating-cache kind: {kind!r}")

@@ -4,3 +4,13 @@ from eeg_gnn_tpu_torch.io.jax_params import (  # noqa: F401
     params_from_jax,
     params_to_jax,
 )
+from eeg_gnn_tpu_torch.io.torch_export import (  # noqa: F401
+    export_classification_state,
+    export_next_time_pred_state,
+    save_torch_checkpoint,
+)
+from eeg_gnn_tpu_torch.io.torch_import import (  # noqa: F401
+    import_classification_params,
+    import_next_time_pred_params,
+    load_torch_state_dict,
+)

@@ -9,8 +9,9 @@ the device. With a ``DevicePipeline`` (``data/device_pipeline.py``),
 the graph run on the device before the model, and ``predict_proba``
 needs no supports for the combined graph.
 
-Still to port (ROADMAP.md): data-parallel meshes and reference
-``.pth.tar`` checkpoints.
+Checkpoints load from ``.npz`` files of either package or from the
+reference's ``.pth.tar`` files (``io/torch_import.py``). Still to port
+(ROADMAP.md): data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -88,14 +89,25 @@ class Predictor:
     def from_checkpoint(cls, checkpoint_path: str,
                         cfg: Optional[ExperimentConfig] = None,
                         **kwargs) -> "Predictor":
-        """A predictor straight from a JAX package ``.npz`` checkpoint."""
+        """A predictor straight from a checkpoint: a ``.npz`` of either
+        package, or a reference ``.pth.tar`` (``DCRNNModel_classification``
+        state; JAX ``load_params_for``, serve.py:34-66)."""
+        cfg = cfg or ExperimentConfig().finalize()
         if checkpoint_path.endswith(_TORCH_SUFFIXES):
-            raise NotImplementedError(
-                "reference .pth.tar import is not ported yet (ROADMAP.md, "
-                "Queue 1)")
+            from eeg_gnn_tpu_torch.io.torch_import import (
+                import_classification_params,
+                load_torch_state_dict,
+            )
+
+            if cfg.model_name != "dcrnn":
+                raise NotImplementedError(
+                    f"the {cfg.model_name!r} .pth.tar importer is not "
+                    "ported yet (ROADMAP.md, Queue 1, item 6: baselines)")
+            params = import_classification_params(
+                load_torch_state_dict(checkpoint_path), cfg.num_rnn_layers)
+            return cls(cfg, params, **kwargs)
         from eeg_gnn_tpu_torch.io.jax_params import load_jax_npz
 
-        cfg = cfg or ExperimentConfig().finalize()
         return cls(cfg, load_jax_npz(checkpoint_path, cfg), **kwargs)
 
     def _default_supports(self, batch: int) -> torch.Tensor:

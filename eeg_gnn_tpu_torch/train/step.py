@@ -51,11 +51,15 @@ SSL_TASK = "SS pre-training"
 
 
 def cached_batch(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
-                 seq_len: int) -> Dict[str, Any]:
+                 seq_len: int, seq: Optional[torch.Tensor] = None
+                 ) -> Dict[str, Any]:
     """The train and eval steps' batch of the cached rows ``idx`` (a device
     index vector) of a split ``x`` / ``y`` held on the device: the cache
-    rides along; the step gathers."""
-    return {"cache_x": x, "cache_y": y, "idx": idx, "seq_len": int(seq_len)}
+    rides along; the step gathers. ``seq``: the split's per-clip lengths
+    on the device (classification's padded clips), else every clip is
+    ``seq_len`` long."""
+    return {"cache_x": x, "cache_y": y, "cache_seq": seq, "idx": idx,
+            "seq_len": int(seq_len)}
 
 
 def _gather(cache: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -69,8 +73,11 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
 
     With ``input_pipeline``, a batch with ``raw`` clips is featurized on
     the device, and one with ``cache_x`` gathers its rows ``idx`` from the
-    cached split, then runs the pipeline's tail. (The JAX package's
-    ``cache_gather`` serves its mesh path, ROADMAP.md Queue 1 item 10.)"""
+    cached split, then runs the pipeline's tail: for classification's
+    padded clips (``cache_seq``) it gathers their lengths too and runs
+    ``classification_features`` (JAX ``train/step.py:64-71``). (The JAX
+    package's ``cache_gather`` serves its mesh path, ROADMAP.md Queue 1
+    item 10.)"""
     if task == SSL_TASK:
         raise ValueError(f"task {task!r} trains through ssl_loss_fn, not "
                          "supervised_loss_fn")
@@ -84,10 +91,16 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
             batch = {**batch, "x": x.float(), "supports": supports}
         elif input_pipeline is not None and batch.get("cache_x") is not None:
             feats = _gather(batch["cache_x"], batch["idx"])
-            x, supports = input_pipeline.features(feats, generator,
-                                                  model.training)
-            batch = {**batch, "x": x.float(), "supports": supports,
-                     "y": _gather(batch["cache_y"], batch["idx"])}
+            y = _gather(batch["cache_y"], batch["idx"])
+            if batch.get("cache_seq") is not None:
+                seq = _gather(batch["cache_seq"], batch["idx"])
+                x, supports = input_pipeline.classification_features(
+                    feats, seq, generator, model.training)
+                batch = {**batch, "seq_lengths": seq}
+            else:
+                x, supports = input_pipeline.features(feats, generator,
+                                                      model.training)
+            batch = {**batch, "x": x.float(), "supports": supports, "y": y}
         logits = model(batch["x"], batch["seq_lengths"], batch["supports"],
                        generator)
         valid = batch.get("valid")
@@ -174,9 +187,9 @@ class TrainStep:
     or a (B,) row mask). With an ``input_pipeline``, instead of ``x`` and
     the supports: ``raw`` (B, C, L) clips (SSL: and ``raw_y``), or the
     rows ``idx`` (a device index vector) of a device-resident split
-    ``cache_x`` / ``cache_y`` of constant length ``seq_len``
-    (:func:`cached_batch`). It returns the loss as a 0-d
-    device tensor (no host sync).
+    ``cache_x`` / ``cache_y`` of constant length ``seq_len`` or of the
+    per-clip lengths ``cache_seq`` (:func:`cached_batch`). It returns the
+    loss as a 0-d device tensor (no host sync).
     """
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module,
@@ -245,7 +258,7 @@ class TrainStep:
         rows are the valid ones: no ``valid``)."""
         if batch.get("cache_x") is not None:
             out = dict(batch)
-            if not self.ssl:
+            if not self.ssl and batch.get("cache_seq") is None:
                 out["seq_lengths"] = self._seq_lengths(
                     None, batch["idx"].shape[0], batch["seq_len"])
             return out
@@ -327,15 +340,16 @@ def make_cached_train_step(step: TrainStep, seq_len: int, batch_size: int):
     (perm on the device, uploaded once a plan; the valid counts are the
     host's plan) and writes its loss into the device buffer.
 
-    Returns ``run(x, y, perm, valid_vec, counter, seen, loss_buf) ->
-    (counter + 1, seen + valid)``; ``seen`` is the samples seen before
-    the step (SSL's curriculum)."""
+    Returns ``run(x, y, perm, valid_vec, counter, seen, loss_buf, seq=None)
+    -> (counter + 1, seen + valid)``; ``seen`` is the samples seen before
+    the step (SSL's curriculum); ``seq`` the split's per-clip lengths on
+    the device (classification)."""
 
-    def run(x, y, perm, valid_vec, counter, seen, loss_buf):
+    def run(x, y, perm, valid_vec, counter, seen, loss_buf, seq=None):
         valid = int(valid_vec[counter])
         lo = counter * batch_size
         loss_buf[counter] = step(
-            cached_batch(x, y, perm[lo:lo + valid], seq_len),
+            cached_batch(x, y, perm[lo:lo + valid], seq_len, seq),
             batches_seen=seen)
         return counter + 1, seen + valid
 
@@ -345,16 +359,17 @@ def make_cached_train_step(step: TrainStep, seq_len: int, batch_size: int):
 def make_cached_epoch_step(step: TrainStep, seq_len: int, batch_size: int):
     """Every step of one plan over a device-resident split (JAX
     ``train/step.py:268``): :func:`make_cached_train_step` for each of
-    its batches. Returns ``run(x, y, perm, valid_vec, seen) -> losses
-    (K,)`` on the device."""
+    its batches. Returns ``run(x, y, perm, valid_vec, seen, seq=None) ->
+    losses (K,)`` on the device."""
     one = make_cached_train_step(step, seq_len, batch_size)
 
-    def run(x, y, perm, valid_vec, seen):
+    def run(x, y, perm, valid_vec, seen, seq=None):
         losses = torch.zeros((len(valid_vec),), dtype=torch.float32,
                              device=step.device)
         counter = 0
         for _ in range(len(valid_vec)):
-            counter, seen = one(x, y, perm, valid_vec, counter, seen, losses)
+            counter, seen = one(x, y, perm, valid_vec, counter, seen, losses,
+                                seq)
         return losses
 
     return run

@@ -1,6 +1,7 @@
 """Training/evaluation driver (``eeg_gnn_tpu/train/trainer.py``, its
 streaming path): the equivalent of the reference's ``train.py`` /
-``train_ssl.py`` flows for DCRNN detection and SSL pre-training.
+``train_ssl.py`` flows for DCRNN detection, seizure-type classification
+and SSL pre-training.
 
 Orchestration parity (train.py:30-194, train_ssl.py:24-284): model build,
 warm-start / fine-tune transplant, epoch loop with per-epoch dev eval,
@@ -30,8 +31,11 @@ clips, and the time spent waiting on the loaders: the train loop's, and
 the train and dev evaluation loops' together (``time/*`` scalars; a
 cached split waits on no loader).
 
-Still to port (ROADMAP.md, Queue 1): the mesh paths, classification and
-the baselines; ``ExperimentConfig.check_runnable`` rejects them.
+The fine-tune transplant reads the SSL checkpoint from a ``.npz`` of
+either package or from a reference ``.pth.tar`` (``io/torch_import.py``).
+
+Still to port (ROADMAP.md, Queue 1): the mesh paths and the baselines;
+``ExperimentConfig.check_runnable`` rejects them.
 """
 
 from __future__ import annotations
@@ -46,6 +50,10 @@ import torch
 
 from eeg_gnn_tpu_torch.config import ExperimentConfig
 from eeg_gnn_tpu_torch.device import resolve_device
+from eeg_gnn_tpu_torch.io.torch_import import (
+    import_next_time_pred_params,
+    load_torch_state_dict,
+)
 from eeg_gnn_tpu_torch.models.registry import build_model
 from eeg_gnn_tpu_torch.train.checkpoint import (
     CheckpointSaver,
@@ -94,8 +102,7 @@ class Trainer:
         self.device_caches = device_caches or {}
         # loader batches carry RAW clips only with --device_pipeline; with
         # --hbm_cache alone the pipeline serves the cached features
-        self.raw_batches = (input_pipeline is not None
-                            and cfg.device_pipeline)
+        self.raw_batches = input_pipeline is not None and cfg.raw_clips
         stats = {}
         if self.is_ssl and scaler is not None:
             stats = {"mean": scaler.mean, "std": scaler.std}
@@ -153,7 +160,7 @@ class Trainer:
         for plan in cache.epoch_plans(self.cfg.train_batch_size, True, rng):
             loss_parts.append(self.cached_epoch_step(
                 plan.x, plan.y, self._plan_to_device(plan.perm), plan.valid,
-                step))
+                step, plan.seq))
             step += int(plan.valid.sum())
             valid_parts.append(plan.valid)
         return np.concatenate(valid_parts), torch.cat(loss_parts)
@@ -258,7 +265,7 @@ class Trainer:
                 idx = plan.perm[k * bsz:k * bsz + valid]
                 yield (cached_batch(plan.x, plan.y,
                                     perm_d[k * bsz:k * bsz + valid],
-                                    cache.seq_len),
+                                    cache.seq_len, plan.seq),
                        None if plan.labels is None else plan.labels[idx],
                        [plan.names[i] for i in idx])
 
@@ -280,12 +287,17 @@ class Trainer:
         if self.is_ssl:
             return {"loss": nll.avg}
 
-        logits = torch.cat(outputs).float().cpu().numpy().reshape(-1)
-        y_prob = 1.0 / (1.0 + np.exp(-logits))
+        logits = torch.cat(outputs).float().cpu().numpy()
         y_true = np.concatenate(y_true)
-        if cfg.task == "detection" and split == "dev" and is_test:
-            best_thresh = thresh_max_f1(y_true, y_prob)
-        y_pred = (y_prob > best_thresh).astype(int)
+        if cfg.num_classes == 1:
+            y_prob = 1.0 / (1.0 + np.exp(-logits.reshape(-1)))
+            if cfg.task == "detection" and split == "dev" and is_test:
+                best_thresh = thresh_max_f1(y_true, y_prob)
+            y_pred = (y_prob > best_thresh).astype(int)
+        else:  # softmax over the classes, the most probable one
+            e = np.exp(logits - logits.max(axis=1, keepdims=True))
+            y_prob = e / e.sum(axis=1, keepdims=True)
+            y_pred = y_prob.argmax(axis=1)
 
         scores, _, _ = eval_dict(
             y_pred=y_pred, y=y_true, y_prob=y_prob, file_names=names_all,
@@ -298,13 +310,35 @@ class Trainer:
         return results
 
 
+def warm_start(cfg: ExperimentConfig, params: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """The state dict a run starts from, given the model's ``params`` and
+    ``cfg.load_model_path`` (train.py:128-151): with ``--fine_tune`` the
+    SSL encoder-decoder of ``pretrained_num_rnn_layers`` layers, from a
+    ``.npz`` of either package or a reference ``.pth.tar``, transplanted
+    into ``params`` (``build_finetune_params``); else the checkpoint
+    itself, in ``params``' layout."""
+    if not cfg.fine_tune:
+        return load_params_like(cfg.load_model_path, params)
+    if cfg.load_model_path.endswith(_TORCH_SUFFIXES):
+        pre = import_next_time_pred_params(
+            load_torch_state_dict(cfg.load_model_path),
+            cfg.pretrained_num_rnn_layers)
+    else:
+        pre_cfg = dataclasses.replace(
+            cfg, task=SSL_TASK, num_rnn_layers=cfg.pretrained_num_rnn_layers)
+        pre = load_params_like(cfg.load_model_path,
+                               build_model(pre_cfg).state_dict())
+    return build_finetune_params(params, pre, cfg.num_rnn_layers)
+
+
 def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
                    log, metrics_writer,
                    init_params: Optional[Mapping[str, torch.Tensor]] = None,
                    device=None, input_pipeline=None,
                    device_caches=None) -> Dict[str, float]:
-    """Full main() flow of detection and SSL pre-training; returns the final
-    test results.
+    """Full main() flow of detection, classification and SSL
+    pre-training; returns the final test results.
 
     ``init_params``: the model's starting state_dict (else drawn from a
     generator seeded by ``cfg.rand_seed``). ``device``: ``None`` (the CUDA
@@ -320,22 +354,8 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
         model = build_model(cfg)
         model.load_state_dict(init_params)
 
-    # Warm start / fine-tune transplant (train.py:128-151)
     if cfg.load_model_path:
-        params = model.state_dict()
-        if cfg.fine_tune:
-            if cfg.load_model_path.endswith(_TORCH_SUFFIXES):
-                raise NotImplementedError(
-                    "fine-tuning from a reference .pth.tar is not ported yet "
-                    "(ROADMAP.md, Queue 1)")
-            pre_cfg = dataclasses.replace(
-                cfg, task=SSL_TASK, num_rnn_layers=cfg.pretrained_num_rnn_layers)
-            pre = load_params_like(cfg.load_model_path,
-                                   build_model(pre_cfg).state_dict())
-            params = build_finetune_params(params, pre, cfg.num_rnn_layers)
-        else:
-            params = load_params_like(cfg.load_model_path, params)
-        model.load_state_dict(params)
+        model.load_state_dict(warm_start(cfg, model.state_dict()))
 
     trainer = Trainer(cfg, loaders, scaler, log, metrics_writer, model,
                       device=device, input_pipeline=input_pipeline,

@@ -11,7 +11,11 @@ past a tiny ``--hbm_budget_gb``, rotating), the raw-clip pipeline
 (``--device_pipeline``) and ``--fused_steps 4`` (which the port accepts
 and ignores: JAX's fused program has the numerics of single steps),
 detection and SSL, each
-package building its pipeline and caches as its CLI does.
+package building its pipeline and caches as its CLI does. Seizure-type
+classification (4 classes, weighted F1) runs on a corpus of 12 files x 96
+s (4 files hold 3 training clips): streaming on both graphs,
+``--hbm_cache`` resident on both graphs and rotating, and fine-tuned
+from a reference ``.pth.tar`` that the JAX package wrote.
 
 Tolerances: the ``train/Loss`` sequence (same steps), the dev/test loss
 and dev-tuned threshold at rtol 1e-4; accuracy, F1, precision, recall
@@ -70,6 +74,8 @@ def _kw(p, task, graph_type, **extra):
               input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"])
     if task == SSL:
         kw.update(metric_name="loss", output_seq_len=CLIP)
+    if task == "classification":
+        kw.update(num_classes=4, metric_name="F1")
     kw.update(extra)
     return kw
 
@@ -87,6 +93,10 @@ def _loaders(ds_module, p, cfg, raw_mode=False):
         return ds_module.load_dataset_ssl(input_len=CLIP,
                                           output_len=cfg.output_seq_len,
                                           **common)
+    if cfg.task == "classification":
+        common.pop("raw_mode")
+        return ds_module.load_dataset_classification(max_seq_len=CLIP,
+                                                     **common)
     return ds_module.load_dataset_detection(max_seq_len=CLIP, seed=123,
                                             **common)
 
@@ -110,7 +120,8 @@ def _jax_input_path(cfg, p, scaler):
     from eeg_gnn_tpu.data.device_pipeline import make_device_pipeline
     from eeg_gnn_tpu.data.rotating_cache import build_rotating_cache
 
-    if not (cfg.device_pipeline or cfg.hbm_cache):
+    if not ((cfg.device_pipeline and cfg.task != "classification")
+            or cfg.hbm_cache):
         return None, None
     pipe = make_device_pipeline(
         graph_type=cfg.graph_type, filter_type=cfg.filter_type,
@@ -132,6 +143,11 @@ def _jax_input_path(cfg, p, scaler):
                                            **plain_kw)
         build = lambda ds: jdc.build_ssl_cache(ds, CLIP)
         t_out, kind = cfg.output_seq_len, "ssl"
+    elif cfg.task == "classification":
+        _, plain, _ = jds.load_dataset_classification(max_seq_len=CLIP,
+                                                      **plain_kw)
+        build = lambda ds: jdc.build_classification_cache(ds, CLIP)
+        t_out, kind = 0, "classification"
     else:
         _, plain, _ = jds.load_dataset_detection(max_seq_len=CLIP, seed=123,
                                                  **plain_kw)
@@ -202,7 +218,8 @@ def _steps_per_epoch(p, cfg, caches):
     return -(-len(_loaders(tds, p, cfg)[1]["train"]) // bsz)
 
 
-def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None):
+def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None,
+                       param_atol=1e-6):
     jm, tm = _metrics(jdir), _metrics(tdir)
     assert [(r["tag"], r["step"]) for r in tm] == \
         [(r["tag"], r["step"]) for r in jm]
@@ -213,7 +230,10 @@ def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None):
             np.testing.assert_allclose(a["value"], b["value"], rtol=RTOL)
     assert sorted(tres) == sorted(jres)
     np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=RTOL)
-    if cfg.task != SSL:
+    if cfg.task == "classification":
+        for k in ("acc", "F1", "precision", "recall", "best_thresh"):
+            assert tres[k] == jres[k], (k, tres[k], jres[k])
+    elif cfg.task != SSL:
         np.testing.assert_allclose(tres["best_thresh"], jres["best_thresh"],
                                    rtol=RTOL)
         probs = _test_probs(p, cfg, tdir)
@@ -224,7 +244,8 @@ def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None):
             np.load(os.path.join(tdir, "best.npz")) as b:
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
-            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, atol=1e-6)
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL,
+                                       atol=param_atol)
     # the same files, but the JAX package's optional TensorBoard events
     assert sorted(os.listdir(tdir)) == sorted(
         f for f in os.listdir(jdir) if not f.startswith("events.out."))
@@ -256,6 +277,69 @@ def test_run_experiment_matches_jax(corpus, tmp_path, task, graph_type,
     jres, tres, jdir, tdir, cfg, caches = _run_both(
         corpus, tmp_path, _kw(corpus, task, graph_type, **flags))
     _assert_runs_agree(corpus, jres, tres, jdir, tdir, cfg, caches)
+
+
+@pytest.fixture(scope="module")
+def cls_corpus(tmp_path_factory):
+    """Enough seizures for a classification run: 12 files, 1-2 each."""
+    root = str(tmp_path_factory.mktemp("cls_corpus"))
+    return make_synthetic_corpus(root, num_files=12, file_seconds=96,
+                                 clip_len=CLIP, seed=1)
+
+
+@pytest.mark.parametrize("graph_type,flags", [
+    pytest.param("combined", {}, id="combined"),
+    pytest.param("individual", {}, id="individual"),
+    pytest.param("combined", {"hbm_cache": True}, id="combined-hbm_cache"),
+    pytest.param("individual", {"hbm_cache": True},
+                 id="individual-hbm_cache"),
+    pytest.param("combined", {"hbm_cache": True, "hbm_budget_gb": 0.0001},
+                 id="combined-hbm_cache-rotating"),
+    pytest.param("combined", {"device_pipeline": True},
+                 id="combined-device_pipeline"),
+])
+def test_classification_run_matches_jax(cls_corpus, tmp_path, graph_type,
+                                        flags):
+    """4-class seizure types: padded clips of mixed lengths, CE loss,
+    softmax and weighted F1; ``--device_pipeline`` serves detection and
+    SSL only, in both packages, so classification streams host features
+    under it."""
+    jres, tres, jdir, tdir, cfg, caches = _run_both(
+        cls_corpus, tmp_path, _kw(cls_corpus, "classification", graph_type,
+                                  **flags))
+    lens = _loaders(tds, cls_corpus, cfg)[1]["train"]
+    assert len({int(lens[i][2]) for i in range(len(lens))}) > 1
+    assert sorted(jres) == ["F1", "acc", "best_thresh", "loss", "precision",
+                            "recall"]
+    _assert_runs_agree(cls_corpus, jres, tres, jdir, tdir, cfg, caches)
+
+
+def test_classification_fine_tune_from_pth_tar_matches_jax(cls_corpus,
+                                                           tmp_path):
+    """Classification fine-tuned from a reference-layout SSL ``.pth.tar``
+    (2 layers; the tied decoder cell under layer 1) that the JAX package
+    wrote: both packages read the same file. ``best.npz`` at atol 1e-5,
+    about 1/30 of one Adam step at lr 3e-4 (tests/test_torch_train.py):
+    from this start Adam turns float32 summation-order noise in a
+    near-zero gradient into a 1.5e-6 weight difference, the same whether
+    the start comes from the ``.pth.tar`` or the ``.npz`` (the transplants
+    are equal: tests/test_torch_pth_io.py)."""
+    from eeg_gnn_tpu.io.torch_export import (
+        export_next_time_pred_state,
+        save_torch_checkpoint,
+    )
+
+    pre_cfg = JaxConfig(**_kw(cls_corpus, SSL, "combined",
+                              num_rnn_layers=2)).finalize()
+    pre = init_next_time_pred_model(jax.random.PRNGKey(9),
+                                    pre_cfg.dcrnn_config())
+    path = str(tmp_path / "ssl_best.pth.tar")
+    save_torch_checkpoint(path, export_next_time_pred_state(pre, 2))
+    kw = _kw(cls_corpus, "classification", "combined", fine_tune=True,
+             pretrained_num_rnn_layers=2, load_model_path=path)
+    jres, tres, jdir, tdir, cfg, _ = _run_both(cls_corpus, tmp_path, kw)
+    _assert_runs_agree(cls_corpus, jres, tres, jdir, tdir, cfg,
+                       param_atol=1e-5)
 
 
 def test_fine_tune_matches_jax(corpus, tmp_path):
@@ -325,7 +409,8 @@ def test_cli_flags_match_jax(argv):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--task", "classification"], ["--model_name", "lstm"],
+    ["--task", "classification", "--model_name", "densecnn"],
+    ["--model_name", "lstm"],
     ["--preproc_dir", "/x"], ["--mesh_shape", "data:2"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1953,3 +1953,128 @@ def test_rotating_prefetch_matches_resident_eval(dev, tmp_path, task):
     assert len(live) == rot.num_shards and max(live) <= 2
     for k in results[0]:
         np.testing.assert_allclose(results[1][k], results[0][k], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# seizure-type classification: padded clips of mixed lengths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graph_type", ["combined", "individual"])
+def test_classification_step_on_the_card_matches_the_cpu(dev, graph_type):
+    """The 4-class step at mixed lengths that include 1 and T, the padded
+    tail exactly zero: at dropout 0 the loss and every gradient on the
+    card against the CPU's plain versions (1e-4), each kernel launched on
+    the card only; at dropout 0.5 from one seeded generator, the card's
+    gradients bitwise equal when the step runs twice (the bulk dW's split
+    partials under the last-step cotangent)."""
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    t, b = 12, 9
+    rng = np.random.RandomState(8)
+    lens = rng.randint(1, t + 1, size=b)
+    lens[:2] = (1, t)
+    x = rng.randn(b, t, N, 20).astype(np.float32)
+    for i, n in enumerate(lens):
+        x[i, n:] = 0.0
+    adj = np.abs(rng.rand(b, N, N)).astype(np.float32)
+    batch = {"x": x, "y": rng.randint(0, 4, size=b), "seq_lengths": lens,
+             "adjacency": (adj + adj.transpose(0, 2, 1)) / 2}
+    cfg = ExperimentConfig(task="classification", num_classes=4,
+                           graph_type=graph_type, max_seq_len=t,
+                           num_rnn_layers=2, rnn_units=16,
+                           max_diffusion_step=2, input_dim=20).finalize()
+    init = build_model(cfg, torch.Generator().manual_seed(2)).state_dict()
+    kernels = [cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+               cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
+               cr.dcgru_dw_reduce]
+    runs = []
+    for where, rate in (("cpu", 0.0), (dev, 0.0), (dev, 0.5), (dev, 0.5)):
+        c = dataclasses.replace(cfg, dropout=rate)
+        model = build_model(c)
+        model.load_state_dict(init)
+        step = TrainStep(c, model, 1, device=where,
+                         generator=torch.Generator(device=where)
+                         .manual_seed(4))
+        for k in kernels:
+            k.launches = 0
+        loss = float(step.loss_and_grads(batch))
+        runs.append((loss, {n: p.grad.cpu() for n, p in
+                            step.model.named_parameters()},
+                     [k.launches for k in kernels]))
+    (loss_c, grads_c, n_c), (loss_g, grads_g, n_g) = runs[:2]
+    assert n_c == [0] * len(kernels) and n_g == [2, 2, 2, 2, 1, 2], n_g
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for n, g in grads_c.items():
+        assert _err(grads_g[n], g) <= 1e-4, n
+    for n, g in runs[2][1].items():
+        assert torch.equal(g, runs[3][1][n]), n
+
+
+@pytest.mark.parametrize("flags", [{}, {"hbm_cache": True},
+                                   {"hbm_cache": True,
+                                    "hbm_budget_gb": 0.0001}],
+                         ids=["streaming", "hbm_cache", "rotating"])
+def test_classification_run_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                        flags):
+    """``run_experiment(task="classification")`` on a corpus of 12 files x
+    96 s (12 s clips of mixed lengths; 1 layer x 16 units, K=1, float32,
+    augmentation off), streaming, resident and rotating, on the card and
+    on the CPU from the same weights: losses and the test loss at rtol
+    1e-4, the encoder's kernels launched on the card."""
+    import json
+    import logging
+
+    from eeg_gnn_tpu_torch.cli.train import input_path
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.data.datasets import load_dataset_classification
+    from eeg_gnn_tpu_torch.data.synthetic import make_synthetic_corpus
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train.trainer import run_experiment
+    from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
+
+    signals = {}
+    p = make_synthetic_corpus(str(tmp_path / "corpus"), num_files=12,
+                              file_seconds=96, clip_len=12, seed=1,
+                              signals=signals)
+    cfg = ExperimentConfig(
+        task="classification", num_classes=4, graph_type="combined",
+        max_seq_len=12, use_fft=True, num_rnn_layers=1, rnn_units=16,
+        max_diffusion_step=1, train_batch_size=4, test_batch_size=8,
+        num_epochs=2, do_train=True, num_workers=1, metric_name="F1",
+        input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+        **flags).finalize()
+    init = build_model(cfg, torch.Generator().manual_seed(3)).state_dict()
+    kernels = [cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+               cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        loaders, _, scaler = load_dataset_classification(
+            input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+            train_batch_size=4, test_batch_size=8, max_seq_len=12,
+            num_workers=1, adj_mat_dir=p["adj_mat_dir"],
+            graph_type="combined", use_fft=True,
+            marker_dir=p["marker_dir"], signals=signals)
+        pipe, caches = input_path(cfg, scaler, adj_mat_dir=p["adj_mat_dir"],
+                                  marker_dir=p["marker_dir"],
+                                  signals=signals, device=where)
+        for k in kernels:
+            k.launches = 0
+        out = str(tmp_path / where)
+        os.makedirs(out)
+        res = run_experiment(cfg, loaders, scaler, out,
+                             logging.getLogger("classification_run"),
+                             MetricsWriter(out), init_params=init,
+                             device=where, input_pipeline=pipe,
+                             device_caches=caches)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [r["value"] for r in map(json.loads, f)
+                      if r["tag"] == "train/Loss"]
+        runs[where] = (res, losses, [k.launches for k in kernels])
+    (res_c, loss_c, n_c), (res_g, loss_g, n_g) = runs["cpu"], runs["cuda"]
+    assert n_c == [0] * len(kernels) and min(n_g) > 0, n_g
+    assert len(loss_g) == len(loss_c) > 0
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    np.testing.assert_allclose(res_g["loss"], res_c["loss"], rtol=1e-4)

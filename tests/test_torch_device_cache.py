@@ -271,10 +271,11 @@ def test_unported_cache_paths_raise():
     for fn in (tdc.shard_cache, tdc.mesh_plan):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn(cache, None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tdc.build_classification_cache(None, 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trc.build_rotating_cache([], 2, "classification", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tdc.build_classification_cache(None, 2, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        trc.build_rotating_cache([], 2, "classification", mesh=object(),
+                                 device="cpu")
 
 
 def test_caches_store_in_the_storage_dtype():
@@ -358,10 +359,10 @@ def test_rotating_training_keeps_two_slabs_and_visits_each_clip(corpus,
         live.append(rot.resident())
         return slab
 
-    def recording_run(x, y, perm, valid_vec, seen):
+    def recording_run(x, y, perm, valid_vec, seen, seq=None):
         rows.extend(int(y[i]) for k, v in enumerate(valid_vec)
                     for i in perm[k * 4:k * 4 + v])
-        return run(x, y, perm, valid_vec, seen)
+        return run(x, y, perm, valid_vec, seen, seq)
 
     rot.prefetch = counting_prefetch
     trainer.cached_epoch_step = recording_run

@@ -242,10 +242,19 @@ def test_bf16_storage_supports_match_rounded_f32(rng, dist_pkl, graph_type,
         _close(g, w, TAIL_ATOL)
 
 
-def test_classification_tail_waits_for_its_slice(dist_pkl):
-    _, tpipe = _pipes("combined", dist_pkl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        tpipe.classification_features(None, None, None, True)
+def test_classification_tail_waits_for_its_slice(rng, dist_pkl):
+    """The classification tail, once a stub, at full lengths is the
+    standard tail on the same draws (tests/test_torch_classification.py
+    holds it against JAX's at mixed lengths)."""
+    for graph_type in ("combined", "individual"):
+        _, tpipe = _pipes(graph_type, dist_pkl)
+        feats = torch.from_numpy(_feats(rng))
+        draws = tpipe.draw(B, torch.Generator().manual_seed(1))
+        got = tpipe.classification_features(
+            feats, torch.full((B,), T), training=True, draws=draws)
+        want = tpipe.features(feats, training=True, draws=draws)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
