@@ -174,7 +174,26 @@ Phases (any failure exits non-zero and prints no result line):
    (combined, individual), rotating past --hbm_budget_gb, and
    --fine_tune from a ``.pth.tar`` of phase 10's SSL run, each
    launching the detector's kernels and no other (epoch s, clips/s,
-   loader wait).
+   loader wait);
+13. the baselines (``phase_baselines``, after 12; configs/run_lstm*.sh,
+   run_cnnlstm*.sh, run_densecnn*.sh: T=60, N=19, D=100; LSTM 2 x 64 on
+   1900 inputs, the CNN-LSTM's fixed widths, the Dense-CNN's 10 channels
+   on (6000, 19), fc1 54720 -> 128), float32, TF32 off as phase 1 left
+   it: each family's eval forward on the card against the same weights
+   on the CPU at the serving batch (128; the Dense-CNN's 2), <= 1e-4;
+   ``TrainStep``'s step-1 gradients (dropout 0) on the card against the
+   CPU's, <= 1e-3, the Dense-CNN's in float64 on both sides (its
+   max-pools' gradients jump at near ties, which float32 rounding flips;
+   its card float32 gradients against float64 printed beside); the step
+   at B=40 (median of 20 synchronised, best of 3 runs back to back; the
+   Dense-CNN 5, and again under cuDNN TF32, torch's default), its FLOP/s
+   and one traced step; ``Predictor`` clips/s; a ``.pth.tar`` and an
+   ``.npz`` (+ ``.state.npz``) of the trained weights served bitwise
+   equal; then ``cli.train.main`` for 2 epochs on phase 10's corpus
+   (LSTM and CNN-LSTM detection, the Dense-CNN's 4-class classification
+   on the flat-clip dataset; --dtype bfloat16 accepted, the baselines run
+   float32). No hand-written kernel launches in the phase (the kernels
+   line's ``launches_by_path`` gains ``baselines``, all 0).
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -187,6 +206,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -276,6 +296,17 @@ RAW_SCALE = 20.0                 # amplitude of the seeded raw clips
 # classes, dropout 0.5; the CLI's rotating run's budget (4 train shards)
 CLS_CLASSES, CLS_DROPOUT = 4, 0.5
 CLS_ROTATING_GB = 0.01
+# the baselines (configs/run_{lstm,cnnlstm,densecnn}*.sh): (model, task, lr,
+# epochs of the recipe); LSTM 2 x 64 on 1900 inputs, the CNN-LSTM at its
+# fixed widths, the Dense-CNN 10 channels on the (6000, 19) plane; train
+# batch 40 (the default), serving batch 128 (the Dense-CNN's recipes: 2)
+BASELINES = (("lstm", "detection", 1e-4, 100),
+             ("cnnlstm", "detection", 1e-4, 100),
+             ("densecnn", "classification", 3e-4, 60))
+BASE_SERVE = {"lstm": BATCH, "cnnlstm": BATCH, "densecnn": 2}
+BASE_GRAD_BATCH = {"lstm": 8, "cnnlstm": 8, "densecnn": 2}
+BASE_REPS = {"lstm": REPS, "cnnlstm": REPS, "densecnn": 5}
+GRAD_TOL = 1e-3  # the baselines' step-1 gradients, card against the CPU
 
 
 def fail(msg: str):
@@ -638,21 +669,21 @@ def time_ms(torch, fn, reps=REPS, warmup=3, lead=True) -> float:
     return statistics.median(times)
 
 
-def time_steps(torch, run) -> tuple[float, float, float]:
-    """A train step's median time over REPS single synchronised runs, the
-    best of 3 runs of REPS steps back to back (one sync each: bench.py's
-    loop), in ms, and the last loss."""
-    ms = time_ms(torch, run, lead=False)
+def time_steps(torch, run, reps=REPS) -> tuple[float, float, float]:
+    """A train step's median time over ``reps`` single synchronised runs,
+    the best of 3 runs of ``reps`` steps back to back (one sync each:
+    bench.py's loop), in ms, and the last loss."""
+    ms = time_ms(torch, run, reps=reps, lead=False)
     loop = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             loss = run()
         end.record()
         end.synchronize()
-        loop.append(start.elapsed_time(end) / REPS)
+        loop.append(start.elapsed_time(end) / reps)
     return ms, min(loop), float(loss)
 
 
@@ -3568,6 +3599,304 @@ def phase_classification(torch, dev, card, corpus):
     return paths, stats
 
 
+# ---------------------------------------------------------------------------
+# the baselines: LSTM, CNN-LSTM and Dense-CNN (torch built-ins: cuDNN,
+# cuBLAS; no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+
+def base_cfg(name):
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+
+    _, task, lr, epochs = next(b for b in BASELINES if b[0] == name)
+    cls = task == "classification"
+    return ExperimentConfig(
+        model_name=name, task=task, max_seq_len=T, use_fft=True,
+        rnn_units=H, num_rnn_layers=2, input_dim=100, do_train=True,
+        num_classes=CLS_CLASSES if cls else 1,
+        metric_name="F1" if cls else "auroc", lr_init=lr, l2_wd=5e-4,
+        max_grad_norm=5.0, num_epochs=epochs).finalize()
+
+
+def base_batch(name, b, seed):
+    """A host batch of the family: featurized (b, T, 19, 100) clips and
+    binary labels, or the Dense-CNN's flat (b, 6000, 19) clips and 4
+    classes; seeded lengths, per-clip adjacency (which the baselines
+    ignore)."""
+    rng = np.random.RandomState(seed)
+    shape = (b, T * 100, N) if name == "densecnn" else (b, T, N, 100)
+    x = rng.randn(*shape).astype(np.float32)  # standardized features
+    y = (rng.randint(0, CLS_CLASSES, size=b) if name == "densecnn"
+         else rng.randint(0, 2, size=b).astype(np.float32))
+    lens = rng.randint(1, T + 1, size=b).astype(np.int64)
+    lens[0] = T
+    return {"x": x, "y": y, "seq_lengths": lens,
+            "adjacency": adjacency(rng, b)}
+
+
+def fwd_flops(torch, model, x, lens) -> float:
+    """The multiply-adds x 2 of one forward from the shapes it runs at:
+    every Conv2d, Linear and LSTM (its input and hidden products)."""
+    from torch import nn
+
+    total, hooks = [0.0], []
+
+    def conv(m, a, out):
+        total[0] += 2.0 * out.numel() * m.in_channels * math.prod(
+            m.kernel_size)
+
+    def linear(m, a, out):
+        total[0] += 2.0 * out.numel() * m.in_features
+
+    def lstm(m, a, out):
+        steps = out[0].shape[0] * out[0].shape[1]  # (seq x batch) rows
+        h = m.hidden_size
+        total[0] += sum(2.0 * steps * 4 * h * (
+            (m.input_size if k == 0 else h) + h)
+            for k in range(m.num_layers))
+
+    for mod in model.modules():
+        kind = {nn.Conv2d: conv, nn.Linear: linear, nn.LSTM: lstm}.get(
+            type(mod))
+        if kind is not None:
+            hooks.append(mod.register_forward_hook(kind))
+    training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(x, lens, None)
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def base_gates(torch, dev, name):
+    """Forward gate: eval mode at the serving batch, the card's logits
+    against the same weights' on the CPU (<= F32_TOL). Gradient gate: the
+    step-1 gradients of ``TrainStep`` (dropout 0) on the card against the
+    CPU's (<= GRAD_TOL); the Dense-CNN's in float64 on both sides (its
+    max-pools' gradients jump at near ties, which float32 rounding flips:
+    its float32 card gradients against the float64 ones are printed
+    beside). Returns the worst errors."""
+    import copy
+
+    from eeg_gnn_tpu_torch.models import densecnn
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    cfg = base_cfg(name)
+    model = build_model(cfg, torch.Generator().manual_seed(21)).eval()
+    b = base_batch(name, BASE_SERVE[name], seed=61)
+    x, lens = torch.from_numpy(b["x"]), torch.from_numpy(b["seq_lengths"])
+    with torch.no_grad():
+        want = model(x, lens, None)
+        got = copy.deepcopy(model).to(dev)(x.to(dev), lens.to(dev), None)
+    fwd, fwd_abs = norm_err(got.cpu(), want)
+    if not fwd <= F32_TOL:
+        fail(f"baseline {name}: card forward {fwd:.3e} from the CPU's > "
+             f"{F32_TOL:.0e}")
+
+    gb = base_batch(name, BASE_GRAD_BATCH[name], seed=62)
+    f64 = name == "densecnn"
+
+    def grads(device, dtype):
+        m = copy.deepcopy(model).to(dtype)
+        step = TrainStep(cfg, m, STEPS_PER_EPOCH, device=device)
+        loss = float(step.loss_and_grads(gb))
+        return loss, {n: p.grad.detach().double().cpu()
+                      for n, p in step.model.named_parameters()
+                      if p.grad is not None}
+
+    rate, densecnn.DROPOUT_RATE = densecnn.DROPOUT_RATE, 0.0
+    try:
+        dtype = torch.float64 if f64 else torch.float32
+        loss_c, card = grads(dev, dtype)
+        loss_h, host = grads("cpu", dtype)
+        f32_card = grads(dev, torch.float32)[1] if f64 else None
+    finally:
+        densecnn.DROPOUT_RATE = rate
+    errs, unreached = {}, 0
+    for k, ref in host.items():
+        if k == "dense_inception.fc1.bias":  # BatchNorm follows: 0 exactly
+            scale = float(host[k[:-4] + "weight"].abs().max())
+            if max(float(ref.abs().max()), float(card[k].abs().max())) > \
+                    1e-9 * scale:
+                fail(f"baseline {name}: fc1.bias gradient is not ~0")
+            continue
+        errs[k] = float((card[k] - ref).abs().max()
+                        / max(float(ref.abs().max()), 1e-30))
+    unreached = len(dict(model.named_parameters())) - len(host)
+    worst = max(errs, key=errs.get)
+    if card.keys() != host.keys() or not errs[worst] <= GRAD_TOL:
+        fail(f"baseline {name}: card step-1 gradient {worst} "
+             f"{errs[worst]:.3e} from the CPU's > {GRAD_TOL:.0e}")
+    line = (f"baseline {name}: forward B={len(x)} card vs CPU {fwd:.3e} "
+            f"(max abs {fwd_abs:.3e}, tol {F32_TOL:.0e}); step-1 gradients "
+            f"B={len(gb['x'])} {'float64' if f64 else 'float32'} worst "
+            f"{errs[worst]:.3e} ({worst}; tol {GRAD_TOL:.0e}), losses "
+            f"{loss_c:.6f} / {loss_h:.6f}")
+    if unreached:
+        line += f"; {unreached} tensors the loss does not reach"
+    if f64:
+        band = {k: float((f32_card[k] - v).abs().max()
+                         / max(float(v.abs().max()), 1e-30))
+                for k, v in card.items() if k in errs}
+        l2 = {k: float((f32_card[k] - v).norm() / max(float(v.norm()),
+                                                      1e-30))
+              for k, v in card.items() if k in errs}
+        line += (f"; the card's float32 gradients against its float64 "
+                 f"ones: worst {max(band.values()):.3e} inf-norm, "
+                 f"{max(l2.values()):.3e} L2 (pool-tie flips; no gate)")
+    log(line)
+    return fwd, errs[worst]
+
+
+def base_times(torch, dev, card, name, out_dir):
+    """The train step at B=40 (median of reps synchronised, best of 3 back
+    to back; the Dense-CNN also under cuDNN TF32, torch's default), one
+    traced step, achieved FLOP/s; Predictor clips/s at the serving batch;
+    ``.pth.tar`` and ``.npz`` (+ ``.state.npz``) of the trained weights
+    served bitwise equal. Returns the figures."""
+    from eeg_gnn_tpu_torch.io import save_torch_checkpoint
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.serve import Predictor
+    from eeg_gnn_tpu_torch.train import TrainStep
+    from eeg_gnn_tpu_torch.train.checkpoint import CheckpointSaver
+
+    cfg = base_cfg(name)
+    model = build_model(cfg, torch.Generator().manual_seed(22))
+    hb = base_batch(name, CLI_BATCH, seed=63)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in hb.items()
+         if k != "adjacency"}
+    step = TrainStep(cfg, model, STEPS_PER_EPOCH, device=dev)
+    # one clip's forward (the CNN-LSTM's LSTM rows scale with B as well)
+    flops = 3.0 * CLI_BATCH * fwd_flops(torch, step.model, b["x"][:1],
+                                        b["seq_lengths"][:1])
+    reps = BASE_REPS[name]
+    out = {"flops": flops}
+    settings = [("float32", False)] + ([("TF32", True)]
+                                       if name == "densecnn" else [])
+    for tag, tf32 in settings:
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            ms, best, loss = time_steps(torch, lambda: step(b), reps)
+            busy, wall, _, _ = trace(torch, lambda: step(b))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        if not np.isfinite(loss):
+            fail(f"baseline {name} step {tag}: loss {loss}")
+        out[tag] = (ms, best, busy, wall)
+        log(f"time baseline {name} train step {tag} B={CLI_BATCH}: {ms:.3f} "
+            f"ms/step (median of {reps}, each synchronised), "
+            f"{CLI_BATCH / ms * 1e3:.1f} clips/s; {reps} back to back: "
+            f"{best:.3f} ms/step, {CLI_BATCH / best * 1e3:.1f} clips/s "
+            f"(best of 3); {flops / 1e9:.1f} GFLOP a step (3 x forward), "
+            f"{flops / best / 1e9:.1f} TFLOP/s; traced: device busy "
+            f"{busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%); {card}")
+
+    bs = BASE_SERVE[name]
+    req = base_batch(name, bs * (8 if name == "densecnn" else 2), seed=64)
+    pred = Predictor(cfg, step.model.state_dict(), batch_size=bs, device=dev)
+    serve = lambda p: p.predict_proba(req["x"], req["seq_lengths"],
+                                      adjacency=req["adjacency"])
+    probs = serve(pred)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        serve(pred)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    n = len(req["x"])
+    if not (np.all(np.isfinite(probs)) and probs.shape[0] == n):
+        fail(f"baseline {name}: probabilities {probs.shape}")
+    out["serve"] = (n / wall, wall)
+    log(f"time baseline {name} Predictor B={bs}: {n} clips in "
+        f"{wall * 1e3:.3f} ms (median of 5, host numpy in and out), "
+        f"{n / wall:.1f} clips/s; {card}")
+
+    sd = step.model.state_dict()
+    pth = os.path.join(out_dir, f"{name}.pth.tar")
+    save_torch_checkpoint(pth, sd)
+    run = os.path.join(out_dir, name)
+    CheckpointSaver(run, cfg.metric_name, True).save(1, sd, step.optimizer,
+                                                     0.5)
+    got = [serve(Predictor.from_checkpoint(path, cfg, batch_size=bs,
+                                           device=dev))
+           for path in (pth, os.path.join(run, "best.npz"))]
+    if not (np.array_equal(got[0], got[1]) and np.array_equal(got[0],
+                                                              probs)):
+        fail(f"baseline {name}: from_checkpoint of the .pth.tar and the "
+             ".npz serve other probabilities")
+    log(f"baseline {name}: from_checkpoint of a .pth.tar and of a .npz"
+        + (" + .state.npz" if name == "densecnn" else "")
+        + f" of the trained weights, {n} clips: bitwise equal to the "
+        "Predictor's")
+    os.remove(pth)  # the Dense-CNN's files (with Adam's) are ~300 MB
+    shutil.rmtree(run)
+    return out
+
+
+def phase_baselines(torch, dev, card, corpus):
+    """The LSTM, CNN-LSTM and Dense-CNN at the recipes' widths (T=60,
+    N=19, D=100; the Dense-CNN on (6000, 19)): gates, step and serving
+    times, checkpoints (``base_gates``, ``base_times``), then
+    ``cli.train.main`` for 2 epochs each on phase_cli's corpus (LSTM and
+    CNN-LSTM detection, the Dense-CNN's 4-class classification on the
+    flat-clip dataset). Every hand-written kernel's count stays 0 through
+    the phase. Returns the counts."""
+    from eeg_gnn_tpu_torch.data.datasets import (
+        load_dataset_densecnn_classification,
+    )
+
+    out_dir = os.path.join("chiprun_out", "baselines")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    reset_counts()
+    times = {}
+    for name, _, _, _ in BASELINES:
+        base_gates(torch, dev, name)
+        times[name] = base_times(torch, dev, card, name, out_dir)
+
+    root, signals = corpus["root"], corpus["signals"]
+    flag = lambda k: corpus["detect"][corpus["detect"].index(k) + 1]
+    n_dc = len(load_dataset_densecnn_classification(
+        input_dir=flag("--input_dir"), raw_data_dir=flag("--raw_data_dir"),
+        train_batch_size=CLI_BATCH, max_seq_len=T,
+        marker_dir=flag("--marker_dir"), standardize=False,
+        build_loaders=False, signals=signals)[1]["train"])
+    for name, task, lr, _ in BASELINES:
+        argv = [a if a != "detection" else task for a in corpus["detect"]]
+        argv += ["--model_name", name, "--lr_init", str(lr),
+                 "--data_augment"]
+        n_train = corpus["n_train"]["detection"]
+        if task == "classification":
+            argv += ["--num_classes", str(CLS_CLASSES), "--metric_name",
+                     "F1", "--test_batch_size", str(BASE_SERVE[name])]
+            n_train = n_dc
+        tag = f"baseline {name} {task}"
+        res, run_dir, launched, wall = _cli_run(torch, argv, signals, root,
+                                                (), tag)
+        if any(launched.values()):
+            fail(f"cli {tag}: launched {launched}")
+        st = cli_run_stats(tag, res, run_dir, wall, n_train, card)
+        ms = times[name]["float32"][0]
+        clips, secs = sum(st["train_clips"]), sum(st["train_s"])
+        wait, ep = sum(st["loader_wait_s"]), sum(st["epoch_s"])
+        log(f"cli {tag}: train loop {clips / secs:.1f} clips/s over "
+            f"{CLI_EPOCHS} epochs beside its TrainStep's "
+            f"{CLI_BATCH / ms * 1e3:.1f} at B={CLI_BATCH} (float32); loader "
+            f"wait {100 * wait / ep:.1f}% of the epochs' {ep:.3f} s; {card}")
+        shutil.rmtree(run_dir)
+    launched = counts()
+    if any(launched.values()):
+        fail(f"baselines: hand-written kernels launched {launched}")
+    log(f"baselines: no hand-written kernel launched in the phase; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def log_input_rates(stats, times, card):
     """The cached loops' clips/s beside the bare TrainStep's at B=128 in
     the same run (phase_times, phase_ssl_times; per-clip supports there,
@@ -3695,6 +4024,7 @@ def main():
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
     log_cli_rates(cls_stats, times[("train", CLI_BATCH)][0], card)
+    paths["baselines"] = phase_baselines(torch, dev, card, corpus)
 
     kernels, composites = [], []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"

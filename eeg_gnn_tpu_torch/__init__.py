@@ -6,14 +6,16 @@ anything of ``eeg_gnn_tpu``. Parameter names and layouts stay the
 reference's, so a JAX ``.npz`` checkpoint maps onto a port ``state_dict``
 key for key (``io/jax_params.py``).
 
-It serves and trains DCRNN seizure detection and classification, runs
-SSL next-window pre-training, and runs the training CLI end to end
+It serves and trains DCRNN seizure detection and classification and the
+LSTM, CNN-LSTM and Dense-CNN baselines, runs SSL next-window
+pre-training, and runs the training CLI end to end
 (``python -m eeg_gnn_tpu_torch.cli.train``):
 
 - ``constants`` / ``config``  — the JAX package's config fields and CLI
                   flags.
 - ``data``      — synthetic corpus, markers, clips, augmentation, scaler,
-                  the detection and SSL datasets and the threaded loader.
+                  the detection, classification, Dense-CNN flat-clip and
+                  SSL datasets and the threaded loader.
 - ``graphs``    — spectral supports (host numpy oracles + batched torch),
                   the distance and correlation graphs.
 - ``ops``       — the numpy FFT features, Chebyshev diffusion, the
@@ -22,8 +24,10 @@ SSL next-window pre-training, and runs the training CLI end to end
                   decoder, forward and backward, with their plain PyTorch
                   versions and autograd Functions.
 - ``models``    — DCGRU encoder and decoder, ``DCRNNClassifier``,
-                  ``DCRNNNextTimePred`` and the registry.
-- ``io``        — JAX parameter trees and ``.npz`` checkpoints.
+                  ``DCRNNNextTimePred``, the baselines ``LSTMModel``,
+                  ``CNNLSTM`` and ``DenseCNN``, and the registry.
+- ``io``        — JAX parameter trees, ``.npz`` checkpoints and the
+                  reference's ``.pth.tar`` files.
 - ``serve``     — the fixed-shape batched ``Predictor``.
 - ``train``     — losses (BCE, CE, masked regression), clip + Adam +
                   cosine LR, ``TrainStep`` (supervised and SSL) and its

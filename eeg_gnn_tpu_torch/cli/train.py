@@ -3,9 +3,11 @@
 The flags of ``python -m eeg_gnn_tpu.cli.train`` (the reference's
 ``train.py``/``train_ssl.py`` surface plus ``--marker_dir``,
 ``--adj_mat_dir``, ``--dtype`` and the JAX package's extensions), so one
-command line serves both packages. It runs DCRNN detection,
-seizure-type classification and SSL pre-training (and fine-tuning from an
-SSL checkpoint, ``.npz`` or reference ``.pth.tar``) on one CUDA card:
+command line serves both packages. It runs detection and seizure-type
+classification with DCRNN or a baseline (``--model_name lstm``,
+``cnnlstm``, ``densecnn``; the Dense-CNN's classification reads the
+flat-clip dataset), SSL pre-training (and fine-tuning from an SSL
+checkpoint, ``.npz`` or reference ``.pth.tar``) on one CUDA card:
 corpus markers -> clips -> FFT features -> per-clip graphs and supports
 -> the train steps -> dev evaluation each epoch, best/last checkpoints,
 early stopping -> the final dev and test results, written to
@@ -18,10 +20,11 @@ and SSL only, and classification reads featurized clips.
 ``--hbm_cache`` featurizes every split once on the host and keeps it on
 the device (``data/device_cache.py``), or, past ``--hbm_budget_gb``,
 rotates it through the device in shards (``data/rotating_cache.py``):
-all three tasks, both graph types. ``--reflect_invariant`` is the JAX
-CLI's; ``--fused_steps`` is accepted and ignored (``config.py``). The
-mesh and Dense-CNN branches of the JAX CLI wait for their slices
-(ROADMAP.md, Queue 1).
+all three tasks, both graph types. As in the JAX CLI, both serve
+``--model_name dcrnn`` only: a baseline accepts them and streams host
+features. ``--reflect_invariant`` is the JAX CLI's; ``--fused_steps`` is
+accepted and ignored (``config.py``). The mesh branch of the JAX CLI
+waits for its slice (ROADMAP.md, Queue 1).
 
 ``main(argv, device=None)`` runs on the card and raises without one;
 ``device="cpu"`` (a keyword, not a flag, as the JAX CLI picks its
@@ -61,7 +64,7 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
     from eeg_gnn_tpu_torch.data.device_pipeline import make_device_pipeline
     from eeg_gnn_tpu_torch.data.rotating_cache import build_rotating_cache
 
-    if not (cfg.raw_clips or cfg.hbm_cache):
+    if not (cfg.raw_clips or cfg.device_cached):
         return None, None
     pipeline = make_device_pipeline(
         graph_type=cfg.graph_type, filter_type=cfg.filter_type,
@@ -70,7 +73,7 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
         augment=cfg.data_augment, adj_mat_dir=adj_mat_dir,
         num_nodes=cfg.num_nodes, reflect_invariant=cfg.reflect_invariant,
         device=device)
-    if not cfg.hbm_cache:
+    if not cfg.device_cached:
         return pipeline, None
 
     plain_common = dict(
@@ -129,6 +132,7 @@ def main(argv=None, *, device=None, signals=None):
     from eeg_gnn_tpu_torch.config import ExperimentConfig, build_parser
     from eeg_gnn_tpu_torch.data.datasets import (
         load_dataset_classification,
+        load_dataset_densecnn_classification,
         load_dataset_detection,
         load_dataset_ssl,
     )
@@ -172,6 +176,17 @@ def main(argv=None, *, device=None, signals=None):
                 max_seq_len=cfg.max_seq_len,
                 sampling_ratio=cfg.sampling_ratio, seed=123,
                 raw_mode=cfg.raw_clips, **common)
+        elif cfg.task == "classification" and cfg.model_name == "densecnn":
+            # the reference's flat-clip loader (train.py:92-106)
+            loaders, _, scaler = load_dataset_densecnn_classification(
+                input_dir=cfg.input_dir, raw_data_dir=cfg.raw_data_dir,
+                train_batch_size=cfg.train_batch_size,
+                test_batch_size=cfg.test_batch_size,
+                max_seq_len=cfg.max_seq_len, standardize=True,
+                num_workers=cfg.num_workers, padding_val=0.0,
+                augmentation=cfg.data_augment, use_fft=cfg.use_fft,
+                preproc_dir=cfg.preproc_dir, marker_dir=marker_dir,
+                signals=signals)
         elif cfg.task == "classification":
             loaders, _, scaler = load_dataset_classification(
                 max_seq_len=cfg.max_seq_len, padding_val=0.0, **common)

@@ -9,10 +9,11 @@ Derived-field rules reproduced (reference ``args.py:196-221``):
 
 The TPU tuning knobs ``batch_tile``, ``scan_unroll`` and ``fused_steps``
 are accepted and ignored. The on-device input pipeline, the dataset
-caches (resident and rotating) and ``--reflect_invariant`` are ported.
-Features still to port (the baselines, ``preproc_dir``, meshes) raise
-``NotImplementedError`` from ``check_runnable`` when set away from their
-defaults (``_NOT_PORTED``).
+caches (resident and rotating) and ``--reflect_invariant`` are ported;
+as in the JAX CLI they serve ``--model_name dcrnn`` only, and a baseline
+accepts and ignores them. Features still to port (``preproc_dir``,
+meshes) raise ``NotImplementedError`` from ``check_runnable`` when set
+away from their defaults (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -133,9 +134,17 @@ class ExperimentConfig:
     @property
     def raw_clips(self) -> bool:
         """Whether the loaders yield raw clips: ``--device_pipeline``
-        serves detection and SSL pre-training only (JAX cli/train.py:
-        91-95); classification reads featurized clips."""
-        return self.device_pipeline and self.task != "classification"
+        serves DCRNN detection and SSL pre-training only (JAX
+        cli/train.py:91-95); classification and the baselines read
+        featurized clips."""
+        return (self.device_pipeline and self.task != "classification"
+                and self.model_name == "dcrnn")
+
+    @property
+    def device_cached(self) -> bool:
+        """Whether ``--hbm_cache`` holds the splits on the device: for
+        ``--model_name dcrnn`` only (JAX cli/train.py:104-112)."""
+        return self.hbm_cache and self.model_name == "dcrnn"
 
     @property
     def num_supports(self) -> int:
@@ -171,7 +180,6 @@ class ExperimentConfig:
 
 # flag -> whether this config asks for that feature, still to port
 _NOT_PORTED = {
-    "model_name": lambda c: c.model_name != "dcrnn",
     "preproc_dir": lambda c: c.preproc_dir is not None,
     "mesh_shape": lambda c: c.mesh_shape != "data:-1",
 }

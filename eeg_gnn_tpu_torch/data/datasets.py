@@ -2,8 +2,9 @@
 their loader factories (``eeg_gnn_tpu/data/datasets.py``).
 
 Parity targets: ``data/dataloader_detection.py`` (SeizureDataset +
-load_dataset_detection), ``data/dataloader_classification.py`` and
-``data/dataloader_ssl.py``. Same sample tuple
+load_dataset_detection), ``data/dataloader_classification.py``,
+``data/dataloader_densecnn_classification.py`` (the Dense-CNN's flat
+clips) and ``data/dataloader_ssl.py``. Same sample tuple
 layout ``(x, y, seq_len, supports, adj, writeout_fn)``, same marker
 parsing, augmentation, standardization, and per-sample support
 computation on the host (numpy; λmax by ``eigvalsh`` for ``combined``).
@@ -18,9 +19,8 @@ the h5 files on hosts without h5py.
 slices; FFT, augmentation, standardization and graphs run on the device
 (``data/device_pipeline.py``).
 
-Still to port (ROADMAP.md, Queue 1): the Dense-CNN baseline's dataset
-(item 6) and precomputed clip directories (``preproc_dir``, item 2); they
-raise ``NotImplementedError``.
+Still to port (ROADMAP.md, Queue 1): precomputed clip directories
+(``preproc_dir``, item 2); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 
-from eeg_gnn_tpu_torch.constants import FREQUENCY
+from eeg_gnn_tpu_torch.constants import FREQUENCY, get_swap_pairs
 from eeg_gnn_tpu_torch.data import clips as clip_ops
 from eeg_gnn_tpu_torch.data.augment import random_reflect, random_scale
 from eeg_gnn_tpu_torch.data.loader import DataLoader
@@ -46,6 +46,7 @@ from eeg_gnn_tpu_torch.graphs.distance import (
 )
 from eeg_gnn_tpu_torch.graphs.supports import compute_supports
 from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency
+from eeg_gnn_tpu_torch.ops.fft_features import log_amplitude_fft_np
 
 
 def _not_ported(what: str):
@@ -343,12 +344,65 @@ class ClassificationDataset(_BaseEEGDataset):
 
 
 class DenseCNNClassificationDataset(_BaseEEGDataset):
-    """Flat clips of the Dense-CNN baseline: still to port."""
+    """Flat (time, electrodes) clips of the Dense-CNN baseline.
 
-    def __init__(self, **kw):
-        raise NotImplementedError(
-            "the Dense-CNN classification dataset is not ported yet "
-            "(ROADMAP.md, Queue 1, item 6: baselines)")
+    Parity: ``data/dataloader_densecnn_classification.py:27-226`` (JAX
+    ``DenseCNNClassificationDataset``): the whole variable-length seizure
+    clip (the classification clip's bounds) is FFT'd at once (n = its
+    length), its log amplitudes zero-padded to ``max_seq_len *
+    FREQUENCY / 2`` bins and transposed to (time, 19); ``seq_len`` is the
+    bin count before padding. No graph. The reference's non-FFT branch
+    reads an undefined name (its ``:76``), so the FFT branch is the only
+    one. Augmentation reflects electrode pairs on axis 1, then scales.
+    """
+
+    def __init__(self, *, marker_dir, **kw):
+        super().__init__(**kw)
+        self.file_tuples = parse_classification_markers(
+            os.path.join(marker_dir, f"{self.split}Set_seizure_files.txt"))
+
+    def __len__(self):
+        return len(self.file_tuples)
+
+    def _slice(self, edf_fn, seizure_idx):
+        edf_file = self._lookup_edf(edf_fn)
+        h5_path = os.path.join(self.input_dir,
+                               edf_fn.split(".edf")[0] + ".h5")
+        signal = self._signal(h5_path)
+        times = clip_ops.get_seizure_times(edf_file.split(".edf")[0])
+        cur = times[seizure_idx]
+        pre_end = (int(FREQUENCY * times[seizure_idx - 1][1])
+                   if seizure_idx > 0 else 0)
+        start_t = max(pre_end + 1, int(FREQUENCY * (cur[0] - 2)))
+        end_t = min(start_t + int(FREQUENCY * self.max_seq_len),
+                    int(FREQUENCY * cur[1]))
+        clip = signal[:, start_t:end_t]
+        eeg_clip = log_amplitude_fft_np(clip, n=clip.shape[-1])
+        seq_len = eeg_clip.shape[-1]
+        diff = int(FREQUENCY * self.max_seq_len / 2) - seq_len
+        if diff > 0:
+            eeg_clip = np.concatenate(
+                [eeg_clip, np.zeros((eeg_clip.shape[0], diff))], axis=1)
+        return eeg_clip.T, seq_len  # (time, channels)
+
+    def __getitem__(self, idx):
+        edf_fn, seizure_class, seizure_idx = self.file_tuples[idx]
+        eeg_clip, seq_len = self._slice(edf_fn, seizure_idx)
+        if self.data_augment:
+            reflected = eeg_clip.copy()
+            if self.rng.choice([True, False]):
+                for a, b in get_swap_pairs():
+                    reflected[:, [a, b]] = eeg_clip[:, [b, a]]
+            eeg_clip = random_scale(reflected, self.rng, self.use_fft)
+        eeg_clip = self._standardize(eeg_clip)
+        return (
+            eeg_clip.astype(np.float32),
+            np.int32(seizure_class),
+            np.int32(seq_len),
+            [],
+            [],
+            f"{edf_fn}_{seizure_idx}",
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +538,41 @@ def load_dataset_ssl(input_dir, raw_data_dir, train_batch_size,
             adj_mat_dir=adj_mat_dir, graph_type=graph_type, top_k=top_k,
             filter_type=filter_type, use_fft=use_fft, preproc_dir=preproc_dir,
             signals=signals,
+        )
+
+    loaders, datasets = _make_loaders(make, train_batch_size, test_batch_size,
+                                      num_workers, build_loaders)
+    return loaders, datasets, scaler
+
+
+def load_dataset_densecnn_classification(input_dir, raw_data_dir,
+                                         train_batch_size,
+                                         test_batch_size=None,
+                                         max_seq_len=60, standardize=True,
+                                         num_workers=8, padding_val=0.0,
+                                         augmentation=False, use_fft=True,
+                                         preproc_dir=None, marker_dir=None,
+                                         build_loaders=True, signals=None):
+    """Parity: ``load_dataset_densecnn_classification``
+    (dataloader_densecnn_classification.py:228-307); the scaler is
+    classification's, ``fft_{max_seq_len}s_single``. ``padding_val`` is
+    the reference's argument, which its FFT branch does not read (it pads
+    with zeros)."""
+    scaler = (
+        _load_scaler(marker_dir, "fft_", max_seq_len, "_single")
+        if standardize else None
+    )
+
+    def make(split):
+        return DenseCNNClassificationDataset(
+            marker_dir=marker_dir, input_dir=input_dir,
+            raw_data_dir=raw_data_dir, time_step_size=1,
+            max_seq_len=max_seq_len, standardize=standardize, scaler=scaler,
+            split=split,
+            data_augment=augmentation if split == "train" else False,
+            adj_mat_dir=None, graph_type=None, top_k=None,
+            filter_type="laplacian", use_fft=use_fft,
+            preproc_dir=preproc_dir, signals=signals,
         )
 
     loaders, datasets = _make_loaders(make, train_batch_size, test_batch_size,

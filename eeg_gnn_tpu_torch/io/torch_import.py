@@ -1,4 +1,4 @@
-"""Reference PyTorch checkpoints into the port's DCRNN state dicts
+"""Reference PyTorch checkpoints into the port's state dicts
 (``eeg_gnn_tpu/io/torch_import.py``).
 
 The reference ships its pretrained SSL encoder-decoders as
@@ -15,8 +15,13 @@ is the port's (``ops/diffusion.py``), so an import is a renaming:
   stores under every index >= 1: layer 1 is read as ``decoder.shared``;
 - ``decoder.projection_layer.*`` -> ``decoder.proj.*``.
 
-The baselines' importers (LSTM, CNN-LSTM, Dense-CNN) come with their
-models (ROADMAP.md, Queue 1, item 6).
+The baselines' modules carry the reference's submodule names
+(``models/{lstm,cnnlstm,densecnn}.py``), so their importers select the
+model's keys unchanged: ``lstm.*`` and ``fc.*`` (``LSTMModel``);
+``conv1``, ``conv2``, ``fc1``, ``lstm``, ``fc2`` (``CNN_LSTM``);
+``dense_inception.*`` (``DenseCNN``), whose BatchNorm running statistics
+come across as buffers, its ``num_batches_tracked`` set to 0 where the
+file has none.
 """
 
 from __future__ import annotations
@@ -74,3 +79,59 @@ def import_next_time_pred_params(state, num_rnn_layers: int
     out["decoder.proj.weight"] = state["decoder.projection_layer.weight"]
     out["decoder.proj.bias"] = state["decoder.projection_layer.bias"]
     return out
+
+
+def _select(state, keys) -> Dict[str, torch.Tensor]:
+    missing = [k for k in keys if k not in state]
+    if missing:
+        raise KeyError(f"the checkpoint lacks {missing[:4]}"
+                       + (" ..." if len(missing) > 4 else ""))
+    return {k: state[k] for k in keys}
+
+
+def _lstm_keys(num_layers: int):
+    return [f"lstm.{name}_l{i}" for i in range(num_layers)
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+
+
+def import_lstm_params(state, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A reference ``LSTMModel`` state dict (model/lstm.py) -> the state
+    dict of the port's ``LSTMModel``."""
+    return _select(state, _lstm_keys(num_layers) + ["fc.weight", "fc.bias"])
+
+
+def import_cnnlstm_params(state) -> Dict[str, torch.Tensor]:
+    """A reference ``CNN_LSTM`` state dict (model/cnnlstm.py) -> the state
+    dict of the port's ``CNNLSTM`` (2 LSTM layers)."""
+    return _select(state, [f"{m}.{p}" for m in ("conv1", "conv2", "fc1",
+                                                "fc2")
+                           for p in ("weight", "bias")] + _lstm_keys(2))
+
+
+def import_densecnn_params(state, template) -> Dict[str, torch.Tensor]:
+    """A reference ``DenseCNN`` state dict (model/densecnn.py +
+    model/dense_inception/*) -> the state dict of the port's ``DenseCNN``,
+    whose keys ``template`` (its ``state_dict()``) names: the parameters
+    and the BatchNorm running statistics; ``num_batches_tracked`` is 0
+    where the file has none (the JAX importer's ``(params, state)``)."""
+    bn_count = "dense_inception.fcbn1.num_batches_tracked"
+    out = _select(state, [k for k in template if k != bn_count])
+    out[bn_count] = state.get(bn_count, torch.tensor(0)).long()
+    return out
+
+
+def import_params_for(cfg, state) -> Dict[str, torch.Tensor]:
+    """The state dict of the classifier of ``cfg`` (an ``ExperimentConfig``:
+    DCRNN or a baseline, by ``model_name``) from a reference state dict
+    (JAX ``serve.load_params_for``)."""
+    if cfg.model_name == "dcrnn":
+        return import_classification_params(state, cfg.num_rnn_layers)
+    if cfg.model_name == "lstm":
+        return import_lstm_params(state, cfg.num_rnn_layers)
+    if cfg.model_name == "cnnlstm":
+        return import_cnnlstm_params(state)
+    if cfg.model_name == "densecnn":
+        from eeg_gnn_tpu_torch.models.registry import build_model
+
+        return import_densecnn_params(state, build_model(cfg).state_dict())
+    raise NotImplementedError(cfg.model_name)

@@ -9,9 +9,13 @@ the device. With a ``DevicePipeline`` (``data/device_pipeline.py``),
 the graph run on the device before the model, and ``predict_proba``
 needs no supports for the combined graph.
 
-Checkpoints load from ``.npz`` files of either package or from the
-reference's ``.pth.tar`` files (``io/torch_import.py``). Still to port
-(ROADMAP.md): data-parallel meshes.
+It serves every registry model: DCRNN and the LSTM, CNN-LSTM and
+Dense-CNN baselines, which keep the JAX contract (supports, an adjacency
+or a pipeline are still required) and read no graph. Checkpoints load
+from ``.npz`` files of either package, with a ``.state.npz`` beside them
+where there is one (the Dense-CNN's BatchNorm running statistics), or
+from the reference's ``.pth.tar`` files (``io/torch_import.py``). Still
+to port (ROADMAP.md): data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 class Predictor:
-    """Fixed-shape batched predictor over the DCRNN classification model.
+    """Fixed-shape batched predictor over a registry model (DCRNN or a
+    baseline, by ``cfg.model_name``).
 
     Args:
-        cfg: experiment config (graph type, shapes, dtype, recurrence).
+        cfg: experiment config (model, graph type, shapes, dtype,
+            recurrence).
         params: the port's state_dict (see ``io/jax_params.py`` for JAX
             parameter trees and ``.npz`` files).
         batch_size: the batch shape every call runs at; defaults to
@@ -90,21 +96,21 @@ class Predictor:
                         cfg: Optional[ExperimentConfig] = None,
                         **kwargs) -> "Predictor":
         """A predictor straight from a checkpoint: a ``.npz`` of either
-        package, or a reference ``.pth.tar`` (``DCRNNModel_classification``
-        state; JAX ``load_params_for``, serve.py:34-66)."""
+        package with its ``.state.npz`` where there is one, or a reference
+        ``.pth.tar`` of the model of ``cfg.model_name`` (JAX
+        ``load_params_for``, serve.py:34-66). Unlike the JAX predictor,
+        which serves a Dense-CNN ``.npz`` with the initial running
+        statistics and cannot read its ``.pth.tar``, the trained
+        statistics are served."""
         cfg = cfg or ExperimentConfig().finalize()
         if checkpoint_path.endswith(_TORCH_SUFFIXES):
             from eeg_gnn_tpu_torch.io.torch_import import (
-                import_classification_params,
+                import_params_for,
                 load_torch_state_dict,
             )
 
-            if cfg.model_name != "dcrnn":
-                raise NotImplementedError(
-                    f"the {cfg.model_name!r} .pth.tar importer is not "
-                    "ported yet (ROADMAP.md, Queue 1, item 6: baselines)")
-            params = import_classification_params(
-                load_torch_state_dict(checkpoint_path), cfg.num_rnn_layers)
+            params = import_params_for(cfg,
+                                       load_torch_state_dict(checkpoint_path))
             return cls(cfg, params, **kwargs)
         from eeg_gnn_tpu_torch.io.jax_params import load_jax_npz
 
@@ -140,7 +146,9 @@ class Predictor:
         """Probabilities for featurized clips.
 
         Args:
-            x: (n, T, N, D) featurized clips (any n — chunked internally).
+            x: (n, T, N, D) featurized clips (any n — chunked internally);
+                the Dense-CNN also takes its dataset's flat (n, time, N)
+                clips.
             seq_lengths: (n,) true lengths; defaults to full T.
             supports: (S, n, N, N) precomputed supports; or
             adjacency: (n, N, N) per-clip adjacency — the supports are then

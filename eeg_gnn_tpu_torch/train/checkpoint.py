@@ -9,9 +9,13 @@ the encoder's gate/candidate diffusion weights from a (deeper) pretrained
 SSL model into a fresh task model.
 
 Parameter files are the JAX package's: a flat ``.npz`` keyed by the JAX
-tree path (``encoder/0/gate_w``, ``fc_w``, ``decoder/layer0/...``; through
-``io/jax_params.params_to_jax``) plus a JSON sidecar of metadata, so each
-package reads the other's ``best.npz``. The optimizer state (torch Adam's
+tree path (``encoder/0/gate_w``, ``fc_w``, ``decoder/layer0/...``,
+``inception_0/branchA_1/w``; through ``io/jax_params.params_to_jax``)
+plus a JSON sidecar of metadata, so each package reads the other's
+``best.npz``; a model with state (the Dense-CNN's BatchNorm running
+statistics, ``io/jax_params.state_to_jax``) also writes it to
+``last.state.npz``, copied to ``best.state.npz`` with the best (JAX
+``train/checkpoint.py:104-122``). The optimizer state (torch Adam's
 moments and step counts, the schedule's step) goes to ``last.opt.npz``
 under this package's own flat keys; neither package restores it.
 """
@@ -29,6 +33,8 @@ import torch
 from eeg_gnn_tpu_torch.io.jax_params import (  # noqa: F401
     load_params_like,
     params_to_jax,
+    state_path,
+    state_to_jax,
 )
 
 
@@ -55,8 +61,9 @@ def _save_flat(path: str, flat: Dict[str, np.ndarray],
 
 def save_params(path: str, state_dict: Mapping[str, torch.Tensor],
                 metadata: Optional[Dict[str, Any]] = None):
-    """Write a DCRNN state_dict as the JAX package's flat ``.npz``
-    (``np.savez`` appends the suffix to ``path``)."""
+    """Write a registry model's state_dict as the JAX package's flat
+    ``.npz`` of its parameters (``np.savez`` appends the suffix to
+    ``path``)."""
     _save_flat(path, _flatten(params_to_jax(state_dict)), metadata)
 
 
@@ -109,17 +116,24 @@ class CheckpointSaver:
         return os.path.join(self.save_dir, "best.npz")
 
     def save(self, epoch: int, state_dict, optimizer, metric_val):
-        """Write ``last.npz``, its metadata ``last.json`` and
-        ``last.opt.npz`` and, when ``metric_val`` is the best so far, copy
-        the two ``.npz`` to ``best`` (the JAX package's file set)."""
+        """Write ``last.npz``, its metadata ``last.json``, ``last.opt.npz``
+        and, for a model with state, ``last.state.npz``; when
+        ``metric_val`` is the best so far, copy the ``.npz`` files to
+        ``best`` (the JAX package's file set)."""
         meta = {"epoch": epoch, self.metric_name: metric_val}
         save_params(self.last_path[:-4], state_dict, metadata=meta)
         _save_flat(self.last_path[:-4] + ".opt", optimizer_arrays(optimizer))
+        model_state = state_to_jax(state_dict)
+        if model_state:
+            _save_flat(state_path(self.last_path)[:-4], _flatten(model_state))
         if self.is_best(metric_val):
             self.best_val = metric_val
             shutil.copy(self.last_path, self.best_path)
             shutil.copy(self.last_path[:-4] + ".opt.npz",
                         self.best_path[:-4] + ".opt.npz")
+            if model_state:
+                shutil.copy(state_path(self.last_path),
+                            state_path(self.best_path))
             self._print(f"New best checkpoint at epoch {epoch}...")
 
 

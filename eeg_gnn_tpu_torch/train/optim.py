@@ -8,7 +8,10 @@ Order and coupling as the JAX package's optax chain:
 ``wd * p`` to the gradient before the moments, which is the same L2
 coupling (not AdamW). The clip follows optax's rule, ``g / norm *
 max_norm`` once ``norm >= max_norm``; ``torch.nn.utils.clip_grad_norm_``
-would add 1e-6 to the norm.
+would add 1e-6 to the norm. As in optax, every parameter steps: one the
+loss does not reach (the Dense-CNN's never-called ``inception_5`` and
+``inception_7``) gets a zero gradient, so its L2 decay still moves it,
+where ``torch.optim.Adam`` alone would skip it.
 """
 
 from __future__ import annotations
@@ -77,6 +80,9 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self):
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         clip_by_global_norm_([p.grad for p in self.params],
                              self.max_grad_norm)
         self.adam.step()

@@ -3,8 +3,10 @@
 One step is forward, loss (BCE for detection, CE for classification, the
 masked regression loss for SSL pre-training, over the ``valid`` rows),
 backward (the DCGRU encoder's and decoder's hand-written BPTT, on the card
-the backward CUDA kernels), gradient clip, L2 + Adam and the cosine
-learning rate. ``TrainStep(device=None)`` runs on the CUDA card and raises
+the backward CUDA kernels; the baselines' through torch's autograd,
+cuDNN and cuBLAS), gradient clip, L2 + Adam and the cosine learning rate.
+A baseline's batch needs no supports: it reads no graph.
+``TrainStep(device=None)`` runs on the CUDA card and raises
 without one, as ``Predictor`` does; the CPU only when asked for.
 
 The eval step (``TrainStep.evaluate``) runs the same loss in eval mode
@@ -166,7 +168,8 @@ class TrainStep:
             built from an ``adjacency``), ``lr_init``, ``l2_wd``,
             ``max_grad_norm``, ``num_epochs``.
         model: e.g. ``models.registry.build_model(cfg, generator)``; moved
-            to ``device`` and put in training mode.
+            to ``device`` and put in training mode (a Dense-CNN's
+            BatchNorm running statistics update in each step's forward).
         steps_per_epoch: optimizer steps per epoch (the cosine schedule
             holds its value for an epoch).
         device: ``None`` (the CUDA card), or e.g. ``"cpu"``.
@@ -182,9 +185,10 @@ class TrainStep:
     tensors, and for SSL pre-training an optional ``batches_seen`` (the
     curriculum's sample counter). Supervised: ``x`` (B, T, N, D), ``y``
     (B,), optional ``seq_lengths`` (B,) (full T by default). SSL: ``x``
-    (B, T_in, N, D) and ``y`` (B, T_out, N, D). Both: ``supports`` (S, B,
-    N, N) or ``adjacency`` (B, N, N), and optional ``valid`` (a row count
-    or a (B,) row mask). With an ``input_pipeline``, instead of ``x`` and
+    (B, T_in, N, D) and ``y`` (B, T_out, N, D); the Dense-CNN also takes
+    flat (B, time, N) clips. Both: ``supports`` (S, B, N, N) or
+    ``adjacency`` (B, N, N), which a baseline does not need and ignores,
+    and optional ``valid`` (a row count or a (B,) row mask). With an ``input_pipeline``, instead of ``x`` and
     the supports: ``raw`` (B, C, L) clips (SSL: and ``raw_y``), or the
     rows ``idx`` (a device index vector) of a device-resident split
     ``cache_x`` / ``cache_y`` of constant length ``seq_len`` or of the
@@ -200,6 +204,7 @@ class TrainStep:
         self.device = resolve_device(device, "TrainStep")
         self.model = model.to(self.device).train()
         self.ssl = cfg.task == SSL_TASK
+        self.reads_graph = self.ssl or cfg.model_name == "dcrnn"
         if self.ssl:
             stat = lambda v: None if v is None else _tensor(
                 v, torch.float32, self.device)
@@ -227,9 +232,12 @@ class TrainStep:
                 batch.get("raw") is not None
                 or batch.get("cache_x") is not None):
             return self._pipeline_batch(batch)
-        x = _tensor(batch["x"], torch.float32, dev)
+        # the model's parameter dtype: float32 (a bf16 DCRNN computes in
+        # bf16 inside), or float64 for a model cast to it
+        dtype = next(self.model.parameters()).dtype
+        x = _tensor(batch["x"], dtype, dev)
         y_dtype = torch.int64 if self.cfg.task == "classification" \
-            else torch.float32
+            else dtype
         out = {"x": x, "y": _tensor(batch["y"], y_dtype, dev),
                "valid": batch.get("valid")}
         if not self.ssl:
@@ -237,7 +245,9 @@ class TrainStep:
                 batch.get("seq_lengths"), x.shape[0], x.shape[1])
         if isinstance(out["valid"], (np.ndarray, torch.Tensor)):
             out["valid"] = _tensor(out["valid"], None, dev)
-        if batch.get("supports") is not None:
+        if not self.reads_graph:
+            out["supports"] = None
+        elif batch.get("supports") is not None:
             out["supports"] = _tensor(batch["supports"], torch.float32, dev)
         elif batch.get("adjacency") is not None:
             out["supports"] = compute_supports_torch(

@@ -1,7 +1,8 @@
 """Training/evaluation driver (``eeg_gnn_tpu/train/trainer.py``, its
 streaming path): the equivalent of the reference's ``train.py`` /
-``train_ssl.py`` flows for DCRNN detection, seizure-type classification
-and SSL pre-training.
+``train_ssl.py`` flows for detection and seizure-type classification
+(DCRNN and the LSTM, CNN-LSTM and Dense-CNN baselines) and SSL
+pre-training.
 
 Orchestration parity (train.py:30-194, train_ssl.py:24-284): model build,
 warm-start / fine-tune transplant, epoch loop with per-epoch dev eval,
@@ -33,8 +34,10 @@ cached split waits on no loader).
 
 The fine-tune transplant reads the SSL checkpoint from a ``.npz`` of
 either package or from a reference ``.pth.tar`` (``io/torch_import.py``).
+A model with state (the Dense-CNN) checkpoints it in ``.state.npz``
+files and reloads ``best.state.npz`` with ``best.npz``.
 
-Still to port (ROADMAP.md, Queue 1): the mesh paths and the baselines;
+Still to port (ROADMAP.md, Queue 1): the mesh paths;
 ``ExperimentConfig.check_runnable`` rejects them.
 """
 
@@ -75,8 +78,27 @@ from eeg_gnn_tpu_torch.train.step import (
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
 
 
+def pad_batch(batch: Dict[str, np.ndarray], target: int
+              ) -> Dict[str, np.ndarray]:
+    """A host step batch of fewer than ``target`` rows padded to
+    ``target`` by repeating row 0, with ``valid`` its true row count
+    (JAX ``trainer._pad_batch``); a full batch as it is."""
+    n = len(batch["x"])
+    if n >= target:
+        return batch
+    out = dict(batch, valid=n)
+    for k, axis in (("x", 0), ("y", 0), ("seq_lengths", 0),
+                    ("supports", 1)):
+        a = batch.get(k)
+        if a is not None:
+            first = np.take(a, [0], axis=axis)
+            out[k] = np.concatenate(
+                [a, np.repeat(first, target - n, axis=axis)], axis=axis)
+    return out
+
+
 class Trainer:
-    """Drives training + evaluation of one task on ``model`` (a DCRNN
+    """Drives training + evaluation of one task on ``model`` (a registry
     ``nn.Module``, trained in place on ``device``).
 
     ``input_pipeline`` (a ``DevicePipeline`` on ``device``): with
@@ -113,6 +135,8 @@ class Trainer:
                 cfg.rand_seed),
             input_pipeline=input_pipeline, **stats)
         self.model = self.step.model
+        # BatchNorm makes a train batch's composition part of the result
+        self.pad_train = cfg.model_name == "densecnn" and not self.is_ssl
         train_cache = self.device_caches.get("train")
         if train_cache is not None:
             self.cached_epoch_step = make_cached_epoch_step(
@@ -170,9 +194,11 @@ class Trainer:
         device)."""
         sizes, losses = [], []
         for batch in self._batches("train"):
+            d = self._step_batch(batch)
+            if self.pad_train:
+                d = pad_batch(d, self.cfg.train_batch_size)
             # SSL's curriculum reads the samples seen BEFORE this batch
-            losses.append(self.step(self._step_batch(batch),
-                                    batches_seen=step).reshape(1))
+            losses.append(self.step(d, batches_seen=step).reshape(1))
             step += len(batch)
             sizes.append(len(batch))
         return np.asarray(sizes, np.int64), losses
@@ -317,9 +343,14 @@ def warm_start(cfg: ExperimentConfig, params: Mapping[str, torch.Tensor]
     SSL encoder-decoder of ``pretrained_num_rnn_layers`` layers, from a
     ``.npz`` of either package or a reference ``.pth.tar``, transplanted
     into ``params`` (``build_finetune_params``); else the checkpoint
-    itself, in ``params``' layout."""
+    itself, in ``params``' layout (the model state, a Dense-CNN's
+    running statistics, stays ``params``', as JAX's warm start keeps its
+    initial state)."""
     if not cfg.fine_tune:
         return load_params_like(cfg.load_model_path, params)
+    if cfg.model_name != "dcrnn":
+        raise ValueError("--fine_tune transplants an SSL DCRNN encoder into "
+                         f"a DCRNN, not into {cfg.model_name!r}")
     if cfg.load_model_path.endswith(_TORCH_SUFFIXES):
         pre = import_next_time_pred_params(
             load_torch_state_dict(cfg.load_model_path),
@@ -364,8 +395,9 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
     if cfg.do_train:
         saver = trainer.train(save_dir)
         if os.path.exists(saver.best_path):
-            trainer.model.load_state_dict(
-                load_params_like(saver.best_path, trainer.model.state_dict()))
+            trainer.model.load_state_dict(load_params_like(
+                saver.best_path, trainer.model.state_dict(),
+                with_state=True))
 
     if cfg.task == SSL_TASK:
         test = trainer.evaluate("test")

@@ -16,6 +16,8 @@ import pytest
 from eeg_gnn_tpu import constants as jconst
 from eeg_gnn_tpu.data import augment as jaug
 from eeg_gnn_tpu.data import markers as jmarkers
+from eeg_gnn_tpu.data.datasets import load_dataset_densecnn_classification \
+    as jdc_cls
 from eeg_gnn_tpu.data.datasets import load_dataset_detection as jdet
 from eeg_gnn_tpu.data.datasets import load_dataset_ssl as jssl
 from eeg_gnn_tpu.data.loader import DataLoader as JLoader
@@ -402,8 +404,22 @@ def test_unported_data_paths_raise(corpus):
     kw = _loader_kw(corpus, "combined")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tds.load_dataset_detection(max_seq_len=CLIP, preproc_dir="/x", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        tds.DenseCNNClassificationDataset(marker_dir=corpus["marker_dir"])
+    # the Dense-CNN's flat-clip dataset runs (against JAX's) and refuses
+    # preproc_dir as the others do
+    dc_kw = {k: kw[k] for k in ("input_dir", "raw_data_dir",
+                                "train_batch_size", "test_batch_size",
+                                "standardize", "num_workers", "marker_dir")}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tds.load_dataset_densecnn_classification(
+            max_seq_len=CLIP, preproc_dir="/x", **dc_kw)
+    got = tds.load_dataset_densecnn_classification(max_seq_len=CLIP,
+                                                   **dc_kw)[1]
+    want = jdc_cls(max_seq_len=CLIP, **dc_kw)[1]
+    for split in ("train", "dev", "test"):
+        assert len(got[split]) == len(want[split]) > 0
+        for i in range(len(want[split])):
+            _assert_samples_equal(got[split][i], want[split][i])
+            assert got[split][i][0].shape == (CLIP * 100, tconst.NUM_NODES)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tds.load_dataset_classification(max_seq_len=CLIP, preproc_dir="/x",
                                         **kw)

@@ -42,6 +42,7 @@ from eeg_gnn_tpu_torch.io import (
 )
 from eeg_gnn_tpu_torch.models.registry import build_model
 from eeg_gnn_tpu_torch.serve import Predictor
+from eeg_gnn_tpu_torch.train.checkpoint import save_params
 from eeg_gnn_tpu_torch.train.trainer import warm_start
 
 T, N, D, H, B, C = 6, 19, 12, 8, 5, 4
@@ -168,11 +169,17 @@ def test_predictor_from_pth_tar_equals_npz(tmp_path):
         x, lens, adjacency=adj) for name in ("w.npz", "w.pth.tar")]
     assert probs[0].shape == (7, C)
     np.testing.assert_array_equal(probs[1], probs[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        Predictor.from_checkpoint(str(tmp_path / "w.pth.tar"),
-                                  dataclasses.replace(tcfg,
-                                                      model_name="cnnlstm"),
-                                  device="cpu")
+    # a baseline's .pth.tar (the LSTM at this test's widths, whose state
+    # dict carries the reference's names) serves as its .npz does
+    lcfg = dataclasses.replace(tcfg, model_name="lstm")
+    lstm = build_model(lcfg, torch.Generator().manual_seed(5)).state_dict()
+    save_torch_checkpoint(str(tmp_path / "lstm.pth.tar"), lstm)
+    save_params(str(tmp_path / "lstm"), lstm)
+    lprobs = [Predictor.from_checkpoint(str(tmp_path / name), lcfg,
+                                        device="cpu").predict_proba(
+        x, lens, adjacency=adj) for name in ("lstm.npz", "lstm.pth.tar")]
+    assert lprobs[0].shape == (7, C) and np.all(np.isfinite(lprobs[0]))
+    np.testing.assert_array_equal(lprobs[1], lprobs[0])
 
 
 @pytest.mark.parametrize("task,layers,pre_layers", [

@@ -178,18 +178,33 @@ def test_predictor_without_device_needs_cuda(monkeypatch):
         Predictor(cfg, params, device="cuda")
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """The mesh still raises; the baselines, which raised here before
+    they were ported, build and serve (their parity with JAX:
+    tests/test_torch_baselines.py)."""
+    from eeg_gnn_tpu_torch.io import save_torch_checkpoint
+
     cfg = ExperimentConfig(**_kw()).finalize()
     params = build_model(cfg).state_dict()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(cfg, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        Predictor.from_checkpoint(
-            "weights.pth.tar", dataclasses.replace(cfg, model_name="lstm"),
-            device="cpu")
+    rng = np.random.RandomState(4)
+    x, lens, adj = _inputs(rng, 3)
     for name in ("lstm", "cnnlstm", "densecnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(ExperimentConfig(model_name=name))
+        bcfg = dataclasses.replace(cfg, model_name=name, use_fft=True)
+        xb = x
+        if name == "densecnn":  # its pools take at least 7 s: 700 rows
+            with pytest.raises(ValueError, match="at least 700 rows"):
+                build_model(bcfg)
+            bcfg = dataclasses.replace(bcfg, max_seq_len=7)
+            xb = rng.randn(3, 7 * 100, N).astype(np.float32)  # flat clips
+        model = build_model(bcfg, torch.Generator().manual_seed(1))
+        path = str(tmp_path / f"{name}.pth.tar")
+        save_torch_checkpoint(path, model.state_dict())
+        probs = Predictor.from_checkpoint(path, bcfg, device="cpu"
+                                          ).predict_proba(xb, lens,
+                                                          adjacency=adj)
+        assert probs.shape == (3,) and np.all((probs >= 0) & (probs <= 1))
 
 
 def test_finalize_sets_filter_type_from_graph_type():
