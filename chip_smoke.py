@@ -193,7 +193,32 @@ Phases (any failure exits non-zero and prints no result line):
    (LSTM and CNN-LSTM detection, the Dense-CNN's 4-class classification
    on the flat-clip dataset; --dtype bfloat16 accepted, the baselines run
    float32). No hand-written kernel launches in the phase (the kernels
-   line's ``launches_by_path`` gains ``baselines``, all 0).
+   line's ``launches_by_path`` gains ``baselines``, all 0);
+14. data-parallel scale-out (``phase_scaleout``, after 13;
+   ``eeg_gnn_tpu_torch/parallel``): (a) one NCCL rank in this process,
+   the flagship detection step (bf16, then f32) through the mesh path for
+   3 steps at B=128, each launching ``TRAIN_STEP[True]`` and one gradient
+   all-reduce, its parameters bitwise equal to ``TrainStep`` without a
+   mesh; (b)-(d) two gloo ranks sharing the card, each a process of this
+   script (``--scaleout-rank RANK PORT DIR``; the kernels built in 1, so no
+   rank runs nvcc; each rank's exit code checked, a time limit on each):
+   (b) the same 3 steps at global B=128, 64 rows a rank, f32 (TF32 off)
+   and bf16, each rank's launches ``TRAIN_STEP``'s a step, the ranks'
+   parameters bitwise equal and against (a)'s (normalized inf-norm of the
+   parameter vector: f32 <= 1e-5, bf16 <= 2e-2); (c) ``Predictor(mesh=)``
+   on 200 clips at batch 128 against a single Predictor (f32, <= 1e-5),
+   the same probabilities on both ranks; (d) ``cli.train.main`` on two
+   ranks and on one, 2 epochs on phase 10's corpus (made again in each
+   rank), f32: streaming at the recipe's lr (the same batches on one
+   rank and two), and ``--hbm_cache`` (each rank its block of the train
+   split) at lr 1e-7, under which each rank's own shuffle of its block
+   (JAX's sharded plans) cannot part the runs: the ranks' metrics equal,
+   and close to one rank's (loss rtol and atol
+   2e-3, acc 1e-6, AUROC 5e-3); ``time scaleout ...`` lines (the step ms
+   at one NCCL rank and a rank of two; the gradient all-reduce's ms and
+   bytes a step, the gloo figure through the host). The kernels line's
+   ``launches_by_path`` gains ``scaleout_nccl`` and each gloo rank's
+   ``scaleout_gloo_*`` paths (rank 1's with ``_rank1``).
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -307,6 +332,20 @@ BASE_SERVE = {"lstm": BATCH, "cnnlstm": BATCH, "densecnn": 2}
 BASE_GRAD_BATCH = {"lstm": 8, "cnnlstm": 8, "densecnn": 2}
 BASE_REPS = {"lstm": REPS, "cnnlstm": REPS, "densecnn": 5}
 GRAD_TOL = 1e-3  # the baselines' step-1 gradients, card against the CPU
+# data-parallel scale-out (phase_scaleout): steps a run, the two gloo ranks
+# and their time limit, the f32 bar of two ranks against one (normalized
+# inf-norm of the parameters after the steps), and the CLI runs on two
+# ranks and on one, in f32 (an untrained model's test probabilities lie
+# within bf16's rounding of each other, so its AUROC would read the
+# rounding): streaming at the recipe's lr (the same batches as one
+# rank's), and --hbm_cache at a learning rate under which each rank's own
+# shuffle of its block (the sharded plans) cannot part the runs
+SCALE_STEPS, SCALE_RANKS, SCALE_TIMEOUT = 3, 2, 240
+SCALE_F32_TOL = 1e-5
+SCALE_CLI_LR = 1e-7
+SCALE_CLI = {"stream": ["--dtype", "float32"],
+             "hbm": ["--dtype", "float32", "--hbm_cache", "--lr_init",
+                     str(SCALE_CLI_LR)]}
 
 
 def fail(msg: str):
@@ -3897,6 +3936,355 @@ def phase_baselines(torch, dev, card, corpus):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# data-parallel scale-out (parallel/): one NCCL rank in this process, then
+# two gloo ranks sharing the card, each a process running this script
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scale_start(torch, dtype):
+    """(config, initial state_dict) of the flagship detector at bench.py's
+    recipe, from seeded weights (the same in every process)."""
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    cfg = flagship_cfg("combined", dtype, True, **TRAIN_KW)
+    model = build_model(cfg, torch.Generator().manual_seed(11))
+    return cfg, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def scale_step(torch, cfg, init, **kw):
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train import TrainStep
+
+    model = build_model(cfg)
+    model.load_state_dict(init)
+    return TrainStep(cfg, model, STEPS_PER_EPOCH, **kw)
+
+
+def scale_batch(torch, dev, rows=slice(None)):
+    """Rows ``rows`` of the global flagship batch (B=128, seed 23) on
+    ``dev``: every process draws the whole and keeps its rows."""
+    full = train_batch(torch, torch.device("cpu"), BATCH, seed=23)
+    return {k: v[rows].to(dev) for k, v in full.items()}
+
+
+def scale_launches(torch, step, batch, tag):
+    """``SCALE_STEPS`` steps of ``step``, each launching exactly
+    ``TRAIN_STEP[True]`` and one gradient all-reduce; returns (the
+    launches over the steps, the last loss)."""
+    from eeg_gnn_tpu_torch.parallel import distributed
+
+    reset_counts()
+    distributed.reset_counts()
+    for i in range(SCALE_STEPS):
+        before = counts()
+        loss = float(step(batch))
+        rose = {k: counts()[k] - before[k] for k in KERNELS}
+        want = {k: TRAIN_STEP[True].get(k, 0) for k in KERNELS}
+        if rose != want:
+            fail(f"{tag} step {i}: launches rose by {rose}, want {want}")
+    calls = distributed.counts()["all_reduce_grads"][0]
+    if calls != SCALE_STEPS or not np.isfinite(loss):
+        fail(f"{tag}: {calls} gradient all-reduces in {SCALE_STEPS} steps, "
+             f"last loss {loss}")
+    return counts(), loss
+
+
+def scale_state(step) -> dict:
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in step.model.state_dict().items()}
+
+
+def allreduce_ms(torch, step, mesh, host: bool) -> float:
+    """Median ms of the step's gradient all-reduce alone over 20 calls on
+    its gradients: CUDA events (NCCL), or the host clock around the call
+    and a synchronise (gloo goes through the host). Every rank runs the
+    same calls."""
+    from eeg_gnn_tpu_torch.parallel import distributed
+
+    grads = [p.grad for p in step.model.parameters()]
+    if not host:
+        return time_ms(torch, lambda: distributed.all_reduce_grads(grads,
+                                                                   mesh))
+    times = []
+    for _ in range(3 + REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        distributed.all_reduce_grads(grads, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[3:])
+
+
+def scale_one_rank(torch, dev, card, out_dir):
+    """(a): one NCCL rank on the card. The flagship detection step through
+    the mesh path (bf16, then f32), 3 steps, against ``TrainStep`` without
+    a mesh from the same weights: bitwise equal parameters. Returns (the
+    mesh runs' launches, {dtype: final state}, timing figures)."""
+    from eeg_gnn_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           device=dev)
+    try:
+        mesh = make_mesh("data:-1")
+        if mesh.backend != "nccl":
+            fail(f"scaleout (a): backend {mesh.backend}, want nccl")
+        batch = scale_batch(torch, dev)
+        launched, finals, figures = {k: 0 for k in KERNELS}, {}, {}
+        for dtype in ("bfloat16", "float32"):
+            cfg, init = scale_start(torch, dtype)
+            meshed = scale_step(torch, cfg, init, mesh=mesh)
+            n, loss = scale_launches(torch, meshed, batch,
+                                     f"scaleout (a) {dtype}")
+            launched = {k: launched[k] + n[k] for k in KERNELS}
+            plain = scale_step(torch, cfg, init, device=dev)
+            for _ in range(SCALE_STEPS):
+                plain(batch)
+            finals[dtype] = scale_state(meshed)
+            want = scale_state(plain)
+            same = [k for k in want
+                    if not np.array_equal(finals[dtype][k], want[k])]
+            if same:
+                fail(f"scaleout (a) {dtype}: {same} differ from TrainStep "
+                     "without a mesh")
+            log(f"scaleout (a) one NCCL rank, {dtype}: {SCALE_STEPS} steps "
+                f"at B={BATCH}, last loss {loss:.6f}; launches per step "
+                f"{TRAIN_STEP[True]}, 1 gradient all-reduce a step; "
+                "parameters bitwise equal to TrainStep without a mesh")
+            if dtype == "bfloat16":
+                ms, best, _ = time_steps(torch, lambda: meshed(batch))
+                nbytes = distributed.counts()["all_reduce_grads"][1]
+                calls = distributed.counts()["all_reduce_grads"][0]
+                ar = allreduce_ms(torch, meshed, mesh, host=False)
+                figures = {"step_ms": ms, "best_ms": best,
+                           "allreduce_ms": ar,
+                           "allreduce_bytes": nbytes // calls}
+                log(f"time scaleout one NCCL rank: bf16 step {ms:.3f} ms "
+                    f"(back to back {best:.3f}) at B={BATCH}; gradient "
+                    f"all-reduce {ar:.4f} ms, {nbytes // calls} B a step "
+                    f"(CUDA events, NCCL, one rank); {card}")
+        return launched, finals, figures
+    finally:
+        distributed.shutdown()
+
+
+def scale_rank(rank: int, port: str, out_dir: str):
+    """A rank of (b)-(d), run as ``chip_smoke.py --scaleout-rank RANK
+    PORT DIR`` by ``phase_scaleout``: two gloo ranks share card 0. Writes
+    its figures and final states under ``out_dir``."""
+    import torch
+
+    from eeg_gnn_tpu_torch.cli import train as cli
+    from eeg_gnn_tpu_torch.data.synthetic import make_synthetic_corpus
+    from eeg_gnn_tpu_torch.parallel import distributed, make_mesh
+    from eeg_gnn_tpu_torch.serve import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize(f"tcp://127.0.0.1:{port}", SCALE_RANKS, rank,
+                           local_world_size=SCALE_RANKS, device=dev)
+    mesh = make_mesh("data:-1")
+    res = {"backend": mesh.backend, "paths": {}}
+    batch = scale_batch(torch, dev, mesh.rows(BATCH))
+    # (b) the flagship step, f32 then bf16, 64 rows a rank
+    for dtype in ("float32", "bfloat16"):
+        cfg, init = scale_start(torch, dtype)
+        step = scale_step(torch, cfg, init, mesh=mesh)
+        n, loss = scale_launches(torch, step, batch,
+                                 f"scaleout (b) rank {rank} {dtype}")
+        res["paths"][f"scaleout_gloo_{dtype}"] = n
+        np.savez(os.path.join(out_dir, f"rank{rank}_{dtype}.npz"),
+                 **scale_state(step))
+        res[f"loss_{dtype}"] = loss
+        if dtype == "bfloat16":
+            ms, best, _ = time_steps(torch, lambda: step(batch))
+            nbytes, calls = distributed.counts()["all_reduce_grads"][1::-1]
+            res["step_ms"], res["best_ms"] = ms, best
+            res["allreduce_ms"] = allreduce_ms(torch, step, mesh, host=True)
+            res["allreduce_bytes"] = nbytes // calls
+    # (c) Predictor(mesh=) at batch 128 on 200 clips (the last chunk
+    # padded), f32, against a single Predictor on this rank's card
+    cfg, init = scale_start(torch, "float32")
+    rng = np.random.RandomState(29)
+    x = rng.randn(200, T, N, 100).astype(np.float32)
+    adj = adjacency(rng, 200)
+    reset_counts()
+    probs = Predictor(cfg, init, batch_size=BATCH, mesh=mesh).predict_proba(
+        x, adjacency=adj)
+    res["paths"]["scaleout_gloo_serve"] = counts()
+    single = Predictor(cfg, init, batch_size=BATCH, device=dev).predict_proba(
+        x, adjacency=adj)
+    res["serve_err"] = float(np.abs(probs - single).max())
+    np.save(os.path.join(out_dir, f"rank{rank}_probs.npy"), probs)
+    # (d) the CLI, 2 epochs: streaming at the recipe's lr, and --hbm_cache
+    # at SCALE_CLI_LR, on phase_cli's corpus (made again here, in memory)
+    signals = {}
+    root = os.path.join(out_dir, f"corpus{rank}")
+    p = make_synthetic_corpus(root, signals=signals, **CLI_CORPUS)
+    argv = scale_cli_argv(p)
+    for tag, extra in SCALE_CLI.items():
+        reset_counts()
+        out = cli.main(argv + extra + ["--save_dir",
+                                       os.path.join(out_dir, "cli_" + tag)],
+                       signals=signals)
+        res["paths"][f"scaleout_gloo_cli_{tag}"] = counts()
+        res[f"cli_{tag}"] = {k: float(v) for k, v in out.items()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+
+
+def scale_cli_argv(p) -> list:
+    """phase_cli's detection run on the corpus ``p``."""
+    return ["--input_dir", p["input_dir"], "--raw_data_dir",
+            p["raw_data_dir"], "--marker_dir", p["marker_dir"],
+            "--adj_mat_dir", p["adj_mat_dir"], "--do_train", "--graph_type",
+            "combined", "--use_fft", "--max_seq_len", str(T), "--rnn_units",
+            str(H), "--max_diffusion_step", str(K), "--train_batch_size",
+            str(CLI_BATCH), "--test_batch_size", str(BATCH), "--num_epochs",
+            str(CLI_EPOCHS), "--dtype", "bfloat16", "--task", "detection",
+            "--num_rnn_layers", "2"]
+
+
+def phase_scaleout(torch, dev, card, corpus):
+    """Data-parallel scale-out (``eeg_gnn_tpu_torch/parallel``): (a) one
+    NCCL rank in this process; (b)-(d) two gloo ranks sharing the card,
+    each a process of this script (the kernels built above, so no rank
+    runs nvcc): (b) the flagship step's global B=128 split 64 a rank, f32
+    and bf16, against (a)'s parameters and each rank's launches against
+    ``TRAIN_STEP``; (c) ``Predictor(mesh=)`` against a single Predictor;
+    (d) the CLI on two ranks against one, on phase_cli's corpus. Returns
+    the launches by path."""
+    from eeg_gnn_tpu_torch.cli import train as cli
+
+    out_dir = os.path.join(os.path.dirname(corpus["root"]), "scaleout")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    for name in ("NCCL_SOCKET_IFNAME", "GLOO_SOCKET_IFNAME"):
+        os.environ.setdefault(name, "lo")  # this host only
+    paths = {}
+    paths["scaleout_nccl"], finals, one = scale_one_rank(torch, dev, card,
+                                                         out_dir)
+    # the one-rank runs that (d)'s two ranks are held against
+    single = {tag: cli.main(corpus["detect"] + extra + [
+        "--save_dir", os.path.join(out_dir, "cli_single_" + tag)],
+        signals=corpus["signals"]) for tag, extra in SCALE_CLI.items()}
+    port = str(_free_port())
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
+            for r in range(SCALE_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scaleout-rank",
+         str(r), port, out_dir], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(SCALE_RANKS)]
+    t1 = time.perf_counter()
+    try:
+        for r, proc in enumerate(procs):
+            left = SCALE_TIMEOUT - (time.perf_counter() - t1)
+            try:
+                proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                fail(f"scaleout: rank {r} ran past {SCALE_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"scaleout: rank {r} exited {proc.returncode}:\n{tail}")
+    ranks = []
+    for r in range(SCALE_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if any(rk["backend"] != "gloo" for rk in ranks):
+        fail(f"scaleout: backends {[rk['backend'] for rk in ranks]}")
+    # (b) both ranks' states bitwise equal; each against (a)'s
+    for dtype, tol in (("float32", SCALE_F32_TOL), ("bfloat16", BF16_TOL)):
+        states = [dict(np.load(os.path.join(out_dir,
+                                            f"rank{r}_{dtype}.npz")))
+                  for r in range(SCALE_RANKS)]
+        diff = [k for k in states[0]
+                if not np.array_equal(states[0][k], states[1][k])]
+        if diff:
+            fail(f"scaleout (b) {dtype}: ranks differ in {diff}")
+        # the normalized inf-norm of the parameter vector; each tensor's
+        # beside it (a bias that starts at 0 has moved by ~3 lr, so Adam's
+        # lr * g / |g| turns rounding of its near-zero gradients into
+        # differences of that size)
+        err = norm_err(*(torch.from_numpy(np.concatenate(
+            [st[k].ravel() for k in finals[dtype]]))
+            for st in (states[0], finals[dtype])))[0]
+        errs = {k: norm_err(torch.from_numpy(states[0][k]),
+                            torch.from_numpy(v))[0]
+                for k, v in finals[dtype].items() if v.size}
+        name, worst = max(errs.items(), key=lambda kv: kv[1])
+        log(f"scaleout (b) two gloo ranks on one card, {dtype}: "
+            f"{SCALE_STEPS} steps at global B={BATCH} ({BATCH // 2} a "
+            f"rank), each rank's launches TRAIN_STEP's a step; ranks "
+            f"bitwise equal; parameters against (a)'s: {err:.3e} (bar "
+            f"{tol:.0e}, normalized inf-norm of the parameters); per "
+            f"tensor, worst {name} {worst:.3e} (not gated)")
+        if not err <= tol:
+            fail(f"scaleout (b) {dtype}: parameters {err} from (a)'s > "
+                 f"{tol}")
+    # (c) the same probabilities on both ranks, against a single Predictor
+    probs = [np.load(os.path.join(out_dir, f"rank{r}_probs.npy"))
+             for r in range(SCALE_RANKS)]
+    worst = max(rk["serve_err"] for rk in ranks)
+    log(f"scaleout (c) Predictor(mesh=) on two ranks, f32, 200 clips at "
+        f"batch {BATCH}: ranks equal {np.array_equal(*probs)}, against a "
+        f"single Predictor {worst:.3e} (bar 1e-5)")
+    if not (np.array_equal(*probs) and worst <= 1e-5):
+        fail(f"scaleout (c): ranks equal {np.array_equal(*probs)}, "
+             f"error {worst}")
+    # (d) the CLI: the ranks' metrics equal, and close to one rank's
+    for tag in SCALE_CLI:
+        got = [rk[f"cli_{tag}"] for rk in ranks]
+        want = single[tag]
+        log(f"scaleout (d) cli {tag} on two ranks: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in got[0].items())
+            + "; one rank: "
+            + ", ".join(f"{k} {float(v):.6f}" for k, v in want.items()))
+        for k, v in got[0].items():
+            if not abs(got[1][k] - v) <= 1e-6 * abs(v):
+                fail(f"scaleout (d) {tag}: ranks' {k} {v} / {got[1][k]}")
+        if not (abs(got[0]["loss"] - want["loss"])
+                <= 2e-3 + 2e-3 * abs(want["loss"])
+                and abs(got[0]["acc"] - want["acc"]) <= 1e-6
+                and abs(got[0]["auroc"] - want["auroc"]) <= 5e-3):
+            fail(f"scaleout (d) {tag}: {got[0]} against one rank's {want}")
+    rk = ranks[0]
+    log(f"time scaleout two gloo ranks on one card: bf16 step "
+        f"{rk['step_ms']:.3f} ms a rank (back to back {rk['best_ms']:.3f}) "
+        f"at {BATCH // 2} rows a rank, global B={BATCH}; gradient "
+        f"all-reduce {rk['allreduce_ms']:.4f} ms through the host (gloo, "
+        f"host clock), {rk['allreduce_bytes']} B a step; one NCCL rank: "
+        f"step {one['step_ms']:.3f} ms, all-reduce {one['allreduce_ms']:.4f}"
+        f" ms; {card}")
+    for r, rk in enumerate(ranks):
+        for path, n in rk["paths"].items():
+            key = path if r == 0 else f"{path}_rank{r}"
+            paths[key] = {k: n.get(k, 0) for k in KERNELS}
+    log(f"scaleout: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def log_input_rates(stats, times, card):
     """The cached loops' clips/s beside the bare TrainStep's at B=128 in
     the same run (phase_times, phase_ssl_times; per-clip supports there,
@@ -3961,6 +4349,9 @@ def profile_batch(torch, fn, tag, wall_ms):
 def main():
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--scaleout-rank":
+        scale_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])  # phase 14
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
@@ -4025,6 +4416,12 @@ def main():
                 fail(f"{name} was never launched on the {path} path")
     log_cli_rates(cls_stats, times[("train", CLI_BATCH)][0], card)
     paths["baselines"] = phase_baselines(torch, dev, card, corpus)
+    scale_paths = phase_scaleout(torch, dev, card, corpus)
+    paths.update(scale_paths)
+    for path in scale_paths:
+        for name in XIN_FWD if "serve" in path else CLI_DETECT:
+            if paths[path][name] < 1:
+                fail(f"{name} was never launched on the {path} path")
 
     kernels, composites = [], []
     pallas = "eeg_gnn_tpu/ops/pallas_recurrent.py"

@@ -23,12 +23,25 @@ rotates it through the device in shards (``data/rotating_cache.py``):
 all three tasks, both graph types. As in the JAX CLI, both serve
 ``--model_name dcrnn`` only: a baseline accepts them and streams host
 features. ``--reflect_invariant`` is the JAX CLI's; ``--fused_steps`` is
-accepted and ignored (``config.py``). The mesh branch of the JAX CLI
-waits for its slice (ROADMAP.md, Queue 1).
+accepted and ignored (``config.py``).
+
+Data-parallel (JAX ``cli/train.py:34-89``): run under ``torchrun``
+(``--nproc_per_node N``), every rank forms the process group first
+(``parallel.distributed.initialize``: NCCL a rank a card; gloo on the CPU
+or where ranks share a card), then the ``data:N`` mesh of all ranks
+(``--mesh_shape data:-1``, the default); both batch sizes must divide
+over the ranks, and each rank's loaders read only its rows of every
+global batch. With ``--hbm_cache`` only the train split is cached, each
+rank holding its block (or its stripes, rotating), and the budget is
+each card's. Rank 0 writes its run under ``--save_dir`` and rank r under
+``--save_dir``/rank<r>, each what one process writes. With one rank
+there is no mesh, as before.
 
 ``main(argv, device=None)`` runs on the card and raises without one;
-``device="cpu"`` (a keyword, not a flag, as the JAX CLI picks its
-platform from the environment) runs on the CPU.
+``device="cpu"``, or the port's own flag ``--device cpu`` (the JAX CLI
+picks its platform from the environment), runs on the CPU, its ranks
+over gloo: ``torchrun --nproc_per_node 2 -m eeg_gnn_tpu_torch.cli.train
+... --device cpu``.
 """
 
 from __future__ import annotations
@@ -39,16 +52,16 @@ import sys
 
 
 def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
-               signals=None, device=None):
+               signals=None, device=None, mesh=None):
     """The on-device input path of ``cfg`` (the JAX CLI's, train.py:
-    91-240, without the mesh): (the ``DevicePipeline`` or None, {split:
-    cache} or None).
+    91-240): (the ``DevicePipeline`` or None, {split: cache} or None).
 
     ``--hbm_cache``: every split is featurized once from plain datasets
     (no augmentation, no standardization: both run on the device per
     step) and uploaded if the whole fits ``--hbm_budget_gb``
     (``fits_in_hbm``); otherwise each split becomes a rotating cache, as
-    the JAX CLI does, and a line on stderr says so.
+    the JAX CLI does, and a line on stderr says so. With ``mesh``, only
+    the train split, row-sharded over the ranks (the budget each rank's).
     """
     from eeg_gnn_tpu_torch.data.datasets import (
         load_dataset_classification,
@@ -87,7 +100,7 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
         build_loaders=False, signals=signals)
     storage = "bfloat16" if cfg.dtype == "bfloat16" else "float32"
     kw = dict(storage_dtype=storage, num_workers=cfg.num_workers,
-              device=device)
+              device=device, mesh=mesh)
     if cfg.task == "detection":
         t_out, kind = 0, "detection"
         _, plain, _ = load_dataset_detection(
@@ -108,16 +121,21 @@ def input_path(cfg, scaler, *, adj_mat_dir=None, marker_dir=None,
         build = lambda ds: build_ssl_cache(ds, cfg.max_seq_len, **kw)
 
     budget = int(cfg.hbm_budget_gb * 2 ** 30)
+    if mesh is not None:  # the train split only; dev and test stream
+        plain = {"train": plain["train"]}
     n_total = sum(len(ds) for ds in plain.values())
     if fits_in_hbm(n_total, cfg.max_seq_len, cfg.num_nodes, cfg.input_dim,
-                   storage, t_out=t_out, budget_bytes=budget):
+                   storage, t_out=t_out, budget_bytes=budget,
+                   num_devices=1 if mesh is None else mesh.world):
         return pipeline, {s: build(ds) for s, ds in plain.items()}
     caches = {s: build_rotating_cache(ds, cfg.max_seq_len, kind,
                                       budget_bytes=budget, **kw)
               for s, ds in plain.items()}
     print("hbm_cache: split exceeds the HBM budget; using the chunked "
           f"rotating cache ({caches['train'].num_shards} shards, "
-          "double-buffered H2D)", file=sys.stderr)
+          "double-buffered H2D"
+          + (", row-sharded slabs" if mesh is not None else "") + ")",
+          file=sys.stderr)
     return pipeline, caches
 
 
@@ -137,6 +155,8 @@ def main(argv=None, *, device=None, signals=None):
         load_dataset_ssl,
     )
     from eeg_gnn_tpu_torch.device import resolve_device
+    from eeg_gnn_tpu_torch.parallel import distributed
+    from eeg_gnn_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
     from eeg_gnn_tpu_torch.train.checkpoint import get_save_dir
     from eeg_gnn_tpu_torch.train.trainer import run_experiment
     from eeg_gnn_tpu_torch.utils.logging import MetricsWriter, get_logger
@@ -146,14 +166,34 @@ def main(argv=None, *, device=None, signals=None):
                         help="Dir with file markers + scaler pickles.")
     parser.add_argument("--adj_mat_dir", type=str, default=None,
                         help="Path to distance-graph adjacency pickle.")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cpu to run on the CPU (default: the card).")
     ns = parser.parse_args(argv)
     d = vars(ns)
     marker_dir = d.pop("marker_dir")
     adj_mat_dir = d.pop("adj_mat_dir")
+    device = d.pop("device") or device
     cfg = ExperimentConfig(**d).finalize().check_runnable()
+    # the process group first (a no-op for one process), then the mesh
+    distributed.initialize(device=device)
+    mesh = None
+    world = distributed.world_size()
+    if world > 1:
+        for bs in (cfg.train_batch_size, cfg.test_batch_size):
+            if bs % world:
+                raise ValueError(f"batch size {bs} must divide over the "
+                                 f"{world} ranks")
+        mesh = make_mesh(cfg.mesh_shape)
+        device = mesh.device
+    elif parse_mesh_shape(cfg.mesh_shape, 1)[1] != (1,):
+        raise ValueError(f"--mesh_shape {cfg.mesh_shape} asks for more "
+                         "ranks than the one running")
     device = resolve_device(device, "cli.train.main")
 
-    save_dir = get_save_dir(cfg.save_dir or "./save", training=cfg.do_train)
+    base = cfg.save_dir or "./save"
+    if mesh is not None and mesh.rank:
+        base = os.path.join(base, f"rank{mesh.rank}")
+    save_dir = get_save_dir(base, training=cfg.do_train)
     cfg.save_dir = save_dir
     with open(os.path.join(save_dir, "args.json"), "w") as f:
         f.write(cfg.to_json())
@@ -196,10 +236,10 @@ def main(argv=None, *, device=None, signals=None):
                 raw_mode=cfg.raw_clips, **common)
         pipeline, caches = input_path(
             cfg, scaler, adj_mat_dir=adj_mat_dir, marker_dir=marker_dir,
-            signals=signals, device=device)
+            signals=signals, device=device, mesh=mesh)
         results = run_experiment(cfg, loaders, scaler, save_dir, log, tbx,
                                  device=device, input_pipeline=pipeline,
-                                 device_caches=caches)
+                                 device_caches=caches, mesh=mesh)
     finally:
         tbx.close()
     with open(os.path.join(save_dir, "results.json"), "w") as f:

@@ -11,9 +11,10 @@ The TPU tuning knobs ``batch_tile``, ``scan_unroll`` and ``fused_steps``
 are accepted and ignored. The on-device input pipeline, the dataset
 caches (resident and rotating) and ``--reflect_invariant`` are ported;
 as in the JAX CLI they serve ``--model_name dcrnn`` only, and a baseline
-accepts and ignores them. Features still to port (``preproc_dir``,
-meshes) raise ``NotImplementedError`` from ``check_runnable`` when set
-away from their defaults (``_NOT_PORTED``).
+accepts and ignores them. ``--mesh_shape data:N`` is the data-parallel
+mesh over N ranks (``parallel/``); a ``graph`` axis, and ``preproc_dir``,
+are still to port and raise ``NotImplementedError`` from
+``check_runnable`` (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ class ExperimentConfig:
 
     # Extensions of the JAX package (no reference counterpart)
     dtype: str = "float32"  # stream dtype: float32 | bfloat16
-    mesh_shape: str = "data:-1"  # data-parallel mesh: still to port
+    mesh_shape: str = "data:-1"  # the data-parallel mesh over the ranks
     device_pipeline: bool = False  # on-device input pipeline (raw clips)
     hbm_cache: bool = False  # device-resident dataset caches
     hbm_budget_gb: float = 12.0  # the caches' device budget: rotating past it
@@ -129,6 +130,12 @@ class ExperimentConfig:
                 raise NotImplementedError(
                     f"--{flag}={getattr(self, flag)!r} is not ported yet "
                     "(ROADMAP.md, Queue 1)")
+        from eeg_gnn_tpu_torch.parallel.mesh import (
+            check_axes,
+            parse_mesh_shape,
+        )
+
+        check_axes(parse_mesh_shape(self.mesh_shape, 1)[0])
         return self
 
     @property
@@ -181,7 +188,6 @@ class ExperimentConfig:
 # flag -> whether this config asks for that feature, still to port
 _NOT_PORTED = {
     "preproc_dir": lambda c: c.preproc_dir is not None,
-    "mesh_shape": lambda c: c.mesh_shape != "data:-1",
 }
 
 
@@ -253,7 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default=d.dtype,
                    choices=("float32", "bfloat16"))
     p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
-                   help="Data-parallel mesh: still to port.")
+                   help="Data-parallel mesh over the torch.distributed "
+                        "ranks: data:-1 or data:<world size> (a graph "
+                        "axis is still to port).")
     _add_bool_flag(p, "device_pipeline",
                    "On-device input pipeline: raw clips are featurized, "
                    "augmented, standardized and graphed on the card.")

@@ -412,6 +412,11 @@ class DenseCNNClassificationDataset(_BaseEEGDataset):
 
 def _make_loaders(dataset_fn, train_batch_size, test_batch_size, num_workers,
                   build_loaders=True):
+    # data-parallel ranks: each loader materializes only this rank's rows
+    # of every global batch (parallel/distributed.py)
+    from eeg_gnn_tpu_torch.parallel.distributed import process_shard
+
+    shard = process_shard()
     dataloaders, datasets = {}, {}
     for split in ["train", "dev", "test"]:
         ds = dataset_fn(split)
@@ -424,6 +429,7 @@ def _make_loaders(dataset_fn, train_batch_size, test_batch_size, num_workers,
             batch_size=train_batch_size if is_train else test_batch_size,
             shuffle=is_train,
             num_workers=num_workers,
+            process_shard=shard,
         )
     return dataloaders, datasets
 

@@ -24,9 +24,19 @@ port gathers only the valid rows, which gives the same loss.
 Detection (features + float labels), SSL (x features + next-window
 target features in the label slot) and classification (padded features,
 class labels and the clips' true lengths, which live on the device and
-are gathered per batch) cache here. The row-sharded mesh caches
-(``mesh_epoch_plan``, ``mesh_plan``, ``shard_cache``, ``_process_rows``)
-wait for ROADMAP.md Queue 1 item 10.
+are gathered per batch) cache here.
+
+Scale-out (``parallel/``): with a mesh, each rank holds only its block of
+the split's rows on its own device, ``[r*block, (r+1)*block)`` of the
+rows padded (repeating row 0) to a multiple of the world size; the
+``build_*_cache`` functions' ``mesh=`` featurizes only those rows
+(``_process_rows``), and :func:`shard_cache` cuts an existing cache down
+to them.
+:meth:`DeviceDatasetCache.mesh_epoch_plan` (the JAX package's
+``mesh_plan``, array for array for the same seed) gives each rank LOCAL
+row indices within its block and a row mask, so the input path adds no
+collective (``train/step.py: make_mesh_cached_train_step``). A row-sharded
+cache serves training only: its host labels and names are this rank's.
 
 :func:`fits_in_hbm` sizes a split against the user's budget; past it the
 CLI switches to the rotating cache (``data/rotating_cache.py``).
@@ -50,12 +60,6 @@ _UPLOAD_ROWS = 512
 def storage_dtype_of(name: str) -> torch.dtype:
     """'bfloat16' -> torch.bfloat16; anything else float32."""
     return torch.bfloat16 if name == "bfloat16" else torch.float32
-
-
-def _mesh_not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1, item 10: "
-        "scale-out)")
 
 
 def upload(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -99,21 +103,35 @@ class DeviceDatasetCache:
             'float32' for exact host-path parity.
         seq_lengths: (num_clips,) true lengths of padded clips
             (classification), held on the device as int64.
-        device: ``None`` (the CUDA card, raising without one), or e.g.
-            ``"cpu"``.
+        device: ``None`` (the CUDA card, raising without one, or the
+            mesh's device), or e.g. ``"cpu"``.
+        mesh: a ``parallel.Mesh``: this rank keeps its block of the rows
+            (all of ``feats`` given: it cuts them; with
+            ``global_num_clips``, ``feats`` is already its block, from
+            :func:`_process_rows`).
+        global_num_clips: the split's real rows when ``feats`` holds only
+            this rank's block.
     """
 
     def __init__(self, feats: np.ndarray, labels: np.ndarray, seq_len: int,
                  storage_dtype: str = "float32", names=None,
                  seq_lengths: Optional[np.ndarray] = None, mesh=None,
                  global_num_clips: Optional[int] = None, device=None):
-        if mesh is not None or global_num_clips is not None:
-            _mesh_not_ported("the row-sharded dataset cache")
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device, "DeviceDatasetCache")
         dt = storage_dtype_of(storage_dtype)
         feats = np.asarray(feats)
         labels = np.asarray(labels, np.float32)
-        self.num_clips = int(feats.shape[0])
+        self.num_clips = int(feats.shape[0] if global_num_clips is None
+                             else global_num_clips)
+        self.mesh = mesh
+        if mesh is not None and global_num_clips is None:
+            rows, _ = _block_rows(self.num_clips, mesh)
+            feats, labels = feats[rows], labels[rows]
+            names = None if names is None else [names[i] for i in rows]
+            if seq_lengths is not None:
+                seq_lengths = np.asarray(seq_lengths)[rows]
         self.x = upload(feats, dt, self.device)
         # SSL target features share the label slot and the storage dtype
         self.y = upload(labels, dt if labels.ndim > 1 else torch.float32,
@@ -122,7 +140,7 @@ class DeviceDatasetCache:
             np.asarray(seq_lengths, np.int64)).to(self.device))
         self.seq_len = int(seq_len)
         self.names = (list(names) if names is not None
-                      else [str(i) for i in range(self.num_clips)])
+                      else [str(i) for i in range(feats.shape[0])])
         self._labels_host = labels if labels.ndim == 1 else None
 
     def __len__(self):
@@ -168,14 +186,28 @@ class DeviceDatasetCache:
     def epoch_plans(self, batch_size: int, shuffle: bool,
                     rng: np.random.RandomState):
         """An epoch as :class:`Plan` s (here one: the whole split), the
-        iteration that ``RotatingDeviceCache.epoch_plans`` shares."""
+        iteration that ``RotatingDeviceCache.epoch_plans`` shares. Not
+        for a row-sharded cache over several ranks, which holds only its
+        block (:meth:`mesh_epoch_plan`)."""
+        if self.mesh is not None and self.mesh.world > 1:
+            raise ValueError("a row-sharded cache holds only this rank's "
+                             "rows: plan it with mesh_epoch_plan")
         perm, valid = self.epoch_plan(batch_size, shuffle, rng)
         yield Plan(self.x, self.y, perm, valid, self._labels_host,
                    self.names, self.seq)
 
-    def mesh_epoch_plan(self, *args, **kwargs):
-        """Per-device plans of a row-sharded cache (JAX ``:193``)."""
-        _mesh_not_ported("the mesh epoch plan")
+    def mesh_epoch_plan(self, batch_size: int, num_devices: int,
+                        shuffle: bool, rng: np.random.RandomState):
+        """The epoch plan of a row-sharded cache (JAX ``:180``): rank d
+        owns rows [d*block, (d+1)*block) of the padded split and draws its
+        rows of every step from them. Returns (idx_mat (K, B) int32 of
+        LOCAL row indices laid out [rank 0's | rank 1's | ...], mask_mat
+        (K, B) bool): padded slots repeat a real local row with mask
+        False, so every rank runs the same K steps. The same on every
+        rank (one seeded ``rng``); each takes its columns."""
+        block = -(-self.num_clips // num_devices)  # padded rows per rank
+        return mesh_plan(self.num_clips, block, num_devices, batch_size,
+                         shuffle, rng)
 
     def device_batch(self, idx: np.ndarray, valid: int):
         """The step's batch of plan rows ``idx[:valid]``: the index vector
@@ -186,9 +218,37 @@ class DeviceDatasetCache:
                             self.seq_len, self.seq)
 
 
-def mesh_plan(*args, **kwargs):
-    """Per-device plan core of the row-sharded caches (JAX ``:236``)."""
-    _mesh_not_ported("the mesh plan")
+def mesh_plan(num_real: int, block: int, p: int, batch_size: int,
+              shuffle: bool, rng: np.random.RandomState):
+    """(idx_mat, mask_mat) of a row-sharded split (JAX ``:227-257``, the
+    same arrays for the same ``rng``), shared by the resident
+    (:meth:`DeviceDatasetCache.mesh_epoch_plan`) and rotating
+    (``RotatingDeviceCache.mesh_shard_plan``) caches: the real rows [0,
+    num_real) lie contiguously over p blocks of ``block`` rows; rank d
+    draws only LOCAL indices within its block; padded slots repeat a real
+    local row with mask False (a block of padding only: its row 0)."""
+    if batch_size % p:
+        raise ValueError(f"batch size {batch_size} must divide over "
+                         f"{p} devices")
+    b_local = batch_size // p
+    # real rows per rank (the pad tail lives on the last rank(s))
+    real = [min(block, max(0, num_real - d * block)) for d in range(p)]
+    k_steps = max(1, max(-(-r // b_local) for r in real))
+    idx = np.zeros((k_steps, p, b_local), np.int32)
+    mask = np.zeros((k_steps, p, b_local), bool)
+    for d in range(p):
+        order = np.arange(real[d], dtype=np.int32)
+        if shuffle:
+            rng.shuffle(order)
+        flat = np.full((k_steps * b_local,),
+                       order[0] if real[d] else 0, np.int32)
+        flat[: real[d]] = order
+        idx[:, d, :] = flat.reshape(k_steps, b_local)
+        m = np.zeros((k_steps * b_local,), bool)
+        m[: real[d]] = True
+        mask[:, d, :] = m.reshape(k_steps, b_local)
+    return idx.reshape(k_steps, p * b_local), mask.reshape(
+        k_steps, p * b_local)
 
 
 def fits_in_hbm(num_clips: int, t: int, n: int, d: int,
@@ -217,44 +277,61 @@ def _materialize(dataset, pick, num_workers: int = 0, rows=None):
     return [pick(dataset[i]) for i in idx]
 
 
-def _process_rows(*args, **kwargs):
-    """The rows this process featurizes for a row-sharded cache (JAX
-    ``:290``)."""
-    _mesh_not_ported("multi-process row shards")
+def _block_rows(n_clips: int, mesh):
+    """(dataset rows of this rank's block of the split padded to a
+    multiple of the world size, pad rows mapped to row 0; the split's
+    real rows)."""
+    n_pad = -(-n_clips // mesh.world) * mesh.world
+    per = n_pad // mesh.world
+    lo = mesh.rank * per
+    return [(i if i < n_clips else 0) for i in range(lo, lo + per)], n_clips
 
 
-def detection_rows(dataset, num_workers: int = 0):
+def _process_rows(n_clips: int, mesh):
+    """The dataset rows THIS rank featurizes for a row-sharded cache (JAX
+    ``:290``): (rows, global_num_clips), or (None, None) for a one-rank
+    mesh (everything). Its contiguous block of the PADDED row space (pad
+    rows repeat global row 0, the layout ``mesh_epoch_plan``'s blocks
+    assume), mapped back to dataset indices: the featurization's cost and
+    the host memory scale as 1/ranks."""
+    if mesh.world == 1:
+        return None, None
+    return _block_rows(n_clips, mesh)
+
+
+def detection_rows(dataset, num_workers: int = 0, rows=None):
     """(feats (n, T, N, D), labels (n,), names) of a plain detection
-    dataset (built with ``augmentation=False``, ``standardize=False``)."""
-    rows = _materialize(
+    dataset (built with ``augmentation=False``, ``standardize=False``);
+    ``rows``: only those dataset rows."""
+    items = _materialize(
         dataset,
         lambda item: (np.asarray(item[0], np.float32),
                       np.float32(item[1]), item[5]),
-        num_workers)
-    xs, ys, names = zip(*rows)
+        num_workers, rows)
+    xs, ys, names = zip(*items)
     return np.stack(xs), np.asarray(ys), names
 
 
-def ssl_rows(dataset, num_workers: int = 0):
+def ssl_rows(dataset, num_workers: int = 0, rows=None):
     """(x feats, next-window y feats, names) of a plain SSL dataset."""
-    rows = _materialize(
+    items = _materialize(
         dataset,
         lambda item: (np.asarray(item[0], np.float32),
                       np.asarray(item[1], np.float32), item[5]),
-        num_workers)
-    xs, ys, names = zip(*rows)
+        num_workers, rows)
+    xs, ys, names = zip(*items)
     return np.stack(xs), np.stack(ys), names
 
 
-def classification_rows(dataset, num_workers: int = 0):
+def classification_rows(dataset, num_workers: int = 0, rows=None):
     """(padded feats, class ids as floats, true lengths, names) of a plain
     classification dataset."""
-    rows = _materialize(
+    items = _materialize(
         dataset,
         lambda item: (np.asarray(item[0], np.float32),
                       np.float32(item[1]), np.int32(item[2]), item[5]),
-        num_workers)
-    xs, ys, lens, names = zip(*rows)
+        num_workers, rows)
+    xs, ys, lens, names = zip(*items)
     return np.stack(xs), np.asarray(ys), np.asarray(lens, np.int32), names
 
 
@@ -266,14 +343,15 @@ def build_detection_cache(dataset, seq_len: int,
 
     The dataset must be built with ``augmentation=False`` and
     ``standardize=False`` (both run on the device per step); the caller
-    owns that (``cli/train.py`` does).
+    owns that (``cli/train.py`` does). With ``mesh``, this rank
+    featurizes and holds only its block of rows (:func:`_process_rows`).
     """
-    if mesh is not None:
-        _mesh_not_ported("the row-sharded dataset cache")
-    feats, labels, names = detection_rows(dataset, num_workers)
+    sel, n = (None, None) if mesh is None else _process_rows(len(dataset),
+                                                             mesh)
+    feats, labels, names = detection_rows(dataset, num_workers, sel)
     return DeviceDatasetCache(feats, labels, seq_len,
                               storage_dtype=storage_dtype, names=names,
-                              device=device)
+                              mesh=mesh, global_num_clips=n, device=device)
 
 
 def build_ssl_cache(dataset, input_len: int,
@@ -283,13 +361,14 @@ def build_ssl_cache(dataset, input_len: int,
     """SSL pair cache: x features in ``x``, next-window target features in
     the ``y`` slot. The dataset must be built with ``augmentation=False``,
     ``standardize=False`` (the joint augment and z-score run on the
-    device, ``DevicePipeline.ssl_features``)."""
-    if mesh is not None:
-        _mesh_not_ported("the row-sharded dataset cache")
-    xs, ys, names = ssl_rows(dataset, num_workers)
+    device, ``DevicePipeline.ssl_features``). ``mesh``: as
+    :func:`build_detection_cache`."""
+    sel, n = (None, None) if mesh is None else _process_rows(len(dataset),
+                                                             mesh)
+    xs, ys, names = ssl_rows(dataset, num_workers, sel)
     return DeviceDatasetCache(xs, ys, input_len,
                               storage_dtype=storage_dtype, names=names,
-                              device=device)
+                              mesh=mesh, global_num_clips=n, device=device)
 
 
 def build_classification_cache(dataset, seq_len: int,
@@ -301,15 +380,36 @@ def build_classification_cache(dataset, seq_len: int,
     ``standardize=False`` and ``padding_val=0``; the device tail re-pins
     the padding after augment and standardize
     (``DevicePipeline.classification_features``), which reproduces the
-    host's pad(standardize(augment(clip)))."""
-    if mesh is not None:
-        _mesh_not_ported("the row-sharded dataset cache")
-    feats, labels, lens, names = classification_rows(dataset, num_workers)
+    host's pad(standardize(augment(clip))). ``mesh``: as
+    :func:`build_detection_cache`."""
+    sel, n = (None, None) if mesh is None else _process_rows(len(dataset),
+                                                             mesh)
+    feats, labels, lens, names = classification_rows(dataset, num_workers,
+                                                     sel)
     return DeviceDatasetCache(feats, labels, seq_len,
                               storage_dtype=storage_dtype, names=names,
-                              seq_lengths=lens, device=device)
+                              seq_lengths=lens, mesh=mesh,
+                              global_num_clips=n, device=device)
 
 
-def shard_cache(*args, **kwargs):
-    """Re-place a cache row-sharded over a mesh (JAX ``:383``)."""
-    _mesh_not_ported("the row-sharded dataset cache")
+def shard_cache(cache: DeviceDatasetCache, mesh) -> DeviceDatasetCache:
+    """Cut a cache down to this rank's block of rows (JAX ``:383``): rows
+    padded (repeating row 0; :meth:`~DeviceDatasetCache.mesh_epoch_plan`'s
+    masks never count them) to a multiple of the world size, then this
+    rank keeps ``[r*block, (r+1)*block)`` on its device and frees the
+    rest. A cache built with ``mesh=`` is already cut and passes
+    through."""
+    if cache.mesh is not None:
+        return cache
+    rows, _ = _block_rows(cache.num_clips, mesh)
+    idx = torch.as_tensor(rows, device=cache.device)
+    for name in ("x", "y", "seq"):
+        t = getattr(cache, name)
+        if t is not None:
+            setattr(cache, name, t.index_select(0, idx).to(mesh.device))
+    cache.names = [cache.names[i] for i in rows]
+    if cache._labels_host is not None:
+        cache._labels_host = cache._labels_host[rows]
+    cache.device = mesh.device
+    cache.mesh = mesh
+    return cache

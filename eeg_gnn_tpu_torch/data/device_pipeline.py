@@ -54,6 +54,7 @@ from eeg_gnn_tpu_torch.graphs.supports import (
 )
 from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
 from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip
+from eeg_gnn_tpu_torch.parallel.mesh import rand
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
 
@@ -109,9 +110,9 @@ class DevicePipeline:
     def draw(self, batch: int, generator: torch.Generator) -> Draws:
         """The augmentation draws of ``batch`` clips from ``generator``:
         (reflect (B,) bool with p=0.5, scale (B,) float32 uniform in
-        [0.8, 1.2)), one launch on the generator's device."""
-        u = torch.rand((2, batch), generator=generator,
-                       device=generator.device)
+        [0.8, 1.2)), one launch on the generator's device (the global
+        batch's under a data-parallel step, ``parallel.mesh.rand``)."""
+        u = rand((2, batch), generator, generator.device, batch_axis=1)
         return u[0] < 0.5, 0.8 + 0.4 * u[1]
 
     def _augmenting(self, training: bool) -> Tuple[bool, bool]:

@@ -9,8 +9,11 @@ pickling. The epoch shuffle is a seeded ``RandomState``, so two loaders
 with one seed give the same batch order; batches come out in order
 whatever the number of workers.
 
-Multi-process sharding (``process_shard``) is still to port (ROADMAP.md,
-Queue 1: scale-out).
+Data-parallel ranks (``process_shard=(rank, count)``): ``batch_size`` stays
+the GLOBAL batch, the seeded shuffle is the same on every rank, and each
+rank materializes only its contiguous rows of every global batch; a
+partial global batch is padded at its end by repeating its first sample,
+and ``Batch.valid`` carries the global valid count.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ class Batch:
     supports: Optional[np.ndarray]  # (S, B, N, N) stacked, or None
     adj: Optional[np.ndarray]  # (B, N, N) or None
     names: List[str]
+    valid: Optional[int] = None  # GLOBAL valid rows (a rank's loader: it
+    # holds its slice; the padding rows sit at the global end)
 
     def __len__(self):
         return self.x.shape[0]
@@ -64,7 +69,14 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 2, drop_last: bool = False, seed: int = 0,
-                 prefetch: int = 4):
+                 prefetch: int = 4, process_shard=None):
+        """``process_shard=(rank, count)``: this rank's rows of every
+        global batch of ``batch_size`` (the module docstring; the layout of
+        ``parallel.distributed.process_batch_slice``)."""
+        if process_shard is not None and batch_size % process_shard[1]:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_shard[1]} ranks")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -80,7 +92,8 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
-        """One index array per batch of this epoch."""
+        """(index array, global valid count or None) per batch of this
+        epoch: this rank's rows under ``process_shard``."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._epoch_rng.shuffle(idx)
@@ -90,16 +103,29 @@ class DataLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        return batches
+        if self.process_shard is None:
+            return [(b, None) for b in batches]
+        rank, count = self.process_shard
+        per = self.batch_size // count
+        out = []
+        for b in batches:
+            valid = len(b)
+            if valid != self.batch_size:  # pad the global tail: sample 0
+                b = np.concatenate(
+                    [b, np.repeat(b[:1], self.batch_size - valid)])
+            out.append((b[rank * per:(rank + 1) * per], valid))
+        return out
 
-    def _collate(self, b):
-        return collate([self.dataset[int(i)] for i in b])
+    def _collate(self, b, valid):
+        batch = collate([self.dataset[int(i)] for i in b])
+        batch.valid = valid
+        return batch
 
     def __iter__(self):
         batches = self._batch_indices()
         if self.num_workers <= 1 or len(batches) <= 1:
-            for b in batches:
-                yield self._collate(b)
+            for b, valid in batches:
+                yield self._collate(b, valid)
             return
 
         task_q: "queue.Queue" = queue.Queue()
@@ -113,12 +139,12 @@ class DataLoader:
             while True:
                 slots.acquire()
                 try:
-                    pos, b = task_q.get_nowait()
+                    pos, (b, valid) = task_q.get_nowait()
                 except queue.Empty:
                     slots.release()
                     return
                 try:
-                    batch = self._collate(b)
+                    batch = self._collate(b, valid)
                 except Exception as e:  # surface in the consuming thread
                     batch = e
                 with ready_cv:

@@ -25,8 +25,21 @@ flags ``rotating_cache.py:48``). The port clamps the shard count after
 rounding, so every shard has real rows.
 
 Classification's per-clip lengths ride in the slabs beside ``x`` and
-``y``. The mesh (row-sharded slabs) and multi-host stripe modes wait for
-ROADMAP.md Queue 1 item 10.
+``y``.
+
+Scale-out (``parallel/``): with a mesh of W ranks, shards hold W times
+the rows (``budget_bytes`` stays each card's) and each rank holds, on the
+host and on its card, only its STRIPE of every shard: rows ``[r*S/W,
+(r+1)*S/W)`` of the shard's S rows, padded at the split's end with
+copies of row 0 (the JAX package's multi-host stripe mode;
+``build_rotating_cache(mesh=)`` featurizes only those rows).
+``RotatingDeviceCache.mesh_shard_plan`` gives each rank LOCAL indices
+within its stripe and a row mask (``device_cache.mesh_plan``). A striped
+cache trains only: its labels and names are this rank's stripes, so
+``shard_labels``, ``shard_names`` and ``epoch_plans``, which index global
+shard rows, raise on it over several ranks (the JAX trainer's evaluation
+would read local rows by global index there; ADVICE.md,
+``eeg_gnn_tpu/train/trainer.py:509``).
 """
 
 from __future__ import annotations
@@ -39,9 +52,9 @@ import torch
 
 from eeg_gnn_tpu_torch.data.device_cache import (
     Plan,
-    _mesh_not_ported,
     classification_rows,
     detection_rows,
+    mesh_plan,
     ssl_rows,
     storage_dtype_of,
 )
@@ -104,8 +117,14 @@ class RotatingDeviceCache:
             THREE fit (see :func:`rotating_geometry`).
         min_shards: lower bound on the shard count (to rotate a split that
             would fit).
-        device: ``None`` (the CUDA card, raising without one), or e.g.
-            ``"cpu"``.
+        device: ``None`` (the CUDA card, raising without one, or the
+            mesh's device), or e.g. ``"cpu"``.
+        mesh: a ``parallel.Mesh``: this rank holds its stripe of every
+            shard (all of ``feats`` given: it cuts them; with
+            ``global_num_clips``, ``feats`` is already its stripes,
+            shard-major, from :func:`_stripe_rows`).
+        global_num_clips: the split's real rows when ``feats`` holds only
+            this rank's stripes.
     """
 
     def __init__(self, feats: np.ndarray, labels: np.ndarray, seq_len: int,
@@ -114,8 +133,8 @@ class RotatingDeviceCache:
                  seq_lengths: Optional[np.ndarray] = None,
                  min_shards: int = 2, mesh=None,
                  global_num_clips: Optional[int] = None, device=None):
-        if mesh is not None or global_num_clips is not None:
-            _mesh_not_ported("the row-sharded rotating cache")
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device, "RotatingDeviceCache")
         self.storage_dtype = storage_dtype
         dt = storage_dtype_of(storage_dtype)
@@ -131,17 +150,42 @@ class RotatingDeviceCache:
         self._seq = (None if seq_lengths is None
                      else host(np.asarray(seq_lengths, np.int64),
                                torch.int64))
-        self.num_clips = int(self._x.shape[0])
+        self.num_clips = int(self._x.shape[0] if global_num_clips is None
+                             else global_num_clips)
         self.seq_len = int(seq_len)
         self.names = (list(names) if names is not None
-                      else [str(i) for i in range(self.num_clips)])
+                      else [str(i) for i in range(self._x.shape[0])])
         self._labels_host = labels if labels.ndim == 1 else None
         # the JAX package's count: features, and SSL targets (not labels)
         self.clip_bytes = sum(
             int(np.prod(t.shape[1:])) * t.element_size()
             for t in ((self._x, self._y) if labels.ndim > 1 else (self._x,)))
+        self.mesh = mesh
+        p = 1 if mesh is None else mesh.world
         self.num_shards, self.shard_rows = rotating_geometry(
-            self.num_clips, self.clip_bytes, budget_bytes, 1, min_shards)
+            self.num_clips, self.clip_bytes, budget_bytes, p, min_shards)
+        self._stripes = mesh is not None
+        if self._stripes:
+            self._rows_pp = self.shard_rows // p
+            if global_num_clips is None:  # all rows given: keep the stripes
+                rows = stripe_rows(self.num_clips, self.num_shards,
+                                   self.shard_rows, mesh)
+                idx = torch.as_tensor(rows)
+                self._x, self._y = self._x[idx], self._y[idx]
+                if self._seq is not None:
+                    self._seq = self._seq[idx]
+                if pin:
+                    self._x, self._y = (self._x.pin_memory(),
+                                        self._y.pin_memory())
+                    if self._seq is not None:
+                        self._seq = self._seq.pin_memory()
+                self.names = [self.names[i] for i in rows]
+                if self._labels_host is not None:
+                    self._labels_host = self._labels_host[rows]
+            if self._x.shape[0] != self.num_shards * self._rows_pp:
+                raise ValueError(
+                    f"stripe rows {self._x.shape[0]} != shards "
+                    f"{self.num_shards} x rows a rank {self._rows_pp}")
         self._stream = (torch.cuda.Stream(self.device) if pin else None)
         self._live = weakref.WeakSet()  # the slabs not yet freed
 
@@ -180,7 +224,9 @@ class RotatingDeviceCache:
         each shard's rows, drawn from ``rng`` as the JAX trainer draws
         them). The next shard's copy starts before a shard's plan is
         yielded, so it overlaps that shard's steps; a slab is dropped once
-        the next one is ready, and the last when the epoch ends."""
+        the next one is ready, and the last when the epoch ends. Not for
+        a striped cache over several ranks (:meth:`mesh_shard_plans`)."""
+        self._whole("epoch_plans")
         order = self.epoch_shard_order(rng, shuffle)
         slab_next = self.prefetch(order[0])
         for i, sid in enumerate(order):
@@ -191,9 +237,37 @@ class RotatingDeviceCache:
             yield Plan(slab.x, slab.y, perm, valid, self.shard_labels(sid),
                        self.shard_names(sid), slab.seq)
 
-    def mesh_shard_plan(self, *args, **kwargs):
-        """Per-device plans of a row-sharded slab (JAX ``:252``)."""
-        _mesh_not_ported("the mesh shard plan")
+    def mesh_shard_plan(self, shard: int, batch_size: int, shuffle: bool,
+                        rng: np.random.RandomState):
+        """(idx_mat (K, B), mask_mat (K, B)) of one striped shard (JAX
+        ``:253``): LOCAL indices within each rank's stripe of
+        ``shard_rows / world`` rows, the contract of
+        ``DeviceDatasetCache.mesh_epoch_plan``."""
+        p = self.mesh.world
+        return mesh_plan(self.shard_real_rows(shard), self.shard_rows // p,
+                         p, batch_size, shuffle, rng)
+
+    def mesh_shard_plans(self, batch_size: int, shuffle: bool,
+                         rng: np.random.RandomState):
+        """An epoch of a striped cache, shard by shard, drawn from ``rng``
+        as the JAX trainer's mesh rotation draws it (the shard order, then
+        each shard's plan): yields (slab, idx_mat, mask_mat), the next
+        slab's copy started before a shard's plan is yielded."""
+        order = self.epoch_shard_order(rng, shuffle)
+        slab_next = self.prefetch(order[0])
+        for i, sid in enumerate(order):
+            slab = slab_next.ready()
+            slab_next = (self.prefetch(order[i + 1])
+                         if i + 1 < len(order) else None)
+            idx, mask = self.mesh_shard_plan(sid, batch_size, shuffle, rng)
+            yield slab, idx, mask
+
+    def _whole(self, what: str):
+        if self._stripes and self.mesh.world > 1:
+            raise ValueError(
+                f"{what}: this row-sharded rotating cache holds only this "
+                "rank's stripes; train it through mesh_shard_plans and "
+                "evaluate from the loaders")
 
     # -- device-side slabs -------------------------------------------------
 
@@ -205,9 +279,11 @@ class RotatingDeviceCache:
         allocator reuses a freed slab's memory only after the compute
         work that read it (``Slab.ready`` records that stream). A shard's
         last rows past its real ones stay unset: the plans never read
-        them."""
-        lo = shard * self.shard_rows
-        hi = lo + self.shard_real_rows(shard)
+        them; a striped shard is copied whole (its pad rows are row 0's
+        copies: a rank's stripe of padding only is read, masked)."""
+        rows = self._rows_pp if self._stripes else self.shard_rows
+        lo = shard * rows
+        hi = lo + (rows if self._stripes else self.shard_real_rows(shard))
         host = [self._x, self._y] + ([self._seq] if self._seq is not None
                                      else [])
         if self._stream is None:
@@ -216,7 +292,7 @@ class RotatingDeviceCache:
             with torch.cuda.stream(self._stream):
                 dev = []
                 for t in host:
-                    d = torch.empty((self.shard_rows,) + t.shape[1:],
+                    d = torch.empty((rows,) + t.shape[1:],
                                     dtype=t.dtype, device=self.device)
                     d[: hi - lo].copy_(t[lo:hi], non_blocking=True)
                     dev.append(d)
@@ -231,20 +307,57 @@ class RotatingDeviceCache:
         return len(self._live)
 
     def shard_labels(self, shard: int):
+        self._whole("shard_labels")
         lo = shard * self.shard_rows
         hi = min(lo + self.shard_rows, self.num_clips)
         return (None if self._labels_host is None
                 else self._labels_host[lo:hi])
 
     def shard_names(self, shard: int):
+        self._whole("shard_names")
         lo = shard * self.shard_rows
         hi = min(lo + self.shard_rows, self.num_clips)
         return self.names[lo:hi]
 
     def nbytes_resident(self) -> int:
         """Worst-case device bytes: three slabs (live, prefetch, and the
-        previous one while the device still reads it)."""
-        return 3 * self.shard_rows * self.clip_bytes
+        previous one while the device still reads it), of this rank's
+        stripes when striped."""
+        rows = self._rows_pp if self._stripes else self.shard_rows
+        return 3 * rows * self.clip_bytes
+
+
+def stripe_rows(num_clips: int, num_shards: int, shard_rows: int,
+                mesh) -> list:
+    """The split's rows of this rank's stripes, shard-major: of shard s
+    the rows ``s*shard_rows + [r*S/W, (r+1)*S/W)``, past the split's end
+    row 0."""
+    rows_pp = shard_rows // mesh.world
+    rows = []
+    for s in range(num_shards):
+        lo = s * shard_rows + mesh.rank * rows_pp
+        rows.extend(i if i < num_clips else 0
+                    for i in range(lo, lo + rows_pp))
+    return rows
+
+
+def _stripe_rows(dataset, kind: str, storage_dtype: str,
+                 budget_bytes: int, min_shards: int, mesh):
+    """The dataset rows THIS rank featurizes (JAX ``:283``): its stripes
+    of every shard, from the shard geometry that a probe item's clip
+    bytes give (:func:`rotating_geometry`, as the cache computes it).
+    Returns (rows, global_num_clips), or (None, None) without a mesh."""
+    if mesh is None:
+        return None, None
+    n = len(dataset)
+    probe = dataset[0]
+    itemsize = storage_dtype_of(storage_dtype).itemsize
+    clip_bytes = int(np.prod(np.asarray(probe[0]).shape)) * itemsize
+    if kind == "ssl":
+        clip_bytes += int(np.prod(np.asarray(probe[1]).shape)) * itemsize
+    num_shards, shard_rows = rotating_geometry(n, clip_bytes, budget_bytes,
+                                               mesh.world, min_shards)
+    return stripe_rows(n, num_shards, shard_rows, mesh), n
 
 
 def build_rotating_cache(dataset, seq_len: int, kind: str,
@@ -255,21 +368,23 @@ def build_rotating_cache(dataset, seq_len: int, kind: str,
                          mesh=None, device=None) -> RotatingDeviceCache:
     """A rotating cache of a plain (un-augmented, un-standardized)
     dataset. ``kind``: 'detection' | 'ssl' | 'classification' (the item
-    layouts of the ``device_cache`` builders)."""
-    if mesh is not None:
-        _mesh_not_ported("the row-sharded rotating cache")
+    layouts of the ``device_cache`` build functions). With ``mesh``, this
+    rank featurizes only its stripes (:func:`_stripe_rows`)."""
+    sel, n = _stripe_rows(dataset, kind, storage_dtype, budget_bytes,
+                          min_shards, mesh)
     common = dict(storage_dtype=storage_dtype, budget_bytes=budget_bytes,
-                  min_shards=min_shards, device=device)
+                  min_shards=min_shards, device=device, mesh=mesh,
+                  global_num_clips=n)
     if kind == "detection":
-        feats, labels, names = detection_rows(dataset, num_workers)
+        feats, labels, names = detection_rows(dataset, num_workers, sel)
         return RotatingDeviceCache(feats, labels, seq_len, names=names,
                                    **common)
     if kind == "ssl":
-        xs, ys, names = ssl_rows(dataset, num_workers)
+        xs, ys, names = ssl_rows(dataset, num_workers, sel)
         return RotatingDeviceCache(xs, ys, seq_len, names=names, **common)
     if kind == "classification":
         feats, labels, lens, names = classification_rows(dataset,
-                                                         num_workers)
+                                                         num_workers, sel)
         return RotatingDeviceCache(feats, labels, seq_len, names=names,
                                    seq_lengths=lens, **common)
     raise ValueError(f"unknown rotating-cache kind: {kind!r}")

@@ -77,6 +77,7 @@ from eeg_gnn_tpu_torch.ops.recurrent import (
     dcgru_layer_recurrence,
     rearrange_hidden_weight,
 )
+from eeg_gnn_tpu_torch.parallel.mesh import rand
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _RECURRENCES = ("pallas", "stacked", "naive")
@@ -377,12 +378,14 @@ def dcgru_cell_apply_ops(cfg: DCGRUConfig, w_gate_r, w_cand_r, gate_b,
 def dropout(x, rate: float, training: bool,
             generator: Optional[torch.Generator] = None):
     """Inverted dropout (``eeg_gnn_tpu/models/dcrnn.py:81-86``) whose mask
-    comes from ``generator`` (on x's device). JAX's PRNG stream cannot be
-    reproduced, so parity tests run with rate 0, the flagship value."""
+    comes from ``generator`` (on x's device; axis 0 is the batch, drawn
+    whole under a data-parallel step, ``parallel.mesh.rand``). JAX's PRNG
+    stream cannot be reproduced, so parity tests run with rate 0, the
+    flagship value."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -25,11 +25,13 @@ quirks are kept, as in the JAX package:
   registry puts back after it cancel, so the logits are (B,
   num_classes).
 
-``fcbn1`` is ``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5): in training the
+``fcbn1`` is a ``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5): in training the
 batch statistics, and the running statistics updated with the unbiased
 variance (JAX ``_batchnorm1d``); in eval the running statistics, which
-are buffers of ``state_dict()``. Submodule names are the reference's
-(``dense_inception.inception_{i}.branch{X}_{j}.conv``,
+are buffers of ``state_dict()``; it is a :class:`GlobalBatchNorm1d`,
+whose statistics under a data-parallel mesh are the global batch's, as
+the JAX package's ``_batchnorm1d`` over a global array. Submodule names
+are the reference's (``dense_inception.inception_{i}.branch{X}_{j}.conv``,
 ``dense_inception.conv1x1_*.conv``, ``dense_inception.fc1`` / ``fcbn1`` /
 ``fc2``), so its ``.pth.tar`` maps key for key. The model runs in
 float32.
@@ -63,6 +65,50 @@ _SQUEEZES = (("conv1x1_10", 12, 9), ("conv1x1_2", 27, 18),
              ("conv1x1_7", 54, 27), ("conv1x1_76", 45, 36))
 _POOLS = (7, 5, 5, 4)
 FC_UNITS = 128
+
+
+class GlobalBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose training statistics are those of the
+    global batch over the ranks of ``mesh`` (a ``parallel.Mesh``; None:
+    this rank's batch, plain BatchNorm). The per-channel sum, sum of
+    squares and row count go through one all-reduce, with autograd
+    (``parallel.distributed.all_reduce_sum``); the running statistics
+    update from the global moments (the unbiased variance, as torch and
+    JAX). ``nn.SyncBatchNorm`` takes CUDA tensors only, so the ranks on
+    the CPU (gloo) could not use it. The buffers and ``state_dict()`` keys
+    are BatchNorm1d's."""
+
+    mesh = None
+
+    def forward(self, x):
+        if not self.training or self.mesh is None:
+            return super().forward(x)
+        from eeg_gnn_tpu_torch.parallel.distributed import all_reduce_sum
+
+        c = x.shape[1]
+        rows = torch.full((1,), x.shape[0], dtype=x.dtype, device=x.device)
+        stats = all_reduce_sum(torch.cat([x.sum(0), (x * x).sum(0), rows]),
+                               self.mesh)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = stats[c:2 * c] / n - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(
+                m * var * n / torch.clamp(n - 1, min=1))
+            self.num_batches_tracked += 1
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
+def global_batchnorm(model: nn.Module, mesh) -> nn.Module:
+    """Point every :class:`GlobalBatchNorm1d` of ``model`` (the Dense-CNN's
+    ``fcbn1``) at ``mesh``; returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, GlobalBatchNorm1d):
+            mod.mesh = mesh
+    return model
 
 
 class BasicConv2d(nn.Module):
@@ -139,7 +185,7 @@ class DenseInception(nn.Module):
         self.pools = nn.ModuleList(nn.MaxPool2d((k, 1), (k, 1))
                                    for k in _POOLS)
         self.fc1 = nn.Linear(fc1_features(data_shape), FC_UNITS)
-        self.fcbn1 = nn.BatchNorm1d(FC_UNITS, momentum=0.1, eps=1e-5)
+        self.fcbn1 = GlobalBatchNorm1d(FC_UNITS, momentum=0.1, eps=1e-5)
         self.fc2 = nn.Linear(FC_UNITS, num_classes)
         for fc in (self.fc1, self.fc2):  # the reference zeroes their biases
             init_uniform_([fc.weight], 1.0 / math.sqrt(fc.in_features),

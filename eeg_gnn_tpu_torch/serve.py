@@ -14,8 +14,13 @@ Dense-CNN baselines, which keep the JAX contract (supports, an adjacency
 or a pipeline are still required) and read no graph. Checkpoints load
 from ``.npz`` files of either package, with a ``.state.npz`` beside them
 where there is one (the Dense-CNN's BatchNorm running statistics), or
-from the reference's ``.pth.tar`` files (``io/torch_import.py``). Still
-to port (ROADMAP.md): data-parallel meshes.
+from the reference's ``.pth.tar`` files (``io/torch_import.py``).
+
+Data-parallel (``mesh=``, ``parallel/``; JAX ``serve.py:88-103``): every
+rank is called with the same inputs and runs its rows of each chunk on
+its own device; the probabilities are gathered over the ranks, so every
+rank returns the whole array. The batch must split evenly over the
+ranks.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ class Predictor:
         pipeline: optional ``DevicePipeline`` on the same device, enabling
             :meth:`predict_proba_raw` and, for the combined graph,
             supports-free :meth:`predict_proba`.
-        mesh: not ported yet; must be None.
+        mesh: a ``parallel.Mesh``: data-parallel over its ranks (the
+            module docstring); ``device`` defaults to the rank's.
     """
 
     def __init__(self, cfg: ExperimentConfig,
@@ -71,19 +77,21 @@ class Predictor:
                  device=None, pipeline=None, mesh=None):
         from eeg_gnn_tpu_torch.models.registry import build_model
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel meshes are not ported yet (ROADMAP.md, "
-                "Queue 1: scale-out)")
         if cfg.task not in ("detection", "classification"):
             raise ValueError(f"Predictor serves detection and "
                              f"classification, not {cfg.task!r}")
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device, "Predictor")
         self.model = build_model(cfg)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
         self.batch_size = int(batch_size or cfg.test_batch_size)
+        # this rank's rows of every chunk (all of them without a mesh)
+        self.rows = (slice(0, self.batch_size) if mesh is None
+                     else mesh.rows(self.batch_size))
         self.threshold = float(threshold)
         if pipeline is not None and \
                 pipeline.device.type != self.device.type:
@@ -134,10 +142,18 @@ class Predictor:
 
     @torch.inference_mode()
     def _probs(self, x, seq_lengths, supports):
+        """Probabilities of this rank's rows, gathered over the ranks
+        under a mesh."""
         logits = self.model(x, seq_lengths, supports)
         if self.cfg.num_classes == 1:
-            return torch.sigmoid(logits.reshape(-1))
-        return torch.softmax(logits, dim=-1)
+            probs = torch.sigmoid(logits.reshape(-1))
+        else:
+            probs = torch.softmax(logits, dim=-1)
+        if self.mesh is None:
+            return probs
+        from eeg_gnn_tpu_torch.parallel.distributed import all_gather_rows
+
+        return all_gather_rows(probs, self.mesh)
 
     def predict_proba(self, x: np.ndarray,
                       seq_lengths: Optional[np.ndarray] = None,
@@ -168,19 +184,19 @@ class Predictor:
             seq_lengths = np.full((n,), t, np.int64)
         out = []
         for lo, hi in self._chunks(n):
-            bs = self.batch_size
-            xb = _tensor(_pad_to(x[lo:hi], bs), np.float32, dev)
-            lb = _tensor(_pad_to(np.asarray(seq_lengths[lo:hi]), bs),
+            bs, r = self.batch_size, self.rows
+            xb = _tensor(_pad_to(x[lo:hi], bs)[r], np.float32, dev)
+            lb = _tensor(_pad_to(np.asarray(seq_lengths[lo:hi]), bs)[r],
                          np.int64, dev)
             if supports is not None:
                 sb = _tensor(_pad_to(np.asarray(supports[:, lo:hi]), bs,
-                                     axis=1), np.float32, dev)
+                                     axis=1)[:, r], np.float32, dev)
             elif adjacency is not None:
-                ab = _tensor(_pad_to(np.asarray(adjacency[lo:hi]), bs),
+                ab = _tensor(_pad_to(np.asarray(adjacency[lo:hi]), bs)[r],
                              np.float32, dev)
                 sb = compute_supports_torch(ab, self.cfg.filter_type)
             else:
-                sb = self._default_supports(bs)
+                sb = self._default_supports(r.stop - r.start)
             probs = self._probs(xb, lb, sb)
             out.append(probs[:hi - lo].float().cpu().numpy())
         return np.concatenate(out) if out else np.empty((0,), np.float32)
@@ -204,9 +220,9 @@ class Predictor:
             seq_lengths = np.full((n,), t, np.int64)
         out = []
         for lo, hi in self._chunks(n):
-            bs = self.batch_size
-            rb = _tensor(_pad_to(raw[lo:hi], bs), np.float32, dev)
-            lb = _tensor(_pad_to(np.asarray(seq_lengths[lo:hi]), bs),
+            bs, r = self.batch_size, self.rows
+            rb = _tensor(_pad_to(raw[lo:hi], bs)[r], np.float32, dev)
+            lb = _tensor(_pad_to(np.asarray(seq_lengths[lo:hi]), bs)[r],
                          np.int64, dev)
             with torch.inference_mode():
                 xb, sb = self.pipeline(rb)

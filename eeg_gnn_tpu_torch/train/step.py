@@ -26,8 +26,18 @@ over K steps, to amortize a TPU dispatch) become plain loops over
 ``make_cached_epoch_step``); the trainer runs every cached plan through
 ``make_cached_epoch_step`` and ignores ``--fused_steps``. A cached step
 takes no data from the host (the plan's permutation is on the device;
-the losses stay there). The mesh variant raises (ROADMAP.md, Queue 1,
-item 10).
+the losses stay there).
+
+Data-parallel (``TrainStep(mesh=)``, ``parallel/``): each rank holds its
+rows of every global batch and the replicated parameters. Its loss is
+its share of the global loss (``train/losses.py``), every random draw is
+made for the global batch and sliced (``parallel.mesh.global_draws``),
+the backward ends in ONE all-reduce of the gradients (a flat buffer, the
+loss's share riding in it), and then the clip, L2 and Adam run the same
+on every rank, so the parameters stay bitwise equal across the ranks.
+The Dense-CNN's BatchNorm takes the global batch's statistics
+(``models/densecnn.GlobalBatchNorm1d``). The row-sharded cached step is
+:func:`make_mesh_cached_train_step`.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from torch import nn
 from eeg_gnn_tpu_torch.config import ExperimentConfig
 from eeg_gnn_tpu_torch.constants import FREQUENCY
 from eeg_gnn_tpu_torch.device import resolve_device
+from eeg_gnn_tpu_torch.parallel import distributed
+from eeg_gnn_tpu_torch.parallel.mesh import global_draws
 from eeg_gnn_tpu_torch.train.losses import (
     bce_with_logits,
     compute_regression_loss,
@@ -68,7 +80,16 @@ def _gather(cache: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return cache.index_select(0, idx)
 
 
-def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
+def local_cache_gather(mesh=None):
+    """The gather of a row-sharded cache (JAX ``local_cache_gather``, a
+    ``shard_map`` per device): each rank holds its own block of rows and
+    its plan's LOCAL indices, so its gather is a plain ``index_select``
+    on its own device, and the input path adds no collective."""
+    return _gather
+
+
+def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None,
+                       mesh=None):
     """Loss of ``model`` on a device batch: ``loss_fn(batch, generator)
     -> (loss, logits)``; ``generator`` draws the pipeline's augmentation
     and the dropout mask.
@@ -77,9 +98,10 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
     the device, and one with ``cache_x`` gathers its rows ``idx`` from the
     cached split, then runs the pipeline's tail: for classification's
     padded clips (``cache_seq``) it gathers their lengths too and runs
-    ``classification_features`` (JAX ``train/step.py:64-71``). (The JAX
-    package's ``cache_gather`` serves its mesh path, ROADMAP.md Queue 1
-    item 10.)"""
+    ``classification_features`` (JAX ``train/step.py:64-71``).
+
+    With ``mesh``, the loss is this rank's share of the global loss over
+    the batch's ``global_valid`` rows (``train/losses.py``)."""
     if task == SSL_TASK:
         raise ValueError(f"task {task!r} trains through ssl_loss_fn, not "
                          "supervised_loss_fn")
@@ -106,9 +128,10 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
         logits = model(batch["x"], batch["seq_lengths"], batch["supports"],
                        generator)
         valid = batch.get("valid")
+        total = None if mesh is None else batch["global_valid"]
         if task == "detection":
-            return bce_with_logits(logits, batch["y"], valid), logits
-        return cross_entropy(logits, batch["y"], valid), logits
+            return bce_with_logits(logits, batch["y"], valid, total), logits
+        return cross_entropy(logits, batch["y"], valid, total), logits
 
     return loss_fn
 
@@ -118,7 +141,8 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None):
 SSL_TRAIN_LOSS = "MAE"
 
 
-def ssl_loss_fn(model: nn.Module, mean=None, std=None, input_pipeline=None):
+def ssl_loss_fn(model: nn.Module, mean=None, std=None, input_pipeline=None,
+                mesh=None):
     """Masked regression loss of the next-window predictions of ``model``
     (a ``DCRNNNextTimePred``) on inverse-standardized signals (reference
     train_ssl.py:163-170): ``loss_fn(batch, generator, batches_seen) ->
@@ -127,7 +151,9 @@ def ssl_loss_fn(model: nn.Module, mean=None, std=None, input_pipeline=None):
     drives the curriculum. Training uses ``SSL_TRAIN_LOSS`` (an RMSE);
     eval mode uses ``'mae'``. ``input_pipeline``: as
     :func:`supervised_loss_fn`, for (``raw``, ``raw_y``) pairs or cached
-    x/y feature pairs (one reflect and scale draw for both)."""
+    x/y feature pairs (one reflect and scale draw for both). With
+    ``mesh``, this rank's share of the global loss (its numerator and
+    denominator summed over the ranks in the forward)."""
 
     def loss_fn(batch: Mapping[str, Any], generator=None,
                 batches_seen=None):
@@ -148,7 +174,7 @@ def ssl_loss_fn(model: nn.Module, mean=None, std=None, input_pipeline=None):
         loss = compute_regression_loss(
             batch["y"], preds, mean=mean, std=std,
             loss_fn=SSL_TRAIN_LOSS if model.training else "mae",
-            valid=batch.get("valid"))
+            valid=batch.get("valid"), mesh=mesh)
         return loss, preds
 
     return loss_fn
@@ -180,6 +206,9 @@ class TrainStep:
             (scalars or arrays that broadcast; None skips that).
         input_pipeline: a ``DevicePipeline`` on ``device`` for raw and
             cached batches (below).
+        mesh: a ``parallel.Mesh``: data-parallel over its ranks (the
+            module docstring); ``device`` defaults to the mesh's. The
+            parameters and buffers start as rank 0's (one broadcast).
 
     A call takes a batch with the JAX package's keys, as numpy arrays or
     tensors, and for SSL pre-training an optional ``batches_seen`` (the
@@ -188,31 +217,53 @@ class TrainStep:
     (B, T_in, N, D) and ``y`` (B, T_out, N, D); the Dense-CNN also takes
     flat (B, time, N) clips. Both: ``supports`` (S, B, N, N) or
     ``adjacency`` (B, N, N), which a baseline does not need and ignores,
-    and optional ``valid`` (a row count or a (B,) row mask). With an ``input_pipeline``, instead of ``x`` and
-    the supports: ``raw`` (B, C, L) clips (SSL: and ``raw_y``), or the
-    rows ``idx`` (a device index vector) of a device-resident split
-    ``cache_x`` / ``cache_y`` of constant length ``seq_len`` or of the
-    per-clip lengths ``cache_seq`` (:func:`cached_batch`). It returns the
-    loss as a 0-d device tensor (no host sync).
+    and optional ``valid`` (a row count or a (B,) row mask). With an
+    ``input_pipeline``, instead of ``x`` and the supports: ``raw`` (B, C,
+    L) clips (SSL: and ``raw_y``), or the rows ``idx`` (a device index
+    vector) of a device-resident split ``cache_x`` / ``cache_y`` of
+    constant length ``seq_len`` or of the per-clip lengths ``cache_seq``
+    (:func:`cached_batch`). It returns the loss as a 0-d device tensor (no
+    host sync).
+
+    With a mesh, a batch is this rank's rows of the global batch (each
+    rank the same number) and ``valid`` the GLOBAL valid count (the pad
+    is the global batch's tail), or this rank's row mask with
+    ``global_valid`` the global count beside it; ``batches_seen`` counts
+    global rows. The returned loss is the global batch's.
     """
 
     def __init__(self, cfg: ExperimentConfig, model: nn.Module,
                  steps_per_epoch: int, device=None,
                  generator: Optional[torch.Generator] = None,
-                 mean=None, std=None, input_pipeline=None):
+                 mean=None, std=None, input_pipeline=None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and \
+                    torch.device(device).type != mesh.device.type:
+                raise ValueError(f"TrainStep on {device}, its mesh rank on "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device, "TrainStep")
         self.model = model.to(self.device).train()
+        if mesh is not None:
+            from eeg_gnn_tpu_torch.models.densecnn import global_batchnorm
+
+            global_batchnorm(self.model, mesh)
+            distributed.broadcast_(list(self.model.state_dict().values()),
+                                   mesh)
         self.ssl = cfg.task == SSL_TASK
         self.reads_graph = self.ssl or cfg.model_name == "dcrnn"
         if self.ssl:
             stat = lambda v: None if v is None else _tensor(
                 v, torch.float32, self.device)
             self.loss_fn = ssl_loss_fn(self.model, stat(mean), stat(std),
-                                       input_pipeline=input_pipeline)
+                                       input_pipeline=input_pipeline,
+                                       mesh=mesh)
         else:
             self.loss_fn = supervised_loss_fn(self.model, cfg.task,
-                                              input_pipeline=input_pipeline)
+                                              input_pipeline=input_pipeline,
+                                              mesh=mesh)
         self.input_pipeline = input_pipeline
         self.optimizer = make_optimizer(
             self.model.parameters(), cfg.lr_init, cfg.l2_wd,
@@ -231,7 +282,7 @@ class TrainStep:
         if self.input_pipeline is not None and (
                 batch.get("raw") is not None
                 or batch.get("cache_x") is not None):
-            return self._pipeline_batch(batch)
+            return self._mesh_rows(self._pipeline_batch(batch))
         # the model's parameter dtype: float32 (a bf16 DCRNN computes in
         # bf16 inside), or float64 for a model cast to it
         dtype = next(self.model.parameters()).dtype
@@ -256,7 +307,32 @@ class TrainStep:
         else:
             raise ValueError("supports required: pass `supports` or "
                              "`adjacency`")
-        return out
+        return self._mesh_rows(out)
+
+    def _local_rows(self, batch: Mapping[str, Any]) -> int:
+        for k in ("x", "raw", "idx"):
+            if batch.get(k) is not None:
+                return batch[k].shape[0]
+        raise ValueError("a batch needs x, raw or idx")
+
+    def _mesh_rows(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        """Under a mesh: ``valid`` as this rank's row mask and
+        ``global_valid`` as the global batch's valid rows (a global count
+        becomes the mask of this rank's rows of the global batch)."""
+        if self.mesh is None:
+            return out
+        b = self._local_rows(out)
+        valid = out.get("valid")
+        if valid is None:
+            return dict(out, global_valid=b * self.mesh.world)
+        if isinstance(valid, torch.Tensor) and valid.ndim == 1:
+            if out.get("global_valid") is None:
+                raise ValueError("a row mask under a mesh needs "
+                                 "global_valid beside it")
+            return dict(out, valid=valid.to(self.device))
+        count = int(valid)
+        rows = self.mesh.rank * b + torch.arange(b, device=self.device)
+        return dict(out, valid=rows < count, global_valid=count)
 
     def _seq_lengths(self, lens, b: int, t: int) -> torch.Tensor:
         if lens is None:
@@ -265,9 +341,12 @@ class TrainStep:
 
     def _pipeline_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """A raw or cached batch for the pipeline's loss branches (cached
-        rows are the valid ones: no ``valid``)."""
+        rows are the valid ones: no ``valid``, but under a mesh the plan's
+        row mask)."""
         if batch.get("cache_x") is not None:
             out = dict(batch)
+            if isinstance(out.get("valid"), np.ndarray):
+                out["valid"] = _tensor(out["valid"], None, self.device)
             if not self.ssl and batch.get("cache_seq") is None:
                 out["seq_lengths"] = self._seq_lengths(
                     None, batch["idx"].shape[0], batch["seq_len"])
@@ -295,10 +374,23 @@ class TrainStep:
         batch's raw (unclipped) gradients afterwards."""
         self.optimizer.zero_grad()
         extra = {"batches_seen": batches_seen} if self.ssl else {}
-        loss, _ = self.loss_fn(self.device_batch(batch), self.generator,
-                               **extra)
-        loss.backward()
-        return loss.detach()
+        batch = self.device_batch(batch)
+        if self.mesh is None:
+            loss, _ = self.loss_fn(batch, self.generator, **extra)
+            loss.backward()
+            return loss.detach()
+        b = self._local_rows(batch)
+        with global_draws(self.mesh.rank * b, self.mesh.world * b):
+            share, _ = self.loss_fn(batch, self.generator, **extra)
+        share.backward()
+        # the one collective of the step: every gradient (a zero one where
+        # the loss does not reach a parameter) and the loss's share
+        params = list(self.model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return distributed.all_reduce_grads([p.grad for p in params],
+                                            self.mesh, extra=share)
 
     def update(self):
         """Clip, L2 + Adam, learning-rate schedule, from ``.grad``."""
@@ -315,12 +407,18 @@ class TrainStep:
         outputs) on ``batch`` (keys as for a call) as device tensors,
         logits (B, C) or SSL predictions (B, T_out, N, D), with the model
         in eval mode (no dropout, no scheduled sampling; the SSL loss is
-        the MAE) and no autograd; the model returns to training mode."""
+        the MAE) and no autograd; the model returns to training mode.
+        Under a mesh the outputs are this rank's rows and the loss the
+        global batch's."""
         batch = self.device_batch(batch)
         self.model.eval()
         try:
             with torch.inference_mode():
-                return self.loss_fn(batch)
+                loss, out = self.loss_fn(batch)
+                if self.mesh is not None:
+                    loss = distributed.all_reduce_sum(loss.reshape(1),
+                                                      self.mesh)[0]
+                return loss, out
         finally:
             self.model.train()
 
@@ -385,8 +483,53 @@ def make_cached_epoch_step(step: TrainStep, seq_len: int, batch_size: int):
     return run
 
 
-def make_mesh_cached_train_step(*args, **kwargs):
-    """Data-parallel cached step over row-sharded caches (JAX ``:345``)."""
-    raise NotImplementedError(
-        "the mesh-sharded cached train step is not ported yet (ROADMAP.md, "
-        "Queue 1, item 10: scale-out)")
+def make_mesh_cached_train_step(step: TrainStep, seq_len: int,
+                                batch_size: int):
+    """One data-parallel optimizer step over a ROW-SHARDED device-resident
+    split (JAX ``train/step.py:345``): each rank holds its block of the
+    split (``data/device_cache.py``: ``shard_cache``, or ``mesh=`` of a
+    ``build_*_cache``) and gathers its rows of each step from it, by the LOCAL
+    indices of its columns of the plan (``mesh_epoch_plan``, placed with
+    ``parallel.distributed.global_put(..., axis=1)``); the loss masks by
+    the plan's row mask (per-rank padding is not a contiguous tail) over
+    the global count of real rows, and the gradients are summed over the
+    ranks as in the streaming step. ``step`` is a ``TrainStep`` with a
+    mesh.
+
+    Returns ``run(x, y, idx, mask, valid_vec, counter, seen, loss_buf,
+    seq=None) -> (counter + 1, seen + valid_vec[counter])``: ``idx`` and
+    ``mask`` (K, B / world) this rank's columns on the device,
+    ``valid_vec`` (K,) the host's global real rows a step, ``seen`` the
+    global samples seen before the step (SSL's curriculum)."""
+    if step.mesh is None:
+        raise ValueError("make_mesh_cached_train_step: the TrainStep has no "
+                         "mesh (make_cached_train_step serves one device)")
+    step.mesh.per_rank(batch_size)
+
+    def run(x, y, idx, mask, valid_vec, counter, seen, loss_buf, seq=None):
+        total = int(valid_vec[counter])
+        batch = dict(cached_batch(x, y, idx[counter], seq_len, seq),
+                     valid=mask[counter], global_valid=total)
+        loss_buf[counter] = step(batch, batches_seen=seen)
+        return counter + 1, seen + total
+
+    return run
+
+
+def shard_batch(batch: Mapping[str, Any], mesh,
+                batch_axes: Optional[Dict[str, int]] = None
+                ) -> Dict[str, Any]:
+    """This rank's host rows of a batch on its device (JAX
+    ``shard_batch``, where each process passes its host-local row slice):
+    ``supports`` (S, B, N, N) by axis 1, everything else by axis 0
+    (``batch_axes`` overrides); ``valid`` and scalars stay as they are,
+    the same on every rank."""
+    batch_axes = batch_axes or {}
+    out = {}
+    for k, v in batch.items():
+        axis = batch_axes.get(k, 1 if k == "supports" else 0)
+        if v is None or k == "valid" or np.ndim(v) <= axis:
+            out[k] = v
+        else:
+            out[k] = distributed.form_global_array(v, mesh)
+    return out

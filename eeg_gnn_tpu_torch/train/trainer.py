@@ -37,8 +37,16 @@ either package or from a reference ``.pth.tar`` (``io/torch_import.py``).
 A model with state (the Dense-CNN) checkpoints it in ``.state.npz``
 files and reloads ``best.state.npz`` with ``best.npz``.
 
-Still to port (ROADMAP.md, Queue 1): the mesh paths;
-``ExperimentConfig.check_runnable`` rejects them.
+Data-parallel (``mesh=``, ``parallel/``; JAX ``trainer.py:73-160``): every
+rank runs this trainer on its rows of each global batch (the loaders'
+``process_shard``) through ``TrainStep(mesh=)``; the samples seen and the
+logged step numbers count global valid rows. Only the train split may be
+cached, row-sharded (``shard_cache``, or a striped rotating cache), with
+the JAX trainer's per-rank plans; the dev and test splits stream from the
+sharded loaders, and the evaluation gathers the outputs and labels in
+global row order and drops the padding by the global ``valid``, so every
+rank computes the same metrics. Each rank writes its checkpoints and logs
+to the run directory it was given, as each JAX process does.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from eeg_gnn_tpu_torch.io.torch_import import (
     load_torch_state_dict,
 )
 from eeg_gnn_tpu_torch.models.registry import build_model
+from eeg_gnn_tpu_torch.parallel import distributed
 from eeg_gnn_tpu_torch.train.checkpoint import (
     CheckpointSaver,
     build_finetune_params,
@@ -73,6 +82,7 @@ from eeg_gnn_tpu_torch.train.step import (
     TrainStep,
     cached_batch,
     make_cached_epoch_step,
+    make_mesh_cached_train_step,
 )
 
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
@@ -105,17 +115,29 @@ class Trainer:
     ``cfg.device_pipeline`` the loaders yield raw clips, featurized in the
     step. ``device_caches``: {split: ``DeviceDatasetCache`` or
     ``RotatingDeviceCache``}; a cached split's batches are gathered on the
-    device and its loader is not read.
+    device and its loader is not read. ``mesh``: a ``parallel.Mesh``
+    (the module docstring); the caches may then hold the train split
+    only.
     """
 
     def __init__(self, cfg: ExperimentConfig, loaders, scaler, log,
                  metrics_writer, model: torch.nn.Module, device=None,
-                 input_pipeline=None, device_caches=None):
+                 input_pipeline=None, device_caches=None, mesh=None):
         self.cfg = cfg
         self.loaders = loaders
         self.log = log
         self.tbx = metrics_writer
         self.is_ssl = cfg.task == SSL_TASK
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device if device is None else device
+            if set(device_caches or {}) - {"train"}:
+                # a row-sharded split holds this rank's rows only: its
+                # evaluation would read them by global index (ADVICE.md,
+                # eeg_gnn_tpu/train/trainer.py:509)
+                raise ValueError("under a mesh only the train split is "
+                                 "cached; dev and test stream from the "
+                                 "sharded loaders")
         self.device = resolve_device(device, "Trainer")
         if input_pipeline is not None and \
                 input_pipeline.device.type != self.device.type:
@@ -133,12 +155,26 @@ class Trainer:
             device=self.device,
             generator=torch.Generator(device=self.device).manual_seed(
                 cfg.rand_seed),
-            input_pipeline=input_pipeline, **stats)
+            input_pipeline=input_pipeline, mesh=mesh, **stats)
         self.model = self.step.model
         # BatchNorm makes a train batch's composition part of the result
         self.pad_train = cfg.model_name == "densecnn" and not self.is_ssl
         train_cache = self.device_caches.get("train")
-        if train_cache is not None:
+        if train_cache is not None and mesh is not None:
+            from eeg_gnn_tpu_torch.data.device_cache import shard_cache
+            from eeg_gnn_tpu_torch.data.rotating_cache import (
+                RotatingDeviceCache,
+            )
+
+            if isinstance(train_cache, RotatingDeviceCache):
+                if train_cache.mesh is None:
+                    raise ValueError("a rotating train cache under a mesh "
+                                     "must be built with mesh= (striped)")
+            else:
+                self.device_caches["train"] = shard_cache(train_cache, mesh)
+            self.mesh_cached_step = make_mesh_cached_train_step(
+                self.step, train_cache.seq_len, cfg.train_batch_size)
+        elif train_cache is not None:
             self.cached_epoch_step = make_cached_epoch_step(
                 self.step, train_cache.seq_len, cfg.train_batch_size)
         self.loader_wait_s = 0.0  # the current epoch's, train and eval
@@ -146,13 +182,24 @@ class Trainer:
     # -- batches -----------------------------------------------------------
 
     def _step_batch(self, batch) -> Dict[str, np.ndarray]:
-        """A loader ``Batch`` as the train step's dict of host arrays."""
+        """A loader ``Batch`` as the train step's dict of host arrays (a
+        rank's loader: its rows, and the global ``valid``)."""
         if self.raw_batches:
             d = {"raw": batch.x, "seq_lengths": batch.seq_lengths}
             d["raw_y" if self.is_ssl else "y"] = batch.y
-            return d
-        return {"x": batch.x, "y": batch.y, "seq_lengths": batch.seq_lengths,
-                "supports": batch.supports}
+        else:
+            d = {"x": batch.x, "y": batch.y,
+                 "seq_lengths": batch.seq_lengths,
+                 "supports": batch.supports}
+        if batch.valid is not None:
+            d["valid"] = batch.valid
+        return d
+
+    @staticmethod
+    def _rows(batch) -> int:
+        """A loader batch's real rows: the global count from a rank's
+        loader."""
+        return len(batch) if batch.valid is None else batch.valid
 
     def _batches(self, split: str):
         """The split's loader batches, adding the time spent waiting for
@@ -189,18 +236,56 @@ class Trainer:
             valid_parts.append(plan.valid)
         return np.concatenate(valid_parts), torch.cat(loss_parts)
 
+    def _run_mesh_plan(self, x, y, seq, idx_mat, mask_mat, step: int):
+        """The mesh cached step over one (idx_mat, mask_mat) plan of a
+        row-sharded split or slab (JAX ``_run_mesh_cached_steps``): this
+        rank's columns go to its device once; returns (global real rows a
+        step, losses on the device)."""
+        idx = distributed.global_put(idx_mat.astype(np.int64), self.mesh,
+                                     axis=1)
+        mask = distributed.global_put(mask_mat, self.mesh, axis=1)
+        valid = mask_mat.sum(axis=1).astype(np.int64)
+        losses = torch.zeros((len(valid),), dtype=torch.float32,
+                             device=self.device)
+        counter = 0
+        for _ in range(len(valid)):
+            counter, step = self.mesh_cached_step(
+                x, y, idx, mask, valid, counter, step, losses, seq)
+        return valid, losses
+
+    def _train_mesh_cached(self, cache, step: int,
+                           rng: np.random.RandomState):
+        """One epoch over the row-sharded train split (JAX
+        ``trainer.py:374-410``): the resident block, or the striped slabs
+        in rotation, drawn from ``rng`` as the JAX trainer draws them."""
+        bsz = self.cfg.train_batch_size
+        if hasattr(cache, "mesh_shard_plans"):
+            plans = ((slab.x, slab.y, slab.seq, idx, mask) for slab, idx, mask
+                     in cache.mesh_shard_plans(bsz, True, rng))
+        else:
+            plans = [(cache.x, cache.y, cache.seq, *cache.mesh_epoch_plan(
+                bsz, self.mesh.world, True, rng))]
+        valid_parts, loss_parts = [], []
+        for x, y, seq, idx_mat, mask_mat in plans:
+            valid, losses = self._run_mesh_plan(x, y, seq, idx_mat,
+                                                mask_mat, step)
+            step += int(valid.sum())
+            valid_parts.append(valid)
+            loss_parts.append(losses)
+        return np.concatenate(valid_parts), torch.cat(loss_parts)
+
     def _train_streaming(self, step: int):
         """One pass over the train loader: (sizes, losses on the
         device)."""
         sizes, losses = [], []
         for batch in self._batches("train"):
             d = self._step_batch(batch)
-            if self.pad_train:
+            if self.pad_train and batch.valid is None:
                 d = pad_batch(d, self.cfg.train_batch_size)
             # SSL's curriculum reads the samples seen BEFORE this batch
             losses.append(self.step(d, batches_seen=step).reshape(1))
-            step += len(batch)
-            sizes.append(len(batch))
+            step += self._rows(batch)
+            sizes.append(self._rows(batch))
         return np.asarray(sizes, np.int64), losses
 
     def _train_epoch(self, step: int, cache_rng: np.random.RandomState):
@@ -208,7 +293,10 @@ class Trainer:
         train-loop seconds, clips)."""
         t0 = time.perf_counter()
         cache = self.device_caches.get("train")
-        if cache is not None:
+        if cache is not None and self.mesh is not None:
+            sizes, losses = self._train_mesh_cached(cache, step, cache_rng)
+            losses = [losses]
+        elif cache is not None:
             sizes, losses = self._train_cached(cache, step, cache_rng)
             losses = [losses]
         else:
@@ -276,13 +364,15 @@ class Trainer:
     # -- evaluation --------------------------------------------------------
 
     def _eval_batches(self, split: str):
-        """Yield (step batch, host labels or None, names) from the split's
-        cache when there is one (resident or rotating: its unshuffled
-        plans), else from its loader."""
+        """Yield (step batch, host labels or None, names, real rows) from
+        the split's cache when there is one (resident or rotating: its
+        unshuffled plans), else from its loader (a rank's: its rows, and
+        the global real rows)."""
         cache = self.device_caches.get(split)
         if cache is None:
             for batch in self._batches(split):
-                yield self._step_batch(batch), batch.y, batch.names
+                yield (self._step_batch(batch), batch.y, batch.names,
+                       self._rows(batch))
             return
         bsz = self.cfg.test_batch_size
         for plan in cache.epoch_plans(bsz, False, np.random.RandomState(0)):
@@ -293,19 +383,28 @@ class Trainer:
                                     perm_d[k * bsz:k * bsz + valid],
                                     cache.seq_len, plan.seq),
                        None if plan.labels is None else plan.labels[idx],
-                       [plan.names[i] for i in idx])
+                       [plan.names[i] for i in idx], valid)
 
     def evaluate(self, split: str, is_test: bool = False,
                  best_thresh: float = 0.5) -> Dict[str, float]:
         cfg = self.cfg
         losses, outputs, sizes, y_true, names_all = [], [], [], [], []
-        for batch, y_host, names in self._eval_batches(split):
+        for batch, y_host, names, rows in self._eval_batches(split):
             loss, out = self.step.evaluate(batch)
             losses.append(loss)
-            sizes.append(len(names))
-            if not self.is_ssl:
-                outputs.append(out)
-                y_true.append(np.asarray(y_host).reshape(-1).astype(int))
+            sizes.append(rows)
+            if self.is_ssl:
+                continue
+            if self.mesh is not None:
+                # every rank: the global batch's outputs and labels in row
+                # order, its padding dropped (names are only this rank's)
+                out = distributed.all_gather_rows(out, self.mesh)[:rows]
+                y_host = distributed.all_gather_host(
+                    np.asarray(y_host).reshape(-1), self.mesh)[:rows]
+                names = None
+            outputs.append(out)
+            y_true.append(np.asarray(y_host).reshape(-1).astype(int))
+            if names is not None:
                 names_all.extend(names)
         nll = AverageMeter()
         for loss, n in zip(torch.stack(losses).float().cpu().numpy(), sizes):
@@ -326,7 +425,8 @@ class Trainer:
             y_pred = y_prob.argmax(axis=1)
 
         scores, _, _ = eval_dict(
-            y_pred=y_pred, y=y_true, y_prob=y_prob, file_names=names_all,
+            y_pred=y_pred, y=y_true, y_prob=y_prob,
+            file_names=names_all if self.mesh is None else None,
             average="binary" if cfg.task == "detection" else "weighted")
         results = {"loss": nll.avg, "acc": scores["acc"], "F1": scores["F1"],
                    "recall": scores["recall"], "precision": scores["precision"],
@@ -367,7 +467,7 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
                    log, metrics_writer,
                    init_params: Optional[Mapping[str, torch.Tensor]] = None,
                    device=None, input_pipeline=None,
-                   device_caches=None) -> Dict[str, float]:
+                   device_caches=None, mesh=None) -> Dict[str, float]:
     """Full main() flow of detection, classification and SSL
     pre-training; returns the final test results.
 
@@ -375,9 +475,12 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
     generator seeded by ``cfg.rand_seed``). ``device``: ``None`` (the CUDA
     card, raising without one) or e.g. ``"cpu"``. ``input_pipeline`` and
     ``device_caches``: see :class:`Trainer` (``cli/train.py`` builds
-    them).
+    them). ``mesh``: data-parallel over its ranks (:class:`Trainer`);
+    ``device`` then defaults to the rank's.
     """
     cfg.check_runnable()
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device, "run_experiment")
     if init_params is None:
         model = build_model(cfg, torch.Generator().manual_seed(cfg.rand_seed))
@@ -390,7 +493,7 @@ def run_experiment(cfg: ExperimentConfig, loaders, scaler, save_dir: str,
 
     trainer = Trainer(cfg, loaders, scaler, log, metrics_writer, model,
                       device=device, input_pipeline=input_pipeline,
-                      device_caches=device_caches)
+                      device_caches=device_caches, mesh=mesh)
 
     if cfg.do_train:
         saver = trainer.train(save_dir)

@@ -424,8 +424,8 @@ def test_cli_flags_match_jax(argv):
     # the features still to port, as DCRNN does
     ["--task", "classification", "--model_name", "densecnn",
      "--preproc_dir", "/x"],
-    ["--model_name", "lstm", "--mesh_shape", "data:2"],
-    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2"]])
+    ["--model_name", "lstm", "--mesh_shape", "data:1,graph:2"],
+    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2,graph:2"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,

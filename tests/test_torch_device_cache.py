@@ -257,25 +257,56 @@ def test_rotating_geometry_clamps_the_empty_trailing_shard():
                         assert (shards, rows) == want
 
 
+def _jax_blocks(arr):
+    """A JAX array sharded over a data mesh, device block by block."""
+    return [np.asarray(sh.data) for sh in
+            sorted(arr.addressable_shards, key=lambda sh: sh.index[0].start)]
+
+
 def test_unported_cache_paths_raise():
-    feats = np.zeros((4, 2, 3, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdc.DeviceDatasetCache(feats, np.zeros(4), 2, mesh=object(),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trc.RotatingDeviceCache(feats, np.zeros(4), 2, mesh=object(),
-                                device="cpu")
-    cache = tdc.DeviceDatasetCache(feats, np.zeros(4), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cache.mesh_epoch_plan(4, 2, True, np.random.RandomState(0))
-    for fn in (tdc.shard_cache, tdc.mesh_plan):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(cache, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdc.build_classification_cache(None, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trc.build_rotating_cache([], 2, "classification", mesh=object(),
-                                 device="cpu")
+    """The caches' mesh paths are ported: over a data:2 mesh, rank r holds
+    the block (resident) or stripes (rotating) that device r of the JAX
+    package's single-process data:2 mesh holds. What still raises is a
+    mesh's graph axis (ROADMAP Queue 1 item 12), and a striped cache's
+    reads by global row (shard labels and names, whole-split plans)."""
+    from eeg_gnn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from eeg_gnn_tpu_torch.parallel.mesh import Mesh, check_axes
+
+    import jax
+
+    jmesh = jax_make_mesh("data:2", jax.devices()[:2])
+    feats = np.arange(5 * 2 * 3 * 4, dtype=np.float32).reshape(5, 2, 3, 4)
+    labels = np.arange(5, dtype=np.float32)
+    jres = jdc.DeviceDatasetCache(feats, labels, 2, mesh=jmesh)
+    jrot = jrc.RotatingDeviceCache(feats, labels, 2, budget_bytes=10 ** 6,
+                                   min_shards=2, mesh=jmesh)
+    for rank in (0, 1):
+        mesh = Mesh(("data",), (2,), rank, 2, torch.device("cpu"), "gloo")
+        res = tdc.DeviceDatasetCache(feats, labels, 2, mesh=mesh,
+                                     device="cpu")
+        np.testing.assert_array_equal(res.x.numpy(),
+                                      _jax_blocks(jres.x)[rank])
+        np.testing.assert_array_equal(res.y.numpy(),
+                                      _jax_blocks(jres.y)[rank])
+        with pytest.raises(ValueError, match="mesh_epoch_plan"):
+            next(res.epoch_plans(4, False, np.random.RandomState(0)))
+        rot = trc.RotatingDeviceCache(feats, labels, 2, budget_bytes=10 ** 6,
+                                      min_shards=2, mesh=mesh, device="cpu")
+        assert (rot.num_shards, rot.shard_rows) == (jrot.num_shards,
+                                                    jrot.shard_rows)
+        per = rot.shard_rows // 2
+        for sid in range(rot.num_shards):  # real rows (pads are masked)
+            real = max(0, min(per, 5 - sid * rot.shard_rows - rank * per))
+            np.testing.assert_array_equal(
+                rot.prefetch(sid).ready().x.numpy()[:real],
+                _jax_blocks(jrot.prefetch(sid)["x"])[rank][:real])
+        for read in (lambda: rot.shard_labels(0), lambda: rot.shard_names(0),
+                     lambda: next(rot.epoch_plans(
+                         4, False, np.random.RandomState(0)))):
+            with pytest.raises(ValueError, match="stripes"):
+                read()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        check_axes(("data", "graph"))
 
 
 def test_caches_store_in_the_storage_dtype():
@@ -446,5 +477,9 @@ def test_cached_and_fused_steps_equal_sequential_calls(corpus, task):
 
 
 def test_mesh_cached_step_waits_for_scale_out():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tstep.make_mesh_cached_train_step(None, None, 12, 4)
+    """The mesh cached step is ported (its two-rank run against JAX:
+    tests/test_torch_dp_step.py); it needs a TrainStep with a mesh."""
+    cfg = _cfg("detection", "combined")
+    step = tstep.TrainStep(cfg, build_model(cfg), 1, device="cpu")
+    with pytest.raises(ValueError, match="no mesh"):
+        tstep.make_mesh_cached_train_step(step, 12, 4)

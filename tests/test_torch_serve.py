@@ -179,15 +179,21 @@ def test_predictor_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_paths_raise(tmp_path):
-    """The mesh still raises; the baselines, which raised here before
-    they were ported, build and serve (their parity with JAX:
-    tests/test_torch_baselines.py)."""
+    """A mesh's graph axis still raises (the data axis serves: its
+    two-rank run in tests/test_torch_dp_cli.py), and a data mesh whose
+    ranks do not split the batch evenly is refused; the baselines, which
+    raised here before they were ported, build and serve (their parity
+    with JAX: tests/test_torch_baselines.py)."""
     from eeg_gnn_tpu_torch.io import save_torch_checkpoint
+    from eeg_gnn_tpu_torch.parallel.mesh import Mesh, check_axes
 
     cfg = ExperimentConfig(**_kw()).finalize()
     params = build_model(cfg).state_dict()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(cfg, params, device="cpu", mesh=object())
+        check_axes(("data", "graph"))
+    mesh = Mesh(("data",), (3,), 0, 3, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="must divide over 3 ranks"):
+        Predictor(cfg, params, batch_size=4, mesh=mesh)
     rng = np.random.RandomState(4)
     x, lens, adj = _inputs(rng, 3)
     for name in ("lstm", "cnnlstm", "densecnn"):
@@ -222,11 +228,15 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_sources_import_no_jax():
-    """AST scan of every module of the port (and its card scripts)."""
+    """AST scan of every module of the port (``parallel/`` included), its
+    card scripts and the data-parallel tests' rank worker."""
     files = sorted((REPO / "eeg_gnn_tpu_torch").rglob("*.py"))
     assert len(files) >= 14
     assert REPO / "eeg_gnn_tpu_torch" / "train" / "step.py" in files
-    for path in files + [REPO / "chip_smoke.py", REPO / "serve_ab.py"]:
+    for name in ("__init__.py", "mesh.py", "distributed.py"):
+        assert REPO / "eeg_gnn_tpu_torch" / "parallel" / name in files
+    for path in files + [REPO / "chip_smoke.py", REPO / "serve_ab.py",
+                         REPO / "tests" / "torch_dp_cases.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -248,7 +258,9 @@ def test_import_pulls_in_no_jax():
             "eeg_gnn_tpu_torch.data, eeg_gnn_tpu_torch.data.synthetic, "
             "eeg_gnn_tpu_torch.data.device_pipeline, "
             "eeg_gnn_tpu_torch.data.device_cache, "
-            "eeg_gnn_tpu_torch.data.rotating_cache; "
+            "eeg_gnn_tpu_torch.data.rotating_cache, "
+            "eeg_gnn_tpu_torch.parallel, eeg_gnn_tpu_torch.parallel.mesh, "
+            "eeg_gnn_tpu_torch.parallel.distributed; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -255,8 +255,12 @@ def test_train_step_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_step_variants_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_mesh_cached_train_step(None, None)
+    """The mesh cached step is ported and refuses a step without a mesh;
+    the SSL task refuses the supervised loss."""
+    cfg = ExperimentConfig(**_kw("combined", "detection")).finalize()
+    step = TrainStep(cfg, build_model(cfg), 1, device="cpu")
+    with pytest.raises(ValueError, match="no mesh"):
+        tstep.make_mesh_cached_train_step(step, T, B)
     model = build_model(ExperimentConfig().finalize())
     with pytest.raises(ValueError, match="ssl_loss_fn"):
         tstep.supervised_loss_fn(model, "SS pre-training")
