@@ -219,6 +219,34 @@ Phases (any failure exits non-zero and prints no result line):
    bytes a step, the gloo figure through the host). The kernels line's
    ``launches_by_path`` gains ``scaleout_nccl`` and each gloo rank's
    ``scaleout_gloo_*`` paths (rank 1's with ``_rank1``).
+15. the mesh's graph axis (``phase_graph_axis``, after 14;
+   ``parallel/edge_partition``, ``parallel/sparse_model``, ``entry``): (a)
+   graph:1 on one NCCL rank in this process: the ring SpMM at N=4096,
+   D=128, E=4N (f32, TF32 off) against the dense product (rtol and atol
+   1e-4); the sparse DCGRU encoder at the detector's full width (2 layers
+   x 64, K=2, D=100, T=60, B=128, one laplacian support a clip: 2432
+   nodes) against the dense encoder (``recurrence="stacked"``) on the
+   same supports (rtol 2e-4, atol 2e-5); one sparse step's gradients
+   against the dense path's (rtol 2e-3, atol 1e-5); 3 steps; then, outside
+   the counted window, ``time graph axis (a) ...`` (the ring beside
+   ``torch.sparse.mm`` on CSR, the sparse forward and step beside the
+   dense step, stacked and through the kernels; median of 20) and
+   ``entry()``'s forward on the card against the CPU (normalized <= 1e-4);
+   (b) two gloo ranks sharing the card (``--graph-rank RANK PORT DIR``,
+   logs in ``chiprun_out/graph_axis/rank{R}.log``; NCCL refuses two ranks
+   on one device): the ring SpMM gathered against (a)'s, each rank's
+   ``max_memory_allocated`` across it within 1.5x the block budget (3
+   (N/p, D) blocks, the gathered-edge temporary, the edge shard), 3 sparse
+   steps at full width (ranks bitwise equal; the first step's gradients
+   and the parameters after the steps against (a)'s, normalized inf-norm
+   <= 1e-5, phase 14's bar, beside (a)'s own spread between two runs:
+   CUDA ``index_add_`` sums with atomics), the ring shifts and bytes a
+   step, the step's time, and
+   ``dryrun_multichip(2)``. No hand-written kernel launches on the graph
+   path: the kernels line's ``launches_by_path`` gains ``graph_axis``,
+   ``graph_axis_gloo`` (and ``_rank1``), all 0, beside ``entry`` (the
+   flagship forward's kernels) and ``dryrun_gloo`` (and ``_rank1``; the
+   dry run's data-parallel steps launch the detector's).
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -346,6 +374,26 @@ SCALE_CLI_LR = 1e-7
 SCALE_CLI = {"stream": ["--dtype", "float32"],
              "hbm": ["--dtype", "float32", "--hbm_cache", "--lr_init",
                      str(SCALE_CLI_LR)]}
+# the graph axis (phase_graph_axis): the ring SpMM at the per-rank memory
+# test's shape (tests/test_sparse_distributed.py: N=4096, D=128, E=4N),
+# the sparse encoder and step at the detector's full width (B*N = 2432
+# nodes, one laplacian support a clip); the two gloo ranks, their steps
+# and time limit; the bars: the ring against the dense product and the
+# sparse encoder against the dense one (tests/test_sparse_distributed.py),
+# a step's gradients against the dense path's (the same file's), and the
+# memory's slack over the block budget (the same file's). Two ranks'
+# first-step gradients and parameters after the steps are held to one
+# rank's at SCALE_F32_TOL, phase_scaleout's bar and measure (normalized
+# inf-norm of the vector): CUDA index_add_ adds with atomics, so every run
+# sums in its own order, and Adam turns the rounding of gradients near its
+# eps (1e-8) into differences of up to ~1% of lr in a few entries; one
+# rank's two runs differ by as much (the phase prints that spread beside)
+RING_N, RING_D = 4096, 128
+GRAPH_RANKS, GRAPH_STEPS, GRAPH_TIMEOUT = 2, 3, 300
+RING_TOL = 1e-4
+ENC_RTOL, ENC_ATOL = 2e-4, 2e-5
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
+MEM_SLACK = 1.5
 
 
 def fail(msg: str):
@@ -4285,6 +4333,451 @@ def phase_scaleout(torch, dev, card, corpus):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the mesh's graph axis (parallel/edge_partition, parallel/sparse_model):
+# one NCCL rank in this process, then two gloo ranks sharing the card, each
+# a process running this script
+# ---------------------------------------------------------------------------
+
+
+def ring_graph(torch):
+    """The ring SpMM's seeded graph (RING_N nodes, 4 * RING_N edges) and
+    features on the host: every process draws the same."""
+    from eeg_gnn_tpu_torch.graphs.sparse import SparseGraph
+
+    rng = np.random.RandomState(41)
+    e = 4 * RING_N
+    g = SparseGraph(
+        torch.from_numpy(rng.randint(0, RING_N, e).astype(np.int32)),
+        torch.from_numpy(rng.randint(0, RING_N, e).astype(np.int32)),
+        torch.from_numpy(rng.randn(e).astype(np.float32)), RING_N)
+    return g, torch.from_numpy(rng.randn(RING_N, RING_D).astype(np.float32))
+
+
+def sparse_start(torch):
+    """(model, optimizer): the detector at full width (2 DCGRU layers x 64,
+    K=2, D=100) from seeded weights, the same in every process, and
+    bench.py's optimizer recipe."""
+    from eeg_gnn_tpu_torch.models.dcrnn import DCRNNClassifier, DCRNNConfig
+    from eeg_gnn_tpu_torch.train.optim import make_optimizer
+
+    model = DCRNNClassifier(DCRNNConfig(
+        input_dim=100, rnn_units=H, num_rnn_layers=2, max_diffusion_step=K,
+        num_nodes=N, num_supports=1, num_classes=1, recurrence="stacked"),
+        torch.Generator().manual_seed(13))
+    return model, make_optimizer(model.parameters(),
+                                 steps_per_epoch=STEPS_PER_EPOCH, **TRAIN_KW)
+
+
+def sparse_inputs(torch, dev):
+    """The full-width batch (seed 43): time-major clips (T, B, N, 100) and
+    labels on ``dev``, one laplacian support a clip (1, B, N, N) built on
+    the host (the same in every process) and put on ``dev``, and the
+    block-diagonal graph of the supports over B*N nodes, on the host."""
+    from eeg_gnn_tpu_torch.graphs.sparse import from_dense_batch
+    from eeg_gnn_tpu_torch.graphs.supports import compute_supports_torch
+
+    rng = np.random.RandomState(43)
+    x = torch.from_numpy(rng.randn(T, BATCH, N, 100).astype(np.float32))
+    y = torch.from_numpy((rng.rand(BATCH) > 0.5).astype(np.float32))
+    sup = compute_supports_torch(torch.from_numpy(adjacency(rng, BATCH)),
+                                 "laplacian")
+    return x.to(dev), y.to(dev), sup.to(dev), from_dense_batch(sup[0])
+
+
+def host_ms(torch, fn, reps=REPS, warmup=3) -> float:
+    """Median ms of ``fn`` by the host clock around it and a synchronise
+    (a gloo exchange goes through the host)."""
+    times = []
+    for _ in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[warmup:])
+
+
+def sparse_steps(torch, step, sgraph, x_seq, y):
+    """``GRAPH_STEPS`` steps of a ``SparseTrainStep``: (losses, the first
+    step's gradients as one numpy vector, each step's ms by the host clock
+    around it and a synchronise, the gradients' copy out excluded)."""
+    losses, ms = [], []
+    for i in range(GRAPH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step.loss_and_grads(sgraph, x_seq, y)))
+        t1 = time.perf_counter()
+        if i == 0:
+            grads = torch.cat([p.grad.reshape(-1) for p in
+                               step.model.parameters()]).cpu().numpy()
+        t2 = time.perf_counter()
+        step.optimizer.step()
+        torch.cuda.synchronize()
+        ms.append((t1 - t0 + time.perf_counter() - t2) * 1e3)
+    return losses, grads, ms
+
+
+def graph_one_rank(torch, dev, card, out_dir):
+    """(a): graph:1 on one NCCL rank in this process. The ring SpMM at
+    N=4096 against the dense product; the sparse encoder at full width
+    against the dense (stacked) encoder on the same supports; a sparse
+    step's gradients against the dense path's; 3 steps (their parameters
+    for (b)); every kernel count 0 through all of it. Then, outside the
+    counted window, the times (ring, sparse forward and step, the dense
+    steps) and ``entry()``'s forward on the card against the CPU. Returns
+    (launches on the graph path, launches of the entry's forward,
+    figures)."""
+    from eeg_gnn_tpu_torch import entry as port_entry
+    from eeg_gnn_tpu_torch.models.dcgru import encoder_apply
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.parallel import distributed, make_mesh
+    from eeg_gnn_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_spmm,
+        partition_by_dest,
+        place_edge_partitioned,
+        shard_edges,
+    )
+    from eeg_gnn_tpu_torch.parallel.sparse_model import (
+        make_sparse_train_step,
+        sparse_encoder_apply,
+    )
+    from eeg_gnn_tpu_torch.train import TrainStep
+    from eeg_gnn_tpu_torch.train.losses import bce_with_logits
+
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           device=dev)
+    try:
+        mesh = make_mesh("graph:1")
+        if mesh.backend != "nccl":
+            fail(f"graph axis (a): backend {mesh.backend}, want nccl")
+        reset_counts()
+        distributed.reset_counts()
+        # the ring SpMM against the dense product (TF32 off)
+        g, x = ring_graph(torch)
+        shard, xb = place_edge_partitioned(mesh, g, x)
+        dense = g.to_dense().to(dev)
+        with torch.no_grad():
+            out = edge_partitioned_spmm(mesh, shard, xb)
+            ref = dense @ x.to(dev)
+        ring_err = float((out - ref).abs().max())
+        log(f"graph axis (a) ring SpMM, one NCCL rank: N={RING_N}, "
+            f"D={RING_D}, E={4 * RING_N}, f32: max |ring - dense| "
+            f"{ring_err:.3e} (bar rtol and atol {RING_TOL:.0e})")
+        if not torch.allclose(out, ref, rtol=RING_TOL, atol=RING_TOL):
+            fail(f"graph axis (a): ring SpMM {ring_err} from the dense "
+                 "product")
+        np.save(os.path.join(out_dir, "ring_one_rank.npy"), out.cpu().numpy())
+        # the sparse encoder at full width against the dense one
+        x_seq, y, sup, block_diag = sparse_inputs(torch, dev)
+        sgraph = shard_edges(partition_by_dest(block_diag, 1), 0, dev)
+        model, opt = sparse_start(torch)
+        model.to(dev)
+        params = [c.params() for c in model.encoder]
+        with torch.no_grad():
+            got = sparse_encoder_apply(model.cell_cfgs, params, mesh, sgraph,
+                                       x_seq)
+            want = encoder_apply(model.cell_cfgs, params, sup, x_seq)
+        enc_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        log(f"graph axis (a) sparse encoder, B*N={BATCH * N} nodes "
+            f"({sgraph.values.numel()} edges), T={T}, 2 layers x {H}, "
+            f"K={K}, D=100: max |sparse - dense (stacked)| {enc_err:.3e} "
+            f"(bar rtol {ENC_RTOL:.0e}, atol {ENC_ATOL:.0e})")
+        if not all(torch.allclose(a, b, rtol=ENC_RTOL, atol=ENC_ATOL)
+                   for a, b in zip(got, want)):
+            fail(f"graph axis (a): sparse encoder {enc_err} from dense")
+        # one sparse step's gradients against the dense path's
+        step = make_sparse_train_step(model, opt, mesh)
+        step.loss_and_grads(sgraph, x_seq, y)
+        sparse_g = {k: p.grad.clone() for k, p in model.named_parameters()}
+        model.zero_grad()
+        lengths = torch.full((BATCH,), T, dtype=torch.int64, device=dev)
+        bce_with_logits(model(x_seq.transpose(0, 1), lengths, sup),
+                        y).backward()
+        bad, worst = [], 0.0
+        for k, p in model.named_parameters():
+            worst = max(worst, float((sparse_g[k] - p.grad).abs().max()))
+            if not torch.allclose(sparse_g[k], p.grad, rtol=GRAD_RTOL,
+                                  atol=GRAD_ATOL):
+                bad.append(k)
+        log(f"graph axis (a) sparse step gradients against the dense path's:"
+            f" max abs diff {worst:.3e} (bar rtol {GRAD_RTOL:.0e}, atol "
+            f"{GRAD_ATOL:.0e})")
+        if bad:
+            fail(f"graph axis (a): gradients {bad} differ from the dense "
+                 "path's")
+        # GRAPH_STEPS steps from the start, twice: (b)'s reference, and
+        # one rank's own spread from run to run
+        finals, grads = [], []
+        for run in range(2):
+            model, opt = sparse_start(torch)
+            step = make_sparse_train_step(model, opt, mesh)
+            losses, g1, _ = sparse_steps(torch, step, sgraph, x_seq, y)
+            finals.append(scale_state(step))
+            grads.append(g1)
+        np.savez(os.path.join(out_dir, "one_rank.npz"), **finals[0])
+        np.save(os.path.join(out_dir, "one_rank_grads.npy"), grads[0])
+        launched = counts()
+        spread = norm_err(*(torch.from_numpy(np.concatenate(
+            [f[k].ravel() for k in finals[0]])) for f in finals))[0]
+        g_spread = norm_err(*map(torch.from_numpy, grads))[0]
+        log(f"graph axis (a) {GRAPH_STEPS} sparse steps at full width, "
+            f"twice: losses {losses}; the two runs' first-step gradients "
+            f"{g_spread:.3e} apart, parameters after the steps "
+            f"{spread:.3e} (normalized inf-norms; CUDA index_add_ sums "
+            f"with atomics); kernel launches on the path {launched}; "
+            f"collectives {distributed.counts()}")
+        # times, outside the counted window
+        figures = {"ring_err": ring_err, "enc_err": enc_err,
+                   "grad_err": worst}
+        with torch.no_grad():
+            figures["ring_ms"] = time_ms(
+                torch, lambda: edge_partitioned_spmm(mesh, shard, xb))
+            csr, xd = dense.to_sparse_csr(), x.to(dev)
+            figures["csr_ms"] = time_ms(torch,
+                                        lambda: torch.sparse.mm(csr, xd))
+            figures["fwd_ms"] = time_ms(torch, lambda: sparse_encoder_apply(
+                model.cell_cfgs, [c.params() for c in model.encoder], mesh,
+                sgraph, x_seq), warmup=2, lead=False)
+        figures["step_ms"] = time_ms(torch, lambda: step(sgraph, x_seq, y),
+                                     warmup=2, lead=False)
+        profile_batch(torch, lambda: step(sgraph, x_seq, y),
+                      "graph axis sparse step (one NCCL rank)",
+                      figures["step_ms"])
+        batch = {"x": x_seq.transpose(0, 1).contiguous(), "y": y,
+                 "seq_lengths": lengths,
+                 "supports": sup}
+        for tag, kw in (("stacked", dict(recurrence="stacked")),
+                        ("kernels", {})):
+            cfg = flagship_cfg("combined", "float32", True, **TRAIN_KW, **kw)
+            dstep = TrainStep(cfg, build_model(cfg, torch.Generator()
+                                               .manual_seed(13)),
+                              STEPS_PER_EPOCH, device=dev)
+            figures[f"dense_{tag}_ms"] = time_ms(
+                torch, lambda: dstep(batch), warmup=2, lead=False)
+        log(f"time graph axis (a) one NCCL rank: ring SpMM N={RING_N} "
+            f"D={RING_D} {figures['ring_ms']:.4f} ms (torch.sparse.mm on "
+            f"CSR {figures['csr_ms']:.4f}); sparse encoder forward at "
+            f"B={BATCH} {figures['fwd_ms']:.3f} ms; sparse step "
+            f"{figures['step_ms']:.3f} ms beside the dense step "
+            f"{figures['dense_stacked_ms']:.3f} (stacked, the same math) "
+            f"and {figures['dense_kernels_ms']:.3f} (the x-in kernels), f32, "
+            f"median of {REPS}; {card}")
+        # entry(): its forward on the card against the CPU, the same inputs
+        fn, (params_c, *args) = port_entry.entry("cpu")
+        want = fn(params_c, *args)
+        reset_counts()
+        fn_d, _ = port_entry.entry(dev)
+        got = fn_d({k: v.to(dev) for k, v in params_c.items()},
+                   *(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        entry_launched = counts()
+        err = norm_err(got.cpu(), want)[0]
+        log(f"graph axis entry(): forward {tuple(got.shape)} on the card "
+            f"against the CPU {err:.3e} (normalized; bar {F32_TOL:.0e})")
+        if not err <= F32_TOL:
+            fail(f"entry(): card forward {err} from the CPU's")
+        return launched, entry_launched, figures
+    finally:
+        distributed.shutdown()
+
+
+def graph_rank(rank: int, port: str, out_dir: str):
+    """A rank of (b), run as ``chip_smoke.py --graph-rank RANK PORT DIR``
+    by ``phase_graph_axis``: two gloo ranks share card 0. Writes its
+    figures, ring result and final parameters under ``out_dir``."""
+    import torch
+
+    from eeg_gnn_tpu_torch.entry import dryrun_multichip
+    from eeg_gnn_tpu_torch.parallel import distributed, make_mesh
+    from eeg_gnn_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_spmm,
+        gather_blocks,
+        partition_by_dest,
+        place_edge_partitioned,
+        shard_edges,
+    )
+    from eeg_gnn_tpu_torch.parallel.sparse_model import (
+        make_sparse_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    distributed.initialize(f"tcp://127.0.0.1:{port}", GRAPH_RANKS, rank,
+                           local_world_size=GRAPH_RANKS, device=dev)
+    mesh = make_mesh(f"graph:{GRAPH_RANKS}")
+    res = {"backend": mesh.backend}
+    reset_counts()
+    distributed.reset_counts()
+    # the ring SpMM at N=4096: this rank's memory across it (its share of
+    # the graph and features placed inside the window)
+    g, x = ring_graph(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shard, xb = place_edge_partitioned(mesh, g, x)
+    with torch.no_grad():
+        out = edge_partitioned_spmm(mesh, shard, xb)
+    torch.cuda.synchronize()
+    es, blk = shard.values.numel(), shard.block
+    res.update(peak=torch.cuda.max_memory_allocated() - base, es=es,
+               blk=blk, budget=(3 * blk * RING_D * 4 + es * RING_D * 4
+                                + es * 12))
+    np.save(os.path.join(out_dir, f"rank{rank}_ring.npy"),
+            gather_blocks(mesh, out, RING_N).cpu().numpy())
+    with torch.no_grad():
+        res["ring_ms"] = host_ms(
+            torch, lambda: edge_partitioned_spmm(mesh, shard, xb))
+    # GRAPH_STEPS sparse steps at full width, each timed
+    x_seq, y, _, block_diag = sparse_inputs(torch, dev)
+    sgraph = shard_edges(partition_by_dest(block_diag, GRAPH_RANKS),
+                         mesh.graph_rank, dev)
+    model, opt = sparse_start(torch)
+    step = make_sparse_train_step(model, opt, mesh)
+    distributed.reset_counts()
+    res["losses"], grads, res["step_ms"] = sparse_steps(torch, step, sgraph,
+                                                        x_seq, y)
+    res["collectives"] = {k: [c / GRAPH_STEPS for c in v]
+                          for k, v in distributed.counts().items()}
+    np.save(os.path.join(out_dir, f"rank{rank}_grads.npy"), grads)
+    np.savez(os.path.join(out_dir, f"rank{rank}_params.npz"),
+             **scale_state(step))
+    res["paths"] = {"graph_axis_gloo": counts()}
+    # the dry run: every sharded path on data:2, then the sparse step on
+    # graph:2 (its data-parallel steps launch the detector's kernels)
+    reset_counts()
+    t0 = time.perf_counter()
+    dryrun_multichip(GRAPH_RANKS)
+    res["dryrun_s"] = time.perf_counter() - t0
+    res["paths"]["dryrun_gloo"] = counts()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+
+
+def phase_graph_axis(torch, dev, card):
+    """The mesh's graph axis (``parallel/edge_partition``,
+    ``parallel/sparse_model``, ``entry``): (a) graph:1 on one NCCL rank
+    in this process (:func:`graph_one_rank`); (b) two gloo ranks sharing
+    the card, each a process of this script (:func:`graph_rank`; NCCL
+    refuses two ranks on one device): the ring SpMM gathered against
+    (a)'s, each rank's peak memory across it against the block budget,
+    3 sparse steps at full width against (a)'s parameters (the ranks'
+    bitwise equal), the ring shifts a step, ``dryrun_multichip(2)``. No
+    hand-written kernel launches on the graph path. Returns the launches
+    by path."""
+    out_dir = os.path.join("chiprun_out", "graph_axis")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    for name in ("NCCL_SOCKET_IFNAME", "GLOO_SOCKET_IFNAME"):
+        os.environ.setdefault(name, "lo")  # this host only
+    paths = {}
+    paths["graph_axis"], paths["entry"], one = graph_one_rank(
+        torch, dev, card, out_dir)
+    port = str(_free_port())
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w")
+            for r in range(GRAPH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--graph-rank", str(r),
+         port, out_dir], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(GRAPH_RANKS)]
+    t1 = time.perf_counter()
+    try:
+        for r, proc in enumerate(procs):
+            left = GRAPH_TIMEOUT - (time.perf_counter() - t1)
+            try:
+                proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                fail(f"graph axis: rank {r} ran past {GRAPH_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            fail(f"graph axis: rank {r} exited {proc.returncode}:\n{tail}")
+    ranks = []
+    for r in range(GRAPH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if any(rk["backend"] != "gloo" for rk in ranks):
+        fail(f"graph axis: backends {[rk['backend'] for rk in ranks]}")
+    # the ring SpMM, gathered, against (a)'s
+    ref = np.load(os.path.join(out_dir, "ring_one_rank.npy"))
+    for r, rk in enumerate(ranks):
+        got = np.load(os.path.join(out_dir, f"rank{r}_ring.npy"))
+        err = float(np.abs(got - ref).max())
+        log(f"graph axis (b) ring SpMM on two gloo ranks, rank {r}: "
+            f"gathered against one rank's {err:.3e} (bar rtol and atol "
+            f"{RING_TOL:.0e}); peak memory across it {rk['peak']} B "
+            f"(torch.cuda.max_memory_allocated, placement included) "
+            f"against the block budget {rk['budget']} B x {MEM_SLACK} "
+            f"(3 (N/p, D) f32 blocks: owned out, circulating, received; the "
+            f"gathered-edge temporary and the edge shard, {rk['es']} edges)")
+        if not np.allclose(got, ref, rtol=RING_TOL, atol=RING_TOL):
+            fail(f"graph axis (b) rank {r}: ring SpMM {err} from (a)'s")
+        if not rk["peak"] <= MEM_SLACK * rk["budget"]:
+            fail(f"graph axis (b) rank {r}: peak {rk['peak']} B over "
+                 f"{MEM_SLACK} x the budget {rk['budget']} B")
+    # the steps: ranks bitwise equal, and against one rank's
+    states = [dict(np.load(os.path.join(out_dir, f"rank{r}_params.npz")))
+              for r in range(GRAPH_RANKS)]
+    one_rank = dict(np.load(os.path.join(out_dir, "one_rank.npz")))
+    diff = [k for k in states[0]
+            if not np.array_equal(states[0][k], states[1][k])]
+    if diff:
+        fail(f"graph axis (b): ranks differ in {diff}")
+    err = norm_err(*(torch.from_numpy(np.concatenate(
+        [st[k].ravel() for k in one_rank])) for st in (states[0],
+                                                      one_rank)))[0]
+    worst = {k: float(np.abs(states[0][k] - v).max())
+             for k, v in one_rank.items()}
+    grad_err = norm_err(*(torch.from_numpy(np.load(os.path.join(
+        out_dir, f))) for f in ("rank0_grads.npy", "one_rank_grads.npy")))[0]
+    shifts = ranks[0]["collectives"]["ring_shift"]
+    log(f"graph axis (b) {GRAPH_STEPS} sparse steps at full width on two "
+        f"gloo ranks: ranks bitwise equal; first-step gradients against one "
+        f"rank's {grad_err:.3e} (bar {SCALE_F32_TOL:.0e}, normalized "
+        f"inf-norm of the gradient vector); parameters after the steps "
+        f"{err:.3e} (bar {SCALE_F32_TOL:.0e}, normalized inf-norm of the "
+        f"parameters; max abs by tensor {worst}, not gated); losses "
+        f"{ranks[0]['losses']}; a step {shifts[0]:.0f} ring shifts, "
+        f"{shifts[1]:.0f} B sent a rank; collectives a step "
+        f"{ranks[0]['collectives']}")
+    if not grad_err <= SCALE_F32_TOL:
+        fail(f"graph axis (b): first-step gradients {grad_err} from one "
+             "rank's")
+    if not err <= SCALE_F32_TOL:
+        fail(f"graph axis (b): parameters {err} from one rank's")
+    if not shifts[0] > 0:
+        fail("graph axis (b): no ring shift on two ranks")
+    for path in ("graph_axis", "entry"):
+        paths[path] = {k: paths[path].get(k, 0) for k in KERNELS}
+    for r, rk in enumerate(ranks):
+        for path, n in rk["paths"].items():
+            key = path if r == 0 else f"{path}_rank{r}"
+            paths[key] = {k: n.get(k, 0) for k in KERNELS}
+    for path, n in paths.items():
+        if path.startswith("graph_axis") and any(n.values()):
+            fail(f"graph axis: kernels launched on {path}: {n}")
+    rk = ranks[0]
+    log(f"time graph axis (b) two gloo ranks on one card: ring SpMM "
+        f"N={RING_N} {rk['ring_ms']:.3f} ms (host clock, median of {REPS}); "
+        f"sparse step at full width "
+        f"{statistics.median(rk['step_ms']):.1f} ms (host clock, median of "
+        f"the {GRAPH_STEPS} gated steps: {rk['step_ms']}); "
+        f"dryrun_multichip(2) {rk['dryrun_s']:.1f} s; {card}")
+    log(f"graph axis: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def log_input_rates(stats, times, card):
     """The cached loops' clips/s beside the bare TrainStep's at B=128 in
     the same run (phase_times, phase_ssl_times; per-clip supports there,
@@ -4351,6 +4844,9 @@ def main():
 
     if len(sys.argv) > 1 and sys.argv[1] == "--scaleout-rank":
         scale_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])  # phase 14
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--graph-rank":
+        graph_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])  # phase 15
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -4420,6 +4916,13 @@ def main():
     paths.update(scale_paths)
     for path in scale_paths:
         for name in XIN_FWD if "serve" in path else CLI_DETECT:
+            if paths[path][name] < 1:
+                fail(f"{name} was never launched on the {path} path")
+    graph_paths = phase_graph_axis(torch, dev, card)
+    paths.update(graph_paths)
+    for path in graph_paths:  # the graph paths launch none (checked there)
+        for name in (XIN_FWD if path == "entry" else CLI_DETECT
+                     if path.startswith("dryrun") else ()):
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")
 

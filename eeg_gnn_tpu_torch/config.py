@@ -12,9 +12,10 @@ are accepted and ignored. The on-device input pipeline, the dataset
 caches (resident and rotating) and ``--reflect_invariant`` are ported;
 as in the JAX CLI they serve ``--model_name dcrnn`` only, and a baseline
 accepts and ignores them. ``--mesh_shape data:N`` is the data-parallel
-mesh over N ranks (``parallel/``); a ``graph`` axis, and ``preproc_dir``,
-are still to port and raise ``NotImplementedError`` from
-``check_runnable`` (``_NOT_PORTED``).
+mesh over N ranks (``parallel/``). ``check_runnable`` refuses a
+``graph`` axis with a ``ValueError``, as a deliberate deviation: the JAX
+CLI ignores ``--mesh_shape`` (:data:`GRAPH_AXIS_CLI`). ``preproc_dir`` is
+still to port and raises ``NotImplementedError`` there (``_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -118,8 +119,9 @@ class ExperimentConfig:
 
     def check_runnable(self) -> "ExperimentConfig":
         """The run rules of the training CLI: an eval-only run needs a
-        checkpoint (the JAX ``finalize``'s rule, args.py:196-221), and no
-        feature that is still to port is asked for."""
+        checkpoint (the JAX ``finalize``'s rule, args.py:196-221), no
+        feature that is still to port is asked for, and the mesh has no
+        graph axis (:data:`GRAPH_AXIS_CLI`)."""
         if self.load_model_path is None and not self.do_train:
             raise ValueError(
                 "For evaluation only, please provide trained model checkpoint "
@@ -135,7 +137,11 @@ class ExperimentConfig:
             parse_mesh_shape,
         )
 
-        check_axes(parse_mesh_shape(self.mesh_shape, 1)[0])
+        names = parse_mesh_shape(self.mesh_shape, 1)[0]
+        check_axes(names)
+        if "graph" in names:
+            raise ValueError(f"--mesh_shape {self.mesh_shape}: "
+                             + GRAPH_AXIS_CLI)
         return self
 
     @property
@@ -184,6 +190,15 @@ class ExperimentConfig:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=4, sort_keys=True)
 
+
+# The JAX CLI never builds a graph axis: it makes data:<devices> whatever
+# --mesh_shape says (eeg_gnn_tpu/cli/train.py:72-89), and no trainer path
+# reads the axis. The port refuses it rather than ignore it.
+GRAPH_AXIS_CLI = (
+    "the training CLI trains data-parallel only, as the JAX package's "
+    "does; the mesh's graph axis is reached through "
+    "eeg_gnn_tpu_torch.parallel.sparse_model (make_sparse_train_step) and "
+    "the dry run, python -m eeg_gnn_tpu_torch.entry")
 
 # flag -> whether this config asks for that feature, still to port
 _NOT_PORTED = {

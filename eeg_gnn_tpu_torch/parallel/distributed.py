@@ -26,12 +26,17 @@ never meet on one device.
 
 The step's collectives carry counters, as the kernel wrappers count
 their launches: :func:`all_reduce_grads` (the gradients' one all-reduce a
-step, the loss riding in it), :func:`all_reduce_sum` (differentiable: the
-SSL loss's global numerator and denominator, BatchNorm's global moments),
-:func:`all_gather_rows` (the evaluation's and the Predictor's outputs)
-and :func:`broadcast_` (the starting parameters). Each has ``.calls``
-(collectives launched) and ``.bytes`` (bytes each rank sends into them);
-:func:`counts` reads them all, :func:`reset_counts` sets them to 0.
+step, the loss riding in it; the sparse step's over the graph ring),
+:func:`all_reduce_sum` (differentiable: the SSL loss's global numerator
+and denominator, BatchNorm's global moments), :func:`all_gather_rows`
+(the evaluation's and the Predictor's outputs; the graph axis's node
+blocks), :func:`broadcast_` (the starting parameters) and
+:func:`ring_shift` (the graph axis's point-to-point step of the ring
+SpMM). Each has ``.calls`` (collectives launched) and ``.bytes`` (bytes
+each rank sends into them); :func:`counts` reads them all,
+:func:`reset_counts` sets them to 0. The data axis's collectives run over
+the mesh's data group (``Mesh.group``), the graph axis's over its ring
+(``Mesh.graph_group``).
 """
 
 from __future__ import annotations
@@ -193,26 +198,35 @@ def _count(fn, t: torch.Tensor):
     fn.bytes += t.numel() * t.element_size()
 
 
-def _reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place; gloo goes through the host."""
+def _group(mesh: Mesh, axis: str):
+    if axis not in ("data", "graph"):
+        raise ValueError(f"unknown mesh axis {axis!r}")
+    return mesh.group if axis == "data" else mesh.graph_group
+
+
+def _reduce_(t: torch.Tensor, mesh: Mesh, axis: str = "data"
+             ) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``axis`` in place; gloo goes through
+    the host."""
     import torch.distributed as dist
 
+    group = _group(mesh, axis)
     if mesh.backend == "gloo" and t.device.type != "cpu":
         host = t.cpu()
-        dist.all_reduce(host, group=mesh.group)
+        dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=mesh.group)
+        dist.all_reduce(t, group=group)
     return t
 
 
 def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Mesh,
-                     extra: Optional[torch.Tensor] = None
-                     ) -> Optional[torch.Tensor]:
-    """Sum ``grads`` over the ranks in place, in ONE all-reduce of a flat
-    buffer (one a dtype when they differ); ``extra`` (the loss's share, a
-    0-d tensor) rides at the end of the first buffer and comes back
-    summed."""
+                     extra: Optional[torch.Tensor] = None,
+                     axis: str = "data") -> Optional[torch.Tensor]:
+    """Sum ``grads`` over the ranks of ``axis`` in place, in ONE
+    all-reduce of a flat buffer (one a dtype when they differ); ``extra``
+    (the loss's share, a 0-d tensor) rides at the end of the first buffer
+    and comes back summed."""
     groups = {}
     for g in grads:
         groups.setdefault(g.dtype, []).append(g)
@@ -223,7 +237,7 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Mesh,
             parts.append(extra.detach().reshape(1).to(dtype))
         flat = torch.cat(parts)
         _count(all_reduce_grads, flat)
-        _reduce_(flat, mesh)
+        _reduce_(flat, mesh, axis)
         lo = 0
         for g in gs:
             g.copy_(flat[lo:lo + g.numel()].view_as(g))
@@ -233,7 +247,7 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Mesh,
     if out is None and extra is not None:  # no gradient at all
         flat = extra.detach().reshape(1).clone()
         _count(all_reduce_grads, flat)
-        out = _reduce_(flat, mesh)[0]
+        out = _reduce_(flat, mesh, axis)[0]
     return out
 
 
@@ -262,16 +276,20 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _AllReduceSum.apply(x, mesh)
 
 
-def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The ranks' ``t`` (equal shapes) concatenated along axis 0 in rank
-    order, on ``t``'s device: every rank gets the whole."""
+def all_gather_rows(t: torch.Tensor, mesh: Mesh,
+                    axis: str = "data") -> torch.Tensor:
+    """The ``t`` (equal shapes) of the ranks of ``axis`` concatenated along
+    dimension 0 in axis order, on ``t``'s device: every rank gets the
+    whole."""
     import torch.distributed as dist
 
     t = t.detach().contiguous()
     _count(all_gather_rows, t)
     src = t.cpu() if mesh.backend == "gloo" else t
-    parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    dist.all_gather(parts, src, group=mesh.group)
+    group = _group(mesh, axis)
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
     return torch.cat(parts).to(t.device)
 
 
@@ -288,8 +306,8 @@ def all_gather_host(x, mesh: Optional[Mesh] = None) -> np.ndarray:
 
 
 def broadcast_(tensors: List[torch.Tensor], mesh: Mesh, src: int = 0):
-    """Overwrite ``tensors`` on every rank with rank ``src``'s, one
-    broadcast a dtype."""
+    """Overwrite ``tensors`` on every rank of the data axis with those of
+    its data index ``src``, one broadcast a dtype."""
     import torch.distributed as dist
 
     groups = {}
@@ -299,7 +317,7 @@ def broadcast_(tensors: List[torch.Tensor], mesh: Mesh, src: int = 0):
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
         _count(broadcast_, flat)
         buf = flat.cpu() if mesh.backend == "gloo" else flat
-        dist.broadcast(buf, src, group=mesh.group)
+        dist.broadcast(buf, mesh.data_ranks[src], group=mesh.group)
         lo = 0
         for t in ts:
             with torch.no_grad():
@@ -307,8 +325,46 @@ def broadcast_(tensors: List[torch.Tensor], mesh: Mesh, src: int = 0):
             lo += t.numel()
 
 
+class RingShift:
+    """A :func:`ring_shift` in flight: :meth:`wait` returns the block
+    received from graph index g-1."""
+
+    def __init__(self, works, recv: torch.Tensor, device: torch.device):
+        self.works, self.recv, self.device = works, recv, device
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            w.wait()
+        return self.recv.to(self.device)
+
+
+def ring_shift(t: torch.Tensor, mesh: Mesh) -> RingShift:
+    """Send ``t`` to graph index g+1 and receive the block of g-1, around
+    this rank's graph ring (JAX ``ppermute`` with the pairs ``(i, (i + 1)
+    % p)``, ``edge_partition.py:121-122``). Both point-to-point ops go in
+    one ``dist.batch_isend_irecv``: on NCCL between the cards, under gloo
+    through the host. Returns at once; the result's ``wait()`` gives the
+    received block (of ``t``'s shape, on ``t``'s device). On a ring of
+    one it is ``t`` itself, and nothing is sent or counted. ``t`` must not
+    change until then."""
+    import torch.distributed as dist
+
+    p, g = mesh.graph_world, mesh.graph_rank
+    if p == 1:
+        return RingShift((), t, t.device)
+    t = t.contiguous()
+    _count(ring_shift, t)
+    src = t.cpu() if mesh.backend == "gloo" else t
+    recv = torch.empty_like(src)
+    ring = mesh.graph_ranks
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, ring[(g + 1) % p], mesh.graph_group),
+        dist.P2POp(dist.irecv, recv, ring[(g - 1) % p], mesh.graph_group)])
+    return RingShift(works, recv, t.device)
+
+
 COLLECTIVES = (all_reduce_grads, all_reduce_sum, all_gather_rows,
-               broadcast_)
+               broadcast_, ring_shift)
 
 
 def counts() -> dict:

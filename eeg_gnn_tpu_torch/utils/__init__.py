@@ -1,1 +1,2 @@
-"""Host utilities: logging and the metrics sink."""
+"""Host utilities: logging and the metrics sink, wall-clock timers, and
+profiling hooks."""

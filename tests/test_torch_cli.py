@@ -424,13 +424,25 @@ def test_cli_flags_match_jax(argv):
     # the features still to port, as DCRNN does
     ["--task", "classification", "--model_name", "densecnn",
      "--preproc_dir", "/x"],
-    ["--model_name", "lstm", "--mesh_shape", "data:1,graph:2"],
-    ["--preproc_dir", "/x"], ["--mesh_shape", "data:2,graph:2"]])
+    ["--preproc_dir", "/x"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,
                  device="cpu")
     assert not os.listdir(tmp_path)  # raised before the run dir existed
+
+
+@pytest.mark.parametrize("flag", [
+    ["--model_name", "lstm", "--mesh_shape", "data:1,graph:2"],
+    ["--mesh_shape", "data:2,graph:2"]])
+def test_cli_refuses_graph_axis(tmp_path, flag):
+    """The JAX CLI never builds a graph axis (it makes data:<devices>
+    whatever --mesh_shape says); the port's refuses one, naming where the
+    axis is reached, before the run dir exists."""
+    with pytest.raises(ValueError, match="parallel.sparse_model"):
+        cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,
+                 device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_eval_only_run_needs_a_checkpoint(tmp_path):

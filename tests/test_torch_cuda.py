@@ -2078,3 +2078,94 @@ def test_classification_run_on_the_card_matches_the_cpu(dev, tmp_path,
     assert len(loss_g) == len(loss_c) > 0
     np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
     np.testing.assert_allclose(res_g["loss"], res_c["loss"], rtol=1e-4)
+
+
+def test_ring_spmm_on_one_nccl_rank_matches_dense(dev):
+    """graph:1 on a one-rank NCCL group: the ring SpMM against the dense
+    product, its dx and dvalues against ``graphs.sparse.spmm``'s autograd
+    (CUDA ``index_add_`` sums with atomics: 1e-4, not bitwise)."""
+    import socket
+
+    from eeg_gnn_tpu_torch.graphs.sparse import SparseGraph, spmm
+    from eeg_gnn_tpu_torch.parallel import distributed, make_mesh
+    from eeg_gnn_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_spmm,
+        place_edge_partitioned,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh("graph:1")
+        assert mesh.backend == "nccl"
+        rng = np.random.RandomState(0)
+        n, d, e = 1024, 64, 4096
+        g = SparseGraph(*(torch.from_numpy(a) for a in (
+            rng.randint(0, n, e).astype(np.int32),
+            rng.randint(0, n, e).astype(np.int32),
+            rng.randn(e).astype(np.float32))), n)
+        x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+        w = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+        shard, xb = place_edge_partitioned(mesh, g, x)
+        v = shard.values.clone().requires_grad_()
+        xb.requires_grad_()
+        out = edge_partitioned_spmm(mesh, dataclasses.replace(shard, values=v),
+                                    xb)
+        (out * w).sum().backward()
+        gd = SparseGraph(g.rows.to(dev), g.cols.to(dev),
+                         g.values.to(dev).requires_grad_(), n)
+        xd = x.to(dev).requires_grad_()
+        ref = spmm(gd, xd)
+        (ref * w).sum().backward()
+        torch.testing.assert_close(out, g.to_dense().to(dev) @ x.to(dev),
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(xb.grad, xd.grad, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(v.grad, gd.values.grad, rtol=1e-4,
+                                   atol=1e-4)
+    finally:
+        distributed.shutdown()
+
+
+def test_sparse_step_on_the_card_matches_dense(dev):
+    """The sparse DCGRU step (graph:1, its diffusions the ring SpMM)
+    against the dense (stacked) path on the same supports: gradients
+    rtol 2e-3 / atol 1e-5, and no hand-written kernel launches."""
+    from eeg_gnn_tpu_torch.graphs.sparse import from_dense_batch
+    from eeg_gnn_tpu_torch.graphs.supports import compute_supports_torch
+    from eeg_gnn_tpu_torch.models.dcrnn import DCRNNClassifier, DCRNNConfig
+    from eeg_gnn_tpu_torch.parallel.edge_partition import partition_by_dest
+    from eeg_gnn_tpu_torch.parallel.mesh import Mesh
+    from eeg_gnn_tpu_torch.parallel.sparse_model import make_sparse_train_step
+    from eeg_gnn_tpu_torch.train.losses import bce_with_logits
+    from eeg_gnn_tpu_torch.train.optim import make_optimizer
+
+    t, b, d, h = 6, 8, 12, 16
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(t, b, N, d).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.rand(b) > 0.5).astype(np.float32)).to(dev)
+    sup = compute_supports_torch(torch.from_numpy(
+        np.abs(rng.rand(b, N, N)).astype(np.float32)), "laplacian")
+    model = DCRNNClassifier(DCRNNConfig(
+        input_dim=d, rnn_units=h, num_rnn_layers=2, max_diffusion_step=K,
+        num_nodes=N, num_supports=1, recurrence="stacked"),
+        torch.Generator().manual_seed(0))
+    mesh = Mesh(("graph",), (1,), 0, 1, dev, "nccl")
+    step = make_sparse_train_step(
+        model, make_optimizer(model.parameters(), 1e-3, 0.0, 5.0, 10, 10),
+        mesh)
+    kernels = [cr.dcgru_xin_proj, cr.dcgru_xin_fwd_loop,
+               cr.dcgru_xin_bwd_loop, cr.dcgru_xin_dw, cr.dcgru_xin_dx,
+               cr.dcgru_recurrence_fwd, cr.dcgru_dw_reduce]
+    for k in kernels:
+        k.launches = 0
+    step.loss_and_grads(partition_by_dest(from_dense_batch(sup[0]), 1), x, y)
+    assert [k.launches for k in kernels] == [0] * len(kernels)
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad()
+    bce_with_logits(model(x.transpose(0, 1), torch.full((b,), t,
+                                                        device=dev),
+                          sup.to(dev)), y).backward()
+    for k, p in model.named_parameters():
+        torch.testing.assert_close(grads[k], p.grad, rtol=2e-3, atol=1e-5)

@@ -267,8 +267,8 @@ def test_unported_cache_paths_raise():
     """The caches' mesh paths are ported: over a data:2 mesh, rank r holds
     the block (resident) or stripes (rotating) that device r of the JAX
     package's single-process data:2 mesh holds. What still raises is a
-    mesh's graph axis (ROADMAP Queue 1 item 12), and a striped cache's
-    reads by global row (shard labels and names, whole-split plans)."""
+    mesh axis other than data and graph, and a striped cache's reads by
+    global row (shard labels and names, whole-split plans)."""
     from eeg_gnn_tpu.parallel.mesh import make_mesh as jax_make_mesh
     from eeg_gnn_tpu_torch.parallel.mesh import Mesh, check_axes
 
@@ -305,8 +305,9 @@ def test_unported_cache_paths_raise():
                          4, False, np.random.RandomState(0)))):
             with pytest.raises(ValueError, match="stripes"):
                 read()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_axes(("data", "graph"))
+    check_axes(("data", "graph"))  # the graph axis is ported
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        check_axes(("data", "model"))
 
 
 def test_caches_store_in_the_storage_dtype():

@@ -179,8 +179,9 @@ def test_predictor_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_paths_raise(tmp_path):
-    """A mesh's graph axis still raises (the data axis serves: its
-    two-rank run in tests/test_torch_dp_cli.py), and a data mesh whose
+    """A mesh axis other than data and graph raises (the data axis
+    serves: its two-rank run in tests/test_torch_dp_cli.py; the graph
+    axis's ring: tests/test_torch_graph_axis.py), and a data mesh whose
     ranks do not split the batch evenly is refused; the baselines, which
     raised here before they were ported, build and serve (their parity
     with JAX: tests/test_torch_baselines.py)."""
@@ -189,8 +190,10 @@ def test_unported_paths_raise(tmp_path):
 
     cfg = ExperimentConfig(**_kw()).finalize()
     params = build_model(cfg).state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_axes(("data", "graph"))
+    check_axes(("data", "graph"))
+    for axes in (("data", "model"), ("graph", "graph")):
+        with pytest.raises(ValueError, match="mesh ax"):
+            check_axes(axes)
     mesh = Mesh(("data",), (3,), 0, 3, torch.device("cpu"), "gloo")
     with pytest.raises(ValueError, match="must divide over 3 ranks"):
         Predictor(cfg, params, batch_size=4, mesh=mesh)
@@ -228,15 +231,22 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_sources_import_no_jax():
-    """AST scan of every module of the port (``parallel/`` included), its
-    card scripts and the data-parallel tests' rank worker."""
-    files = sorted((REPO / "eeg_gnn_tpu_torch").rglob("*.py"))
+    """AST scan of every module of the port (``parallel/``, the graph
+    axis's modules, ``utils/`` and ``entry.py`` included), its card
+    scripts and the rank workers of the multi-rank tests."""
+    port = REPO / "eeg_gnn_tpu_torch"
+    files = sorted(port.rglob("*.py"))
     assert len(files) >= 14
-    assert REPO / "eeg_gnn_tpu_torch" / "train" / "step.py" in files
-    for name in ("__init__.py", "mesh.py", "distributed.py"):
-        assert REPO / "eeg_gnn_tpu_torch" / "parallel" / name in files
+    assert port / "train" / "step.py" in files
+    for name in ("__init__.py", "mesh.py", "distributed.py",
+                 "edge_partition.py", "sparse_model.py"):
+        assert port / "parallel" / name in files
+    for name in ("graphs/sparse.py", "utils/timing.py", "utils/profiling.py",
+                 "entry.py"):
+        assert port / name in files
     for path in files + [REPO / "chip_smoke.py", REPO / "serve_ab.py",
-                         REPO / "tests" / "torch_dp_cases.py"]:
+                         REPO / "tests" / "torch_dp_cases.py",
+                         REPO / "tests" / "torch_graph_cases.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -260,7 +270,12 @@ def test_import_pulls_in_no_jax():
             "eeg_gnn_tpu_torch.data.device_cache, "
             "eeg_gnn_tpu_torch.data.rotating_cache, "
             "eeg_gnn_tpu_torch.parallel, eeg_gnn_tpu_torch.parallel.mesh, "
-            "eeg_gnn_tpu_torch.parallel.distributed; "
+            "eeg_gnn_tpu_torch.parallel.distributed, "
+            "eeg_gnn_tpu_torch.graphs.sparse, "
+            "eeg_gnn_tpu_torch.parallel.edge_partition, "
+            "eeg_gnn_tpu_torch.parallel.sparse_model, "
+            "eeg_gnn_tpu_torch.utils.timing, "
+            "eeg_gnn_tpu_torch.utils.profiling, eeg_gnn_tpu_torch.entry; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
