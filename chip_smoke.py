@@ -247,6 +247,33 @@ Phases (any failure exits non-zero and prints no result line):
    ``graph_axis_gloo`` (and ``_rank1``), all 0, beside ``entry`` (the
    flagship forward's kernels) and ``dryrun_gloo`` (and ``_rank1``; the
    dry run's data-parallel steps launch the detector's).
+16. the offline input path (``phase_ingest``, run after 11, before the
+   timings of 6; ``data/edf.py``, ``cli/preprocess.py``,
+   ``data/clipstore.py`` and ``native/clipstore.cpp``): phase 10's 64
+   recordings written as EDF at 250 Hz (scipy's FFT resampling up from
+   200 Hz; TUSZ-style ``-REF`` labels, 4 seeded channels outside the
+   montage, the channels in a seeded order; the annotations beside),
+   ingested by ``resample_all(signals=...)`` (s a file, EDF MB/s) and held
+   against the 200 Hz originals channel by channel: at most the clean
+   200 -> 250 -> 200 Hz round trip's error plus half an int16 step of the
+   channel's EDF range grown by the 250 -> 200 Hz resampler's inf-norm;
+   a clip store a split from the detection markers on the ingested
+   signals (g++ builds the native gather at first use), whose train
+   store's native gather is bitwise equal to its plain version on every
+   batch of an epoch's plan at B=40, a batch bitwise equal to
+   ``raw_clip`` of the ingested signals, and out-of-range indices raise;
+   the gather's ms, clips/s and GB/s at B=40 and 128, one thread and the
+   default, a fresh batch and a reused one; step 1 of the full-width
+   detector (combined, bf16, ``--device_pipeline``'s ``DevicePipeline``)
+   on the store's first batch against the same clips streamed through
+   ``RawDetectionDataset`` (same weights and generator; rel 1e-4, bitwise
+   expected); then ``run_experiment`` for 2 epochs at B=40 on
+   ``ClipStoreLoader``s, untraced and traced, and on the streaming
+   loaders, each step launching exactly ``TRAIN_STEP[True]``: epoch s,
+   train-loop clips/s, loader-wait share and device busy beside
+   ``phase_input``'s ``--device_pipeline`` run. The phase's files (EDF,
+   stores, runs) are removed at the end. The kernels line's
+   ``launches_by_path`` gains ``ingest_clipstore``.
 
 The second-to-last line is a JSON object describing the kernels (the
 x-in wrappers, the hoisted backward and the decoder's backward, which
@@ -349,6 +376,13 @@ RAW_SCALE = 20.0                 # amplitude of the seeded raw clips
 # classes, dropout 0.5; the CLI's rotating run's budget (4 train shards)
 CLS_CLASSES, CLS_DROPOUT = 4, 0.5
 CLS_ROTATING_GB = 0.01
+# the offline input path (phase_ingest): phase 10's recordings as EDF at
+# TUSZ's usual rate, with channels outside the montage; the markers'
+# undersampling seed and the loaders' shuffle seed; the gather's timed reps
+INGEST_RATE = 250
+INGEST_EXTRA = ("EEG A1-REF", "EKG1-REF", "EEG A2-REF", "PHOTIC-REF")
+INGEST_SEED = 123
+GATHER_REPS = 20
 # the baselines (configs/run_{lstm,cnnlstm,densecnn}*.sh): (model, task, lr,
 # epochs of the recipe); LSTM 2 x 64 on 1900 inputs, the CNN-LSTM at its
 # fixed widths, the Dense-CNN 10 channels on the (6000, 19) plane; train
@@ -2700,7 +2734,7 @@ def phase_cli(torch, card):
         fail(f"cli detection: Predictor's test auroc {scores['auroc']} != "
              f"the run's {res1['auroc']}")
     corpus = {"root": root, "signals": signals, "detect": detect,
-              "ssl": ssl, "ssl_dir": dir2,
+              "ssl": ssl, "ssl_dir": dir2, "paths": p,
               "n_train": {"detection": len(det_sets["train"]),
                           "SSL": len(ssl_sets["train"])}}
     return paths, stats, corpus
@@ -3285,7 +3319,7 @@ def phase_cli_input(torch, card, corpus):
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith("Activity Buffer")) / 1e6
-        stats[tag]["busy_s"] = busy
+        stats[tag]["busy_s"], stats[tag]["traced_wall_s"] = busy, traced
         log(f"cli {tag}, traced run: device busy {busy * 1e3:.3f} ms of "
             f"its {traced * 1e3:.3f} ms wall ({100 * busy / traced:.1f}%; "
             f"{card})")
@@ -3319,6 +3353,407 @@ def phase_input(torch, dev, card, corpus):
     cli_paths, stats["cli"] = phase_cli_input(torch, card, corpus)
     paths.update(cli_paths)
     return paths, stats
+
+
+# ---------------------------------------------------------------------------
+# the offline input path: EDF ingest, the clip store and its native gather,
+# and the detector's train step fed from the store
+# ---------------------------------------------------------------------------
+
+
+def resample_lebesgue(n_in: int, n_out: int) -> float:
+    """The inf-norm of ``scipy.signal.resample`` from n_in to n_out points
+    as a linear map (its largest row sum of |entries|): the most a bounded
+    input error can grow through it. The map commutes with shifts of n_in/g
+    input and n_out/g output points (g their gcd), so n_in/g impulse
+    responses hold every entry."""
+    from scipy.signal import resample
+
+    g = math.gcd(n_in, n_out)
+    p, q = n_in // g, n_out // g
+    cols = [resample(np.eye(1, n_in, r)[0], n_out) for r in range(p)]
+    m = np.arange(n_in // p)
+    return max(sum(np.abs(cols[r][(i - q * m) % n_out]).sum()
+                   for r in range(p)) for i in range(q))
+
+
+def write_edf_corpus(corpus, edf_dir, res_dir) -> dict:
+    """Phase 10's recordings as EDF at ``INGEST_RATE`` (scipy's FFT
+    resampling up from 200 Hz), TUSZ-style labels, ``INGEST_EXTRA``
+    seeded channels beside the montage, the channels in a seeded order,
+    the annotations copied beside; returns {h5 path the ingest writes:
+    (the 200 Hz original, the 250 Hz signal written)}."""
+    from scipy.signal import resample
+
+    from eeg_gnn_tpu_torch.constants import FREQUENCY, INCLUDED_CHANNELS
+    from eeg_gnn_tpu_torch.data.edf import write_edf
+
+    rng = np.random.RandomState(23)
+    labels = [c + "-REF" for c in INCLUDED_CHANNELS] + list(INGEST_EXTRA)
+    originals = {}
+    for h5 in sorted(corpus["signals"]):
+        sig = corpus["signals"][h5]
+        stem = os.path.basename(h5)[:-len(".h5")]
+        up = resample(sig, sig.shape[1] * INGEST_RATE // FREQUENCY, axis=1)
+        full = np.concatenate(
+            [up, rng.randn(len(INGEST_EXTRA), up.shape[1]) * RAW_SCALE])
+        order = rng.permutation(len(labels))
+        write_edf(os.path.join(edf_dir, stem + ".edf"), full[order],
+                  [labels[i] for i in order], INGEST_RATE)
+        for ext in (".tse_bi", ".tse"):
+            shutil.copy(os.path.join(corpus["paths"]["raw_data_dir"],
+                                     stem + ext), edf_dir)
+        originals[os.path.join(res_dir, stem + ".h5")] = (sig, up)
+    return originals
+
+
+def ingest_gate(ingested, originals, edf_dir, card):
+    """The ingested signals against the 200 Hz originals. The bound a
+    channel: the resampling round trip's own error on that channel's
+    clean signal (200 -> 250 -> 200 Hz, no quantization), plus the EDF's
+    int16 rounding (at most half a step q = physical span / 65535, the
+    writer's range read back from the header) grown by the 250 -> 200 Hz
+    map's inf-norm (``resample_lebesgue``), plus float64 rounding (1e-12
+    of the channel's peak)."""
+    from scipy.signal import resample
+
+    from eeg_gnn_tpu_torch.constants import INCLUDED_CHANNELS
+    from eeg_gnn_tpu_torch.data.edf import read_edf_header
+
+    lam = {}
+    worst, worst_err_q, rms_q = 0.0, 0.0, []
+    for path, got in ingested.items():
+        sig, up = originals[path]
+        key = (up.shape[1], sig.shape[1])
+        if key not in lam:
+            lam[key] = resample_lebesgue(*key)
+        h = read_edf_header(os.path.join(
+            edf_dir, os.path.basename(path)[:-len(".h5")] + ".edf"))
+        stripped = [lab.split("-")[0] for lab in h.labels]
+        order = [stripped.index(c) for c in INCLUDED_CHANNELS]
+        q = ((h.physical_max - h.physical_min) / 65535.0)[order]
+        clean = np.abs(resample(up, sig.shape[1], axis=1) - sig).max(axis=1)
+        bound = clean + lam[key] * q / 2 + 1e-12 * np.abs(sig).max(axis=1)
+        err = np.abs(got - sig)
+        worst = max(worst, float((err.max(axis=1) / bound).max()))
+        worst_err_q = max(worst_err_q, float((err.max(axis=1) / q).max()))
+        rms_q.append(np.sqrt((err ** 2).mean(axis=1)) / q)
+        if got.shape != sig.shape:
+            fail(f"ingest: {path} {got.shape}, not {sig.shape}")
+    rms_q = np.concatenate(rms_q)
+    (key, lam_v), = lam.items()
+    log(f"ingest gate: {len(ingested)} recordings x 19 channels against the "
+        f"200 Hz originals: worst max|err| / bound {worst:.4f} (gate <= 1; "
+        f"bound = the clean round trip's error + {lam_v:.4f} (the "
+        f"{key[0]} -> {key[1]} point resampler's inf-norm) x q/2 + 1e-12 "
+        f"of the peak); max|err| at most {worst_err_q:.4f} q; rms "
+        f"{rms_q.min():.4f}-{rms_q.max():.4f} q (rounding spread over 4/5 "
+        f"of the band: sqrt(0.8 / 12) = {math.sqrt(0.8 / 12):.4f} q); "
+        f"{card}")
+    if not worst <= 1.0:
+        fail(f"ingest: an ingested signal is {worst} x its bound from the "
+             "original")
+
+
+def gather_checks(store, ingested, res_dir, card):
+    """The train store's gates: the native gather bitwise equal to
+    ``gather_plain`` on every batch of one epoch's plan (the loader's),
+    a batch bitwise equal to ``raw_clip`` of the ingested signals, the
+    out-of-range refusal; then the gather's rate at B=CLI_BATCH and
+    BATCH, one thread and the default, as the loader calls it (a fresh
+    batch) and into a reused buffer (host clock, median of GATHER_REPS,
+    the store's pages warm in the page cache: just written)."""
+    from eeg_gnn_tpu_torch.constants import FREQUENCY
+    from eeg_gnn_tpu_torch.data import clipstore as cs
+    from eeg_gnn_tpu_torch.data.clips import raw_clip
+
+    n = len(store)
+    plan = np.arange(n)
+    np.random.RandomState(INGEST_SEED).shuffle(plan)
+    loader = cs.ClipStoreLoader(store, CLI_BATCH, True, T, seed=INGEST_SEED)
+    batches = list(loader)
+    for k, batch in enumerate(batches):
+        rows = plan[k * CLI_BATCH:(k + 1) * CLI_BATCH]
+        if not (np.array_equal(batch.x, store.gather_plain(rows))
+                and batch.names == [store.names[i] for i in rows]):
+            fail(f"clip store: batch {k} of the epoch's plan differs from "
+                 "the plain gather")
+    first = batches[0]
+    stacked = np.stack([raw_clip(
+        ingested[os.path.join(res_dir, name.split(".edf")[0] + ".h5")],
+        int(name.split("_")[-1]), T) for name in first.names]).astype(
+            np.float32)
+    if not np.array_equal(first.x, stacked):
+        fail("clip store: a batch differs from raw_clip of the ingested "
+             "signals")
+    for bad in ([n], [-1], [0, n + 5]):
+        try:
+            store.gather(bad)
+        except IndexError:
+            continue
+        fail(f"clip store: gather({bad}) of {n} clips did not raise")
+    log(f"clip store gates: the native gather bitwise equal to the plain "
+        f"one on all {len(batches)} batches of an epoch's plan at "
+        f"B={CLI_BATCH}; the first batch bitwise equal to raw_clip of the "
+        f"ingested signals; gather([{n}]), ([-1]) and ([0, {n + 5}]) raise")
+    clip_bytes = N * T * FREQUENCY * 4
+    rng = np.random.RandomState(29)
+    rates = {}
+    for b in (CLI_BATCH, BATCH):
+        out = np.empty((b, N, T * FREQUENCY), np.float32)
+        for threads in (1, 0):
+            timed = cs.ClipStore(store.path, num_threads=threads)
+            idx = [rng.randint(0, n, b) for _ in range(GATHER_REPS + 3)]
+            fresh, reuse = [], []
+            for i in idx:
+                t0 = time.perf_counter()
+                timed.gather(i)
+                fresh.append(time.perf_counter() - t0)
+            for i in idx:
+                t0 = time.perf_counter()
+                timed.gather(i, out=out)
+                reuse.append(time.perf_counter() - t0)
+            timed.close()
+            ms = [statistics.median(v[3:]) * 1e3 for v in (fresh, reuse)]
+            name = "1" if threads else f"default ({min(8, os.cpu_count())})"
+            rates[b, threads] = ms
+            log(f"gather B={b} threads {name}: a fresh batch (as the loader) "
+                f"{ms[0]:.3f} ms = {b / ms[0] * 1e3:.1f} clips/s = "
+                f"{b * clip_bytes / ms[0] / 1e6:.2f} GB/s written; into a "
+                f"reused buffer {ms[1]:.3f} ms = {b / ms[1] * 1e3:.1f} "
+                f"clips/s = {b * clip_bytes / ms[1] / 1e6:.2f} GB/s (host "
+                f"clock, median of {GATHER_REPS}; {b * clip_bytes / 1e6:.1f} "
+                f"MB a batch; store pages warm; host of {card})")
+    return rates
+
+
+def ingest_run(torch, tag, cfg, loaders, scaler, pipe, save, dev,
+               traced=False):
+    """``run_experiment`` with every count at 0 before it; each train
+    step's launches recorded (``TrainStep.__call__`` wrapped). Returns
+    (results, counts, per-step counts, wall s, device busy s or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eeg_gnn_tpu_torch.train import step as step_mod
+    from eeg_gnn_tpu_torch.train.trainer import run_experiment
+    from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
+
+    os.makedirs(save)
+    tbx = MetricsWriter(save)
+    per_step = []
+    call = step_mod.TrainStep.__call__
+
+    def counted(self, *a, **k):
+        before = counts()
+        out = call(self, *a, **k)
+        after = counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+        return out
+
+    step_mod.TrainStep.__call__ = counted
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if traced else None
+    try:
+        if prof is not None:
+            prof.__enter__()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, loaders, scaler, save, _quiet_log(), tbx,
+                             device=dev, input_pipeline=pipe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts()
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        step_mod.TrainStep.__call__ = call
+        tbx.close()
+    busy = None if prof is None else sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.key.startswith("Activity Buffer")) / 1e6
+    return res, n, per_step, wall, busy
+
+
+def phase_ingest(torch, dev, card, corpus, input_cli):
+    """EDF to the detector's train step through the clip store:
+    phase 10's recordings written as EDF (``write_edf_corpus``), ingested
+    by ``cli.preprocess.resample_all(signals=...)`` (``ingest_gate``), a
+    clip store a split from the detection markers
+    (``build_clipstore_from_detection_markers(signals=...)``; the train
+    store's gates and rates, ``gather_checks``), step 1 on the store's
+    first batch against step 1 on the same clips through the streaming
+    ``RawDetectionDataset`` (same weights and generator seed), then
+    ``run_experiment`` on ``ClipStoreLoader``s with the CLI's
+    ``DevicePipeline`` (``--device_pipeline``; the full-width detector,
+    combined graph, bf16, B=40, 2 epochs): each step launching exactly
+    ``TRAIN_STEP[True]``, once untraced and once traced, beside the same
+    run on the streaming loaders and ``phase_input``'s
+    ``--device_pipeline`` run. The phase's files are removed at the end.
+    Returns the untraced clip-store run's counts."""
+    from eeg_gnn_tpu_torch.cli.preprocess import resample_all
+    from eeg_gnn_tpu_torch.cli.train import input_path
+    from eeg_gnn_tpu_torch.config import ExperimentConfig
+    from eeg_gnn_tpu_torch.data import clipstore as cs
+    from eeg_gnn_tpu_torch.data.datasets import load_dataset_detection
+    from eeg_gnn_tpu_torch.data.loader import collate
+    from eeg_gnn_tpu_torch.models.registry import build_model
+    from eeg_gnn_tpu_torch.train.step import TrainStep
+
+    t_phase = time.perf_counter()
+    root = os.path.join("chiprun_out", "ingest")
+    shutil.rmtree(root, ignore_errors=True)
+    edf_dir, res_dir = os.path.join(root, "edf"), os.path.join(root, "res")
+    os.makedirs(edf_dir)
+    p = corpus["paths"]
+    stores = {}
+    try:
+        t0 = time.perf_counter()
+        originals = write_edf_corpus(corpus, edf_dir, res_dir)
+        write_s = time.perf_counter() - t0
+        edfs = [os.path.join(edf_dir, f) for f in os.listdir(edf_dir)
+                if f.endswith(".edf")]
+        edf_mb = sum(os.path.getsize(f) for f in edfs) / 1e6
+        ingested = {}
+        t0 = time.perf_counter()
+        failed = resample_all(edf_dir, res_dir, signals=ingested)
+        ingest_s = time.perf_counter() - t0
+        if failed or sorted(ingested) != sorted(originals):
+            fail(f"ingest: failed {failed}, {len(ingested)} of "
+                 f"{len(originals)} recordings")
+        log(f"ingest: {len(edfs)} EDF files ({edf_mb:.1f} MB: "
+            f"{N + len(INGEST_EXTRA)} channels at {INGEST_RATE} Hz, "
+            f"written in {write_s:.3f} s) resampled to 200 Hz in "
+            f"{ingest_s:.3f} s: {ingest_s / len(edfs) * 1e3:.2f} ms a "
+            f"file, {edf_mb / ingest_s:.1f} MB/s of EDF (host CPU; host "
+            f"of {card})")
+        ingest_gate(ingested, originals, edf_dir, card)
+        del originals
+
+        t0 = time.perf_counter()
+        for split in ("train", "dev", "test"):
+            path = os.path.join(root, f"{split}.ecs")
+            cs.build_clipstore_from_detection_markers(
+                path, res_dir, p["marker_dir"], split, T,
+                seed=INGEST_SEED, signals=ingested)
+            stores[split] = cs.ClipStore(path)
+        log(f"clip stores built in {time.perf_counter() - t0:.3f} s: "
+            + ", ".join(f"{s} {len(st)} clips "
+                        f"{os.path.getsize(st.path) / 1e6:.1f} MB"
+                        for s, st in stores.items()))
+        gather_checks(stores["train"], ingested, res_dir, card)
+
+        cfg = ExperimentConfig(
+            task="detection", graph_type="combined", use_fft=True,
+            max_seq_len=T, num_rnn_layers=2, rnn_units=H,
+            max_diffusion_step=K, train_batch_size=CLI_BATCH,
+            test_batch_size=BATCH, num_epochs=CLI_EPOCHS, dtype="bfloat16",
+            device_pipeline=True, do_train=True, input_dir=res_dir,
+            raw_data_dir=edf_dir).finalize()
+        stream, sets, scaler = load_dataset_detection(
+            input_dir=res_dir, raw_data_dir=edf_dir,
+            train_batch_size=CLI_BATCH, test_batch_size=BATCH,
+            max_seq_len=T, num_workers=cfg.num_workers,
+            adj_mat_dir=p["adj_mat_dir"], graph_type=cfg.graph_type,
+            filter_type=cfg.filter_type, use_fft=True, seed=INGEST_SEED,
+            marker_dir=p["marker_dir"], raw_mode=True, signals=ingested)
+        pipe, _ = input_path(cfg, scaler, adj_mat_dir=p["adj_mat_dir"],
+                             marker_dir=p["marker_dir"], signals=ingested,
+                             device=dev)
+        n_train = len(stores["train"])
+        if len(sets["train"]) != n_train:
+            fail(f"clip store: {n_train} train clips, the dataset "
+                 f"{len(sets['train'])}")
+
+        def loaders():
+            return {s: cs.ClipStoreLoader(st, CLI_BATCH if s == "train"
+                                          else BATCH, s == "train", T,
+                                          seed=INGEST_SEED)
+                    for s, st in stores.items()}
+
+        # step 1 on the store's first batch and on the same clips streamed
+        first = next(iter(loaders()["train"]))
+        by_name = {h5_fn.split(".h5")[0]: i
+                   for i, (h5_fn, _) in enumerate(sets["train"].file_tuples)}
+        streamed = collate([sets["train"][by_name[nm]] for nm in first.names])
+        if not (np.array_equal(first.x, streamed.x)
+                and np.array_equal(first.y, streamed.y)):
+            fail("ingest: the store's first batch differs from the same "
+                 "clips through RawDetectionDataset")
+        losses = []
+        for batch in (first, streamed):
+            step = TrainStep(
+                cfg, build_model(cfg, torch.Generator().manual_seed(
+                    cfg.rand_seed)),
+                steps_per_epoch=-(-n_train // CLI_BATCH), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(
+                    cfg.rand_seed),
+                input_pipeline=pipe)
+            losses.append(float(step({"raw": batch.x, "y": batch.y,
+                                      "seq_lengths": batch.seq_lengths})))
+        diff = abs(losses[0] - losses[1])
+        log(f"ingest step 1: the store's first batch {losses[0]!r}, the "
+            f"same clips through RawDetectionDataset {losses[1]!r} "
+            f"(|diff| {diff:.3e}; {'bitwise' if diff == 0 else 'not bitwise'}"
+            f", gate rel 1e-4)")
+        if not diff <= 1e-4 * abs(losses[1]):
+            fail(f"ingest: step 1 on the store {losses[0]} against the "
+                 f"streamed clips {losses[1]}")
+
+        want = {k: TRAIN_STEP[True].get(k, 0) for k in KERNELS}
+        steps = CLI_EPOCHS * -(-n_train // CLI_BATCH)
+        stats, launched = {}, None
+        for tag, traced in (("clip store", False), ("clip store traced",
+                                                    True),
+                            ("streaming", False)):
+            res, n, per_step, wall, busy = ingest_run(
+                torch, tag, cfg, stream if tag == "streaming" else loaders(),
+                scaler, pipe, os.path.join(root, tag.replace(" ", "_")), dev,
+                traced)
+            if len(per_step) != steps or any(s != want for s in per_step):
+                bad = [s for s in per_step if s != want][:1]
+                fail(f"ingest {tag}: {len(per_step)} steps (want {steps}); "
+                     f"a step's launches {bad}, not {want}")
+            if {k for k, v in n.items() if v} - set(CLI_DETECT):
+                fail(f"ingest {tag}: launches {n}")
+            stats[tag] = cli_run_stats(
+                f"ingest {tag}", res, os.path.join(root, tag.replace(
+                    " ", "_")), wall, n_train, card, traced=traced)
+            stats[tag]["busy_s"] = busy
+            shutil.rmtree(os.path.join(root, tag.replace(" ", "_")))
+            if tag == "clip store":
+                launched = n
+        log(f"ingest: every step of the three runs launched exactly "
+            f"{ {k: v for k, v in want.items() if v} }")
+        pipeline = input_cli["detection device_pipeline individual"]
+        traced = stats["clip store traced"]
+        for tag, st in (("clip store", stats["clip store"]),
+                        ("streaming (RawDetectionDataset, combined)",
+                         stats["streaming"]),
+                        ("phase_input --device_pipeline (individual)",
+                         pipeline)):
+            clips, secs = sum(st["train_clips"]), sum(st["train_s"])
+            wait, wall = sum(st["loader_wait_s"]), sum(st["epoch_s"])
+            tw = sum(st["train_loader_wait_s"])
+            log(f"input path {tag}: epochs "
+                + " ".join(f"{e:.3f}" for e in st["epoch_s"])
+                + f" s; train loop {clips / secs:.1f} clips/s ({tw:.3f} s "
+                f"of its {secs:.3f} s waiting on the loader, "
+                f"{100 * tw / secs:.1f}%); loader wait {100 * wait / wall:.1f}"
+                f"% of the epochs' {wall:.3f} s; {card}")
+        busy, wall = traced["busy_s"], traced["wall_s"]
+        log(f"input path clip store, traced run: device busy "
+            f"{busy * 1e3:.3f} ms of its {wall * 1e3:.3f} ms wall "
+            f"({100 * busy / wall:.1f}%); "
+            f"phase_input's --device_pipeline traced run "
+            f"{100 * pipeline['busy_s'] / pipeline['traced_wall_s']:.1f}%; "
+            f"{card}")
+    finally:  # a run's figures are read; its files are not kept
+        for st in stores.values():
+            st.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"ingest: {time.perf_counter() - t_phase:.1f} s")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -4879,6 +5314,8 @@ def main():
     paths.update(cli_paths)
     input_paths, input_stats = phase_input(torch, dev, card, corpus)
     paths.update(input_paths)
+    paths["ingest_clipstore"] = phase_ingest(torch, dev, card, corpus,
+                                             input_stats["cli"])
     for path, names in (("serve", (FWD[1],) + XIN_FWD),
                         ("train", (FWD[1], "dcgru_dw_reduce")
                          + XIN_FWD + XIN_BWD),
@@ -4894,7 +5331,8 @@ def main():
                         ("cli_hbm_detect", CLI_DETECT),
                         ("cli_hbm_ssl", SSL_KERNELS),
                         ("cli_pipeline_detect", CLI_DETECT),
-                        ("cli_hbm_fused", CLI_DETECT)):
+                        ("cli_hbm_fused", CLI_DETECT),
+                        ("ingest_clipstore", CLI_DETECT)):
         for name in names:
             if paths[path][name] < 1:
                 fail(f"{name} was never launched on the {path} path")

@@ -13,9 +13,11 @@ pre-training, and runs the training CLI end to end
 
 - ``constants`` / ``config``  — the JAX package's config fields and CLI
                   flags.
-- ``data``      — synthetic corpus, markers, clips, augmentation, scaler,
-                  the detection, classification, Dense-CNN flat-clip and
-                  SSL datasets and the threaded loader.
+- ``data``      — synthetic corpus, the EDF codec, markers, clips,
+                  augmentation, scaler, the detection, classification,
+                  Dense-CNN flat-clip and SSL datasets (streaming or from
+                  ``--preproc_dir``), the threaded loader, and the clip
+                  store with its native gather (``native/``).
 - ``graphs``    — spectral supports (host numpy oracles + batched torch),
                   the distance and correlation graphs.
 - ``ops``       — the numpy FFT features, Chebyshev diffusion, the
@@ -33,10 +35,13 @@ pre-training, and runs the training CLI end to end
                   cosine LR, ``TrainStep`` (supervised and SSL) and its
                   eval step, numpy metrics, checkpoints, and the
                   ``Trainer`` / ``run_experiment`` driver.
-- ``cli``       — the training entry point; ``utils`` — logging and the
-                  metrics sink.
+- ``cli``       — the training entry point, and the offline ingest and
+                  clip caches (``python -m
+                  eeg_gnn_tpu_torch.cli.preprocess``); ``utils`` —
+                  logging and the metrics sink; ``viz`` — the electrode
+                  graph's drawing.
 
-What is still to port is listed in ROADMAP.md.
+ROADMAP.md lists the port's deliberate deviations from the JAX package.
 """
 
 __version__ = "0.1.0"

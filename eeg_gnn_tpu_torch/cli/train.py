@@ -23,7 +23,9 @@ rotates it through the device in shards (``data/rotating_cache.py``):
 all three tasks, both graph types. As in the JAX CLI, both serve
 ``--model_name dcrnn`` only: a baseline accepts them and streams host
 features. ``--reflect_invariant`` is the JAX CLI's; ``--fused_steps`` is
-accepted and ignored (``config.py``).
+accepted and ignored (``config.py``). ``--preproc_dir`` reads the clip
+caches of ``python -m eeg_gnn_tpu_torch.cli.preprocess`` in place of
+slicing the resampled signals, streaming and under ``--hbm_cache``.
 
 Data-parallel (JAX ``cli/train.py:34-89``): run under ``torchrun``
 (``--nproc_per_node N``), every rank forms the process group first
@@ -209,7 +211,8 @@ def main(argv=None, *, device=None, signals=None):
             num_workers=cfg.num_workers, augmentation=cfg.data_augment,
             adj_mat_dir=adj_mat_dir, graph_type=cfg.graph_type,
             top_k=cfg.top_k, filter_type=cfg.filter_type, use_fft=cfg.use_fft,
-            marker_dir=marker_dir, signals=signals,
+            preproc_dir=cfg.preproc_dir, marker_dir=marker_dir,
+            signals=signals,
         )
         if cfg.task == "detection":
             loaders, _, scaler = load_dataset_detection(

@@ -14,8 +14,8 @@ as in the JAX CLI they serve ``--model_name dcrnn`` only, and a baseline
 accepts and ignores them. ``--mesh_shape data:N`` is the data-parallel
 mesh over N ranks (``parallel/``). ``check_runnable`` refuses a
 ``graph`` axis with a ``ValueError``, as a deliberate deviation: the JAX
-CLI ignores ``--mesh_shape`` (:data:`GRAPH_AXIS_CLI`). ``preproc_dir`` is
-still to port and raises ``NotImplementedError`` there (``_NOT_PORTED``).
+CLI ignores ``--mesh_shape`` (:data:`GRAPH_AXIS_CLI`). ``preproc_dir``
+reads the clip caches of ``cli/preprocess.py`` (``data/datasets.py``).
 """
 
 from __future__ import annotations
@@ -119,19 +119,13 @@ class ExperimentConfig:
 
     def check_runnable(self) -> "ExperimentConfig":
         """The run rules of the training CLI: an eval-only run needs a
-        checkpoint (the JAX ``finalize``'s rule, args.py:196-221), no
-        feature that is still to port is asked for, and the mesh has no
-        graph axis (:data:`GRAPH_AXIS_CLI`)."""
+        checkpoint (the JAX ``finalize``'s rule, args.py:196-221), and the
+        mesh has no graph axis (:data:`GRAPH_AXIS_CLI`)."""
         if self.load_model_path is None and not self.do_train:
             raise ValueError(
                 "For evaluation only, please provide trained model checkpoint "
                 "in argument load_model_path."
             )
-        for flag, asked in _NOT_PORTED.items():
-            if asked(self):
-                raise NotImplementedError(
-                    f"--{flag}={getattr(self, flag)!r} is not ported yet "
-                    "(ROADMAP.md, Queue 1)")
         from eeg_gnn_tpu_torch.parallel.mesh import (
             check_axes,
             parse_mesh_shape,
@@ -199,11 +193,6 @@ GRAPH_AXIS_CLI = (
     "does; the mesh's graph axis is reached through "
     "eeg_gnn_tpu_torch.parallel.sparse_model (make_sparse_train_step) and "
     "the dry run, python -m eeg_gnn_tpu_torch.entry")
-
-# flag -> whether this config asks for that feature, still to port
-_NOT_PORTED = {
-    "preproc_dir": lambda c: c.preproc_dir is not None,
-}
 
 
 def _add_bool_flag(parser, name, help_str):

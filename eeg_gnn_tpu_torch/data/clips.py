@@ -12,10 +12,13 @@ features. Annotation parsing (``.tse_bi`` / ``.tse``) follows
 ``detection_clip`` / ``ssl_clip`` / ``classification_clip`` /
 ``raw_clip`` slice a signal already in memory; the ``slice_*`` functions
 read it from its h5 file first (h5py is imported only there).
-``raw_clip`` is the raw window of the on-device pipeline.
+``raw_clip`` is the raw window of the on-device pipeline;
+``find_edf_files`` walks a corpus for its EDF files.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -33,6 +36,17 @@ def read_resampled_h5(h5_path: str):
     if int(freq) != FREQUENCY:
         raise ValueError(f"{h5_path}: resample_freq {freq} != {FREQUENCY}")
     return signal
+
+
+def find_edf_files(raw_data_dir: str) -> list:
+    """Every file under ``raw_data_dir`` whose name contains ".edf" (the
+    reference's walk, data_utils.py and resample_signals.py)."""
+    edf_files = []
+    for path, _, files in os.walk(raw_data_dir):
+        for name in files:
+            if ".edf" in name:
+                edf_files.append(os.path.join(path, name))
+    return edf_files
 
 
 def get_seizure_times(file_stem: str):

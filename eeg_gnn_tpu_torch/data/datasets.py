@@ -19,8 +19,12 @@ the h5 files on hosts without h5py.
 slices; FFT, augmentation, standardization and graphs run on the device
 (``data/device_pipeline.py``).
 
-Still to port (ROADMAP.md, Queue 1): precomputed clip directories
-(``preproc_dir``, item 2); they raise ``NotImplementedError``.
+``preproc_dir`` reads each clip from the caches of
+``cli/preprocess.py`` (``hf["clip"]`` of one h5 file a clip) where the
+JAX datasets do: detection ``{h5_fn}``, classification and the
+Dense-CNN ``{edf_fn}_{seizure_idx}.h5`` (the Dense-CNN's ``seq_len`` is
+the cached clip's first dimension), SSL both clips of the pair. The
+raw-clip datasets read the resampled signals, as in JAX.
 """
 
 from __future__ import annotations
@@ -49,20 +53,6 @@ from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency
 from eeg_gnn_tpu_torch.ops.fft_features import log_amplitude_fft_np
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              "Queue 1)")
-
-
-def _find_edf_files(raw_data_dir: str):
-    edf_files = []
-    for path, _, files in os.walk(raw_data_dir):
-        for name in files:
-            if ".edf" in name:
-                edf_files.append(os.path.join(path, name))
-    return edf_files
-
-
 class _BaseEEGDataset:
     """Shared machinery: augmentation, standardization, graph/supports."""
 
@@ -70,8 +60,6 @@ class _BaseEEGDataset:
                  standardize, scaler, split, data_augment, adj_mat_dir,
                  graph_type, top_k, filter_type, use_fft, preproc_dir=None,
                  rng_seed=None, signals: Optional[Mapping] = None):
-        if preproc_dir is not None:
-            _not_ported("reading precomputed clips (preproc_dir)")
         if standardize and scaler is None:
             raise ValueError("To standardize, please provide scaler.")
         if graph_type == "individual" and top_k is None:
@@ -89,8 +77,10 @@ class _BaseEEGDataset:
         self.top_k = top_k
         self.filter_type = filter_type
         self.use_fft = use_fft
+        self.preproc_dir = preproc_dir
         self.signals = signals
-        self.edf_files = _find_edf_files(raw_data_dir) if raw_data_dir else []
+        self.edf_files = (clip_ops.find_edf_files(raw_data_dir)
+                          if raw_data_dir else [])
         # O(1) lookup index (marker entries carry the exact file name);
         # the reference substring-scans the whole list per sample
         # (dataloader_detection.py:364-369)
@@ -119,6 +109,13 @@ class _BaseEEGDataset:
         if self.signals is not None:
             return self.signals[h5_path]
         return clip_ops.read_resampled_h5(h5_path)
+
+    def _cached_clip(self, name: str) -> np.ndarray:
+        """``hf["clip"]`` of ``preproc_dir/name``."""
+        import h5py
+
+        with h5py.File(os.path.join(self.preproc_dir, name), "r") as hf:
+            return hf["clip"][()]
 
     def _augment(self, eeg_clip):
         if self.data_augment:
@@ -177,12 +174,17 @@ class DetectionDataset(_BaseEEGDataset):
     def __getitem__(self, idx):
         h5_fn, seizure_label = self.file_tuples[idx]
         clip_idx = int(h5_fn.split("_")[-1].split(".h5")[0])
-        edf_file = self._lookup_edf(h5_fn.split(".edf")[0] + ".edf")
-        h5_path = os.path.join(self.input_dir, h5_fn.split(".edf")[0] + ".h5")
-        eeg_clip, _ = clip_ops.detection_clip(
-            self._signal(h5_path),
-            clip_ops.get_seizure_times(edf_file.split(".edf")[0]), clip_idx,
-            self.time_step_size, self.max_seq_len, self.use_fft)
+        if self.preproc_dir is None:
+            edf_file = self._lookup_edf(h5_fn.split(".edf")[0] + ".edf")
+            h5_path = os.path.join(self.input_dir,
+                                   h5_fn.split(".edf")[0] + ".h5")
+            eeg_clip, _ = clip_ops.detection_clip(
+                self._signal(h5_path),
+                clip_ops.get_seizure_times(edf_file.split(".edf")[0]),
+                clip_idx, self.time_step_size, self.max_seq_len,
+                self.use_fft)
+        else:
+            eeg_clip = self._cached_clip(h5_fn)
 
         feat, swap_nodes = self._augment(eeg_clip)
         feat = self._standardize(feat)
@@ -220,12 +222,19 @@ class SSLDataset(_BaseEEGDataset):
         h5_fn_x, h5_fn_y = self.file_tuples[idx]
         clip_idx_x = int(h5_fn_x.split("_")[-1].split(".h5")[0])
         clip_idx_y = int(h5_fn_y.split("_")[-1].split(".h5")[0])
-        h5_path = os.path.join(self.input_dir, h5_fn_x.split(".edf")[0] + ".h5")
-        signal = self._signal(h5_path)
-        eeg_clip_x = clip_ops.ssl_clip(signal, clip_idx_x, self.time_step_size,
-                                       self.input_len, self.use_fft)
-        eeg_clip_y = clip_ops.ssl_clip(signal, clip_idx_y, self.time_step_size,
-                                       self.input_len, self.use_fft)
+        if self.preproc_dir is None:
+            h5_path = os.path.join(self.input_dir,
+                                   h5_fn_x.split(".edf")[0] + ".h5")
+            signal = self._signal(h5_path)
+            eeg_clip_x = clip_ops.ssl_clip(signal, clip_idx_x,
+                                           self.time_step_size,
+                                           self.input_len, self.use_fft)
+            eeg_clip_y = clip_ops.ssl_clip(signal, clip_idx_y,
+                                           self.time_step_size,
+                                           self.input_len, self.use_fft)
+        else:
+            eeg_clip_x = self._cached_clip(h5_fn_x)
+            eeg_clip_y = self._cached_clip(h5_fn_y)
 
         if self.data_augment:
             reflect = bool(self.rng.choice([True, False]))
@@ -318,13 +327,17 @@ class ClassificationDataset(_BaseEEGDataset):
 
     def __getitem__(self, idx):
         edf_fn, seizure_class, seizure_idx = self.file_tuples[idx]
-        edf_file = self._lookup_edf(edf_fn)
-        h5_path = os.path.join(self.input_dir,
-                               edf_fn.split(".edf")[0] + ".h5")
-        eeg_clip = clip_ops.classification_clip(
-            self._signal(h5_path),
-            clip_ops.get_seizure_times(edf_file.split(".edf")[0]),
-            seizure_idx, self.time_step_size, self.max_seq_len, self.use_fft)
+        if self.preproc_dir is None:
+            edf_file = self._lookup_edf(edf_fn)
+            h5_path = os.path.join(self.input_dir,
+                                   edf_fn.split(".edf")[0] + ".h5")
+            eeg_clip = clip_ops.classification_clip(
+                self._signal(h5_path),
+                clip_ops.get_seizure_times(edf_file.split(".edf")[0]),
+                seizure_idx, self.time_step_size, self.max_seq_len,
+                self.use_fft)
+        else:
+            eeg_clip = self._cached_clip(f"{edf_fn}_{seizure_idx}.h5")
 
         feat, swap_nodes = self._augment(eeg_clip)
         feat = self._standardize(feat)
@@ -387,7 +400,11 @@ class DenseCNNClassificationDataset(_BaseEEGDataset):
 
     def __getitem__(self, idx):
         edf_fn, seizure_class, seizure_idx = self.file_tuples[idx]
-        eeg_clip, seq_len = self._slice(edf_fn, seizure_idx)
+        if self.preproc_dir is None:
+            eeg_clip, seq_len = self._slice(edf_fn, seizure_idx)
+        else:
+            eeg_clip = self._cached_clip(f"{edf_fn}_{seizure_idx}.h5")
+            seq_len = eeg_clip.shape[0]
         if self.data_augment:
             reflected = eeg_clip.copy()
             if self.rng.choice([True, False]):

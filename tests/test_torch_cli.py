@@ -22,8 +22,9 @@ and dev-tuned threshold at rtol 1e-4; accuracy, F1, precision, recall
 and AUROC exactly, unless a test probability lies within 1e-5 of the
 threshold; ``best.npz`` at rtol 1e-4, atol 1e-6 (parameters near 0).
 Then ``cli.train.main(argv, device="cpu")`` once end to end, the flag
-surface against the JAX CLI's, and the flags whose features are not
-ported.
+surface against the JAX CLI's, and ``--preproc_dir`` through
+``cli.train.main`` (DCRNN SSL on the preprocess CLI's caches, the
+Dense-CNN's classification on its flat clips) against the JAX runs.
 """
 
 import json
@@ -55,6 +56,7 @@ from eeg_gnn_tpu_torch.utils.logging import MetricsWriter
 
 SSL = "SS pre-training"
 CLIP = 12
+DC_CLIP = 7  # seconds: the Dense-CNN's least plane, (700, 19)
 RTOL = 1e-4
 NEAR = 1e-5  # a test probability this close to the threshold may flip
 
@@ -88,7 +90,7 @@ def _loaders(ds_module, p, cfg, raw_mode=False):
         standardize=True, num_workers=1, augmentation=False,
         adj_mat_dir=p["adj_mat_dir"], graph_type=cfg.graph_type, top_k=3,
         filter_type=cfg.filter_type, use_fft=True,
-        marker_dir=p["marker_dir"])
+        marker_dir=p["marker_dir"], preproc_dir=cfg.preproc_dir)
     if cfg.task == SSL:
         return ds_module.load_dataset_ssl(input_len=CLIP,
                                           output_len=cfg.output_seq_len,
@@ -98,7 +100,7 @@ def _loaders(ds_module, p, cfg, raw_mode=False):
             max_seq_len=cfg.max_seq_len, **{k: common[k] for k in (
                 "input_dir", "raw_data_dir", "train_batch_size",
                 "test_batch_size", "standardize", "num_workers",
-                "augmentation", "use_fft", "marker_dir")})
+                "augmentation", "use_fft", "marker_dir", "preproc_dir")})
     if cfg.task == "classification":
         common.pop("raw_mode")
         return ds_module.load_dataset_classification(max_seq_len=CLIP,
@@ -169,11 +171,12 @@ def _jax_input_path(cfg, p, scaler):
                   for s, ds in plain.items()}
 
 
-def _run_both(p, tmp_path, kw):
-    """run_experiment in each package from the JAX initial parameters (a
-    model with state, the Dense-CNN: the JAX run draws them itself from
-    the same key, as its ``init_params`` carries no state)."""
-    jcfg, tcfg = JaxConfig(**kw).finalize(), ExperimentConfig(**kw).finalize()
+def _jax_run(p, tmp_path, kw):
+    """run_experiment in the JAX package: (results, run dir, its initial
+    parameters and state as numpy trees; a model with state, the
+    Dense-CNN, draws them itself from the same key, as its
+    ``init_params`` carries no state)."""
+    jcfg = JaxConfig(**kw).finalize()
     key = jax.random.PRNGKey(jcfg.rand_seed)
     state = {}
     if jcfg.task == SSL:
@@ -182,14 +185,22 @@ def _run_both(p, tmp_path, kw):
         init, state = jax_build_model(jcfg).init(key)
     init_np = jax.tree_util.tree_map(np.asarray, init)
     state_np = jax.tree_util.tree_map(np.asarray, state)
-    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jdir = str(tmp_path / "jax")
     os.makedirs(jdir)
-    os.makedirs(tdir)
     loaders, _, scaler = _loaders(jds, p, jcfg, jcfg.device_pipeline)
     pipe, caches = _jax_input_path(jcfg, p, scaler)
     jres = jax_run(jcfg, loaders, scaler, jdir, _log(), JaxWriter(jdir),
                    init_params=None if state else init, input_pipeline=pipe,
                    device_caches=caches)
+    return jres, jdir, init_np, state_np
+
+
+def _run_both(p, tmp_path, kw):
+    """run_experiment in each package from the JAX initial parameters."""
+    jres, jdir, init_np, state_np = _jax_run(p, tmp_path, kw)
+    tcfg = ExperimentConfig(**kw).finalize()
+    tdir = str(tmp_path / "port")
+    os.makedirs(tdir)
     loaders, _, scaler = _loaders(tds, p, tcfg, tcfg.device_pipeline)
     pipe, caches = cli.input_path(
         tcfg, scaler, adj_mat_dir=p["adj_mat_dir"],
@@ -230,7 +241,7 @@ def _steps_per_epoch(p, cfg, caches):
 
 
 def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None,
-                       param_atol=1e-6):
+                       param_atol=1e-6, cli_files=()):
     jm, tm = _metrics(jdir), _metrics(tdir)
     assert [(r["tag"], r["step"]) for r in tm] == \
         [(r["tag"], r["step"]) for r in jm]
@@ -258,8 +269,10 @@ def _assert_runs_agree(p, jres, tres, jdir, tdir, cfg, caches=None,
             np.testing.assert_allclose(b[k], a[k], rtol=RTOL,
                                        atol=param_atol)
     # the same files, but the JAX package's optional TensorBoard events
+    # (and those the port's CLI adds around run_experiment)
     assert sorted(os.listdir(tdir)) == sorted(
-        f for f in os.listdir(jdir) if not f.startswith("events.out."))
+        [f for f in os.listdir(jdir) if not f.startswith("events.out.")]
+        + list(cli_files))
 
 
 @pytest.mark.parametrize("task,graph_type,flags", [
@@ -419,17 +432,95 @@ def test_cli_flags_match_jax(argv):
         JaxConfig(**want).finalize().to_json()
 
 
+@pytest.fixture(scope="module")
+def dc_corpus(tmp_path_factory):
+    """The Dense-CNN's (tests/test_torch_baselines_cli.py): 7 train
+    seizures, 2 dev, 3 test, 7 s clips."""
+    root = str(tmp_path_factory.mktemp("dc_corpus"))
+    return make_synthetic_corpus(root, num_files=8, file_seconds=56,
+                                 clip_len=DC_CLIP, seed=1)
+
+
+def _densecnn_flat_cache(p, out):
+    """The Dense-CNN's flat (700, 19) clips, unstandardized, as the h5
+    caches its ``--preproc_dir`` reads (``{edf}_{seizure_idx}.h5``)."""
+    import h5py
+
+    os.makedirs(out)
+    sets = tds.load_dataset_densecnn_classification(
+        input_dir=p["input_dir"], raw_data_dir=p["raw_data_dir"],
+        train_batch_size=4, max_seq_len=DC_CLIP, standardize=False,
+        marker_dir=p["marker_dir"], build_loaders=False)[1]
+    for ds in sets.values():
+        for edf_fn, _, seizure_idx in ds.file_tuples:
+            clip, _ = ds._slice(edf_fn, seizure_idx)
+            with h5py.File(os.path.join(out, f"{edf_fn}_{seizure_idx}.h5"),
+                           "w") as f:
+                f.create_dataset("clip", data=clip)
+
+
 @pytest.mark.parametrize("flag", [
-    # the baselines run (tests/test_torch_baselines_cli.py) but refuse
-    # the features still to port, as DCRNN does
-    ["--task", "classification", "--model_name", "densecnn",
-     "--preproc_dir", "/x"],
-    ["--preproc_dir", "/x"]])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--do_train", "--save_dir", str(tmp_path)] + flag,
-                 device="cpu")
-    assert not os.listdir(tmp_path)  # raised before the run dir existed
+    ["--task", "classification", "--model_name", "densecnn"],
+    ["--task", SSL]])
+def test_unported_flags_raise(corpus, dc_corpus, tmp_path, monkeypatch,
+                              capsys, flag):
+    """``--preproc_dir`` (once refused) through ``cli.train.main``: DCRNN
+    SSL on the SSL caches of the port's preprocess CLI (as
+    tests/test_e2e.py's JAX run), and the Dense-CNN's classification on
+    its flat clips (at lr 1e-7, dropout 0 and the port's seeded initial
+    weights, as tests/test_torch_baselines_cli.py holds it), each against
+    JAX ``run_experiment`` on the JAX CLI's loaders over the same kind of
+    cache (SSL: the JAX preprocess CLI's), the port's run starting from
+    the JAX initial parameters."""
+    from eeg_gnn_tpu.cli.preprocess import main as jprep
+    from eeg_gnn_tpu.models import densecnn as jdensecnn
+    from eeg_gnn_tpu_torch.cli.preprocess import main as tprep
+    from eeg_gnn_tpu_torch.io import params_to_jax, state_to_jax
+    from eeg_gnn_tpu_torch.models import densecnn as tdensecnn
+    from eeg_gnn_tpu_torch.models.registry import build_model
+
+    densecnn = "densecnn" in flag
+    p = dc_corpus if densecnn else corpus
+    caches = {pkg: str(tmp_path / f"cache_{pkg}") for pkg in ("jax", "port")}
+    if densecnn:
+        kw = _kw(p, "classification", "combined", model_name="densecnn",
+                 max_seq_len=DC_CLIP, lr_init=1e-7)
+        _densecnn_flat_cache(p, caches["jax"])
+        caches["port"] = caches["jax"]
+        sd = build_model(ExperimentConfig(**kw).finalize(),
+                         torch.Generator().manual_seed(0)).state_dict()
+        init = (params_to_jax(sd), state_to_jax(sd))
+        monkeypatch.setattr(jdensecnn, "init_densecnn_params",
+                            lambda *a, **k: init)
+        apply = jdensecnn.densecnn_apply
+        monkeypatch.setattr(jdensecnn, "densecnn_apply", lambda *a, **k:
+                            apply(*a, **dict(k, dropout_rate=0.0)))
+        monkeypatch.setattr(tdensecnn, "DROPOUT_RATE", 0.0)
+    else:
+        kw = _kw(p, SSL, "combined")
+        for pkg, prep in (("jax", jprep), ("port", tprep)):
+            prep(["ssl", "--resampled_dir", p["input_dir"], "--marker_dir",
+                  p["marker_dir"], "--output_dir", caches[pkg],
+                  "--clip_len", str(CLIP)])
+    jres, jdir, init_np, state_np = _jax_run(
+        p, tmp_path, dict(kw, preproc_dir=caches["jax"]))
+    run = ttrainer.run_experiment
+    monkeypatch.setattr(ttrainer, "run_experiment", lambda *a, **k: run(
+        *a, **dict(k, init_params=params_from_jax(init_np, state_np))))
+    argv = flag + ["--preproc_dir", caches["port"], "--marker_dir",
+                   p["marker_dir"], "--adj_mat_dir", p["adj_mat_dir"],
+                   "--save_dir", str(tmp_path / "save")]
+    for k, v in kw.items():
+        if k != "task" and v is not False:
+            argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    tres = cli.main(argv, device="cpu")
+    tdir = str(tmp_path / "save" / "train" / "train-01")
+    cfg = ExperimentConfig(**dict(kw, preproc_dir=caches["port"])).finalize()
+    with open(os.path.join(tdir, "args.json")) as f:
+        assert json.load(f)["preproc_dir"] == caches["port"]
+    _assert_runs_agree(p, jres, tres, jdir, tdir, cfg,
+                       cli_files=("args.json", "results.json", "info.log"))
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("flag", [

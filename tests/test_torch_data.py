@@ -1,7 +1,7 @@
 """The port's host data pipeline against the JAX package's on the CPU:
 FFT features, scaler, augmentation, markers, swap pairs, the synthetic
-corpus, the distance graph, the detection and SSL datasets and the
-threaded loader.
+corpus, the distance graph, the detection and SSL datasets, the four
+datasets' ``preproc_dir`` reads and the threaded loader.
 
 Tolerances: the FFT features and the datasets' samples at atol 1e-6 (the
 same numpy arithmetic; samples are float32); everything else exact.
@@ -400,18 +400,52 @@ def test_raw_datasets_match_jax(corpus, task):
                                       jclips.slice_raw_clip(h5, idx, CLIP))
 
 
-def test_unported_data_paths_raise(corpus):
+def test_unported_data_paths_raise(corpus, tmp_path, capsys):
+    """``preproc_dir`` (once refused): the detection, classification, SSL
+    and Dense-CNN datasets read caches that the port's preprocess CLI
+    wrote, and their items equal the JAX datasets' read from the JAX
+    CLI's caches; the Dense-CNN's flat-clip dataset also streams, against
+    JAX's."""
+    from eeg_gnn_tpu.cli.preprocess import main as jprep
+    from eeg_gnn_tpu.data.datasets import load_dataset_classification \
+        as jcls
+    from eeg_gnn_tpu_torch.cli.preprocess import main as tprep
+
+    caches = {}
+    for pkg, prep in (("jax", jprep), ("port", tprep)):
+        for cmd in ("detection", "classification", "ssl"):
+            caches[pkg, cmd] = str(tmp_path / pkg / cmd)
+            prep([cmd, "--resampled_dir", corpus["input_dir"],
+                  "--marker_dir", corpus["marker_dir"], "--output_dir",
+                  caches[pkg, cmd], "--clip_len", str(CLIP)]
+                 + (["--raw_data_dir", corpus["raw_data_dir"]]
+                    if cmd != "ssl" else []))
+    capsys.readouterr()
     kw = _loader_kw(corpus, "combined")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset_detection(max_seq_len=CLIP, preproc_dir="/x", **kw)
-    # the Dense-CNN's flat-clip dataset runs (against JAX's) and refuses
-    # preproc_dir as the others do
     dc_kw = {k: kw[k] for k in ("input_dir", "raw_data_dir",
                                 "train_batch_size", "test_batch_size",
                                 "standardize", "num_workers", "marker_dir")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset_densecnn_classification(
-            max_seq_len=CLIP, preproc_dir="/x", **dc_kw)
+    cases = (
+        ("detection", tds.load_dataset_detection, jdet,
+         dict(max_seq_len=CLIP, build_loaders=False, **kw)),
+        ("classification", tds.load_dataset_classification, jcls,
+         dict(max_seq_len=CLIP, build_loaders=False, **kw)),
+        ("ssl", tds.load_dataset_ssl, jssl,
+         dict(input_len=CLIP, output_len=4, build_loaders=False, **kw)),
+        ("classification", tds.load_dataset_densecnn_classification,
+         jdc_cls, dict(max_seq_len=CLIP, **dc_kw)))
+    for cmd, tload, jload, case_kw in cases:
+        got = tload(preproc_dir=caches["port", cmd], **case_kw)[1]
+        want = jload(preproc_dir=caches["jax", cmd], **case_kw)[1]
+        for split in ("train", "dev", "test"):
+            assert type(got[split]).__name__ == type(want[split]).__name__
+            assert len(got[split]) == len(want[split]) > 0
+            for i in range(len(want[split])):
+                _assert_samples_equal(got[split][i], want[split][i])
+        if tload is tds.load_dataset_densecnn_classification:
+            # the cached (T, N, D) clip, seq_len its first dimension
+            item = got["train"][0]
+            assert item[0].ndim == 3 and item[2] == item[0].shape[0]
     got = tds.load_dataset_densecnn_classification(max_seq_len=CLIP,
                                                    **dc_kw)[1]
     want = jdc_cls(max_seq_len=CLIP, **dc_kw)[1]
@@ -420,6 +454,3 @@ def test_unported_data_paths_raise(corpus):
         for i in range(len(want[split])):
             _assert_samples_equal(got[split][i], want[split][i])
             assert got[split][i][0].shape == (CLIP * 100, tconst.NUM_NODES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset_classification(max_seq_len=CLIP, preproc_dir="/x",
-                                        **kw)

@@ -232,8 +232,9 @@ def _forbidden(module: str) -> bool:
 
 def test_port_sources_import_no_jax():
     """AST scan of every module of the port (``parallel/``, the graph
-    axis's modules, ``utils/`` and ``entry.py`` included), its card
-    scripts and the rank workers of the multi-rank tests."""
+    axis's modules, ``utils/``, ``entry.py``, the offline input path and
+    ``viz/`` included), its card scripts and the rank workers of the
+    multi-rank tests."""
     port = REPO / "eeg_gnn_tpu_torch"
     files = sorted(port.rglob("*.py"))
     assert len(files) >= 14
@@ -242,7 +243,8 @@ def test_port_sources_import_no_jax():
                  "edge_partition.py", "sparse_model.py"):
         assert port / "parallel" / name in files
     for name in ("graphs/sparse.py", "utils/timing.py", "utils/profiling.py",
-                 "entry.py"):
+                 "entry.py", "data/edf.py", "cli/preprocess.py",
+                 "data/clipstore.py", "viz/__init__.py", "viz/graph_viz.py"):
         assert port / name in files
     for path in files + [REPO / "chip_smoke.py", REPO / "serve_ab.py",
                          REPO / "tests" / "torch_dp_cases.py",
@@ -275,7 +277,10 @@ def test_import_pulls_in_no_jax():
             "eeg_gnn_tpu_torch.parallel.edge_partition, "
             "eeg_gnn_tpu_torch.parallel.sparse_model, "
             "eeg_gnn_tpu_torch.utils.timing, "
-            "eeg_gnn_tpu_torch.utils.profiling, eeg_gnn_tpu_torch.entry; "
+            "eeg_gnn_tpu_torch.utils.profiling, eeg_gnn_tpu_torch.entry, "
+            "eeg_gnn_tpu_torch.data.edf, eeg_gnn_tpu_torch.cli.preprocess, "
+            "eeg_gnn_tpu_torch.data.clipstore, eeg_gnn_tpu_torch.viz, "
+            "eeg_gnn_tpu_torch.viz.graph_viz; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
