@@ -1,0 +1,7 @@
+"""launches_per_step.ssl: kernels a traced optimizer step (a count)."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.launches_per_step(ctx)
