@@ -55,6 +55,7 @@ from eeg_gnn_tpu_torch.graphs.supports import (
 from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
 from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip
 from eeg_gnn_tpu_torch.parallel.mesh import rand
+from eeg_gnn_tpu_torch.utils.profiling import timed
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
 
@@ -236,6 +237,7 @@ class DevicePipeline:
                 self._supports(fx, reflect, do_reflect))
 
 
+@timed("eeg.setup.pipeline")
 def make_device_pipeline(*, graph_type: str, filter_type: str,
                          top_k: Optional[int], use_fft: bool,
                          time_step_size: int, scaler, augment: bool,

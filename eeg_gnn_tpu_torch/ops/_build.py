@@ -18,7 +18,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
+
+from eeg_gnn_tpu_torch.utils.profiling import timed
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -67,19 +68,20 @@ def build(name: str, defines: tuple = ()) -> tuple[str, float, str]:
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp,
            os.path.join(CSRC_DIR, name + ".cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    with timed("eeg.setup.kernel_build") as nvcc:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(rc {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    return out, nvcc.seconds, proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
+@timed("eeg.setup.kernels")
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; one handle per name."""
+    """Build (if needed) and load ``csrc/<name>.cu``; one handle per name
+    (the first load of each is timed as ``eeg.setup.kernels``)."""
     path, _, _ = build(name)
     return ctypes.CDLL(path)

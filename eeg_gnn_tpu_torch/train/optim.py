@@ -21,6 +21,8 @@ from typing import Iterable
 
 import torch
 
+from eeg_gnn_tpu_torch.utils.profiling import span
+
 
 def cosine_annealing_lr(lr_init: float, num_epochs: int,
                         steps_per_epoch: int):
@@ -80,13 +82,16 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self):
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in self.params],
-                             self.max_grad_norm)
-        self.adam.step()
-        self.scheduler.step()
+        with span("eeg.step.update"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            with span("eeg.step.clip"):
+                clip_by_global_norm_([p.grad for p in self.params],
+                                     self.max_grad_norm)
+            with span("eeg.step.adam"):
+                self.adam.step()
+                self.scheduler.step()
 
 
 def make_optimizer(params, lr_init: float, l2_wd: float,

@@ -59,6 +59,7 @@ from eeg_gnn_tpu_torch.train.losses import (
     cross_entropy,
 )
 from eeg_gnn_tpu_torch.train.optim import make_optimizer
+from eeg_gnn_tpu_torch.utils.profiling import span, timed
 
 
 SSL_TASK = "SS pre-training"
@@ -110,28 +111,33 @@ def supervised_loss_fn(model: nn.Module, task: str, input_pipeline=None,
 
     def loss_fn(batch: Mapping[str, Any], generator=None):
         if input_pipeline is not None and batch.get("raw") is not None:
-            x, supports = input_pipeline(batch["raw"], generator,
-                                         model.training)
+            with span("eeg.step.input"):
+                x, supports = input_pipeline(batch["raw"], generator,
+                                             model.training)
             batch = {**batch, "x": x.float(), "supports": supports}
         elif input_pipeline is not None and batch.get("cache_x") is not None:
-            feats = _gather(batch["cache_x"], batch["idx"])
-            y = _gather(batch["cache_y"], batch["idx"])
-            if batch.get("cache_seq") is not None:
-                seq = _gather(batch["cache_seq"], batch["idx"])
-                x, supports = input_pipeline.classification_features(
-                    feats, seq, generator, model.training)
-                batch = {**batch, "seq_lengths": seq}
-            else:
-                x, supports = input_pipeline.features(feats, generator,
-                                                      model.training)
-            batch = {**batch, "x": x.float(), "supports": supports, "y": y}
-        logits = model(batch["x"], batch["seq_lengths"], batch["supports"],
-                       generator)
-        valid = batch.get("valid")
-        total = None if mesh is None else batch["global_valid"]
-        if task == "detection":
-            return bce_with_logits(logits, batch["y"], valid, total), logits
-        return cross_entropy(logits, batch["y"], valid, total), logits
+            with span("eeg.step.input"):
+                feats = _gather(batch["cache_x"], batch["idx"])
+                y = _gather(batch["cache_y"], batch["idx"])
+                if batch.get("cache_seq") is not None:
+                    seq = _gather(batch["cache_seq"], batch["idx"])
+                    x, supports = input_pipeline.classification_features(
+                        feats, seq, generator, model.training)
+                    batch = {**batch, "seq_lengths": seq}
+                else:
+                    x, supports = input_pipeline.features(feats, generator,
+                                                          model.training)
+                batch = {**batch, "x": x.float(), "supports": supports,
+                         "y": y}
+        with span("eeg.step.forward"):
+            logits = model(batch["x"], batch["seq_lengths"],
+                           batch["supports"], generator)
+            valid = batch.get("valid")
+            total = None if mesh is None else batch["global_valid"]
+            if task == "detection":
+                return bce_with_logits(logits, batch["y"], valid,
+                                       total), logits
+            return cross_entropy(logits, batch["y"], valid, total), logits
 
     return loss_fn
 
@@ -159,22 +165,25 @@ def ssl_loss_fn(model: nn.Module, mean=None, std=None, input_pipeline=None,
                 batches_seen=None):
         pair = None
         if input_pipeline is not None and batch.get("raw") is not None:
-            pair = input_pipeline.ssl(batch["raw"], batch["raw_y"],
-                                      generator, model.training)
+            with span("eeg.step.input"):
+                pair = input_pipeline.ssl(batch["raw"], batch["raw_y"],
+                                          generator, model.training)
         elif input_pipeline is not None and batch.get("cache_x") is not None:
-            pair = input_pipeline.ssl_features(
-                _gather(batch["cache_x"], batch["idx"]),
-                _gather(batch["cache_y"], batch["idx"]), generator,
-                model.training)
+            with span("eeg.step.input"):
+                pair = input_pipeline.ssl_features(
+                    _gather(batch["cache_x"], batch["idx"]),
+                    _gather(batch["cache_y"], batch["idx"]), generator,
+                    model.training)
         if pair is not None:
             batch = {**batch, "x": pair[0].float(), "y": pair[1].float(),
                      "supports": pair[2]}
-        preds = model(batch["x"], batch["y"], batch["supports"],
-                      batches_seen=batches_seen, generator=generator)
-        loss = compute_regression_loss(
-            batch["y"], preds, mean=mean, std=std,
-            loss_fn=SSL_TRAIN_LOSS if model.training else "mae",
-            valid=batch.get("valid"), mesh=mesh)
+        with span("eeg.step.forward"):
+            preds = model(batch["x"], batch["y"], batch["supports"],
+                          batches_seen=batches_seen, generator=generator)
+            loss = compute_regression_loss(
+                batch["y"], preds, mean=mean, std=std,
+                loss_fn=SSL_TRAIN_LOSS if model.training else "mae",
+                valid=batch.get("valid"), mesh=mesh)
         return loss, preds
 
     return loss_fn
@@ -232,6 +241,7 @@ class TrainStep:
     global rows. The returned loss is the global batch's.
     """
 
+    @timed("eeg.setup.train_step")
     def __init__(self, cfg: ExperimentConfig, model: nn.Module,
                  steps_per_epoch: int, device=None,
                  generator: Optional[torch.Generator] = None,
@@ -265,9 +275,10 @@ class TrainStep:
                                               input_pipeline=input_pipeline,
                                               mesh=mesh)
         self.input_pipeline = input_pipeline
-        self.optimizer = make_optimizer(
-            self.model.parameters(), cfg.lr_init, cfg.l2_wd,
-            cfg.max_grad_norm, cfg.num_epochs, steps_per_epoch)
+        with timed("eeg.setup.optimizer"):
+            self.optimizer = make_optimizer(
+                self.model.parameters(), cfg.lr_init, cfg.l2_wd,
+                cfg.max_grad_norm, cfg.num_epochs, steps_per_epoch)
         self.generator = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
 
@@ -372,17 +383,20 @@ class TrainStep:
                        batches_seen=None) -> torch.Tensor:
         """Forward and backward: the parameters' ``.grad`` hold this
         batch's raw (unclipped) gradients afterwards."""
-        self.optimizer.zero_grad()
+        with span("eeg.step.zero_grad"):
+            self.optimizer.zero_grad()
         extra = {"batches_seen": batches_seen} if self.ssl else {}
         batch = self.device_batch(batch)
         if self.mesh is None:
             loss, _ = self.loss_fn(batch, self.generator, **extra)
-            loss.backward()
+            with span("eeg.step.backward"):
+                loss.backward()
             return loss.detach()
         b = self._local_rows(batch)
         with global_draws(self.mesh.rank * b, self.mesh.world * b):
             share, _ = self.loss_fn(batch, self.generator, **extra)
-        share.backward()
+        with span("eeg.step.backward"):
+            share.backward()
         # the one collective of the step: every gradient (a zero one where
         # the loss does not reach a parameter) and the loss's share
         params = list(self.model.parameters())
@@ -398,9 +412,10 @@ class TrainStep:
 
     def __call__(self, batch: Mapping[str, Any],
                  batches_seen=None) -> torch.Tensor:
-        loss = self.loss_and_grads(batch, batches_seen)
-        self.update()
-        return loss
+        with span("eeg.step"):
+            loss = self.loss_and_grads(batch, batches_seen)
+            self.update()
+            return loss
 
     def evaluate(self, batch: Mapping[str, Any]):
         """The eval step (JAX ``make_eval_step``, train/step.py:400): (loss,
@@ -410,17 +425,18 @@ class TrainStep:
         the MAE) and no autograd; the model returns to training mode.
         Under a mesh the outputs are this rank's rows and the loss the
         global batch's."""
-        batch = self.device_batch(batch)
-        self.model.eval()
-        try:
-            with torch.inference_mode():
-                loss, out = self.loss_fn(batch)
-                if self.mesh is not None:
-                    loss = distributed.all_reduce_sum(loss.reshape(1),
-                                                      self.mesh)[0]
-                return loss, out
-        finally:
-            self.model.train()
+        with span("eeg.eval"):
+            batch = self.device_batch(batch)
+            self.model.eval()
+            try:
+                with torch.inference_mode():
+                    loss, out = self.loss_fn(batch)
+                    if self.mesh is not None:
+                        loss = distributed.all_reduce_sum(loss.reshape(1),
+                                                          self.mesh)[0]
+                    return loss, out
+            finally:
+                self.model.train()
 
 
 def make_multi_train_step(step: TrainStep):
@@ -472,13 +488,14 @@ def make_cached_epoch_step(step: TrainStep, seq_len: int, batch_size: int):
     one = make_cached_train_step(step, seq_len, batch_size)
 
     def run(x, y, perm, valid_vec, seen, seq=None):
-        losses = torch.zeros((len(valid_vec),), dtype=torch.float32,
-                             device=step.device)
-        counter = 0
-        for _ in range(len(valid_vec)):
-            counter, seen = one(x, y, perm, valid_vec, counter, seen, losses,
-                                seq)
-        return losses
+        with span("eeg.plan"):
+            losses = torch.zeros((len(valid_vec),), dtype=torch.float32,
+                                 device=step.device)
+            counter = 0
+            for _ in range(len(valid_vec)):
+                counter, seen = one(x, y, perm, valid_vec, counter, seen,
+                                    losses, seq)
+            return losses
 
     return run
 

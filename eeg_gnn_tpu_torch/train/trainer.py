@@ -84,6 +84,7 @@ from eeg_gnn_tpu_torch.train.step import (
     make_cached_epoch_step,
     make_mesh_cached_train_step,
 )
+from eeg_gnn_tpu_torch.utils.profiling import timed
 
 _TORCH_SUFFIXES = (".pth.tar", ".pth", ".pt", ".tar")
 
@@ -203,12 +204,12 @@ class Trainer:
 
     def _batches(self, split: str):
         """The split's loader batches, adding the time spent waiting for
-        each to ``self.loader_wait_s``."""
+        each (``eeg.loader.wait``) to ``self.loader_wait_s``."""
         batches = iter(self.loaders[split])
         while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            self.loader_wait_s += time.perf_counter() - t0
+            with timed("eeg.loader.wait") as wait:
+                batch = next(batches, None)
+            self.loader_wait_s += wait.seconds
             if batch is None:
                 return
             yield batch

@@ -1,28 +1,97 @@
-"""Profiling hooks (``eeg_gnn_tpu/utils/profiling.py``): a
-``torch.profiler`` trace of a block, and a step timer that waits for the
-device.
+"""Profiling hooks (``eeg_gnn_tpu/utils/profiling.py``): the program's
+spans and set-up totals, and a ``torch.profiler`` trace of a block.
 
-CUDA launches return before the card finishes, so a host clock around a
-step measures its enqueue unless something waits: :class:`StepTimer`
-waits through the value it is given (its ``float()`` copies it to the
-host) and, for a value on the card, ``torch.cuda.synchronize``.
+- :func:`span` names a stretch of the program (``eeg.step.forward``,
+  ...). While a torch profiler runs it is a ``record_function`` range:
+  the Chrome trace holds it as a ``user_annotation`` on the clock of the
+  device's kernels, and the runtime calls inside it carry the
+  correlation ids of the kernels it launched. While none runs it costs
+  one flag check and returns a shared no-op context.
+- :func:`timed` is for work done once (building a kernel library, the
+  ``TrainStep``) or already timed by the program (a wait on a loader): it
+  is a :func:`span` and always adds its host seconds and a count to a
+  total per name, read by :func:`totals` and cleared by :func:`reset`
+  from any thread.
+- :func:`trace` is how an operator traces a block: its Chrome trace
+  carries the spans beside the host's operators and the device's kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from typing import Dict, NamedTuple
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a torch profiler
+    runs; otherwise one shared no-op context."""
+    if not _profiler_enabled():
+        return _OFF
+    return record_function(name)
+
+
+class Total(NamedTuple):
+    seconds: float
+    count: int
+
+
+class Timing:
+    """What a :func:`timed` block yields: its host ``seconds`` once it
+    has ended."""
+
+    __slots__ = ("seconds",)
+
+    def __init__(self):
+        self.seconds = 0.0
+
+
+_lock = threading.Lock()
+_totals: Dict[str, Total] = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """A :func:`span` that also adds its host seconds and one to
+    ``totals()[name]``; yields a :class:`Timing`."""
+    timing = Timing()
+    t0 = time.perf_counter()
+    try:
+        with span(name):
+            yield timing
+    finally:
+        timing.seconds = time.perf_counter() - t0
+        with _lock:
+            seconds, count = _totals.get(name, (0.0, 0))
+            _totals[name] = Total(seconds + timing.seconds, count + 1)
+
+
+def totals() -> Dict[str, Total]:
+    """A copy of the process's :func:`timed` totals, by name."""
+    with _lock:
+        return dict(_totals)
+
+
+def reset():
+    """Clear the :func:`timed` totals."""
+    with _lock:
+        _totals.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Trace the enclosed block with ``torch.profiler`` (the host, and the
     card when there is one) and write a Chrome trace to
-    ``log_dir/trace.json`` (viewable in Perfetto or chrome://tracing).
-    Yields the profiler."""
+    ``log_dir/trace.json`` (viewable in Perfetto or chrome://tracing),
+    the program's spans in it. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -32,31 +101,3 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Rolling step timing with a real device sync per measurement: pass
-    ``stop`` a value the step produced (e.g. its loss)."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, sync_value=None) -> float:
-        if sync_value is not None:
-            if isinstance(sync_value, torch.Tensor) and sync_value.is_cuda:
-                torch.cuda.synchronize(sync_value.device)
-            float(sync_value)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)

@@ -11,6 +11,7 @@ The four-rank ring is tests/test_torch_graph_axis.py.
 """
 
 import dataclasses
+import json
 import os
 import socket
 
@@ -296,15 +297,21 @@ def test_timing_and_profiling(tmp_path, capsys):
     assert "[x] done in" in capsys.readouterr().out
     t = timing.Timer()
     assert t.check() >= 0.0
-    st = profiling.StepTimer(window=2)
+    profiling.reset()
     for _ in range(3):
-        st.start()
-        st.stop(torch.ones(()))
-    assert len(st.times) == 2 and st.mean >= 0.0
+        with profiling.timed("eeg.test.timing") as block:
+            torch.ones(()).item()
+        assert block.seconds >= 0.0
+    assert profiling.totals()["eeg.test.timing"].count == 3
     with profiling.trace(str(tmp_path)) as prof:
-        torch.ones(8).sum()
+        with profiling.span("eeg.test.span"):
+            torch.ones(8).sum()
     assert prof is not None
-    assert os.path.getsize(tmp_path / "trace.json") > 0
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "eeg.test.span" in names
+    profiling.reset()
+    assert profiling.totals() == {}
 
 
 def test_entry_forward_matches_jax(monkeypatch):
