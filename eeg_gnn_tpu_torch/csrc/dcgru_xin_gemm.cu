@@ -28,44 +28,45 @@
 // chip_smoke.py's proj_work, dw_work, dx_work), far below the serial
 // loops'.
 //
-// Projection and dx: one body (xin_bulk_kernel), out = sum_m (Op_m In) V_m
-// per clip; the projection takes Op_m = A_m, In = x, V_m = Wx_m (D x 3H)
-// and writes XP in f32, dx takes Op_m = A_m^T, In = dpre, V_m = Wx_m^T
-// (3H x D) and writes dx in the stream dtype. The first port staged K 16
-// columns at a time, diffused on FMA between three barriers a stage and
-// re-read its f32 weights from L2 for every chunk, converting them at
-// every fragment; its probe (loop_probe.py --only proj|dx, PERF.md) found
-// a stage spent in the products' conversions (proj), or the FMA
-// diffusion (dx at D=64), and issuing the next stage's copies. This design:
-// - diffuses on the tensor cores: the operators arrive as mma A fragments
+// Projection and dx: out = sum_m (Op_m In) V_m per clip; the projection
+// takes Op_m = A_m, In = x, V_m = Wx_m (D x 3H) and writes XP in f32, dx
+// takes Op_m = A_m^T, In = dpre, V_m = Wx_m^T (3H x D) and writes dx in
+// the stream dtype. Two bodies, by the stream dtype.
+// - bf16 streams: xin_bulk_kernel. The first port staged K 16 columns at
+//   a time, diffused on FMA between three barriers a stage and re-read
+//   its f32 weights from L2 for every chunk, converting them at every
+//   fragment; its probe (loop_probe.py --only proj|dx, PERF.md) found a
+//   stage spent in the products' conversions (proj), or the FMA diffusion
+//   (dx at D=64), and issuing the next stage's copies. This design
+//   diffuses on the tensor cores: the operators arrive as mma A fragments
 //   laid out once a launch by the wrapper (dw_op_frags, A_m or A_m^T), In
-//   is the B operand (bf16: F_0 read by ldmatrix.trans, the rows past a
-//   pair's N masked to zero; f32: In, split as read), and F_m = Op_m In
-//   is written once into a shared tile in the operand type (bf16, or TF32
-//   hi|lo pairs); m=0 is a copy. The product reads F as A fragments
-//   (ldmatrix, or 8-byte hi|lo loads, conflict-free) and converts
-//   nothing. bf16: F_m is one bf16 pass of bf16 A_m and In, rounded to
-//   bf16 (the reference's projection rounds the same F; its dx
-//   multiplies by Wx_m^T first: PERF.md says why this one does not);
-//   f32: 3xTF32.
-// - keeps the weights resident: the wrapper stages V_m as mma B fragments
-//   (xin_weight_frags: bf16, or TF32 hi and lo); a block owns one output
-//   column tile, copies its weights in once and walks many chunks of whole
-//   (t, b) pairs (a persistent grid of one wave of 132 blocks an SM slot;
-//   the H100's SM count is a constant). F holds one m at a time (K staged
-//   in pieces of one m). f32's hi|lo operands are 4x bf16's: the plan
-//   takes a narrower column tile where the weights would not fit, and
-//   splits each m's k tiles over up to 15 warps, whose partial sums are
-//   added in a fixed order (bulk_plan; PERF.md records each plan).
-// - stages by TMA from a producer warp: a weight tile as one 3-D tensor
-//   copy, a chunk's rows as one 2-D tensor copy (f32 In, rows padded for
-//   conflict-free reads) or 1-D bulk copies of their span (bf16 x), the
-//   pairs' operator fragments likewise (clip-major, so a chunk's are one
-//   span); the next chunk's copies are issued as soon as its In is read
-//   and run under the products. Two barriers an m a chunk; bf16 plans fit
-//   two blocks an SM (the projection) or 11 warps (dx), so one block's
-//   diffusion runs under the other's product.
-// - writes every output element from one block's registers: no sums
+//   is the B operand (F_0 read by ldmatrix.trans, the rows past a pair's
+//   N masked to zero), and F_m = Op_m In is written once into a shared
+//   tile in bf16, one bf16 pass of bf16 A_m and In (the reference's
+//   projection rounds the same F; its dx multiplies by Wx_m^T first:
+//   PERF.md says why this one does not); m=0 is a copy. The product reads
+//   F as A fragments (ldmatrix) and converts nothing. It keeps the weights
+//   resident: the wrapper stages V_m as mma B fragments
+//   (xin_weight_frags); a block owns one output column tile, copies its
+//   weights in once and walks many chunks of whole (t, b) pairs (a
+//   persistent grid of one wave of 132 blocks an SM slot; the H100's SM
+//   count is a constant). F holds one m at a time. It stages by TMA from
+//   a producer warp: a weight tile as one 3-D tensor copy, a chunk's rows
+//   as one 2-D tensor copy (f32 In, rows padded for conflict-free reads)
+//   or 1-D bulk copies of their span (bf16 x), the pairs' operator
+//   fragments likewise (clip-major, so a chunk's are one span); the next
+//   chunk's copies are issued as soon as its In is read and run under the
+//   products. Two barriers an m a chunk; the plans fit two blocks an SM
+//   (the projection) or 11 warps (dx), so one block's diffusion runs under
+//   the other's product.
+// - f32 streams: xin_bulk_tf32_wgmma_kernel, 3xTF32 on warpgroup MMA
+//   (wgmma) with exact f32 diffusions (its note is below). Its TF32 hi|lo
+//   weights are 4x bf16's bytes: held resident they would cap a block at
+//   64 columns, and each column tile would re-read In and re-diffuse the
+//   chunk (the 3H = 192 projection columns three times), so a block takes
+//   every column and streams the weights from L2 by k8 slice instead
+//   (PERF.md has the mma.sync design this replaced).
+// - both write every output element from one block's registers: no sums
 //   across blocks, the same bits on every run.
 //
 // dW. The TPU kernel diffused [h_prev | r h_prev | x] at every step and
@@ -113,7 +114,8 @@
 //   runs, on any card, give the same bits.
 // A chunk's stages still run in series in one 12-warp block an SM: the
 // product, shared-memory-bound (every warp reads all of G^T), is the
-// largest (PERF.md). wgmma and a persistent schedule are later work.
+// largest (PERF.md). wgmma and a persistent schedule are later work here
+// (the f32 projection and dx have them).
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder via the runtime)
 
@@ -160,9 +162,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      smem_addr(bar)));
+// `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar,
+                                          unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
 }
 
 // this phase's arrival, expecting `bytes` of copies
@@ -265,7 +270,7 @@ __device__ __forceinline__ void store_g(float2* gt, int ldg, int j, int k,
 }
 
 // G^T (column j, chunk rows k and k+1, k even) = (va, vb); also row j,
-// columns k and k+1 of the projection's and dx's F
+// columns k and k+1 of the bf16 projection's and dx's F
 __device__ __forceinline__ void store_g2(__nv_bfloat16* gt, int ldg, int j,
                                          int k, float va, float vb) {
   *reinterpret_cast<uint32_t*>(gt + j * ldg + k) = pack_bf16(va, vb);
@@ -320,7 +325,8 @@ __device__ __forceinline__ void store_out2(__nv_bfloat16* o, float a,
 }
 
 // ---------------------------------------------------------------------------
-// projection and dx: out = sum_m (Op_m In) V_m, a block a column tile
+// projection and dx in bf16: out = sum_m (Op_m In) V_m, a block a column
+// tile
 // ---------------------------------------------------------------------------
 //
 // Rows are clip-steps' node rows, (t, b, n) flattened; a chunk is P whole
@@ -332,8 +338,7 @@ __device__ __forceinline__ void store_out2(__nv_bfloat16* o, float a,
 // 16 rows of F by its columns of V_m. Rows past a chunk's pairs hold stale
 // values and meet only output rows that are never stored.
 
-constexpr int kBulkWarps = 11;    // compute warps of a bf16 block, at most
-constexpr int kBulkWarps32 = 15;  // of an f32 block (one block an SM)
+constexpr int kBulkWarps = 11;    // compute warps of a block, at most
 constexpr int kBulkRows = 96;     // rows of a chunk, at most
 constexpr int kBulkWave = 132;    // blocks of a wave: the H100's SMs, a
                                   // constant (the plan follows the shape)
@@ -346,30 +351,27 @@ struct BulkParams {
   int P, RB;           // pairs a chunk; rows a chunk, padded to 16
   int ct, ctn;         // columns of a block's tile (64, 32, 16 or 8; a
                        // warp takes min(32, ct)); column tiles
-  int ks;              // warps that split a piece's k tiles (f32)
-  int kt;              // k tiles of one m: K padded to 16 (bf16) or 8 (f32)
+  int kt;              // k tiles of one m: K padded to 16
   int fw;              // 16-byte words of one operator's fragments
   int wb;              // bytes of one n8 tile's B fragments, one k tile
   int tmap;            // In by the 2-D tensor map, rows ldk apart; else by
                        // 1-D bulk copies of the rows' span (ldk = K)
-  int ldk, ldf;        // row strides: In (elements), F (bf16 or float2)
+  int ldk, ldf;        // row strides: In (elements), F (bf16)
   int warps;           // compute warps; the producer is one more
   int walkers;         // blocks of one column tile
 };
 
 // Byte offsets of a block's shared memory: the weight tile (all m: M*kt k
 // tiles by ct/8 n tiles, as the 3-D tensor copy lands it), the chunk's In
-// rows (single: bf16 reads it once, into F_0, and the next chunk's copy is
-// issued then; f32 diffuses from it and issues the next after the last
-// m), the pairs' operator fragments (one set for a shared graph, copied
-// once), F, the copies' mbarriers (weights and shared operators; a
-// chunk's In; its operators). bf16: F_0 (= In, the diffusion's B operand
-// too, rows to the last pair's last k tile) and F_m for one m at a time;
-// f32: one F, F_0 and then each F_m, and at a chunk's end the k-split
-// warps' partial sums.
+// rows (single: it is read once, into F_0, and the next chunk's copy is
+// issued then), the pairs' operator fragments (one set for a shared
+// graph, copied once), F_0 (= In, the diffusion's B operand too, rows to
+// the last pair's last k tile) and F_m for one m at a time, the copies'
+// mbarriers (weights and shared operators; a chunk's In; its
+// operators).
 struct BulkSmem {
   int w, in, ops, f, fm, bar, total;
-  __host__ __device__ BulkSmem(const BulkParams& p, int ib, bool bf) {
+  __host__ __device__ BulkSmem(const BulkParams& p, int ib) {
     w = 0;
     in = (p.M * p.kt * (p.ct / 8) * p.wb + 127) & ~127;
     // a span's copy starts up to 12 bytes early and ends padded to 16
@@ -378,36 +380,30 @@ struct BulkSmem {
     f = ops + (p.M > 1 ? (p.a_batch == 1 ? 1 : p.P) * (p.M - 1) * p.fw * 16
                        : 0);
     const int r0 = max(p.RB, (p.P - 1) * p.N + 16 * ((p.N + 15) / 16));
-    fm = bf ? f + r0 * p.ldf * 2 : f;
-    bar = align16(fm + p.RB * p.ldf * (bf ? 2 : 8));
+    fm = f + r0 * p.ldf * 2;
+    bar = align16(fm + p.RB * p.ldf * 2);
     total = bar + 32;
   }
 };
 
-// bytes of the k-split warps' partial sums (f32; in F at a chunk's end)
-__host__ __device__ inline int bulk_red_bytes(const BulkParams& p) {
-  return (p.ks - 1) * (p.warps / p.ks) * 4 * 4 * 32 * 4;
-}
-
 // PROJ: In = x (S), Op_m = A_m, out = XP (f32); else In = dpre (f32),
-// Op_m = A_m^T, out = dx (S). BF16: one bf16 pass (bf16 streams), else
-// 3xTF32. wmap: the staged weights (M*kt, C/8 n tiles, one n tile's
-// words) as a 3-D tensor map whose box is a block's column tile; imap:
-// In (pairs*N rows, K columns) f32 as a 2-D tensor map whose box is a
-// chunk's P*N rows by ldk columns (when p.tmap).
-template <bool PROJ, typename S, bool BF16>
-__global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
-                                       : 32 * (kBulkWarps32 + 1),
-                                  BF16 ? 2 : 1)
+// Op_m = A_m^T, out = dx (S). S is bf16: one bf16 pass (f32 streams take
+// xin_bulk_tf32_wgmma_kernel, below). wmap: the staged weights (M*kt,
+// C/8 n tiles, one n tile's words) as a 3-D tensor map whose box is a
+// block's column tile; imap: In (pairs*N rows, K columns) f32 as a 2-D
+// tensor map whose box is a chunk's P*N rows by ldk columns (when
+// p.tmap).
+template <bool PROJ, typename S>
+__global__ void __launch_bounds__(32 * (kBulkWarps + 1), 2)
     xin_bulk_kernel(const BulkParams p,
                     const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap imap) {
   using IT = typename std::conditional<PROJ, S, float>::type;
   using OT = typename std::conditional<PROJ, float, S>::type;
-  using FT = typename std::conditional<BF16, __nv_bfloat16, float2>::type;
+  using FT = __nv_bfloat16;
   constexpr int kNt = 4;  // n8 tiles of a warp's columns, at most
   extern __shared__ __align__(128) unsigned char dsm[];
-  const BulkSmem L(p, sizeof(IT), BF16);
+  const BulkSmem L(p, sizeof(IT));
   const int N = p.N, K = p.K, M = p.M, P = p.P;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -480,16 +476,13 @@ __global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
   DCGRU_PROBE_MARK(0);
 
   // this warp's product tile: rows 16 wr.., n8 tiles of columns col0..
-  // (wn of them), k tiles [k0, k1) of each m
+  // (wn of them), every k tile of each m
   const int rtiles = p.RB / 16, ntc = p.ct / 8, wn = min(32, p.ct);
-  const int wtiles = rtiles * (p.ct / wn);  // warps of one k slice
+  const int wtiles = rtiles * (p.ct / wn);  // the compute warps
   const int wr = warp % rtiles, wc = (warp % wtiles) / rtiles;
-  const int ksi = warp / wtiles;
-  const int k0 = ksi * p.kt / p.ks, k1 = (ksi + 1) * p.kt / p.ks;
   const int col0 = ctile * p.ct + wc * wn;
   const int nt_live =
       producer ? 0 : max(0, min(wn / 8, (p.C - col0 + 7) / 8));
-  const int NTk = (K + 7) / 8;  // In's n8 column tiles
   const int RT = (N + 15) / 16;
 
   for (int it = 0; it < mine; ++it) {
@@ -504,7 +497,7 @@ __global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
     DCGRU_PROBE_COUNT(10);
     mbar_wait(&bars[1], it & 1);
     DCGRU_PROBE_MARK(1);
-    float acc[kNt][4] = {}, sml[kNt][4] = {}, sum[kNt][4] = {};
+    float acc[kNt][4] = {};
     // F_0 = In in the operand type, 4 columns a lane, a row a warp
     auto copy_f0 = [&]() {
       for (int r = warp; r < rows; r += p.warps + 1)
@@ -524,171 +517,96 @@ __global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
     // In's rows past N read as zero; by the compute warps
     auto diffuse = [&](int m, FT* dst) {
       const uint4* opm = sops + (m - 1) * p.fw + lane;
-      if constexpr (BF16) {
-        // a unit: one pair's 16 columns; B from F_0 by ldmatrix.trans (k
-        // tiles past the pair's rows masked to zero), A, the pair's
-        // operator tiles, kept while a warp's run of units stays on the
-        // pair
-        const int KT = (N + 15) / 16, ncp = (K + 15) / 16;
-        const int units = np * ncp;
-        const int u0 = warp * units / p.warps;
-        const int u1 = (warp + 1) * units / p.warps;
-        // a lane's k rows 2t, 2t+1 | 2t+8, 2t+9 of each k tile that lie
-        // in the pair (B masks), and its output rows g, g+8 of each row
-        // tile that do (their offsets in F, -1 past N)
-        uint32_t mlo[2], mhi[2];
-        int roff[2][2];
+      // a unit: one pair's 16 columns; B from F_0 by ldmatrix.trans (k
+      // tiles past the pair's rows masked to zero), A, the pair's
+      // operator tiles, kept while a warp's run of units stays on the
+      // pair
+      const int KT = (N + 15) / 16, ncp = (K + 15) / 16;
+      const int units = np * ncp;
+      const int u0 = warp * units / p.warps;
+      const int u1 = (warp + 1) * units / p.warps;
+      // a lane's k rows 2t, 2t+1 | 2t+8, 2t+9 of each k tile that lie
+      // in the pair (B masks), and its output rows g, g+8 of each row
+      // tile that do (their offsets in F, -1 past N)
+      uint32_t mlo[2], mhi[2];
+      int roff[2][2];
 #pragma unroll
-        for (int kt = 0; kt < 2; ++kt) {
-          const int r = 16 * kt + 2 * t;
-          mlo[kt] = (r < N ? 0xffffu : 0u) | (r + 1 < N ? 0xffff0000u : 0u);
-          mhi[kt] = (r + 8 < N ? 0xffffu : 0u) | (r + 9 < N ? 0xffff0000u : 0u);
+      for (int kt = 0; kt < 2; ++kt) {
+        const int r = 16 * kt + 2 * t;
+        mlo[kt] = (r < N ? 0xffffu : 0u) | (r + 1 < N ? 0xffff0000u : 0u);
+        mhi[kt] = (r + 8 < N ? 0xffffu : 0u) | (r + 9 < N ? 0xffff0000u : 0u);
 #pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int n = 16 * kt + g + 8 * h2;
-            roff[kt][h2] = kt < RT && n < N ? n * p.ldf : -1;
-          }
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int n = 16 * kt + g + 8 * h2;
+          roff[kt][h2] = kt < RT && n < N ? n * p.ldf : -1;
         }
-        const unsigned bl =
-            smem_addr(sf0 + (lane & 15) * p.ldf + 8 * (lane >> 4));
-        int q = u0 / ncp, c0 = 16 * (u0 - q * ncp);
-        uint4 fa[2][2] = {};
-        for (int u = u0; u < u1; ++u) {
-          if (u == u0 || c0 == 0) {  // the pair's operator tiles
-            const uint4* fr = opm + (per_clip ? q * opw : 0);
-#pragma unroll
-            for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-              for (int kt = 0; kt < 2; ++kt)
-                if (rt < RT && kt < KT) fa[rt][kt] = fr[(rt * KT + kt) * 32];
-          }
-          float ga[2][2][4] = {};  // [row tile][n8 tile]
-          const unsigned b0 = bl + 2 * (q * N * p.ldf + c0);
-#pragma unroll
-          for (int kt = 0; kt < 2; ++kt)
-            if (kt < KT) {
-              uint32_t b[4];
-              ldsm_x4_t(b, b0 + 32 * kt * p.ldf);
-              b[0] &= mlo[kt];
-              b[1] &= mhi[kt];
-              b[2] &= mlo[kt];
-              b[3] &= mhi[kt];
-#pragma unroll
-              for (int rt = 0; rt < 2; ++rt)
-                if (rt < RT) {
-                  const uint32_t a[4] = {fa[rt][kt].x, fa[rt][kt].y,
-                                         fa[rt][kt].z, fa[rt][kt].w};
-                  mma_bf16_r(ga[rt][0], a, b[0], b[1]);
-                  mma_bf16_r(ga[rt][1], a, b[2], b[3]);
-                }
-            }
-          FT* d = dst + q * N * p.ldf + c0 + 2 * t;
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            if (c0 + 8 * nt + 2 * t < K)
-#pragma unroll
-              for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-                for (int h2 = 0; h2 < 2; ++h2)
-                  if (roff[rt][h2] >= 0)
-                    *reinterpret_cast<uint32_t*>(d + roff[rt][h2] + 8 * nt) =
-                        pack_bf16(ga[rt][nt][2 * h2], ga[rt][nt][2 * h2 + 1]);
-          c0 += 16;
-          if (c0 >= K) {
-            c0 = 0;
-            ++q;
-          }
-        }
-      } else {
-        // a unit: one pair's 8 columns; B from In, split as it is read
-        for (int u = warp; u < np * NTk; u += p.warps) {
-          const int q = u / NTk, c0 = 8 * (u - q * NTk);
+      }
+      const unsigned bl =
+          smem_addr(sf0 + (lane & 15) * p.ldf + 8 * (lane >> 4));
+      int q = u0 / ncp, c0 = 16 * (u0 - q * ncp);
+      uint4 fa[2][2] = {};
+      for (int u = u0; u < u1; ++u) {
+        if (u == u0 || c0 == 0) {  // the pair's operator tiles
           const uint4* fr = opm + (per_clip ? q * opw : 0);
-          const IT* src = xs + q * N * p.ldk + c0 + g;
-          const bool cok = c0 + g < K;
-          auto v = [&](int n) {
-            return n < N && cok ? to_f(src[n * p.ldk]) : 0.0f;
-          };
-          // the small terms (lo hi, hi lo) apart from hi hi, so the
-          // chains are half as long
-          float ga[2][4] = {}, gs[2][4] = {};
-          const int KT = (N + 7) / 8;
-          for (int kt = 0; kt < KT; ++kt) {
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(v(8 * kt + t), bh0, bl0);
-            split_tf32(v(8 * kt + t + 4), bh1, bl1);
+#pragma unroll
+          for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt)
+              if (rt < RT && kt < KT) fa[rt][kt] = fr[(rt * KT + kt) * 32];
+        }
+        float ga[2][2][4] = {};  // [row tile][n8 tile]
+        const unsigned b0 = bl + 2 * (q * N * p.ldf + c0);
+#pragma unroll
+        for (int kt = 0; kt < 2; ++kt)
+          if (kt < KT) {
+            uint32_t b[4];
+            ldsm_x4_t(b, b0 + 32 * kt * p.ldf);
+            b[0] &= mlo[kt];
+            b[1] &= mhi[kt];
+            b[2] &= mlo[kt];
+            b[3] &= mhi[kt];
 #pragma unroll
             for (int rt = 0; rt < 2; ++rt)
               if (rt < RT) {
-                const uint4 h = fr[(rt * KT + kt) * 64];
-                const uint4 l = fr[(rt * KT + kt) * 64 + 32];
-                const uint32_t hi[4] = {h.x, h.y, h.z, h.w};
-                const uint32_t lo[4] = {l.x, l.y, l.z, l.w};
-                mma_tf32_r(gs[rt], lo, bh0, bh1);
-                mma_tf32_r(gs[rt], hi, bl0, bl1);
-                mma_tf32_r(ga[rt], hi, bh0, bh1);
+                const uint32_t a[4] = {fa[rt][kt].x, fa[rt][kt].y,
+                                       fa[rt][kt].z, fa[rt][kt].w};
+                mma_bf16_r(ga[rt][0], a, b[0], b[1]);
+                mma_bf16_r(ga[rt][1], a, b[2], b[3]);
               }
           }
-          if (c0 + 2 * t < K)
+        FT* d = dst + q * N * p.ldf + c0 + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (c0 + 8 * nt + 2 * t < K)
 #pragma unroll
             for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
-              for (int h2 = 0; h2 < 2; ++h2) {
-                const int n = 16 * rt + g + 8 * h2;
-                if (rt < RT && n < N)
-                  store_g2(dst, p.ldf, q * N + n, c0 + 2 * t,
-                           ga[rt][2 * h2] + gs[rt][2 * h2],
-                           ga[rt][2 * h2 + 1] + gs[rt][2 * h2 + 1]);
-              }
+              for (int h2 = 0; h2 < 2; ++h2)
+                if (roff[rt][h2] >= 0)
+                  *reinterpret_cast<uint32_t*>(d + roff[rt][h2] + 8 * nt) =
+                      pack_bf16(ga[rt][nt][2 * h2], ga[rt][nt][2 * h2 + 1]);
+        c0 += 16;
+        if (c0 >= K) {
+          c0 = 0;
+          ++q;
         }
       }
     };
     // acc (16 rows x the warp's n8 tiles) += F_m V_m over its k tiles
     auto product = [&](int m, const FT* src) {
-      if constexpr (BF16) {
-        const uint2* wt = reinterpret_cast<const uint2*>(dsm + L.w) +
-                          ((size_t)m * p.kt * ntc + wc * (wn / 8)) * 32 + lane;
-        const unsigned a0 = smem_addr(src + (16 * wr + (lane & 15)) * p.ldf +
-                                      8 * (lane >> 4));
+      const uint2* wt = reinterpret_cast<const uint2*>(dsm + L.w) +
+                        ((size_t)m * p.kt * ntc + wc * (wn / 8)) * 32 + lane;
+      const unsigned a0 = smem_addr(src + (16 * wr + (lane & 15)) * p.ldf +
+                                    8 * (lane >> 4));
 #pragma unroll 2
-        for (int kk = k0; kk < k1; ++kk) {
-          uint32_t fa[4];
-          ldsm_x4(fa, a0 + 32 * kk);
-#pragma unroll
-          for (int j = 0; j < kNt; ++j)
-            if (j < nt_live) {
-              const uint2 b = wt[(kk * ntc + j) * 32];
-              mma_bf16_r(acc[j], fa, b.x, b.y);
-            }
-        }
-      } else {
-        const uint4* wt = reinterpret_cast<const uint4*>(dsm + L.w) +
-                          ((size_t)m * p.kt * ntc + wc * (wn / 8)) * 32 + lane;
-        const float2* fa = src + (16 * wr + g) * p.ldf + t;
-        for (int kk = k0; kk < k1; ++kk) {
-          const float2 x0 = fa[8 * kk], x1 = fa[8 * p.ldf + 8 * kk];
-          const float2 x2 = fa[8 * kk + 4], x3 = fa[8 * p.ldf + 8 * kk + 4];
-          const uint32_t hi[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
-                                  __float_as_uint(x2.x), __float_as_uint(x3.x)};
-          const uint32_t lo[4] = {__float_as_uint(x0.y), __float_as_uint(x1.y),
-                                  __float_as_uint(x2.y), __float_as_uint(x3.y)};
-#pragma unroll
-          for (int j = 0; j < kNt; ++j)
-            if (j < nt_live) {
-              // [hi(k), hi(k+4), lo(k), lo(k+4)] of column g
-              const uint4 b = wt[(kk * ntc + j) * 32];
-              mma_tf32_r(sml[j], lo, b.x, b.y);
-              mma_tf32_r(sml[j], hi, b.z, b.w);
-              mma_tf32_r(acc[j], hi, b.x, b.y);
-            }
-        }
-        // a long f32 sum: each m's partial into the register sum
+      for (int kk = 0; kk < p.kt; ++kk) {
+        uint32_t fa[4];
+        ldsm_x4(fa, a0 + 32 * kk);
 #pragma unroll
         for (int j = 0; j < kNt; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            sum[j][e] += acc[j][e] + sml[j][e];
-            acc[j][e] = sml[j][e] = 0.0f;
+          if (j < nt_live) {
+            const uint2 b = wt[(kk * ntc + j) * 32];
+            mma_bf16_r(acc[j], fa, b.x, b.y);
           }
       }
     };
@@ -708,42 +626,14 @@ __global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
       }
       __syncthreads();  // F_m is complete; what it was built from is read
       DCGRU_PROBE_MARK(5);
-      // bf16 reads In only into F_0; f32 diffuses from it
-      if (next && m == (BF16 ? 0 : M - 1)) issue_in(it + 1);
+      // In is read only into F_0
+      if (next && m == 0) issue_in(it + 1);
       if (next && m == M - 1 && per_clip) issue_ops(it + 1);
       if (nt_live > 0) product(m, m ? sfm : sf0);
       DCGRU_PROBE_MARK(6);
     }
-    float (&tot)[kNt][4] = BF16 ? acc : sum;
-    if (!BF16 && p.ks > 1) {
-      // the k slices' partials, added in slice order into slice 0's
-      float* red = reinterpret_cast<float*>(dsm + L.f);
-      __syncthreads();  // every product has read F
-      if (ksi > 0 && !producer)
-#pragma unroll
-        for (int j = 0; j < kNt; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            red[((((ksi - 1) * wtiles + warp % wtiles) * kNt + j) * 4 + e) *
-                    32 + lane] = tot[j][e];
-      __syncthreads();
-      if (ksi == 0 && !producer)
-        for (int s = 1; s < p.ks; ++s)
-#pragma unroll
-          for (int j = 0; j < kNt; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              tot[j][e] += red[((((s - 1) * wtiles + warp) * kNt + j) * 4 + e) *
-                               32 + lane];
-      __syncthreads();
-      // F's pad columns meet every row's weights: zero again (a partial
-      // there could be a NaN)
-      const int pad = 8 * p.kt - K;
-      for (int i = threadIdx.x; i < p.RB * pad; i += blockDim.x)
-        sf0[(i / pad) * p.ldf + K + i % pad] = FT{};
-    }
     // rows < np*N, columns < C of the tile, two columns a store
-    if (nt_live > 0 && ksi == 0) {
+    if (nt_live > 0) {
       OT* o = static_cast<OT*>(p.out) + (size_t)pair0 * N * p.C;
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
@@ -751,14 +641,539 @@ __global__ void __launch_bounds__(BF16 ? 32 * (kBulkWarps + 1)
         for (int h2 = 0; h2 < 2; ++h2) {
           const int r = 16 * wr + g + 8 * h2, col = col0 + 8 * j + 2 * t;
           if (j < nt_live && r < rows && col < p.C)
-            store_out2(o + (size_t)r * p.C + col, tot[j][2 * h2],
-                       tot[j][2 * h2 + 1]);
+            store_out2(o + (size_t)r * p.C + col, acc[j][2 * h2],
+                       acc[j][2 * h2 + 1]);
         }
     }
     DCGRU_PROBE_MARK(7);
   }
   DCGRU_PROBE_MARK(8);
   DCGRU_PROBE_STORE;
+}
+
+// ---------------------------------------------------------------------------
+// projection and dx in f32: 3xTF32 products on Hopper's warpgroup MMA, a
+// block all columns
+// ---------------------------------------------------------------------------
+//
+// A chunk is P whole (t, b) pairs, their P*N rows in 64 W (W consumer
+// warpgroups of 64 rows; a warpgroup's rows may cross pairs, a pair never
+// crosses a chunk). A block owns a tile of 64 NT product columns (all of
+// them at the cells' widths) and walks the chunks walker, walker +
+// walkers, ...; each consumer warpgroup keeps its 64 rows by 64 NT
+// columns in registers (NT m64n64k8 accumulators) over every m and k.
+//
+// The projection (XP = sum_m (A_m x) Wx_m; dx where its m's do not fit
+// one block) diffuses on the input side: the product of F_0 = In, then
+// per m >= 1 F_m = Op_m In into the shared F tile and its product. dx
+// (dx = sum_m A_m^T (dpre Wx_m^T)) diffuses on the output side where
+// every m's columns fit one block, as the reference associates it: one
+// product Y = dpre [Wx_0^T | Wx_1^T | ...] (the accumulators hold Y_m
+// for every m: 3 x 64 columns at D = 64), Y into shared memory, then
+// dx = Y_0 + sum_m A_m^T Y_m; the diffusion's FLOPs fall by 3H/D and dx
+// needs no F tile, so more of shared memory holds weight slices.
+//
+// Products: a warpgroup loads its A operand (F, In) from shared memory
+// into registers a k8 step at a time and splits it into TF32 hi and lo
+// there; the weights are B operands in shared memory, K-major in wgmma's
+// no-swizzle core-matrix layout (xin_weight_frags: per m and k8 step,
+// hi's then lo's 8-column groups), through a ring of k8 slices that one
+// producer warp fills by bulk copies from L2 (every block streams the
+// same slices; on the output side a slice holds every m's groups). Three wgmma a k8 step and 64 columns, hi*lo, lo*hi, then
+// hi*hi, into one f32 accumulator (lo*lo is below f32 rounding).
+// Diffusions: exact f32 FMAs in node order, a task a pair's 4-row block
+// by 4 columns spread over the consumer threads, the operators Op_m^T
+// laid out by the wrapper (xin_op_rows). Copies: another producer warp
+// brings each chunk's In rows (one tensor copy, rows ldk = 8 kt + 4 floats
+// apart so the A fragments' reads are free of bank conflicts; a bulk copy
+// a row where a row is wider than a tensor box) and, per clip, its
+// operators, as soon as the chunk before has read them. Every output
+// element is written once, from one thread: the same bits on every run.
+
+constexpr int kWgGroups = 3;     // consumer warpgroups of a block, at most
+constexpr int kWgNt = 3;         // 64-column accumulators a thread, at most
+constexpr int kWgStages = 8;     // k8 weight slices in flight, at most
+// wgmma groups in flight a warpgroup (each holds its weight slot until
+// it completes, so a plan takes a slot more): the input side's three
+// warpgroups keep the tensor cores fed with one each (measured fastest
+// on the H100, and no spills), the output side's two with three
+constexpr int kWgDepthIn = 1, kWgDepthOut = 3;
+// registers a thread after setmaxnreg: the producer warpgroup gives up
+// what the consumer warpgroups' accumulators take, from the block's own
+// registers (128 a thread at launch): 128 * 32 + 384 * 160 = 65,536
+constexpr int kWgProducerRegs = 32, kWgConsumerRegs = 160;
+
+struct WgParams {
+  const float* in;     // (pairs*N, K) f32: x, or dpre
+  const float* ops;    // (a_batch, M-1, N, 4 NB) Op_m^T, rows zero-padded to
+                       // whole 4-node blocks (NB = ceil(N/4))
+  const float* w;      // (M, kt, 2, ng, 2, 8, 4) V_m, hi and lo planes
+  float* out;          // (pairs*N, C) f32: XP, or dx
+  int pairs, B, N, K, C, M, a_batch;
+  int proj;            // the projection (else dx)
+  int W;               // consumer warpgroups; a chunk's rows are 64 W
+  int P;               // pairs a chunk
+  int out_side;        // dx with the diffusion on the output side
+  int dp;              // output side: D padded to 8, Y_m's columns
+  int cw;              // columns of the products: C, or M dp (output side)
+  int ms;              // weight passes a chunk: M, or 1 (output side)
+  int nt, ctn;         // 64-column accumulators of a block; column tiles
+  int kt;              // k8 steps of one pass (K padded to 8)
+  int ldk;             // row stride of In and F in shared memory, floats
+  int ldy;             // output side: row stride of Y, floats
+  int tmap;            // In by the 2-D tensor map (ldk <= 256); else a bulk
+                       // copy a row
+  int ow;              // 16-byte words of one operator's rows: N * NB
+  int stages;          // slots of the weight ring
+  int walkers;         // blocks of one column tile
+};
+
+// Byte offsets of a block's shared memory: the weight ring (slots of
+// 64 nt columns by one k8 step, hi then lo: 4096 nt bytes), the chunk's
+// In rows, F (64 W rows; In's A fragment reads past its rows land in F,
+// and meet only output rows that are never stored), the operators (one
+// set for a shared graph, a chunk's pairs' per clip) and the mbarriers
+// (the ring's full and empty slots; In full and empty; shared operators).
+struct WgSmem {
+  int slot, in, f, ops, bar, total;
+  __host__ __device__ WgSmem(const WgParams& p) {
+    slot = 4096 * p.nt;
+    in = p.stages * slot;
+    f = in + p.P * p.N * p.ldk * 4;
+    ops = f + (p.out_side ? p.P * p.N * p.ldy : 64 * p.W * p.ldk) * 4;
+    bar = align16(ops + (p.M > 1 ? (p.a_batch == 1 ? 1 : p.P) *
+                                       (p.M - 1) * p.ow * 16
+                                 : 0));
+    total = bar + (2 * p.stages + 3) * 8;
+  }
+};
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// the consumer warpgroups' barrier (the producer warps take no part)
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// A wgmma shared-memory descriptor, no swizzle: the tile's 8-row by
+// 16-byte core matrices `lbo` bytes apart along K and `sbo` bytes apart
+// along M or N.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, unsigned lbo,
+                                            unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending)
+               : "memory");
+}
+
+// d (64 x 64, the warpgroup's; warp w rows 16 w.., lane (g, t) rows g and
+// g+8, columns 8 j + 2 t and +1 in d[4 j..4 j+3]) (+)= a b: a the
+// warpgroup's 64 x 8 A fragments in registers (warp w rows 16 w..; lane
+// (g, t) holds (g, t), (g+8, t), (g, t+4), (g+8, t+4)), b 8 x 64 K-major
+// in shared memory. scale_d 0 ignores d.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// the accumulators as the wgmma left them: no read moves above the wait
+__device__ __forceinline__ void wg_fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// PROJ: In = x, Op_m = A_m, V_m = Wx_m, out = XP; else In = dpre, Op_m =
+// A_m^T, V_m = Wx_m^T, out = dx; both f32 and the same code (PROJ names
+// the instance, so a trace tells them apart). Warps 0..4W-1 are the
+// consumer warpgroups; of the producer warpgroup, warp 4W copies In and
+// the operators, warp 4W+1 the weight slices.
+template <bool PROJ, int NT, bool OUT>
+__global__ void __launch_bounds__(128 * (kWgGroups + 1), 1)
+    xin_bulk_tf32_wgmma_kernel(const WgParams p,
+                               const __grid_constant__ CUtensorMap imap) {
+  constexpr int kDepth = OUT ? kWgDepthOut : kWgDepthIn;
+  extern __shared__ __align__(128) unsigned char dsm[];
+  const WgSmem L(p);
+  const int N = p.N, K = p.K, M = p.M, P = p.P, ldk = p.ldk;
+  const int S = p.stages, consumers = 128 * p.W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  DCGRU_PROBE_START;
+
+  float* sin = reinterpret_cast<float*>(dsm + L.in);
+  float* sf = reinterpret_cast<float*>(dsm + L.f);
+  uint4* sops = reinterpret_cast<uint4*>(dsm + L.ops);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm + L.bar);
+  uint64_t* empty = full + S;
+  uint64_t* in_full = empty + S;
+  uint64_t* in_empty = in_full + 1;
+  uint64_t* ops_full = in_full + 2;
+  const int ctile = blockIdx.x % p.ctn, walker = blockIdx.x / p.ctn;
+  const int chunks = (p.pairs + P - 1) / P;
+  const int mine =
+      walker < chunks ? (chunks - walker + p.walkers - 1) / p.walkers : 0;
+  const bool per_clip = M > 1 && p.a_batch > 1;
+  const unsigned opw = (M - 1) * p.ow;  // 16-byte words of a clip's ops
+  auto pair0_of = [&](int it) { return (walker + it * p.walkers) * P; };
+
+  // zero every buffer once: In's and F's pad columns stay zero
+  for (int i = threadIdx.x; i < L.total / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(dsm)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s]);
+      mbar_init(&empty[s], 4 * p.W);
+    }
+    mbar_init(in_full);
+    mbar_init(in_empty, 4 * p.W);
+    mbar_init(ops_full);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the 8-column groups of a slot: the tile's of V_m, or (the output
+  // side, one tile) every V_m's side by side
+  const int ngm = (p.C + 7) / 8;  // 8-column groups of one V_m
+  const int g0 = ctile * 8 * NT, gl = min(8 * NT, (OUT ? M : 1) * ngm - g0);
+  if (warp >= 4 * p.W) {
+    // the producers' warpgroup gives up registers to the consumers'
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWgProducerRegs));
+    if (warp == 4 * p.W) {
+      // In (one tensor copy, or a bulk copy a row spread over the lanes)
+      // and the operators
+      if (mine > 0 && lane == 0 && M > 1 && !per_clip) {
+        mbar_expect(ops_full, opw * 16);
+        bulk_copy(sops, p.ops, opw * 16, ops_full);
+      }
+      for (int it = 0; it < mine; ++it) {
+        const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+        const int rows = np * N;
+        if (it > 0) mbar_wait(in_empty, (it - 1) & 1);
+        const int ob = per_clip ? np * opw * 16 : 0;
+        if (p.tmap) {
+          if (lane == 0) {
+            mbar_expect(in_full, P * N * ldk * 4 + ob);
+            tensor_copy(sin, &imap, 0, pair0 * N, in_full);
+          }
+        } else {
+          if (lane == 0) mbar_expect(in_full, rows * K * 4 + ob);
+          __syncwarp();
+          const float* src = p.in + (size_t)pair0 * N * K;
+          for (int r = lane; r < rows; r += 32)
+            bulk_copy(sin + r * ldk, src + (size_t)r * K, K * 4, in_full);
+        }
+        if (lane == 0 && per_clip)
+          for (int q = 0, b = pair0 % p.B; q < np; b = 0) {
+            const int run = min(np - q, p.B - b);
+            bulk_copy(sops + q * opw, p.ops + (size_t)b * opw * 4,
+                      run * opw * 16, in_full);
+            q += run;
+          }
+      }
+    } else if (warp == 4 * p.W + 1 && lane == 0) {
+      // the weight slices, in the order the products take them
+      int q = 0;
+      for (int it = 0; it < mine; ++it)
+        for (int mk = 0; mk < p.ms * p.kt; ++mk, ++q) {
+          const int s = q % S;
+          mbar_wait(&empty[s], ((q / S) & 1) ^ 1);
+          mbar_expect(&full[s], 2 * gl * 256);
+          unsigned char* dst = dsm + s * L.slot;
+          // (m, k8 step) planes of V_m's groups: hi, then lo
+          auto copy = [&](int m, int kk, int g, int n, int at) {
+            const float* hi =
+                p.w + ((size_t)(m * p.kt + kk) * 2 * ngm + g) * 64;
+            bulk_copy(dst + at * 256, hi, n * 256, &full[s]);
+            bulk_copy(dst + L.slot / 2 + at * 256, hi + (size_t)ngm * 64,
+                      n * 256, &full[s]);
+          };
+          if (OUT)
+            for (int m = 0; m < M; ++m) copy(m, mk, 0, ngm, m * ngm);
+          else
+            copy(mk / p.kt, mk % p.kt, g0, gl, 0);
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kWgConsumerRegs));
+
+    // a consumer: rows r0 and r0 + 8 of the chunk in its A fragments
+    const int r0 = 16 * warp + g;
+    float acc[NT][32] = {};
+    int q = 0;    // wgmma groups issued (a group a k8 step: one weight slice)
+    int rel = 0;  // groups whose weight slots are released
+    auto release_upto = [&](int upto) {
+      for (; rel < upto; ++rel) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[rel % S]);
+      }
+    };
+    // F_m = Op_m In per pair (rows past N and columns past K untouched) in
+    // f32 FMAs, each sum in node order. A task is one pair's 4-row block by
+    // 4 columns, the consumer threads' tasks running along the columns (In
+    // rows' 16-byte loads side by side, Op_m^T's rows near-broadcast)
+    const int NB = (N + 3) / 4, CQ = K / 4, per_pair = NB * CQ;
+    auto diffuse = [&](int m, int np) {
+      const float4* opm = reinterpret_cast<const float4*>(sops) +
+                          (size_t)(m - 1) * N * NB;
+      for (int task = threadIdx.x; task < np * per_pair; task += consumers) {
+        const int pq = task / per_pair, rem = task - pq * per_pair;
+        const int nb = rem / CQ, c = 4 * (rem - nb * CQ);
+        const float4* op = opm + (per_clip ? (size_t)pq * opw : 0) + nb;
+        const float* src = sin + pq * N * ldk + c;
+        float f[4][4] = {};
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) {
+          const float4 w = op[j * NB];
+          const float4 v = *reinterpret_cast<const float4*>(src + j * ldk);
+          const float wr[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            f[r][0] = fmaf(wr[r], v.x, f[r][0]);
+            f[r][1] = fmaf(wr[r], v.y, f[r][1]);
+            f[r][2] = fmaf(wr[r], v.z, f[r][2]);
+            f[r][3] = fmaf(wr[r], v.w, f[r][3]);
+          }
+        }
+        float* dst = sf + (pq * N + 4 * nb) * ldk + c;
+        const int nr = min(4, N - 4 * nb);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (r < nr)
+            *reinterpret_cast<float4*>(dst + r * ldk) =
+                make_float4(f[r][0], f[r][1], f[r][2], f[r][3]);
+      }
+    };
+    // acc (+)= src's rows by V_m over every k8 step, kDepth groups in
+    // flight (each its own A registers); the chunk's first group sets acc
+    auto product = [&](const float* src, bool first) {
+      const float* a0 = src + r0 * ldk + t;
+      uint32_t ah[kDepth][4], al[kDepth][4];
+      for (int k0 = 0; k0 < p.kt; k0 += kDepth) {
+#pragma unroll
+        for (int i = 0; i < kDepth; ++i) {
+          const int kk = k0 + i;
+          if (kk < p.kt) {
+            const int s = q % S;
+            split_tf32(a0[8 * kk], ah[i][0], al[i][0]);
+            split_tf32(a0[8 * ldk + 8 * kk], ah[i][1], al[i][1]);
+            split_tf32(a0[8 * kk + 4], ah[i][2], al[i][2]);
+            split_tf32(a0[8 * ldk + 8 * kk + 4], ah[i][3], al[i][3]);
+            mbar_wait(&full[s], (q / S) & 1);
+            const unsigned char* slot = dsm + s * L.slot;
+            const uint64_t bh = wg_desc(slot, 128, 256);
+            const uint64_t bl = wg_desc(slot + L.slot / 2, 128, 256);
+            const int sd = first && kk == 0 ? 0 : 1;
+            wg_fence();
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              wgmma_tf32(acc[j], al[i], bh + 128 * j, sd);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              wgmma_tf32(acc[j], ah[i], bl + 128 * j, 1);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              wgmma_tf32(acc[j], ah[i], bh + 128 * j, 1);
+            wg_commit();
+            wg_wait<kDepth - 1>();
+            ++q;
+            release_upto(q - kDepth + 1);
+          }
+        }
+      }
+    };
+    auto release_in = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(in_empty);
+    };
+
+    if (mine > 0 && M > 1 && !per_clip) mbar_wait(ops_full, 0);
+    DCGRU_PROBE_MARK(0);
+    if constexpr (OUT) {
+      // dx, the output side: Y = In [V_0 | V_1 | ...] in the accumulators,
+      // into shared memory (F's place, the chunk's rows); then dx = Y_0 +
+      // sum_m Op_m Y_m in f32 FMAs in node order, a task one pair's 4-row
+      // block by 4 columns, as the input side's diffusion
+      const int dp = p.dp, ldy = p.ldy, DQ = p.C / 4, out_tasks = NB * DQ;
+      const float4* sop = reinterpret_cast<const float4*>(sops);
+      for (int it = 0; it < mine; ++it) {
+        const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+        const int rows = np * N;
+        DCGRU_PROBE_COUNT(10);
+        mbar_wait(in_full, it & 1);
+        DCGRU_PROBE_MARK(1);
+        product(sin, true);
+        DCGRU_PROBE_MARK(6);
+        wg_wait<0>();
+#pragma unroll
+        for (int j = 0; j < NT; ++j) wg_fence_acc(acc[j]);
+        release_upto(q);
+        // In is read; per-clip operators share its copy and are read below
+        if (!per_clip) release_in();
+        DCGRU_PROBE_MARK(3);
+        consumers_sync(consumers);  // the last chunk's diffusion has read Y
+        DCGRU_PROBE_MARK(2);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = 64 * j + 8 * i + 2 * t;
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int r = r0 + 8 * h2;
+              if (r < rows && col < p.cw)
+                *reinterpret_cast<float2*>(sf + r * ldy + col) =
+                    make_float2(acc[j][4 * i + 2 * h2],
+                                acc[j][4 * i + 2 * h2 + 1]);
+            }
+          }
+        consumers_sync(consumers);  // Y is complete
+        DCGRU_PROBE_MARK(5);
+        float* o = p.out + (size_t)pair0 * N * p.C;
+        for (int task = threadIdx.x; task < np * out_tasks; task += consumers) {
+          const int pq = task / out_tasks, rem = task - pq * out_tasks;
+          const int nb = rem / DQ, c = 4 * (rem - nb * DQ);
+          const float* y = sf + pq * N * ldy + c;
+          float f[4][4] = {};
+          for (int m = 1; m < M; ++m) {
+            const float4* op = sop + (per_clip ? (size_t)pq * opw : 0) +
+                               (size_t)(m - 1) * p.ow + nb;
+            const float* ym = y + m * dp;
+#pragma unroll 4
+            for (int jn = 0; jn < N; ++jn) {
+              const float4 w = op[jn * NB];
+              const float4 v = *reinterpret_cast<const float4*>(ym + jn * ldy);
+              const float wr[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                f[r][0] = fmaf(wr[r], v.x, f[r][0]);
+                f[r][1] = fmaf(wr[r], v.y, f[r][1]);
+                f[r][2] = fmaf(wr[r], v.z, f[r][2]);
+                f[r][3] = fmaf(wr[r], v.w, f[r][3]);
+              }
+            }
+          }
+          const int nr = min(4, N - 4 * nb);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (r < nr) {
+              const int row = pq * N + 4 * nb + r;
+              const float4 y0 =
+                  *reinterpret_cast<const float4*>(sf + row * ldy + c);
+              *reinterpret_cast<float4*>(o + (size_t)row * p.C + c) =
+                  make_float4(y0.x + f[r][0], y0.y + f[r][1], y0.z + f[r][2],
+                              y0.w + f[r][3]);
+            }
+        }
+        if (per_clip) release_in();
+        DCGRU_PROBE_MARK(4);
+      }
+    } else {
+      // dx on the input side adds each m's product into an f32 register
+      // sum (the tensor cores add without rounding to nearest, so one
+      // accumulator over every m and k drifts: dcgru_common.cuh); the
+      // projection's accumulators leave no registers for it
+      constexpr bool kFlush = !PROJ;
+      float sum[NT][32] = {};
+      auto flush = [&]() {
+        if constexpr (kFlush) {
+          wg_wait<0>();
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            wg_fence_acc(acc[j]);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) sum[j][e] += acc[j][e];
+          }
+        }
+      };
+      float (&tot)[NT][32] = kFlush ? sum : acc;
+      for (int it = 0; it < mine; ++it) {
+        const int pair0 = pair0_of(it), np = min(P, p.pairs - pair0);
+        const int rows = np * N;
+        DCGRU_PROBE_COUNT(10);
+        mbar_wait(in_full, it & 1);
+        DCGRU_PROBE_MARK(1);
+        if constexpr (kFlush) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) sum[j][e] = 0.0f;
+        }
+        product(sin, true);
+        flush();
+        if (M == 1) release_in();
+        DCGRU_PROBE_MARK(6);
+        for (int m = 1; m < M; ++m) {
+          DCGRU_PROBE_COUNT(11);
+          consumers_sync(consumers);  // the last product has read F
+          DCGRU_PROBE_MARK(2);
+          diffuse(m, np);
+          if (m == M - 1) release_in();
+          DCGRU_PROBE_MARK(4);
+          consumers_sync(consumers);  // F_m is complete
+          DCGRU_PROBE_MARK(5);
+          product(sf, kFlush);
+          flush();
+          DCGRU_PROBE_MARK(6);
+        }
+        wg_wait<0>();
+#pragma unroll
+        for (int j = 0; j < NT; ++j) wg_fence_acc(acc[j]);
+        release_upto(q);
+        DCGRU_PROBE_MARK(3);
+        // rows < np*N, columns < C of the tile, two columns a store
+        float* o = p.out + (size_t)pair0 * N * p.C;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = 64 * (ctile * NT + j) + 8 * i + 2 * t;
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int r = r0 + 8 * h2;
+              if (r < rows && col < p.C)
+                *reinterpret_cast<float2*>(o + (size_t)r * p.C + col) =
+                    make_float2(tot[j][4 * i + 2 * h2],
+                                tot[j][4 * i + 2 * h2 + 1]);
+            }
+          }
+        DCGRU_PROBE_MARK(7);
+      }
+    }
+    DCGRU_PROBE_MARK(8);
+    DCGRU_PROBE_STORE;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1284,28 +1699,24 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The launch plan of a projection or dx shape: the column tile, chunk and
-// warps with the least estimated tensor-core work a compute warp (the
-// products' row tiles, and the diffusion, which every column tile of a
-// chunk repeats; f32's diffusion weighted 4x, its B split as read and
-// its chains short, the weight its plans measured fastest at on the
-// H100), counting two bf16 blocks an SM where their shared memory fits
-// and up to 16 warps an SM; f32 splits each m's k tiles over up to
-// kBulkWarps32 warps. Then one wave of blocks (kBulkWave a
-// block slot of an SM). Shared bytes a block, or -1 where none fits. The
-// plan, like every sum's order, follows from the shape alone.
-int bulk_plan(BulkParams& p, bool bf, int ib) {
-  const int kd = bf ? 16 : 8;
-  const int RT = ceil_div(p.N, 16), KTn = ceil_div(p.N, kd);
-  p.kt = ceil_div(p.K, kd);
-  p.fw = RT * KTn * (bf ? 32 : 64);
-  p.wb = bf ? 256 : 512;
-  // F: ldmatrix rows an odd number of 16-byte words apart (bf16); 8-byte
-  // hi|lo loads of 8 rows 4 mod 16 words apart (f32)
-  p.ldf = bf ? 16 * p.kt + 8 : 8 * p.kt + (8 * p.kt % 16 ? 12 : 4);
-  // f32 In, the diffusion's B reads: rows 2t, 2t+1 of a column 4 mod 16
-  // words apart (bf16 pairs), rows t, t+4 8 mod 32 (tf32)
-  const int ldk = bf ? p.K + (20 - p.K % 16) % 16 : p.K + (40 - p.K % 32) % 32;
+// The bf16 launch plan of a projection or dx shape: the column tile,
+// chunk and warps with the least estimated tensor-core work a compute
+// warp (the products' row tiles, and the diffusion, which every column
+// tile of a chunk repeats), counting two blocks an SM where their shared
+// memory fits and up to 16 warps an SM. Then one wave of blocks
+// (kBulkWave a block slot of an SM). Shared bytes a block, or -1 where
+// none fits. The plan, like every sum's order, follows from the shape
+// alone.
+int bulk_plan(BulkParams& p, int ib) {
+  const int RT = ceil_div(p.N, 16), KTn = ceil_div(p.N, 16);
+  p.kt = ceil_div(p.K, 16);
+  p.fw = RT * KTn * 32;
+  p.wb = 256;
+  // F: ldmatrix rows an odd number of 16-byte words apart
+  p.ldf = 16 * p.kt + 8;
+  // f32 In (dx's dpre), the diffusion's B reads: rows 2t, 2t+1 of a
+  // column 4 mod 16 words apart (bf16 pairs)
+  const int ldk = p.K + (20 - p.K % 16) % 16;
   double best = 0.0;
   int smem = -1;
   BulkParams pick = p;
@@ -1317,19 +1728,16 @@ int bulk_plan(BulkParams& p, bool bf, int ib) {
       q.RB = ceil_div(P * p.N, 16) * 16;
       q.ct = ct;
       q.ctn = ctn;
-      const int wtiles = q.RB / 16 * (ct / min(32, ct));
-      q.ks = bf ? 1 : max(1, min(q.kt, kBulkWarps32 / wtiles));
-      q.warps = wtiles * q.ks;
-      if (q.RB > kBulkRows || q.warps > (bf ? kBulkWarps : kBulkWarps32))
-        continue;
+      q.warps = q.RB / 16 * (ct / min(32, ct));
+      if (q.RB > kBulkRows || q.warps > kBulkWarps) continue;
       q.tmap = ib == 4 && ldk <= 256 && P * p.N <= 256;
       q.ldk = q.tmap ? ldk : p.K;
-      const BulkSmem L(q, ib, bf);
-      if (L.total > kMaxSmem || bulk_red_bytes(q) > L.bar - L.f) continue;
-      const int per_sm = bf ? min(2, kSmemPerSm / (L.total + 1024)) : 1;
+      const BulkSmem L(q, ib);
+      if (L.total > kMaxSmem) continue;
+      const int per_sm = min(2, kSmemPerSm / (L.total + 1024));
       const double work =
           (double)q.RB / 16 / P * p.M * q.kt * ctn * (ct / 8) +
-          (bf ? 1.0 : 4.0) * (p.M - 1) * RT * KTn * ceil_div(p.K, 8) * ctn;
+          1.0 * (p.M - 1) * RT * KTn * ceil_div(p.K, 8) * ctn;
       const double cost = work / min(16, per_sm * q.warps);
       if (smem < 0 || cost < best) {
         best = cost;
@@ -1340,7 +1748,7 @@ int bulk_plan(BulkParams& p, bool bf, int ib) {
   }
   if (smem < 0) return -1;
   p = pick;
-  const int per_sm = bf ? min(2, kSmemPerSm / (smem + 1024)) : 1;
+  const int per_sm = min(2, kSmemPerSm / (smem + 1024));
   p.walkers = max(1, min(ceil_div(p.pairs, p.P), kBulkWave * per_sm / p.ctn));
   return smem;
 }
@@ -1370,9 +1778,8 @@ BulkParams bulk_params(bool proj, const void* in, const void* ops,
 
 template <bool PROJ, typename S>
 int bulk(BulkParams p, const void* w, cudaStream_t stream) {
-  constexpr bool bf = sizeof(S) == 2;
   using IT = typename std::conditional<PROJ, S, float>::type;
-  const int smem = bulk_plan(p, bf, sizeof(IT));
+  const int smem = bulk_plan(p, sizeof(IT));
   if (smem < 0) return (int)cudaErrorInvalidValue;
   // the weights: (M*kt, C/8, words of an n8 tile) u32
   alignas(64) CUtensorMap wmap;
@@ -1394,8 +1801,101 @@ int bulk(BulkParams p, const void* w, cudaStream_t stream) {
                      str, box);
     if (err) return err;
   }
-  return run(xin_bulk_kernel<PROJ, S, bf>, smem, dim3(p.walkers * p.ctn),
+  return run(xin_bulk_kernel<PROJ, S>, smem, dim3(p.walkers * p.ctn),
              32 * (p.warps + 1), stream, p, wmap, imap);
+}
+
+// The f32 launch plan of a projection or dx shape: dx's side, 64-column
+// accumulators for every product column up to three (more columns take
+// more column tiles), then the most warpgroups (rows of a chunk 64 W,
+// P = 64 W / N pairs) and weight slots (from kWgStages down to one more
+// than the groups in flight) whose shared memory fits one block an SM;
+// one wave of blocks (kBulkWave). Shared bytes a block, or -1 where none
+// fits. The plan, like every sum's order, follows from the shape alone.
+int wg_plan(WgParams& p) {
+  p.kt = ceil_div(p.K, 8);
+  p.ldk = 8 * p.kt + 4;
+  p.tmap = p.ldk <= 256;
+  p.ow = p.N * ceil_div(p.N, 4);
+  // dx moves its diffusion to the output side where every m's columns
+  // fit one block's accumulators: Y = dpre [V_0 | V_1 | ...], then
+  // dx = Y_0 + sum_m A_m^T Y_m (a weight slot holds every V_m's groups)
+  p.dp = 8 * ceil_div(p.C, 8);
+  p.out_side = !p.proj && p.M * p.dp <= 64 * kWgNt;
+  p.cw = p.out_side ? p.M * p.dp : p.C;
+  p.ms = p.out_side ? 1 : p.M;
+  p.ldy = p.M * p.dp + 4;
+  // (dx on the input side keeps a register sum beside one accumulator)
+  p.nt = p.proj || p.out_side ? min(kWgNt, ceil_div(p.cw, 64)) : 1;
+  p.ctn = ceil_div(p.cw, 64 * p.nt);
+  const int smin = (p.out_side ? kWgDepthOut : kWgDepthIn) + 1;
+  for (int W = kWgGroups; W >= 1; --W)
+    for (int S = kWgStages; S >= smin; --S) {
+      WgParams q = p;
+      q.W = W;
+      q.P = 64 * W / p.N;
+      q.stages = S;
+      const int smem = WgSmem(q).total;
+      if (q.P < 1 || smem > kMaxSmem) continue;
+      p = q;
+      p.walkers = max(1, min(ceil_div(p.pairs, p.P), kBulkWave / p.ctn));
+      return smem;
+    }
+  return -1;
+}
+
+WgParams wg_params(bool proj, const void* in, const void* ops, int a_batch,
+                   const void* w, void* out, int T, int B, int N, int D,
+                   int H, int M) {
+  WgParams p{};
+  p.in = static_cast<const float*>(in);
+  p.ops = static_cast<const float*>(ops);
+  p.w = static_cast<const float*>(w);
+  p.out = static_cast<float*>(out);
+  p.pairs = T * B;
+  p.B = B;
+  p.N = N;
+  p.K = proj ? D : 3 * H;
+  p.C = proj ? 3 * H : D;
+  p.M = M;
+  p.a_batch = a_batch;
+  p.proj = proj;
+  return p;
+}
+
+// the kernel instance of a plan: the projection, or dx with its diffusion
+// on the input or the output side; its accumulators
+template <int NT>
+auto wg_kernel(const WgParams& p) {
+  return p.proj       ? xin_bulk_tf32_wgmma_kernel<true, NT, false>
+         : p.out_side ? xin_bulk_tf32_wgmma_kernel<false, NT, true>
+                      : xin_bulk_tf32_wgmma_kernel<false, 1, false>;
+}
+
+template <int NT>
+int wg_launch(const WgParams& p, int smem, const CUtensorMap& imap,
+              cudaStream_t stream) {
+  return run(wg_kernel<NT>(p), smem, dim3(p.walkers * p.ctn),
+             128 * (p.W + 1), stream, p, imap);
+}
+
+int wg(WgParams p, cudaStream_t stream) {
+  const int smem = wg_plan(p);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  // In (pairs*N rows, K columns) as a 2-D tensor map whose box is a
+  // chunk's P*N rows by ldk columns (the columns past K read as zeros)
+  alignas(64) CUtensorMap imap{};
+  if (p.tmap) {
+    const cuuint64_t dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.pairs * p.N};
+    const cuuint64_t str[1] = {(cuuint64_t)p.K * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)p.ldk, (cuuint32_t)(p.P * p.N)};
+    const int err = encode_map(&imap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                               p.in, dims, str, box);
+    if (err) return err;
+  }
+  return p.nt == 1   ? wg_launch<1>(p, smem, imap, stream)
+         : p.nt == 2 ? wg_launch<2>(p, smem, imap, stream)
+                     : wg_launch<3>(p, smem, imap, stream);
 }
 
 // The dW launch plan of a shape: its tiles and warps, and the chunk (at
@@ -1498,10 +1998,10 @@ DwParams dw_params(const void* x, const void* h_prev, const void* ru,
 extern "C" {
 
 // XP (T, B, N, 3H) f32 = sum_m (A_m x) Wx_m; x in the stream dtype (bf16
-// when bf16 != 0, else f32); ops (a_batch, M-1) the operators A_m as mma
-// A fragments (the wrapper's dw_op_frags with transpose=False,
-// batch_major=True; unused at M=1); w Wx_m (D x 3H) as mma B fragments
-// (xin_weight_frags).
+// when bf16 != 0, else f32); ops (a_batch, M-1) the operators A_m, unused
+// at M=1: bf16 as mma A fragments (the wrapper's dw_op_frags with
+// transpose=False, batch_major=True), f32 as A_m^T rows (xin_op_rows);
+// w Wx_m (D x 3H) as the kernel's B operands (xin_weight_frags).
 // Returns a cudaError_t: 0 on a launch that was accepted.
 int dcgru_xin_proj(const void* x, const void* ops, int a_batch,
                    const void* w, float* xp, int T, int B, int N, int D,
@@ -1511,12 +2011,15 @@ int dcgru_xin_proj(const void* x, const void* ops, int a_batch,
   if (!bulk_valid(p, D, H, w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? bulk<true, __nv_bfloat16>(p, w, s)
-              : bulk<true, float>(p, w, s);
+              : wg(wg_params(true, x, ops, a_batch, w, xp, T, B, N,
+                                   D, H, M),
+                         s);
 }
 
 // dx (T, B, N, D) in the stream dtype = sum_m (A_m^T dpre) Wx_m^T; dpre
-// (T, B, N, 3H) f32; ops (a_batch, M-1) A_m^T (dw_op_frags with
-// batch_major=True); w Wx_m^T (3H x D) as mma B fragments.
+// (T, B, N, 3H) f32; ops (a_batch, M-1) A_m^T (bf16: dw_op_frags with
+// batch_major=True; f32: A_m rows, xin_op_rows); w Wx_m^T (3H x D) as the
+// kernel's B operands.
 int dcgru_xin_dx(const float* dpre, const void* ops, int a_batch,
                  const void* w, void* dx_out, int T, int B, int N, int D,
                  int H, int M, int bf16, void* stream) {
@@ -1525,24 +2028,22 @@ int dcgru_xin_dx(const float* dpre, const void* ops, int a_batch,
   if (!bulk_valid(p, D, H, w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? bulk<false, __nv_bfloat16>(p, w, s)
-              : bulk<false, float>(p, w, s);
+              : wg(wg_params(false, dpre, ops, a_batch, w, dx_out, T,
+                                    B, N, D, H, M),
+                          s);
 }
 
 // The launch plan of dcgru_xin_proj (proj != 0) or dcgru_xin_dx at a
 // shape, on the current device: pairs a chunk, rows a chunk, columns a
 // block, column tiles, threads a block, shared bytes a block, blocks a
-// column tile, blocks an SM, In by tensor map, In's and F's row strides.
+// column tile, blocks an SM, In by tensor map, In's and F's row strides,
+// consumer warpgroups and weight slots (f32; 0 for bf16).
 int dcgru_xin_bulk_plan(int proj, int T, int B, int N, int D, int H, int M,
                         int a_batch, int bf16, int* out) {
-  BulkParams p = bulk_params(proj, nullptr, nullptr, a_batch, nullptr, T, B,
-                             N, D, H, M);
-  const int ib = proj && bf16 ? 2 : 4;
-  const int smem = bulk_plan(p, bf16, ib);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 32 * (p.warps + 1);
-  int per_sm = 0;
+  int v[13] = {};
+  int smem, threads;
   // blocks an SM, after the launch's own shared-memory attribute
-  auto occupancy = [&](auto kern) {
+  auto occupancy = [&](auto kern, int& per_sm) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
@@ -1550,15 +2051,33 @@ int dcgru_xin_bulk_plan(int proj, int T, int B, int N, int D, int H, int M,
                                                         threads, smem);
     return e;
   };
-  const cudaError_t err =
-      proj ? (bf16 ? occupancy(xin_bulk_kernel<true, __nv_bfloat16, true>)
-                   : occupancy(xin_bulk_kernel<true, float, false>))
-           : (bf16 ? occupancy(xin_bulk_kernel<false, __nv_bfloat16, true>)
-                   : occupancy(xin_bulk_kernel<false, float, false>));
+  cudaError_t err;
+  if (bf16) {
+    BulkParams p = bulk_params(proj, nullptr, nullptr, a_batch, nullptr, T,
+                               B, N, D, H, M);
+    smem = bulk_plan(p, proj ? 2 : 4);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    threads = 32 * (p.warps + 1);
+    const int w[] = {p.P, p.RB, p.ct, p.ctn, threads, smem, p.walkers, 0,
+                     p.tmap, p.ldk, p.ldf, 0, 0};
+    for (int i = 0; i < 13; ++i) v[i] = w[i];
+    err = proj ? occupancy(xin_bulk_kernel<true, __nv_bfloat16>, v[7])
+               : occupancy(xin_bulk_kernel<false, __nv_bfloat16>, v[7]);
+  } else {
+    WgParams p = wg_params(proj, nullptr, nullptr, a_batch, nullptr,
+                           nullptr, T, B, N, D, H, M);
+    smem = wg_plan(p);
+    if (smem < 0) return (int)cudaErrorInvalidValue;
+    threads = 128 * (p.W + 1);
+    const int w[] = {p.P, 64 * p.W, 64 * p.nt, p.ctn, threads, smem,
+                     p.walkers, 0, p.tmap, p.ldk, p.ldk, p.W, p.stages};
+    for (int i = 0; i < 13; ++i) v[i] = w[i];
+    err = p.nt == 1   ? occupancy(wg_kernel<1>(p), v[7])
+          : p.nt == 2 ? occupancy(wg_kernel<2>(p), v[7])
+                      : occupancy(wg_kernel<3>(p), v[7]);
+  }
   if (err != cudaSuccess) return (int)err;
-  const int v[] = {p.P, p.RB, p.ct, p.ctn, threads, smem, p.walkers, per_sm,
-                   p.tmap, p.ldk, p.ldf};
-  for (int i = 0; i < 11; ++i) out[i] = v[i];
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
   return 0;
 }
 

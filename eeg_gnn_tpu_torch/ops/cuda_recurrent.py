@@ -227,16 +227,36 @@ def dw_op_frags(a_ops, bf16: bool, transpose: bool = True,
     return torch.stack([hi, tiles - hi], dim=-3).contiguous()
 
 
+def xin_op_rows(a_ops, transpose: bool):
+    """The operators A_1..A_{M-1} of every clip as the f32 bulk projection
+    (Op_m = A_m) or dx (``transpose``: Op_m = A_m^T) diffuses with them,
+    in f32 FMAs: Op_m^T, row j holding Op_m[n, j] for the nodes n, the
+    nodes zero-padded to whole blocks of 4; clip major. (a_batch, M-1, N,
+    4 ceil(N/4)) float32."""
+    ops = a_ops[1:].transpose(0, 1)
+    n = ops.shape[-1]
+    rows = a_ops.new_zeros((*ops.shape[:2], n, 4 * -(-n // 4)))
+    rows[..., :n] = ops if transpose else ops.transpose(-1, -2)
+    return rows
+
+
 def xin_weight_frags(wx_parts, m: int, transpose: bool, bf16: bool):
     """The x-in layer's input weights as the bulk projection's (Wx_m, D x
-    3H) or dx's (``transpose``: Wx_m^T, 3H x D) tensor-core B fragments,
+    3H) or dx's (``transpose``: Wx_m^T, 3H x D) tensor-core B operands,
     staged once a launch from the (M*D, w) column blocks ``wx_parts`` of
     [Wxg | Wxc] (m-major rows) without joining them first. Each V_m is
-    zero-padded to KT k tiles (16 deep for bf16, m16n8k16; 8 for f32,
-    m16n8k8) by NT = ceil(C/8) n8 tiles, each tile 32 lanes x 8 bytes:
-    bf16, lane 4g + t holding rows 2t, 2t+1, 2t+8, 2t+9 of column g,
-    rounded to nearest; or 16 bytes: float32 [hi(t), hi(t+4), lo(t),
-    lo(t+4)] of column g, split into TF32 hi and lo. (M, KT, NT, 32, 4)."""
+    zero-padded to KT k tiles by NT = ceil(C/8) 8-column groups.
+
+    bf16 (``xin_bulk_kernel``'s mma.m16n8k16 B fragments): 16-deep k
+    tiles, each n8 tile 32 lanes x 8 bytes, lane 4g + t holding rows 2t,
+    2t+1, 2t+8, 2t+9 of column g, rounded to nearest; (M, KT, NT, 32, 4)
+    bfloat16.
+
+    float32 (``xin_bulk_tf32_wgmma_kernel``'s wgmma B operand, K-major,
+    no swizzle): 8-deep k steps, each split into a TF32 hi plane and a lo
+    plane (V_m - hi), each plane NT groups of two 8 x 4 core matrices
+    (columns 8j..8j+7 by k rows 4h..4h+3, a column's 4 k values
+    contiguous); (M, KT, 2 [hi | lo], NT, 2, 8, 4) float32."""
     d = wx_parts[0].shape[0] // m
     h3 = sum(w.shape[1] for w in wx_parts)
     k, c = (h3, d) if transpose else (d, h3)
@@ -257,27 +277,28 @@ def xin_weight_frags(wx_parts, m: int, transpose: bool, bf16: bool):
         # element 2 hk + e
         tiles = v.view(m, kt, 2, 4, 2, nt, 8).permute(0, 1, 5, 6, 3, 2, 4)
         return tiles.reshape(m, kt, nt, 32, 4).to(torch.bfloat16).contiguous()
-    # row 8 kt + 4 hk + t, column 8 n + g -> lane 4 g + t, word hk
-    tiles = v.view(m, kt, 2, 4, nt, 8).permute(0, 1, 4, 5, 3, 2).reshape(
-        m, kt, nt, 32, 2)
+    # row 8 kt + 4 h + c, column 8 j + r -> [kt, j, h, r, c]
+    tiles = v.view(m, kt, 2, 4, nt, 8).permute(0, 1, 4, 2, 5, 3)
     hi = round_tf32(tiles)
-    return torch.cat([hi, tiles - hi], dim=-1).contiguous()
+    return torch.stack([hi, tiles - hi], dim=2).contiguous()
 
 
 def xin_bulk_plan(proj: bool, t: int, b: int, n: int, d: int, h_units: int,
                   m: int, a_batch: int, bf16: bool) -> dict:
     """The launch plan :func:`dcgru_xin_proj` (``proj``) or
     :func:`dcgru_xin_dx` takes at a shape, on the current CUDA device: the
-    chunk, the column tile, threads, shared bytes, blocks and row
-    strides."""
-    out = (ctypes.c_int * 11)()
+    chunk, the column tile, threads, shared bytes, blocks and row strides;
+    for f32 streams also the consumer warpgroups and the weight ring's
+    slots (0 for bf16)."""
+    out = (ctypes.c_int * 13)()
     err = _lib_xin().dcgru_xin_bulk_plan(int(proj), t, b, n, d, h_units, m,
                                          a_batch, int(bf16),
                                          ctypes.addressof(out))
     _raise_on(err, "dcgru_xin_bulk_plan", _lib_xin)
     keys = ("pairs_per_chunk", "rows_per_chunk", "cols_per_block",
             "col_tiles", "threads", "smem_bytes", "blocks_per_col_tile",
-            "blocks_per_sm", "in_tensor_map", "ld_in", "ld_f")
+            "blocks_per_sm", "in_tensor_map", "ld_in", "ld_f",
+            "warpgroups", "weight_slots")
     return dict(zip(keys, list(out)))
 
 
@@ -881,11 +902,13 @@ def dcgru_xin_proj(x, a_ops, wx):
     Returns:
         XP (T, B, N, 3H) float32. bf16 streams: A_m x in one bf16 pass of
         bf16 A_m and x, rounded to bf16, times bf16 Wx_m, f32 sums (the
-        reference's one MXU pass a product); f32 streams: 3xTF32.
+        reference's one MXU pass a product); f32 streams: A_m x in f32
+        FMAs, times Wx_m in 3xTF32 (the wgmma kernel).
 
-    On a CUDA device the wrapper stages the operators (:func:`dw_op_frags`,
-    untransposed) and the weights (:func:`xin_weight_frags`) as the
-    kernel's tensor-core fragments, once a launch.
+    On a CUDA device the wrapper stages the operators (bf16:
+    :func:`dw_op_frags`, untransposed; f32: :func:`xin_op_rows`) and the
+    weights (:func:`xin_weight_frags`) as the kernel's operands, once a
+    launch.
     """
     if x.device.type == "cpu":
         parts = _wx_parts("dcgru_xin_proj", wx, a_ops.shape[0])
@@ -907,8 +930,10 @@ def dcgru_xin_proj(x, a_ops, wx):
         return xp
     bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
-        ops = (dw_op_frags(a_ops, bf16, transpose=False, batch_major=True)
-               if m > 1 else None)
+        ops = None
+        if m > 1:
+            ops = (dw_op_frags(a_ops, True, transpose=False, batch_major=True)
+                   if bf16 else xin_op_rows(a_ops, False))
         w = xin_weight_frags(parts, m, False, bf16)
         err = _lib_xin().dcgru_xin_proj(
             x.data_ptr(), _ptr(ops), a_ops.shape[1], w.data_ptr(),
@@ -986,10 +1011,14 @@ def dcgru_xin_dx(a_ops, wx, dpre, dtype):
         dtype: the stream dtype of dx (float32 or bfloat16).
 
     Returns:
-        dx (T, B, N, D) in ``dtype``. The kernel computes
-        ``sum_m (A_m^T dpre) Wx_m^T``: bf16, G_m = A_m^T dpre in one bf16
-        pass of bf16 A_m^T and dpre, rounded to bf16, times bf16 Wx_m^T,
-        f32 sums; f32, 3xTF32.
+        dx (T, B, N, D) in ``dtype``. bf16: the kernel computes
+        ``sum_m (A_m^T dpre) Wx_m^T``, G_m = A_m^T dpre in one bf16 pass
+        of bf16 A_m^T and dpre, rounded to bf16, times bf16 Wx_m^T, f32
+        sums. f32: where every m's D columns fit one block (M D padded
+        to 8 at most 192: the kernel's plan) ``sum_m A_m^T (dpre
+        Wx_m^T)``, the products in 3xTF32 and the A_m^T applies in f32
+        FMAs; else ``sum_m (A_m^T dpre) Wx_m^T`` alike, each m's product
+        summed in f32.
     """
     if dpre.device.type == "cpu":
         parts = _wx_parts("dcgru_xin_dx", wx, a_ops.shape[0])
@@ -1013,7 +1042,10 @@ def dcgru_xin_dx(a_ops, wx, dpre, dtype):
         return dx
     bf16 = dtype == torch.bfloat16
     with torch.cuda.device(dpre.device):
-        ops = dw_op_frags(a_ops, bf16, batch_major=True) if m > 1 else None
+        ops = None
+        if m > 1:
+            ops = (dw_op_frags(a_ops, True, batch_major=True) if bf16
+                   else xin_op_rows(a_ops, True))
         w = xin_weight_frags(parts, m, True, bf16)
         err = _lib_xin().dcgru_xin_dx(
             dpre.data_ptr(), _ptr(ops), a_ops.shape[1], w.data_ptr(),

@@ -5,6 +5,7 @@ card (an NVIDIA H100): the encoder's two loops and the seq2seq decoder's.
 Run from the repository root:
 
     python3 loop_probe.py [--only encoder|decoder|dw|proj|dx|fdc] [--sass DIR]
+        [--batch B] [--shared]
 
 It builds ``csrc/dcgru_recurrence.cu``, ``csrc/dcgru_recurrence_bwd.cu``
 and ``csrc/dcgru_decoder.cu`` once more with ``-DDCGRU_PROBE`` (a variant
@@ -60,8 +61,9 @@ before each m's F (with the wait on the operators' copies), the F_0
 copy, the diffusions F_m = Op_m In, the barrier after, the products and
 the output stores; beside the launch's time from CUDA events and the launch
 plan (``cuda_recurrent.xin_bulk_plan``), at the detector's two layers
-(T=60, B=128, D=100 and 64, M=3, per-clip operators), bf16 and f32, with
-ptxas' register and spill report of the probed kernels.
+(T=60, B=128 or ``--batch B``, D=100 and 64, M=3, per-clip operators or,
+with ``--shared``, one graph), bf16 and f32, with ptxas' register and
+spill report of the probed kernels.
 
 With ``--only fdc`` it probes the fused diffusion conv of the
 ``use_pallas`` loop (``csrc/fused_diffusion_conv.cu`` built with
@@ -352,6 +354,14 @@ def probe_dw(torch, cr, lib, read, results):
 # counts its chunks, BULK_PIECES its (chunk, m) pieces
 BULK_PHASES = ("prologue", "In wait", "barrier A", "F_0 copy",
                "diffusion F_m", "barrier B", "mma", "stores", "epilogue")
+# the f32 body's (xin_bulk_tf32_wgmma_kernel): its F_0 is In itself, and
+# slot 3 holds the wait for the chunk's last wgmma; "wgmma issue" is the
+# products' (the weight slices' waits among them). dx on the output side
+# (D=64): "barrier A" waits for the last chunk's diffusion, "barrier B"
+# holds Y's stores, "diffusion F_m" dx's diffusion and stores
+BULK_PHASES_F32 = ("prologue", "In wait", "barrier A", "wgmma drain",
+                   "diffusion F_m", "barrier B", "wgmma issue", "stores",
+                   "epilogue")
 BULK_CHUNKS, BULK_PIECES = 10, 11
 BULK_CASES = (("detector layer 0", D), ("detector layer 1", H))
 # the fused diffusion conv's probe (csrc/fused_diffusion_conv.cu,
@@ -359,20 +369,21 @@ BULK_CASES = (("detector layer 0", D), ("detector layer 1", H))
 FDC_PHASES = ("operand copy", "Chebyshev terms", "products", "store")
 
 
-def probe_bulk(torch, cr, kind, read, results):
+def probe_bulk(torch, cr, kind, read, results, b=128, shared=False):
     """The bulk projection (``kind`` "proj") or dx kernel at the detector's
-    two layers (T=60, B=128, M=3, per-clip operators), bf16 and f32."""
+    two layers (T=60, B=``b``, M=3, per-clip operators or, with
+    ``shared``, one graph for every clip), bf16 and f32."""
     from eeg_gnn_tpu_torch.ops.recurrent import chebyshev_operators
 
     dev = torch.device("cuda")
-    m, b = K + 1, 128
+    m = K + 1
     for name, d in BULK_CASES:
         for stream in (torch.bfloat16, torch.float32):
             rng = np.random.RandomState(d)
             f = lambda *s, scale=1.0: torch.from_numpy(
                 (rng.randn(*s) * scale).astype(np.float32)).to(dev)
-            sup = torch.from_numpy((np.abs(rng.randn(1, b, N, N)) / N)
-                                   .astype(np.float32))
+            sup = torch.from_numpy((np.abs(rng.randn(
+                1, 1 if shared else b, N, N)) / N).astype(np.float32))
             a_ops = chebyshev_operators(sup, K).contiguous().to(dev)
             wx = f(m * d, 3 * H, scale=0.1)
             if kind == "proj":
@@ -382,21 +393,26 @@ def probe_bulk(torch, cr, kind, read, results):
                 fn = cr.dcgru_xin_dx
                 args = (a_ops, wx, f(T, b, N, 3 * H, scale=0.1), stream)
             ms, slots = time_launches(torch, fn, args, {}, read)
-            plan = cr.xin_bulk_plan(kind == "proj", T, b, N, d, H, m, b,
+            plan = cr.xin_bulk_plan(kind == "proj", T, b, N, d, H, m,
+                                    1 if shared else b,
                                     stream == torch.bfloat16)
             chunks = slots[BULK_CHUNKS] / REPS
+            phases = (BULK_PHASES if stream == torch.bfloat16
+                      else BULK_PHASES_F32)
             per = {p: slots[i] / max(slots[BULK_CHUNKS], 1)
-                   for i, p in enumerate(BULK_PHASES)
+                   for i, p in enumerate(phases)
                    if p not in ("prologue", "epilogue")}
             row = {"kernel": "dcgru_xin_" + kind, "case": name, "T": T,
-                   "B": b, "D": d, "M": m, "streams": str(stream)[6:],
+                   "B": b, "D": d, "M": m, "shared_graph": shared,
+                   "streams": str(stream)[6:],
                    "ms": ms, "plan": plan, "chunks": chunks,
                    "block_cycles": sum(slots[:len(BULK_PHASES)]) / REPS,
                    "prologue": slots[0] / REPS,
                    "epilogue": slots[len(BULK_PHASES) - 1] / REPS,
                    "per_chunk": per}
             results.append(row)
-            print(f"probe {kind} {name} D={d} M={m} {row['streams']}: "
+            print(f"probe {kind} {name} B={b} D={d} M={m} "
+                  f"{'shared' if shared else 'per-clip'} {row['streams']}: "
                   f"{ms:.4f} ms/launch; plan {plan}; block 0: "
                   f"{chunks:.0f} chunks, {row['block_cycles']:.0f} cycles "
                   f"(prologue {row['prologue']:.0f}, epilogue "
@@ -478,9 +494,10 @@ def main():
         libs[kind] = lib
         print(f"build {name}.cu -DDCGRU_PROBE in {secs:.1f} s", flush=True)
         # the probed kernels' names: dW's, the projection's (PROJ=true)
-        # or dx's instances of xin_bulk_kernel
-        mark = {"dw": "xin_dw", "proj": "bulk_kernelILb1",
-                "dx": "bulk_kernelILb0", "fdc": "fdc_kernel"}.get(only, "")
+        # or dx's instances of xin_bulk_kernel (bf16) and
+        # xin_bulk_tf32_wgmma_kernel (f32)
+        mark = {"dw": "xin_dw", "proj": "kernelILb1",
+                "dx": "kernelILb0", "fdc": "fdc_kernel"}.get(only, "")
         keep = (mark,) if kind in ("dw", "fdc") else ("loop", "fwd")
         if kind in ("dw", "fdc"):
             entry = ""
@@ -488,7 +505,7 @@ def main():
                 if "Compiling entry" in line:
                     entry = line
                 elif mark in entry and any(w in line for w in (
-                        "registers", "spill")):
+                        "registers", "spill", "wgmma")):
                     print(f"ptxas {entry.split()[-3]} {line.strip()}",
                           flush=True)
         listing = (os.path.join(sass_dir, f"{name}.sass") if sass_dir
@@ -524,7 +541,10 @@ def main():
     if only == "dw":
         probe_dw(torch, cr, libs["dw"], lambda: read("dw"), results)
     elif only in ("proj", "dx"):
-        probe_bulk(torch, cr, only, lambda: read("dw"), results)
+        b = int(sys.argv[sys.argv.index("--batch") + 1]) \
+            if "--batch" in sys.argv else 128
+        probe_bulk(torch, cr, only, lambda: read("dw"), results, b,
+                   "--shared" in sys.argv)
     elif only == "fdc":
         probe_fdc(torch, ck, lambda: read("fdc"), results)
     print(json.dumps({"loop_probe": results}), flush=True)

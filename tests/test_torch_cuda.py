@@ -497,9 +497,12 @@ def _bulk_inputs(dev, *, t, b, n, d, h, num_supports, shared, stream,
 # (N, D, H, T, B) of the bulk projection and dx cases: ragged nodes and
 # widths (7, 12); the detector's layers at N=19 (T*B = 2,220 and 91: the
 # last chunk ends short, T*B is no multiple of a wave); N=32; H=12; 3H=288
-# (f32 dx's rows by 1-D copies: wider than a tensor copy's box)
+# (bf16 dx's rows by 1-D copies: wider than a tensor copy's box; f32's
+# projection in two column tiles); the benchmark cells' two layers (T=60,
+# B=256)
 BULK_SHAPES = [(7, 12, 16, 5, 37), (19, 64, 64, 7, 13), (19, 100, 64, 60, 37),
-               (32, 100, 64, 3, 9), (32, 12, 12, 4, 5), (19, 12, 96, 3, 5)]
+               (32, 100, 64, 3, 9), (32, 12, 12, 4, 5), (19, 12, 96, 3, 5),
+               (19, 100, 64, 60, 256), (19, 64, 64, 60, 256)]
 # the bf16 kernels against their emulated rounding: the projection's f32
 # sums, dx's one bf16 rounding of the output (2^-8 of the largest entry)
 PROJ_ROUNDING_TOL, DX_ROUNDING_TOL = 1.5e-3, 4e-3
@@ -623,8 +626,11 @@ def test_bulk_proj_dx_keep_a_device_nan(dev, where, bf16):
 
 def test_bulk_plans_take_every_branch(dev, record_property):
     """The plans the detector's launches take (two bf16 blocks an SM for
-    the projection, 11 warps for dx; f32's k-split warps), and an f32 dx
-    whose rows come by 1-D copies; every plan fits the card."""
+    the projection, 11 warps for dx; f32: three warpgroups and every
+    column in one tile for the projection, the weights through a ring;
+    dx's diffusion on the output side at D=64, on the input side at
+    D=100), a bf16 dx whose rows come by 1-D copies and an f32 projection
+    of two column tiles (3H = 288); every plan fits the card."""
     plans = {}
     for proj in (True, False):
         for bf16 in (True, False):
@@ -633,17 +639,34 @@ def test_bulk_plans_take_every_branch(dev, record_property):
                        "bf16" if bf16 else "f32")
                 plans[key] = cr.xin_bulk_plan(proj, 60, 128, N, d, 64, 3,
                                               128, bf16)
-    plans[("dx", 12, "f32", "H=96")] = cr.xin_bulk_plan(False, 3, 5, N, 12,
-                                                        96, 3, 5, False)
+    plans[("dx", 12, "bf16", "H=96")] = cr.xin_bulk_plan(False, 3, 5, N, 12,
+                                                         96, 3, 5, True)
+    plans[("proj", 12, "f32", "H=96")] = cr.xin_bulk_plan(True, 3, 5, N, 12,
+                                                          96, 3, 5, False)
     record_property("plans", {str(k): v for k, v in plans.items()})
     for key, v in plans.items():
         assert v["blocks_per_sm"] >= 1, key
         assert v["smem_bytes"] <= 232448, key
     assert plans[("proj", 100, "bf16")]["blocks_per_sm"] == 2
     assert plans[("dx", 64, "bf16")]["threads"] >= 32 * 9
-    assert plans[("dx", 12, "f32", "H=96")]["in_tensor_map"] == 0
-    assert plans[("dx", 64, "f32")]["threads"] > 32 * (
-        plans[("dx", 64, "f32")]["rows_per_chunk"] // 16 + 1)
+    assert plans[("dx", 12, "bf16", "H=96")]["in_tensor_map"] == 0
+    for d in (100, 64):
+        f32 = plans[("proj", d, "f32")]
+        assert f32["warpgroups"] == 3 and f32["col_tiles"] == 1, f32
+        assert f32["cols_per_block"] == 192 and f32["weight_slots"] >= 2
+    # dx at D=64 on the output side: Y_0..Y_2 (3 x 64 columns) in one
+    # block, a slot more than its three wgmma groups in flight (per-clip
+    # operators leave room for one warpgroup, one shared graph for two); at
+    # D=100 (3 x 104 columns) on the input side, 64 columns a block beside
+    # their register sum
+    dx64, dx100 = plans[("dx", 64, "f32")], plans[("dx", 100, "f32")]
+    assert dx64["col_tiles"] == 1 and dx64["cols_per_block"] == 192, dx64
+    assert dx64["weight_slots"] >= 4, dx64
+    shared = cr.xin_bulk_plan(False, 60, 128, N, 64, 64, 3, 1, False)
+    record_property("dx64_f32_shared_graph", shared)
+    assert shared["warpgroups"] == 2 and shared["weight_slots"] >= 4, shared
+    assert dx100["col_tiles"] == 2 and dx100["cols_per_block"] == 64, dx100
+    assert plans[("proj", 12, "f32", "H=96")]["col_tiles"] == 2
 
 
 def _loop_inputs(dev, *, t, b, n, h, num_supports, shared, stream,

@@ -84,27 +84,27 @@ def _decode_a(frags, n, bf16):
 
 
 def _decode_b(frags, bf16):
-    """(M, 16 KT or 8 KT, 8 NT) from B fragments (M, KT, NT, 32, 4): bf16
-    lane 4g + t holds rows 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1) of column g;
-    tf32 lane 4g + t holds [hi(t), hi(t+4), lo(t), lo(t+4)] of column g."""
+    """(M, 16 KT or 8 KT, 8 NT) from the staged B operands: bf16 fragments
+    (M, KT, NT, 32, 4), lane 4g + t holding rows 2t, 2t+1 (b0) and 2t+8,
+    2t+9 (b1) of column g; f32 wgmma planes (M, KT, 2, NT, 2, 8, 4), hi
+    then lo, group j's core matrix h holding column 8j + r's rows 4h..4h+3
+    (hi + lo)."""
+    if not bf16:
+        m, kt, _, nt = frags.shape[:4]
+        hi, lo = frags[:, :, 0], frags[:, :, 1]
+        assert torch.equal(hi, cr.round_tf32(hi))  # hi holds TF32's bits only
+        # [m, kt, j, h, r, c] -> row 8 kt + 4 h + c, column 8 j + r
+        return (hi + lo).permute(0, 1, 3, 5, 2, 4).reshape(m, 8 * kt, 8 * nt)
     m, kt, nt = frags.shape[:3]
     g = torch.arange(8)[:, None]
     t = torch.arange(4)[None, :]
     f = frags.float().reshape(m, kt, nt, 8, 4, 4)
-    depth = 16 if bf16 else 8
-    out = torch.zeros(m, depth * kt, 8 * nt)
+    out = torch.zeros(m, 16 * kt, 8 * nt)
     for k in range(kt):
         for j in range(nt):
-            if bf16:
-                for el in range(4):
-                    row = 16 * k + 2 * t + (el & 1) + 8 * (el >> 1)
-                    out[:, row, 8 * j + g] = f[:, k, j, :, :, el]
-            else:
-                hi, lo = f[:, k, j, :, :, :2], f[:, k, j, :, :, 2:]
-                assert torch.equal(hi, cr.round_tf32(hi))
-                for w in range(2):
-                    out[:, 8 * k + t + 4 * w, 8 * j + g] = \
-                        hi[..., w] + lo[..., w]
+            for el in range(4):
+                row = 16 * k + 2 * t + (el & 1) + 8 * (el >> 1)
+                out[:, row, 8 * j + g] = f[:, k, j, :, :, el]
     return out
 
 
@@ -150,8 +150,10 @@ def test_weight_frags_hold_wx(d, h, m, transpose, bf16):
     frags = cr.xin_weight_frags((wxg, wxc), m, transpose, bf16)
     assert torch.equal(frags, cr.xin_weight_frags((wx,), m, transpose, bf16))
     k, c = (3 * h, d) if transpose else (d, 3 * h)
-    depth = 16 if bf16 else 8
-    assert frags.shape == (m, -(-k // depth), -(-c // 8), 32, 4)
+    if bf16:
+        assert frags.shape == (m, -(-k // 16), -(-c // 8), 32, 4)
+    else:
+        assert frags.shape == (m, -(-k // 8), 2, -(-c // 8), 2, 8, 4)
     assert frags.dtype == (torch.bfloat16 if bf16 else torch.float32)
     got = _decode_b(frags, bf16)
     want = wx.reshape(m, d, 3 * h)
@@ -159,6 +161,47 @@ def test_weight_frags_hold_wx(d, h, m, transpose, bf16):
         want = want.transpose(1, 2)
     if bf16:
         want = want.to(torch.bfloat16).float()
+    assert torch.equal(got[:, :k, :c], want)
+    assert not got[:, k:, :].any() and not got[:, :, c:].any()
+
+
+@pytest.mark.parametrize("n", [7, 19, 32])
+@pytest.mark.parametrize("num_supports,b", [(1, 3), (2, 1)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_op_rows_hold_each_clip_operator(n, num_supports, b, transpose):
+    """The f32 kernels' operators (``xin_op_rows``: Op_m^T, row j holding
+    Op_m[n, j] for the nodes n, Op_m = A_m for the projection and A_m^T
+    for dx), clip major: every clip's operator, zero past N in whole
+    blocks of 4 nodes."""
+    a = _ops(n, b, num_supports, seed=3 * n + b)
+    m = a.shape[0]
+    rows = cr.xin_op_rows(a, transpose)
+    assert rows.dtype == torch.float32 and rows.is_contiguous()
+    assert rows.shape == (b, m - 1, n, 4 * -(-n // 4))
+    op = a[1:].transpose(0, 1)
+    if transpose:
+        op = op.transpose(-1, -2)
+    assert torch.equal(rows[..., :n], op.transpose(-1, -2))
+    assert not rows[..., n:].any()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_weight_frags_at_the_cells_shape(transpose):
+    """The f32 staging at the benchmark cells' first layer (D=100, H=64,
+    M=3): the projection's 3H = 192 columns as 24 groups an m and k8 step
+    (13 of them), dx's D = 100 (104 padded) as 13 groups an m and k8 step
+    (24 of them), each group's hi and lo planes holding Wx_m exactly."""
+    d, h, m = 100, 64, 3
+    rng = np.random.RandomState(7)
+    wxg = torch.from_numpy(rng.randn(m * d, 2 * h).astype(np.float32))
+    wxc = torch.from_numpy(rng.randn(m * d, h).astype(np.float32))
+    frags = cr.xin_weight_frags((wxg, wxc), m, transpose, False)
+    k, c = (3 * h, d) if transpose else (d, 3 * h)
+    assert frags.shape == (m, -(-k // 8), 2, -(-c // 8), 2, 8, 4)
+    want = torch.cat([wxg, wxc], dim=1).reshape(m, d, 3 * h)
+    if transpose:
+        want = want.transpose(1, 2)
+    got = _decode_b(frags, False)
     assert torch.equal(got[:, :k, :c], want)
     assert not got[:, k:, :].any() and not got[:, :, c:].any()
 
