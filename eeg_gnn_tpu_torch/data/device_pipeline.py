@@ -55,7 +55,7 @@ from eeg_gnn_tpu_torch.graphs.supports import (
 from eeg_gnn_tpu_torch.graphs.xcorr import correlation_adjacency_torch
 from eeg_gnn_tpu_torch.ops.fft_features import featurize_clip
 from eeg_gnn_tpu_torch.parallel.mesh import rand
-from eeg_gnn_tpu_torch.utils.profiling import timed
+from eeg_gnn_tpu_torch.utils.profiling import count, span, timed
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
 
@@ -140,9 +140,11 @@ class DevicePipeline:
         if self.graph_type == "individual":
             # graph from the UN-augmented features, in float32 (top-k
             # tie-breaks want full precision under bf16 storage)
-            adj = correlation_adjacency_torch(graph_feats.float(),
-                                              top_k=self.top_k)
-            return compute_supports_torch(adj, self.filter_type)
+            with span("eeg.step.graph"):
+                count("eeg.step.graph_clips", graph_feats.shape[0])
+                adj = correlation_adjacency_torch(graph_feats.float(),
+                                                  top_k=self.top_k)
+                return compute_supports_torch(adj, self.filter_type)
         if do_reflect:
             return torch.where(reflect[None, :, None, None],
                                self.dist_supports_swapped[:, None],

@@ -12,6 +12,9 @@ spans and set-up totals, and a ``torch.profiler`` trace of a block.
   is a :func:`span` and always adds its host seconds and a count to a
   total per name, read by :func:`totals` and cleared by :func:`reset`
   from any thread.
+- :func:`count` adds to a total's count while a torch profiler runs (the
+  clips whose graph a step built, ...), from numbers the host holds: no
+  sync. While none runs it costs one flag check.
 - :func:`trace` is how an operator traces a block: its Chrome trace
   carries the spans beside the host's operators and the device's kernels.
 """
@@ -74,14 +77,25 @@ def timed(name: str):
             _totals[name] = Total(seconds + timing.seconds, count + 1)
 
 
+def count(name: str, n: int):
+    """Add ``n`` to ``totals()[name].count`` while a torch profiler runs;
+    otherwise one flag check."""
+    if not _profiler_enabled():
+        return
+    with _lock:
+        seconds, total = _totals.get(name, (0.0, 0))
+        _totals[name] = Total(seconds, total + n)
+
+
 def totals() -> Dict[str, Total]:
-    """A copy of the process's :func:`timed` totals, by name."""
+    """A copy of the process's :func:`timed` and :func:`count` totals, by
+    name."""
     with _lock:
         return dict(_totals)
 
 
 def reset():
-    """Clear the :func:`timed` totals."""
+    """Clear the totals."""
     with _lock:
         _totals.clear()
 
